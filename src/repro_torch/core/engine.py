@@ -1,0 +1,236 @@
+"""FlashOmni Update–Dispatch engine (paper §3.2, Fig. 4), port of
+``repro.core.engine``.
+
+  * :func:`update_layer` — full attention; refresh the symbols ``S_c``/``S_s``
+    through the strategy registry, the TaylorSeer stack and the GEMM-O bias,
+    and build the :class:`~repro_torch.core.plan.DispatchPlan` the next
+    Dispatch steps read as-is.
+  * :func:`dispatch_layer` — GEMM-Q → CSR attention → GEMM-O through the
+    kernel backend over the frozen plan; no unpack, top-k or sort work.
+
+Cache modes: ``"bias"`` caches the GEMM-O bias ``B_c`` in output space
+(paper-optimised); ``"o_cache"`` caches per-head attention outputs.  Engine
+states are plain tensors updated out of place, so one initial state may be
+shared by every layer.  RoPE, lane-state helpers and mesh dispatch are not
+ported (the DiT serving path runs none of them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import sparse_gemm, taylorseer
+from repro_torch.core.attention import SparseAttentionSpec, dense_attention
+from repro_torch.core.backend import get_backend
+from repro_torch.core.masks import MaskConfig
+from repro_torch.core.plan import DispatchPlan, build_dispatch_plan, empty_plan_like
+from repro_torch.core.strategy import SparsityStrategy, StrategyContext, get_strategy
+from repro_torch.core.symbols import capacity_for, packed_len
+from repro_torch.models.layers import rms_norm
+
+__all__ = [
+    "EngineConfig",
+    "AttnParams",
+    "LayerState",
+    "DispatchPlan",
+    "init_layer_state",
+    "is_update_step",
+    "resolve_schedule",
+    "update_layer",
+    "dispatch_layer",
+    "rms_norm",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Engine configuration = paper tuple (τ_q, τ_kv, 𝒩, 𝒟, S_q) + statics."""
+
+    mask: MaskConfig = MaskConfig()
+    cache_mode: str = "bias"            # "bias" | "o_cache"
+    cap_q_frac: float = 0.75            # static live-Q capacity fraction
+    cap_kv_frac: float = 0.9            # static KV capacity fraction
+    use_gemm_q: bool = True
+    use_gemm_o: bool = True
+    cache_dtype: torch.dtype = torch.bfloat16
+    backend: str = "kernels"
+    kv_buckets: int = 1                 # only the uniform CSR layout is ported
+    strategy: str = "flashomni"
+
+    def cap_q_cmp(self, n_tokens: int) -> int:
+        return capacity_for(self.mask.n_blocks(n_tokens), self.cap_q_frac, quantum=1)
+
+    def cap_kv_cmp(self, n_kv: int) -> int:
+        return capacity_for(self.mask.n_blocks(n_kv), self.cap_kv_frac, quantum=1)
+
+    def caps(self, n_tokens: int, n_kv: Optional[int] = None) -> SparseAttentionSpec:
+        """Block-granularity capacities (exact multiples of the compressed ones)."""
+        if self.kv_buckets != 1:
+            raise NotImplementedError("kv_buckets != 1 (bucketed and auto layouts) "
+                                      "is not ported yet")
+        n_kv = n_tokens if n_kv is None else n_kv
+        m = self.mask
+        t_q = -(-n_tokens // m.block_q)
+        t_kv = -(-n_kv // m.block_kv)
+        fq, fk = m.pool // m.block_q, m.pool // m.block_kv
+        return SparseAttentionSpec(
+            block_q=m.block_q, block_kv=m.block_kv,
+            cap_q=min(self.cap_q_cmp(n_tokens) * fq, t_q),
+            cap_kv=min(self.cap_kv_cmp(n_kv) * fk, t_kv),
+            kv_buckets=1)
+
+
+class AttnParams(NamedTuple):
+    """Weights of one attention module (MMDiT joint-attention style)."""
+
+    wq: torch.Tensor         # (dm, H*dh)
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor         # (H*dh, dm)
+    q_scale: torch.Tensor    # (dh,) RMSNorm scales
+    k_scale: torch.Tensor
+
+
+class LayerState(NamedTuple):
+    """Per-layer engine state carried across denoising steps."""
+
+    s_c: torch.Tensor                  # (B, H, cmp_bytes) uint8 caching symbol
+    s_s: torch.Tensor                  # (B, H, flat_bytes) uint8 skipping symbol
+    taylor: taylorseer.TaylorState     # over B_c (bias) or Õ (o_cache)
+    k_since: int                       # Dispatch offset since the last Update
+    plan: DispatchPlan
+
+
+def init_layer_state(batch: int, heads: int, n_tokens: int, d_model: int,
+                     head_dim: int, cfg: EngineConfig, device) -> LayerState:
+    t = cfg.mask.n_blocks(n_tokens)
+    if cfg.cache_mode == "bias":
+        feat = (batch, n_tokens, d_model)
+    else:
+        feat = (batch, heads, n_tokens, head_dim)
+    return LayerState(
+        s_c=torch.full((batch, heads, packed_len(t)), 255, dtype=torch.uint8, device=device),
+        s_s=torch.full((batch, heads, packed_len(t * t)), 255, dtype=torch.uint8,
+                       device=device),
+        taylor=taylorseer.init_state(feat, cfg.mask.order, cfg.cache_dtype, device),
+        k_since=0,
+        plan=empty_plan_like(batch, heads, n_tokens, cfg, device))
+
+
+def is_update_step(step: int, cfg: EngineConfig) -> bool:
+    """Update/Dispatch phase of one step (warmup + every ``interval``)."""
+    m = cfg.mask
+    if step < m.warmup_steps:
+        return True
+    return (step - m.warmup_steps) % m.interval == 0
+
+
+def resolve_schedule(cfg: EngineConfig, num_steps: int, n_layers: int):
+    """The config's (step × layer) :class:`~repro_torch.core.schedule.
+    SparsitySchedule` (no memo: the port compiles nothing per schedule)."""
+    from repro_torch.core.schedule import SparsitySchedule
+    return SparsitySchedule.from_config(cfg, num_steps, n_layers)
+
+
+def _project_heads(x: torch.Tensor, w: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, dm) @ (dm, H*dh) -> (B, H, N, dh) (a transposed view)."""
+    b, n = x.shape[:2]
+    return (x @ w).reshape(b, n, heads, -1).transpose(1, 2)
+
+
+def _qk(params: AttnParams, x: torch.Tensor, heads: int):
+    q = rms_norm(_project_heads(x, params.wq, heads), params.q_scale)
+    k = rms_norm(_project_heads(x, params.wk, heads), params.k_scale)
+    return q, k
+
+
+def update_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
+                 cfg: EngineConfig, *, n_text: int = 0, heads: int,
+                 strategy: Optional[str | SparsityStrategy] = None,
+                 layer_idx: Optional[int] = None, step_idx: Optional[int] = None,
+                 num_steps: Optional[int] = None) -> tuple[torch.Tensor, LayerState]:
+    """Full attention + symbol/cache refresh (paper *Update* phase).
+
+    ``strategy`` (a registry name or object) overrides ``cfg.strategy``; the
+    schedule passes each layer's entry of its strategy table here."""
+    n = x.shape[1]
+    dm = x.shape[-1]
+    q, k = _qk(params, x, heads)
+    v = _project_heads(x, params.wv, heads)
+    o = dense_attention(q, k, v)                                   # (B,H,N,dh)
+    ctx = StrategyContext(cfg=cfg, n_text=n_text, n_tokens=n, layer_idx=layer_idx,
+                          step_idx=step_idx, num_steps=num_steps)
+    syms = get_strategy(cfg.strategy if strategy is None else strategy).emit(q, k, ctx)
+
+    o_tok = o.transpose(1, 2)                                      # (B,N,H,dh)
+    wo_h = params.wo.reshape(heads, -1, dm)
+    out = torch.einsum("bnhd,hdf->bnf", o_tok, wo_h)
+
+    if cfg.cache_mode == "bias":
+        bias = sparse_gemm.gemm_o_update_bias(
+            o_tok, wo_h, syms.m_c.transpose(-1, -2), block=cfg.mask.pool)
+        taylor = taylorseer.update(state.taylor, bias.to(cfg.cache_dtype))
+    else:
+        taylor = taylorseer.update(state.taylor, o.to(cfg.cache_dtype))
+    # Rows are ranked for the plan's capacity truncation by the strategy's
+    # clamp scores, summed over the heads where the row is live.
+    row_score = torch.where(syms.m_c, syms.q_scores.to(torch.float32), 0.0).sum(dim=-2)
+    plan = build_dispatch_plan(syms.m_c, syms.m_s, cfg, n, row_score=row_score)
+    return out, LayerState(s_c=syms.s_c, s_s=syms.s_s, taylor=taylor, k_since=0,
+                           plan=plan)
+
+
+def dispatch_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
+                   cfg: EngineConfig, *, n_text: int = 0, heads: int,
+                   plan: Optional[DispatchPlan] = None) -> tuple[torch.Tensor, LayerState]:
+    """Sparse execution over the frozen DispatchPlan (paper *Dispatch*).
+
+    ``plan`` overrides the stored plan.  ``n_text`` is accepted for call
+    symmetry with :func:`update_layer`; the plan already encodes it."""
+    b, n, dm = x.shape
+    m = cfg.mask
+    plan_stored = state.plan if plan is None else plan
+    plan = plan_stored.widen()                 # int16 id fields -> int32 for kernels
+    backend = get_backend(cfg)
+    k_since = state.k_since + 1
+    spec_c = cfg.caps(n)
+
+    # --- GEMM-Q: skip row blocks cached in every head (Obs. 2). ---
+    if cfg.use_gemm_q:
+        q_flat = backend.gemm_q(x, params.wq, plan, block=m.pool)  # (B, Cr·pool, H·dh)
+        compact = backend.compact_q
+    else:
+        q_flat = x @ params.wq
+        compact = False
+    n_q = q_flat.shape[1]
+    qh = rms_norm(q_flat.reshape(b, n_q, heads, -1).transpose(1, 2), params.q_scale)
+    k_h = rms_norm(_project_heads(x, params.wk, heads), params.k_scale)
+    v_h = _project_heads(x, params.wv, heads)
+
+    # --- Attention over the frozen plan. ---
+    dh = qh.shape[-1]
+    if cfg.cache_mode == "bias":
+        o_reuse = torch.zeros((b, heads, n, dh), dtype=qh.dtype, device=x.device)
+    else:
+        o_reuse = taylorseer.forecast(state.taylor, k_since, m.interval).to(qh.dtype)
+    o = backend.attention(qh, k_h, v_h, o_reuse, plan, spec_c, compact_q=compact)
+
+    # --- GEMM-O: live heads + forecast bias (Obs. 3, Eq. 4). ---
+    o_tok = o.transpose(1, 2)
+    wo_h = params.wo.reshape(heads, dh, dm)
+    if cfg.cache_mode == "bias":
+        bias_f = taylorseer.forecast(state.taylor, k_since, m.interval).to(x.dtype)
+        if cfg.use_gemm_o:
+            out = backend.gemm_o(o_tok, wo_h, plan, bias_f, block=m.pool, spec=spec_c)
+        else:
+            # Dense GEMM over zero-filled cached heads + the forecast bias.
+            m_tok = torch.repeat_interleave(plan.m_ch, m.pool, dim=-2)[..., :n, :]
+            out = torch.einsum("bnhd,hdf->bnf",
+                               torch.where(m_tok[..., None], o_tok, 0), wo_h) + bias_f
+    else:
+        out = torch.einsum("bnhd,hdf->bnf", o_tok, wo_h)
+    return out, LayerState(s_c=state.s_c, s_s=state.s_s, taylor=state.taylor,
+                           k_since=k_since, plan=plan_stored)

@@ -1,0 +1,19 @@
+"""The port's Dispatch kernels: hand-written CUDA C++ for Hopper (``csrc/``),
+one wrapper per kernel with a launch counter, and their plain PyTorch
+versions (:mod:`repro_torch.kernels.ref`)."""
+
+from repro_torch.kernels.flashomni_attention import flashomni_attention_csr
+from repro_torch.kernels.gemm_o import gemm_o_sparse_kernel
+from repro_torch.kernels.gemm_q import gemm_q_sparse_kernel
+
+__all__ = ["gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel",
+           "KERNELS", "reset_launches"]
+
+#: Every kernel wrapper of the port, in Dispatch order.
+KERNELS = (gemm_q_sparse_kernel, flashomni_attention_csr, gemm_o_sparse_kernel)
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0

@@ -1,0 +1,75 @@
+"""FlashOmni CSR sparse attention (paper §3.4, Algorithm 1).
+
+Port of ``repro.kernels.flashomni_attention.flashomni_attention_csr``.  The
+CUDA kernel is ``csrc/flashomni_attention.cu`` (its header says what bounds
+it on the H100 and how the design answers that); the plain version is
+:func:`repro_torch.kernels.ref.attention_csr_ref`.  A CPU tensor runs the
+plain version; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import attention_csr_ref
+
+__all__ = ["flashomni_attention_csr"]
+
+
+def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o_reuse: torch.Tensor, q_ids: torch.Tensor,
+                            q_src: torch.Tensor, q_cnt: torch.Tensor,
+                            kv_ids: torch.Tensor, kv_cnt: torch.Tensor, *,
+                            block_q: int, block_kv: int,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention over per-row CSR KV lists.
+
+    q (BH, N_q, d) — full layout, or the compact GEMM-Q layout with
+    ``q_src`` holding compact slots; k, v (BH, N_kv, d); o_reuse (BH, N, d);
+    q_ids/q_src (BH, Cq), q_cnt (BH,), kv_ids (BH, Cq, Ckv), kv_cnt
+    (BH, Cq) int32.  Slots ``c >= q_cnt`` are skipped, so their rows (and a
+    whole all-cached ``bh``) keep ``o_reuse``, which is cloned once into the
+    output.  ``flashomni_attention_csr.launches`` counts the CUDA launches.
+    """
+    if q.device.type == "cpu":
+        return attention_csr_ref(q, k, v, o_reuse, q_ids, q_src, q_cnt, kv_ids,
+                                 kv_cnt, block_q=block_q, block_kv=block_kv,
+                                 scale=scale)
+    lib = _build.load()
+    bh, n_q, d = q.shape
+    n_kv = k.shape[1]
+    n = o_reuse.shape[1]
+    cq, ckv = kv_ids.shape[-2:]
+    if n_q % block_q or n % block_q or n_kv % block_kv:
+        raise ValueError(f"blocks ({block_q}, {block_kv}) must divide N_q {n_q}, "
+                         f"N {n} and N_kv {n_kv}")
+    if d not in (32, 64, 128) or block_q not in (16, 32, 64, 128) \
+            or block_kv not in (16, 32, 64, 128):
+        raise ValueError(f"unsupported head_dim {d} / blocks ({block_q}, {block_kv}); "
+                         "built: head_dim 32/64/128, blocks 16/32/64/128")
+    dev, dt = q.device, q.dtype
+    _build.check("q", q, dev, dt, (bh, n_q, d))
+    _build.check("k", k, dev, dt, (bh, n_kv, d))
+    _build.check("v", v, dev, dt, (bh, n_kv, d))
+    _build.check("o_reuse", o_reuse, dev, dt, (bh, n, d))
+    _build.check("q_ids", q_ids, dev, torch.int32, (bh, cq))
+    _build.check("q_src", q_src, dev, torch.int32, (bh, cq))
+    _build.check("q_cnt", q_cnt, dev, torch.int32, (bh,))
+    _build.check("kv_ids", kv_ids, dev, torch.int32, (bh, cq, ckv))
+    _build.check("kv_cnt", kv_cnt, dev, torch.int32, (bh, cq))
+    scale = (d ** -0.5) if scale is None else scale
+    out = o_reuse.clone()
+    rc = lib.fo_csr_attention(
+        _build.dtype_code(dt), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q_ids.data_ptr(), q_src.data_ptr(), q_cnt.data_ptr(), kv_ids.data_ptr(),
+        kv_cnt.data_ptr(), bh, n_q, n_kv, n, d, cq, ckv, block_q, block_kv,
+        float(scale), _build.stream_of(dev))
+    _build.raise_on_error(lib, rc, "flashomni_attention_csr")
+    flashomni_attention_csr.launches += 1
+    return out
+
+
+flashomni_attention_csr.launches = 0

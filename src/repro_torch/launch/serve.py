@@ -1,0 +1,105 @@
+"""Diffusion serving launcher, port of ``repro.launch.serve.serve_diffusion``
+(sequential serving).
+
+Text-to-vision requests run through the FlashOmni Update–Dispatch sampler
+on one CUDA device; the three Dispatch stages launch the Hopper kernels.
+Weights, latents, text embeddings and the stub patchifier are random, drawn
+from ``torch.Generator``s seeded from ``seed``.
+
+    python -m repro_torch.launch.serve --arch flux-mmdit --full --steps 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.registry import get_config, get_smoke
+from repro_torch.core.engine import EngineConfig
+from repro_torch.core.masks import MaskConfig
+from repro_torch.launch.batching import Request, run_sequential
+from repro_torch.models import dit
+
+__all__ = ["serve_diffusion", "serving_engine_config", "resolve_device"]
+
+
+def serving_engine_config() -> EngineConfig:
+    """The serving engine config of the reference launcher (serve.py:76-78)."""
+    return EngineConfig(mask=MaskConfig(
+        tau_q=0.5, tau_kv=0.15, interval=4, order=1, degrade=0.3,
+        block_q=16, block_kv=16, pool=32, warmup_steps=2))
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (no CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the kernels' plain versions on the CPU")
+    return device
+
+
+def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
+                    batch: int = 2, n_vision: int = 96, num_steps: int = 12,
+                    serving: str = "sequential", mesh: tuple = (1, 1), seed: int = 0,
+                    device="cuda", verbose: bool = True) -> dict:
+    """Queue-driven diffusion serving.  Returns the per-request result dict
+    of :func:`repro_torch.launch.batching.run_sequential`."""
+    if serving != "sequential":
+        raise NotImplementedError(f"serving mode {serving!r} is not ported yet; "
+                                  "the port serves 'sequential'")
+    if tuple(mesh) != (1, 1):
+        raise NotImplementedError(f"mesh {mesh} is not ported yet; the port runs on "
+                                  "one device")
+    device = resolve_device(device)
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    ecfg = serving_engine_config()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = dit.init_params(cfg, gen, device)
+    patch_embed = torch.randn((cfg.patch_dim, cfg.d_model), generator=gen,
+                              device=device).mul_(0.2)
+    requests = []
+    for req in range(num_requests):
+        gen.manual_seed(seed + 100 + req)
+        x0 = torch.randn((batch, n_vision, cfg.patch_dim), generator=gen, device=device)
+        text = torch.randn((batch, cfg.n_text_tokens, cfg.d_model), generator=gen,
+                           device=device)
+        requests.append(Request(rid=req, x0=x0, text_emb=text, num_steps=num_steps))
+
+    t0 = time.perf_counter()
+    results = run_sequential(params, cfg, ecfg, requests, patch_embed=patch_embed)
+    wall = time.perf_counter() - t0
+    if verbose:
+        for req in requests:
+            r = results[req.rid]
+            dens = [s["density"] for s in r["trace"] if s["kind"] == "dispatch"]
+            dtxt = f"mean dispatch density {sum(dens) / len(dens):.3f}  " if dens else ""
+            print(f"[serve] req {req.rid} ({serving}): {req.num_steps} "
+                  f"steps, latency {r['latency']:.2f}s  {dtxt}out "
+                  f"{tuple(r['out'].shape)} finite={bool(torch.isfinite(r['out']).all())}")
+        print(f"[serve] {serving}: {len(requests)} requests in {wall:.2f}s on {device}")
+    return results
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="flux-mmdit")
+    ap.add_argument("--full", action="store_true", help="full model width")
+    ap.add_argument("--requests", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--n-vision", type=int, default=None,
+                    help="vision tokens (default: 96 smoke, 4096 full)")
+    ap.add_argument("--steps", type=int, default=12)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    n_vision = args.n_vision or (4096 if args.full else 96)
+    serve_diffusion(args.arch, smoke=not args.full, num_requests=args.requests,
+                    batch=args.batch, n_vision=n_vision, num_steps=args.steps,
+                    device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,152 @@
+"""MMDiT — the paper's own model family (FLUX / HunyuanVideo style), port of
+``repro.models.dit``.
+
+Single-stream DiT blocks over the concatenated [text; vision] sequence with
+adaLN-Zero timestep modulation; joint attention runs through the FlashOmni
+Update–Dispatch engine.  The text encoder and patchifier are stubs: inputs
+are precomputed text and latent-patch embeddings.  The reference scans the
+blocks with ``lax.scan``; here the layers are a Python loop over the stacked
+``(L, ...)`` block parameters and a list of per-layer engine states.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import engine as E
+from repro_torch.core.attention import dense_attention
+from repro_torch.core.engine import AttnParams, EngineConfig, LayerState
+from repro_torch.models.layers import rms_norm
+
+__all__ = ["init_params", "init_engine_states", "denoise_step", "timestep_embedding"]
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    ang = t.to(torch.float32)[:, None] * freqs[None]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
+    """Random weights with the reference's shapes and scales (dit.py:44-84).
+
+    ``generator`` lives on ``device``; the block leaves are stacked
+    ``(L, ...)`` like the reference's pytree.  The numbers differ from
+    ``jax.random``'s: tests pass the reference's weights through
+    :func:`repro_torch.convert.params_from_jax` instead."""
+    d, h, hd, L = cfg.d_model, cfg.n_heads, cfg.hd, cfg.n_layers
+    s = d ** -0.5
+
+    def normal(*shape, std):
+        return torch.randn(shape, generator=generator, device=device).mul_(std)
+
+    blocks = {
+        "wq": normal(L, d, h * hd, std=s),
+        "wk": normal(L, d, h * hd, std=s),
+        "wv": normal(L, d, h * hd, std=s),
+        "wo": normal(L, h * hd, d, std=s),
+        "q_scale": torch.ones((L, hd), device=device),
+        "k_scale": torch.ones((L, hd), device=device),
+        "mlp_wi": normal(L, d, cfg.d_ff, std=s),
+        "mlp_wo": normal(L, cfg.d_ff, d, std=cfg.d_ff ** -0.5),
+        "adaln": normal(L, d, 6 * d, std=0.02),
+        "adaln_b": torch.zeros((L, 6 * d), device=device),
+    }
+    return {
+        "blocks": blocks,
+        "t_mlp1": normal(256, d, std=0.02),
+        "t_mlp2": normal(d, d, std=0.02),
+        "final_mod": normal(d, 2 * d, std=0.02),
+        "final_proj": normal(d, cfg.patch_dim, std=0.02),
+        "final_norm": torch.ones((d,), device=device),
+    }
+
+
+def init_engine_states(cfg: ArchConfig, ecfg: EngineConfig, batch: int,
+                       n_tokens: int, device) -> list[LayerState]:
+    """One initial state per layer.  States are updated out of place, so
+    every layer shares the same initial tensors."""
+    one = E.init_layer_state(batch, cfg.n_heads, n_tokens, cfg.d_model, cfg.hd,
+                             ecfg, device)
+    return [one] * cfg.n_layers
+
+
+def _modulate(x, shift, scale):
+    return x * (1 + scale[:, None]) + shift[:, None]
+
+
+def _block(cfg: ArchConfig, ecfg: EngineConfig, p: dict, state: LayerState,
+           x: torch.Tensor, t_emb: torch.Tensor, *, mode: str, n_text: int,
+           strategy=None, layer_idx=None, step_idx=None, num_steps=None):
+    dtype = x.dtype
+    ones = torch.ones((cfg.d_model,), device=x.device)
+    mod = F.silu(t_emb) @ p["adaln"].to(dtype) + p["adaln_b"].to(dtype)
+    sh_a, sc_a, g_a, sh_m, sc_m, g_m = mod.chunk(6, dim=-1)
+    xa = _modulate(rms_norm(x, ones, cfg.norm_eps), sh_a, sc_a)
+    attn_p = AttnParams(wq=p["wq"].to(dtype), wk=p["wk"].to(dtype),
+                        wv=p["wv"].to(dtype), wo=p["wo"].to(dtype),
+                        q_scale=p["q_scale"], k_scale=p["k_scale"])
+    if mode == "update":
+        o, new_state = E.update_layer(attn_p, xa, state, ecfg, n_text=n_text,
+                                      heads=cfg.n_heads, strategy=strategy,
+                                      layer_idx=layer_idx, step_idx=step_idx,
+                                      num_steps=num_steps)
+    elif mode == "dispatch":
+        o, new_state = E.dispatch_layer(attn_p, xa, state, ecfg, n_text=n_text,
+                                        heads=cfg.n_heads)
+    elif mode == "dense":   # engine off (baseline)
+        q, k = E._qk(attn_p, xa, cfg.n_heads)
+        v = E._project_heads(xa, attn_p.wv, cfg.n_heads)
+        oh = dense_attention(q, k, v)
+        o = oh.transpose(1, 2).reshape(*xa.shape[:2], -1) @ attn_p.wo
+        new_state = state
+    else:
+        raise ValueError(f"unknown denoise mode {mode!r}")
+    x = x + g_a[:, None] * o.to(dtype)
+    xm = _modulate(rms_norm(x, ones, cfg.norm_eps), sh_m, sc_m)
+    y = F.gelu(xm @ p["mlp_wi"].to(dtype), approximate="tanh")   # jax.nn.gelu's default
+    y = y @ p["mlp_wo"].to(dtype)
+    return x + g_m[:, None] * y, new_state
+
+
+def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
+                 states: list[LayerState], x_vision: torch.Tensor,
+                 text_emb: torch.Tensor, t: torch.Tensor, *, mode: str,
+                 dtype: torch.dtype = torch.bfloat16, strategies: Optional[tuple] = None,
+                 strategy_row=None, step_idx: Optional[int] = None,
+                 num_steps: Optional[int] = None):
+    """One diffusion step: the velocity field for ``x_vision``.
+
+    x_vision (B, N_v, d_model) latent patch embeddings; text_emb
+    (B, N_t, d_model); t (B,) diffusion time in [0, 1].  ``strategies`` and
+    ``strategy_row`` (one id per layer, a schedule's step slice) choose each
+    layer's symbol producer at Update steps.  Returns (velocity, new_states).
+    """
+    n_text = text_emb.shape[1]
+    x = torch.cat([text_emb.to(dtype), x_vision.to(dtype)], dim=1)
+    t_emb = timestep_embedding(t * 1000.0, 256).to(dtype) @ params["t_mlp1"].to(dtype)
+    t_emb = (F.silu(t_emb) @ params["t_mlp2"].to(dtype)).to(dtype)
+
+    blocks = params["blocks"]
+    new_states = []
+    for li in range(cfg.n_layers):
+        strategy = None
+        if strategies is not None and mode == "update":
+            strategy = strategies[0 if strategy_row is None else int(strategy_row[li])]
+        p = {name: leaf[li] for name, leaf in blocks.items()}
+        x, st = _block(cfg, ecfg, p, states[li], x, t_emb, mode=mode, n_text=n_text,
+                       strategy=strategy, layer_idx=li, step_idx=step_idx,
+                       num_steps=num_steps)
+        new_states.append(st)
+    mod = F.silu(t_emb) @ params["final_mod"].to(dtype)
+    sh, sc = mod.chunk(2, dim=-1)
+    x = _modulate(rms_norm(x, params["final_norm"], cfg.norm_eps), sh, sc)
+    v = x[:, n_text:] @ params["final_proj"].to(dtype)
+    return v, new_states

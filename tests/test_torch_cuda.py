@@ -1,0 +1,115 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Marked ``cuda``: each test skips (with the reason) where there is no CUDA
+device; on a machine with an H100 and nvcc run
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+The sweep covers every built size: head_dim 32/64/128 and block sizes
+16/32/64/128, in float32 (rtol = atol = 1e-4, the sum order differs from the
+plain version's) and bfloat16 (2e-2), on random CSR lists with padded
+slots, an all-cached (b, h) and empty KV rows.
+"""
+
+import pytest
+import torch
+
+from repro_torch import kernels as TK
+from repro_torch.core.symbols import active_indices
+from repro_torch.kernels.ref import attention_csr_ref, gemm_o_ref, gemm_q_ref
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are CUDA C++ for sm_90a)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    g = torch.Generator()
+    g.manual_seed(seed)
+    return g
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("bq,bkv", [(16, 16), (32, 64), (64, 32), (128, 128), (16, 128)])
+def test_attention_kernel_matches_plain(dev, dtype, d, bq, bkv):
+    g = _gen(d * 1000 + bq * 10 + bkv)
+    bh, n = 4, 512
+    tq, tkv = n // bq, n // bkv
+    m_c = torch.rand((bh, tq), generator=g) < 0.6
+    m_c[1] = False                                        # all-cached (b, h)
+    q_ids, q_cnt = active_indices(m_c, tq)
+    m_s = torch.rand((bh, tq, tkv), generator=g) < 0.5
+    m_s[0, q_ids[0, 0]] = False                           # a live row with no KV block
+    rows = torch.gather(m_s, 1, q_ids.long()[..., None].expand(bh, tq, tkv))
+    kv_ids, kv_cnt = active_indices(rows, tkv)
+    q_src = torch.stack([torch.randperm(tq, generator=g) for _ in range(bh)]).int()
+    q, k, v, o = (torch.randn((bh, n, d), generator=g).to(dtype) for _ in range(4))
+    args = [t.to(dev) for t in (q, k, v, o, q_ids, q_src, q_cnt, kv_ids, kv_cnt)]
+    launches = TK.flashomni_attention_csr.launches
+    got = TK.flashomni_attention_csr(*args, block_q=bq, block_kv=bkv)
+    assert TK.flashomni_attention_csr.launches == launches + 1
+    _close(got, attention_csr_ref(*args, block_q=bq, block_kv=bkv), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm", [16, 32, 64, 128])
+def test_gemm_q_kernel_matches_plain(dev, dtype, bm):
+    g = _gen(bm)
+    b, n, k, f = 2, 1024, 100, 200                        # ragged K and F tiles
+    t = n // bm
+    live = torch.rand((b, t), generator=g) < 0.5
+    row_ids, row_cnt = active_indices(live, t - 1)        # padded slots
+    x = torch.randn((b, n, k), generator=g).to(dtype)
+    w = (torch.randn((k, f), generator=g) * k ** -0.5).to(dtype)
+    args = [a.to(dev) for a in (x, w, row_ids, row_cnt)]
+    got = TK.gemm_q_sparse_kernel(*args, block_rows=bm)
+    _close(got, gemm_q_ref(*args, block=bm), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm", [16, 32, 64, 128])
+def test_gemm_o_kernel_matches_plain(dev, dtype, bm):
+    g = _gen(100 + bm)
+    b, h, n, dh, f = 2, 4, 1024, 64, 200
+    t = n // bm
+    m_ch = torch.rand((b, t, h), generator=g) < 0.4
+    row_ids, row_cnt = active_indices(m_ch.any(-1), t)
+    hm = torch.gather(m_ch, 1, row_ids.long()[..., None].expand(b, t, h))
+    hm &= (torch.arange(t) < row_cnt[:, None])[..., None]   # padded slots: no heads
+    head_ids, head_cnt = active_indices(hm, h)
+    o = torch.randn((b, h, n, dh), generator=g).to(dtype)
+    w = (torch.randn((h, dh, f), generator=g) * (h * dh) ** -0.5).to(dtype)
+    bias = torch.randn((b, n, f), generator=g).to(dtype)
+    args = [a.to(dev) for a in (o, w, bias, row_ids, head_ids, head_cnt)]
+    got = TK.gemm_o_sparse_kernel(*args, block_rows=bm)
+    _close(got, gemm_o_ref(*args, block=bm), dtype)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.randn((2, 64, 32), device=dev)
+    w = torch.randn((32, 32), device=dev)
+    ids = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    cnt = torch.ones((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.gemm_q_sparse_kernel(x.transpose(1, 2).contiguous().transpose(1, 2), w, ids, cnt,
+                                block_rows=32)
+    with pytest.raises(TypeError):
+        TK.gemm_q_sparse_kernel(x.half(), w.half(), ids, cnt, block_rows=32)
+    with pytest.raises(TypeError):
+        TK.gemm_q_sparse_kernel(x, w, ids.long(), cnt, block_rows=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        TK.gemm_q_sparse_kernel(x, w.cpu(), ids, cnt, block_rows=32)
