@@ -3,26 +3,43 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
+Two serving paths run, each with the launch counts set to 0 just before it
+and read just after: P1 (``flashomni``, uniform layout: GEMM-Q, CSR
+attention, GEMM-O) and P2 (``sliding-window`` with ``kv_buckets=0``, which
+resolves to 2 buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O).
+
 Phases (each prints one JSON line; any failure exits non-zero without the
 final line):
 
   1. build    — compile the CUDA kernels from ``src/repro_torch/csrc`` with
                 nvcc and report the card's name and power limit;
-  2. kernels  — GEMM-Q, CSR attention and GEMM-O at the flux-mmdit serving
-                shapes (B=2, N=4608, 24 heads x 128, blocks 16/16/32, the
-                plan built by the port from a seeded Q/K), in float32 and
-                bfloat16: max error against the plain PyTorch version on the
-                card, kernel / plain / library times (CUDA events) and the
-                least time the card could take for the same work;
-  3. small    — the sampler at the flux-mmdit smoke size on the card
-                (kernels) against the same run on the CPU (plain versions);
-  4. serve    — ``serve_diffusion`` on flux-mmdit at full width, 2 requests
-                of 8 steps (steps 3, 4, 5 and 7 are Dispatch steps): finite
-                outputs, and every kernel launched 38 layers x 4 steps x 2
-                requests = 304 times;
-  5. profile  — device time by kernel group within one Update and one
-                Dispatch step at full width (torch.profiler), and the
-                device's idle share.
+  2. kernels  — every kernel at the flux-mmdit serving shapes (B=2, N=4608,
+                24 heads x 128, blocks 16/16/32), on plans the port builds
+                from a seeded Q/K, in float32 and bfloat16: max error
+                against the plain PyTorch version on the card, kernel /
+                plain / library times (CUDA events) and the least time the
+                card could take for the same work.  GEMM-Q, CSR attention
+                and GEMM-O run on a ``flashomni`` plan; the bucketed
+                attention and GEMM-O on a ``sliding-window`` plan at 2
+                buckets and a ``hunyuan-1.5x`` interior plan at 3, each also
+                held ``torch.equal`` to the uniform kernel fed the same
+                plan's clamped counts;
+  3. small    — samplers at smoke size on the card (kernels) against the
+                same runs on the CPU (plain versions): P1; the hunyuan-1.5x
+                schedule at 3 buckets on a 4-head smoke variant; and
+                sliding-window at ``kv_buckets=0`` with 480 vision tokens;
+  4. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
+                request of 8 steps (steps 3, 4, 5 and 7 are Dispatch
+                steps): finite outputs, and GEMM-Q, CSR attention and GEMM-O
+                each launched 38 layers x 4 steps = 152 times;
+  5. serve_bucketed — P2 at full width, 1 request of 8 steps: GEMM-Q and the
+                two bucketed kernels each launched 38 x 4 = 152 times, the
+                uniform attention and GEMM-O never; latency, density, peak
+                memory, and the share of live KV blocks and live (row, head)
+                pairs the buckets dropped at one interior layer's last plan;
+  6. profile  — device time by kernel group within one Update and one
+                Dispatch step of P1 and of P2 at full width
+                (torch.profiler), and the device's idle share.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power-limit line, and
 the device line last.
@@ -30,6 +47,7 @@ the device line last.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,7 +58,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-N_LAYERS, DISPATCH_STEPS, REQUESTS, STEPS = 38, 4, 2, 8
+N_LAYERS, DISPATCH_STEPS, REQUESTS, STEPS = 38, 4, 1, 8
+DEVICE, NV, PATCH_DIM = "cuda", 4096, 64       # the served latents: (2, NV, PATCH_DIM)
+P1_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel")
+P2_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr_bucketed",
+              "gemm_o_sparse_bucketed_kernel")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}       # rtol = atol per dtype
 HBM_BYTES_S = 3.35e12
 # Peak FLOP/s by card (NVIDIA data sheets, dense): f32 on the CUDA cores,
@@ -58,6 +80,10 @@ SOURCES = {
                                 "src/repro/kernels/flashomni_attention.py:117"),
     "gemm_o_sparse_kernel": ("src/repro_torch/csrc/gemm_o.cu",
                              "src/repro/kernels/gemm_o.py:82"),
+    "flashomni_attention_csr_bucketed": ("src/repro_torch/csrc/flashomni_attention_bucketed.cu",
+                                         "src/repro/kernels/flashomni_attention.py:240"),
+    "gemm_o_sparse_bucketed_kernel": ("src/repro_torch/csrc/gemm_o.cu",
+                                      "src/repro/kernels/gemm_o.py:178"),
 }
 
 
@@ -103,18 +129,20 @@ def phase_build():
     return smi[0] if smi else ""
 
 
-def serving_plan(dev, b, h, n, dh, n_text):
-    """The port's DispatchPlan for a seeded Q/K (B, H, N, dh)."""
+def serving_plan(dev, b, h, n, dh, n_text, strategy=None, kv_buckets=1):
+    """The port's DispatchPlan (ids widened) for a seeded Q/K (B, H, N, dh)
+    under ``strategy`` (default: flashomni) at ``kv_buckets``."""
     import torch
     from repro_torch.core.plan import build_dispatch_plan
     from repro_torch.core.strategy import FlashOmniStrategy, StrategyContext
     from repro_torch.launch.serve import serving_engine_config
-    ecfg = serving_engine_config()
+    ecfg = serving_engine_config(kv_buckets=kv_buckets)
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     q = torch.randn((b, h, n, dh), generator=g, device=dev)
     k = torch.randn((b, h, n, dh), generator=g, device=dev)
-    syms = FlashOmniStrategy().emit(q, k, StrategyContext(cfg=ecfg, n_text=n_text, n_tokens=n))
+    syms = (strategy or FlashOmniStrategy()).emit(
+        q, k, StrategyContext(cfg=ecfg, n_text=n_text, n_tokens=n))
     row_score = torch.where(syms.m_c, syms.q_scores, 0.0).sum(dim=-2)
     return ecfg, build_dispatch_plan(syms.m_c, syms.m_s, ecfg, n, row_score=row_score).widen()
 
@@ -135,174 +163,277 @@ def check_close(name, dtype_name, got, want) -> float:
 FULL = dict(b=2, h=24, n=4608, dh=128, d=3072, n_text=512)
 
 
-def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d=3072,
-                  n_text=512) -> dict:
-    """Kernel vs plain vs library at the serving shapes; returns per-kernel rows."""
+def plan_work(plan, ecfg, b, h, n):
+    """What a plan's clamped lists really need: live counts for the bounds,
+    the token mask of the attention yardstick and the (B, N, H) head mask
+    of the GEMM-O yardstick."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import (flashomni_attention_csr, gemm_o_sparse_kernel,
-                                     gemm_q_sparse_kernel)
-    from repro_torch.kernels.ref import attention_csr_ref, gemm_o_ref, gemm_q_ref
-    dev = torch.device(dev)
-    ecfg, plan = serving_plan(dev, b, h, n, dh, n_text)
+    dev = plan.q_ids.device
     m = ecfg.mask
     pool, bq, bkv = m.pool, m.block_q, m.block_kv
     cr = plan.row_ids.shape[-1]
     cq, ckv = plan.kv_row_ids.shape[-2:]
-    g = torch.Generator(device=dev)
-    g.manual_seed(4321)
-    rnd = lambda *s, std=1.0: torch.randn(s, generator=g, device=dev).mul_(std)
-    x32, wq32 = rnd(b, n, d), rnd(d, h * dh, std=d ** -0.5)
-    qc32 = rnd(b * h, cr * pool, dh)
-    k32, v32, ore32 = rnd(b * h, n, dh), rnd(b * h, n, dh), rnd(b * h, n, dh)
-    o32, wo32, bias32 = rnd(b, h, n, dh), rnd(h, dh, d, std=d ** -0.5), rnd(b, n, d)
     flat = lambda a: a.reshape(b * h, *a.shape[2:]).contiguous()
     q_ids, q_src, q_cnt = flat(plan.q_ids), flat(plan.q_slots), flat(plan.q_cnt)
     kv_ids, kv_cnt = flat(plan.kv_row_ids), flat(plan.kv_row_cnt)
-
-    # Work this plan really needs (for the bounds).
-    live_rows = int(plan.row_cnt.sum())
     slot_live = torch.arange(cq, device=dev) < q_cnt[:, None]
-    kv_live_blocks = int(torch.where(slot_live, kv_cnt, 0).sum())
-    live_slots = int(slot_live.sum())
     j_live = (torch.arange(ckv, device=dev) < kv_cnt[..., None]) & slot_live[..., None]
     t_kv = n // bkv
-    union = torch.zeros((b * h, t_kv + 1), dtype=torch.bool, device=dev)
-    union.scatter_(-1, torch.where(j_live, kv_ids.long(), t_kv).reshape(b * h, -1), True)
-    kv_union_blocks = int(union[:, :t_kv].sum())
-    live_heads = int(plan.head_cnt.sum())
-    hmask = torch.zeros((b, cr, h + 1), dtype=torch.bool, device=dev)
-    hmask.scatter_(-1, torch.where(torch.arange(h, device=dev) < plan.head_cnt[..., None],
-                                   plan.head_ids.long(), h), True)
-    heads_used = int(hmask[..., :h].any(dim=(0, 1)).sum())
-    peaks = peaks_for(gpu_name)
-
+    per_slot = torch.zeros((b * h, cq, t_kv + 1), dtype=torch.bool, device=dev)
+    per_slot.scatter_(-1, torch.where(j_live, kv_ids.long(), t_kv), True)
+    union = per_slot[..., :t_kv].any(dim=1)
     # Token mask of the plan over the compact Q rows for the SDPA yardstick
     # (rows of no live slot attend everywhere: dense work either way).
     tc = cr * pool // bq
-    per_slot = torch.zeros((b * h, cq, t_kv + 1), dtype=torch.bool, device=dev)
-    per_slot.scatter_(-1, torch.where(j_live, kv_ids.long(), t_kv), True)
     blk = torch.ones((b * h, tc + 1, t_kv + 1), dtype=torch.bool, device=dev)
     dst = torch.where(slot_live, q_src.long(), tc)       # dead slots -> trash row
     blk.scatter_(1, dst[..., None].expand(-1, -1, t_kv + 1), per_slot)
     sdpa_mask = blk[:, :tc, :t_kv].repeat_interleave(bq, dim=1) \
         .repeat_interleave(bkv, dim=2)[:, None]
     del blk, per_slot
-    m_tok = torch.repeat_interleave(plan.m_ch, pool, dim=-2)[..., :n, :]
+    # The clamped (row, head) mask in token layout.
+    t = m.n_blocks(n)
+    rows = torch.zeros((b, t + 1, h), dtype=torch.bool, device=dev)
+    rsel = torch.where(torch.arange(cr, device=dev) < plan.row_cnt[:, None],
+                       plan.row_ids.long(), t)
+    rows.scatter_(1, rsel[..., None].expand(-1, -1, h), plan.head_mask)
+    m_tok = torch.repeat_interleave(rows[:, :t], pool, dim=1)[:, :n]
+    return dict(
+        flat=dict(q_ids=q_ids, q_src=q_src, q_cnt=q_cnt, kv_ids=kv_ids, kv_cnt=kv_cnt),
+        live_rows=int(plan.row_cnt.sum()), live_slots=int(slot_live.sum()),
+        kv_live_blocks=int(torch.where(slot_live, kv_cnt, 0).sum()),
+        kv_union_blocks=int(union.sum()), live_heads=int(plan.head_cnt.sum()),
+        heads_used=int(plan.head_mask.any(dim=(0, 1)).sum()),
+        sdpa_mask=sdpa_mask, m_tok=m_tok)
 
-    rows = {}
-    per_dtype = []
-    for dt in (torch.float32, torch.bfloat16):
-        dn = str(dt).split(".")[-1]
-        e = torch.finfo(dt).bits // 8
-        x, wq = x32.to(dt), wq32.to(dt)
-        qc, kk, vv, ore = qc32.to(dt), k32.to(dt), v32.to(dt), ore32.to(dt)
-        o, wo, bias = o32.to(dt), wo32.to(dt), bias32.to(dt)
-        calls = {
-            "gemm_q_sparse_kernel": (
-                lambda: gemm_q_sparse_kernel(x, wq, plan.row_ids, plan.row_cnt, block_rows=pool),
-                lambda: gemm_q_ref(x, wq, plan.row_ids, plan.row_cnt, block=pool),
-                lambda: torch.matmul(
-                    x.reshape(b, n // pool, pool, d)[torch.arange(b, device=dev)[:, None],
-                                                     plan.row_ids.long()], wq),
-                2.0 * live_rows * pool * d * h * dh,
-                e * (live_rows * pool * d + d * h * dh + b * cr * pool * h * dh) + 4 * (b * cr + b)),
-            "flashomni_attention_csr": (
-                lambda: flashomni_attention_csr(qc, kk, vv, ore, q_ids, q_src, q_cnt, kv_ids,
-                                                kv_cnt, block_q=bq, block_kv=bkv),
-                lambda: attention_csr_ref(qc, kk, vv, ore, q_ids, q_src, q_cnt, kv_ids,
-                                          kv_cnt, block_q=bq, block_kv=bkv),
-                lambda: F.scaled_dot_product_attention(qc[:, None], kk[:, None], vv[:, None],
-                                                       attn_mask=sdpa_mask),
-                4.0 * kv_live_blocks * bq * bkv * dh,
-                e * (live_slots * bq * dh + 2 * kv_union_blocks * bkv * dh + 2 * b * h * n * dh)
-                + 4 * (kv_live_blocks + 3 * live_slots)),
-            "gemm_o_sparse_kernel": (
-                lambda: gemm_o_sparse_kernel(o, wo, bias, plan.row_ids, plan.head_ids,
-                                             plan.head_cnt, block_rows=pool),
-                lambda: gemm_o_ref(o, wo, bias, plan.row_ids, plan.head_ids, plan.head_cnt,
-                                   block=pool),
-                lambda: torch.einsum("bnhd,hdf->bnf",
-                                     torch.where(m_tok[..., None], o.transpose(1, 2), 0),
-                                     wo) + bias,
-                2.0 * live_heads * pool * dh * d,
-                e * (live_heads * pool * dh + heads_used * dh * d + 2 * b * n * d)
-                + 4 * (b * cr * (2 + h))),
-        }
-        for name, (kern, plain, library, flops, nbytes) in calls.items():
-            got = kern()
-            want = plain()
-            torch.cuda.synchronize()
-            max_err = check_close(name, dn, got, want)
-            del got, want
-            t_op, t_mem = flops / peaks[dn] * 1e3, nbytes / peaks["hbm"] * 1e3
-            row = {"name": name, "dtype": dn, "max_abs_err": max_err,
-                   "ms": time_ms(kern, 10),
-                   "plain_ms": time_ms(plain, 2, warmup=1),
-                   "library_ms": time_ms(library, 5, warmup=1),
-                   "bound_ms": max(t_op, t_mem),
-                   "bound_by": "operations" if t_op >= t_mem else "bytes",
-                   "flops": flops, "bytes": nbytes}
-            per_dtype.append(row)
-            if dt == torch.float32:         # the serving path's dtype
-                rows[name] = row
-            torch.cuda.empty_cache()
+
+def measure(name, dn, kern, plain, library, flops, nbytes, peaks, twin=None) -> dict:
+    """Kernel vs plain version (and, for a bucketed kernel, ``torch.equal`` to
+    its uniform twin on the same plan, and the twin's time), then kernel /
+    plain / library times."""
+    import torch
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    max_err = check_close(name, dn, got, want)
+    row = {"name": name, "dtype": dn, "max_abs_err": max_err}
+    if twin is not None:
+        row["equal_to_uniform"] = bool(torch.equal(got, twin()))
+        if not row["equal_to_uniform"]:
+            raise AssertionError(f"{name} [{dn}] differs from the uniform kernel on the "
+                                 "same clamped plan")
+    del got, want
+    t_op, t_mem = flops / peaks[dn] * 1e3, nbytes / peaks["hbm"] * 1e3
+    if twin is not None:        # the uniform kernel's time on the same plan
+        row["uniform_ms"] = time_ms(twin, 10)
+    row.update({"ms": time_ms(kern, 10), "plain_ms": time_ms(plain, 2, warmup=1),
+                "library_ms": time_ms(library, 5, warmup=1), "bound_ms": max(t_op, t_mem),
+                "bound_by": "operations" if t_op >= t_mem else "bytes",
+                "flops": flops, "bytes": nbytes})
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d=3072,
+                  n_text=512) -> dict:
+    """Kernel vs plain vs library at the serving shapes; returns the float32
+    row of every kernel (the serving dtype)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as TK
+    from repro_torch.core.plan import bucket_geometry
+    from repro_torch.core.strategy import MultiGranularityStrategy, SlidingWindowStrategy
+    from repro_torch.kernels import ref
+    dev = torch.device(dev)
+    peaks = peaks_for(gpu_name)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    rnd = lambda *s, std=1.0: torch.randn(s, generator=g, device=dev).mul_(std)
+    x32, wq32 = rnd(b, n, d), rnd(d, h * dh, std=d ** -0.5)
+    k32, v32, ore32 = rnd(b * h, n, dh), rnd(b * h, n, dh), rnd(b * h, n, dh)
+    o32, wo32, bias32 = rnd(b, h, n, dh), rnd(h, dh, d, std=d ** -0.5), rnd(b, n, d)
+
+    # The uniform kernels on a flashomni plan; the bucketed ones on the
+    # sliding-window plan of the P2 path (2 buckets, the kernels line) and on
+    # the hunyuan-1.5x interior template (3 buckets).
+    cases = [("flashomni", None, 1, P1_KERNELS),
+             ("sliding-window", SlidingWindowStrategy(), 2, P2_KERNELS[1:]),
+             ("hunyuan-1.5x interior", MultiGranularityStrategy(
+                 children=("flashomni", "skip-only", "sliding-window"), head_assign=(0, 0, 2)),
+              3, P2_KERNELS[1:])]
+    rows, results, plans = {}, [], []
+    for label, strategy, kb, names in cases:
+        ecfg, plan = serving_plan(dev, b, h, n, dh, n_text, strategy, kb)
+        m = ecfg.mask
+        pool, bq, bkv = m.pool, m.block_q, m.block_kv
+        spec = ecfg.caps(n)
+        cr = plan.row_ids.shape[-1]
+        w = plan_work(plan, ecfg, b, h, n)
+        fl = w["flat"]
+        qc32 = rnd(b * h, cr * pool, dh)
+        plans.append({"plan": label, "kv_buckets": kb, "Cr": cr,
+                      "Cq": plan.kv_row_ids.shape[-2], "Ckv": plan.kv_row_ids.shape[-1],
+                      **({"geometry": bucket_geometry(spec.cap_q, spec.cap_kv, h, kb),
+                          "geometry_o": bucket_geometry(cr, h, 1, kb)} if kb > 1 else {}),
+                      **{key: w[key] for key in ("live_rows", "live_slots", "kv_live_blocks",
+                                                 "kv_union_blocks", "live_heads")}})
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[-1]
+            e = torch.finfo(dt).bits // 8
+            x, wq = x32.to(dt), wq32.to(dt)
+            qc, kk, vv, ore = qc32.to(dt), k32.to(dt), v32.to(dt), ore32.to(dt)
+            o, wo, bias = o32.to(dt), wo32.to(dt), bias32.to(dt)
+            uni_attn = lambda: TK.flashomni_attention_csr(
+                qc, kk, vv, ore, fl["q_ids"], fl["q_src"], fl["q_cnt"], fl["kv_ids"],
+                fl["kv_cnt"], block_q=bq, block_kv=bkv)
+            uni_gemm_o = lambda: TK.gemm_o_sparse_kernel(o, wo, bias, plan.row_ids,
+                                                         plan.head_ids, plan.head_cnt,
+                                                         block_rows=pool)
+            sdpa = lambda: F.scaled_dot_product_attention(qc[:, None], kk[:, None], vv[:, None],
+                                                          attn_mask=w["sdpa_mask"])
+            einsum = lambda: torch.einsum("bnhd,hdf->bnf", torch.where(
+                w["m_tok"][..., None], o.transpose(1, 2), 0), wo) + bias
+            attn_flops = 4.0 * w["kv_live_blocks"] * bq * bkv * dh
+            attn_bytes = e * (w["live_slots"] * bq * dh + 2 * w["kv_union_blocks"] * bkv * dh
+                              + 2 * b * h * n * dh) + 4 * (w["kv_live_blocks"]
+                                                          + 3 * w["live_slots"])
+            go_flops = 2.0 * w["live_heads"] * pool * dh * d
+            go_bytes = e * (w["live_heads"] * pool * dh + w["heads_used"] * dh * d
+                            + 2 * b * n * d) + 4 * (b * cr * (2 + h))
+            if kb == 1:
+                calls = {
+                    "gemm_q_sparse_kernel": (
+                        lambda: TK.gemm_q_sparse_kernel(x, wq, plan.row_ids, plan.row_cnt,
+                                                        block_rows=pool),
+                        lambda: ref.gemm_q_ref(x, wq, plan.row_ids, plan.row_cnt, block=pool),
+                        lambda: torch.matmul(
+                            x.reshape(b, n // pool, pool, d)[
+                                torch.arange(b, device=dev)[:, None], plan.row_ids.long()], wq),
+                        2.0 * w["live_rows"] * pool * d * h * dh,
+                        e * (w["live_rows"] * pool * d + d * h * dh + b * cr * pool * h * dh)
+                        + 4 * (b * cr + b), None),
+                    "flashomni_attention_csr": (
+                        uni_attn,
+                        lambda: ref.attention_csr_ref(
+                            qc, kk, vv, ore, fl["q_ids"], fl["q_src"], fl["q_cnt"],
+                            fl["kv_ids"], fl["kv_cnt"], block_q=bq, block_kv=bkv),
+                        sdpa, attn_flops, attn_bytes, None),
+                    "gemm_o_sparse_kernel": (
+                        uni_gemm_o,
+                        lambda: ref.gemm_o_ref(o, wo, bias, plan.row_ids, plan.head_ids,
+                                               plan.head_cnt, block=pool),
+                        einsum, go_flops, go_bytes, None),
+                }
+            else:
+                geo = bucket_geometry(spec.cap_q, spec.cap_kv, h, kb)
+                geo_o = bucket_geometry(cr, h, 1, kb)
+                bkt = (plan.bkt_head, plan.bkt_q_ids, plan.bkt_q_slots, plan.bkt_kv_ids,
+                       plan.bkt_kv_cnt)
+                gmo = (plan.gmo_rows, plan.gmo_src, plan.gmo_head_ids, plan.gmo_head_cnt)
+                r_rows = plan.bkt_head.numel()
+                calls = {
+                    "flashomni_attention_csr_bucketed": (
+                        lambda: TK.flashomni_attention_csr_bucketed(
+                            qc, kk, vv, ore, *bkt, geo, heads=h, block_q=bq, block_kv=bkv),
+                        lambda: ref.attention_csr_bucketed_ref(
+                            qc, kk, vv, ore, *bkt, geo, heads=h, block_q=bq, block_kv=bkv),
+                        sdpa, attn_flops,
+                        attn_bytes + 4 * (r_rows - w["live_slots"]), uni_attn),
+                    "gemm_o_sparse_bucketed_kernel": (
+                        lambda: TK.gemm_o_sparse_bucketed_kernel(o, wo, bias, *gmo, geo_o,
+                                                                 block_rows=pool),
+                        lambda: ref.gemm_o_bucketed_ref(o, wo, bias, *gmo, geo_o, block=pool),
+                        einsum, go_flops, go_bytes, uni_gemm_o),
+                }
+            for name, (kern, plain, library, flops, nbytes, twin) in calls.items():
+                row = {"plan": label, **measure(name, dn, kern, plain, library, flops,
+                                                nbytes, peaks, twin)}
+                results.append(row)
+                if dt == torch.float32 and name not in rows:    # the serving dtype
+                    rows[name] = row
+        del w, qc32
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "shapes": {"B": b, "N": n, "heads": h, "head_dim": dh,
-                                         "d_model": d, "pool": pool, "block_q": bq,
-                                         "block_kv": bkv, "Cr": cr, "Cq": cq, "Ckv": ckv},
-          "live": {"rows": live_rows, "q_slots": live_slots, "kv_blocks": kv_live_blocks,
-                   "kv_union_blocks": kv_union_blocks, "row_heads": live_heads},
-          "results": per_dtype})
+                                         "d_model": d, "block_q": 16, "block_kv": 16,
+                                         "pool": 32},
+          "plans": plans, "results": results})
     return rows
 
 
-def phase_small():
-    """Smoke-size sampler: kernels on the card vs plain versions on the CPU."""
+def run_small(label, cfg, ecfg, nv, schedule=None, expect=()):
+    """One smoke-size sampler on the card (kernels) and on the CPU (plain
+    versions); ``expect`` names kernels the card run must launch."""
     import torch
-    from repro_torch.configs.registry import get_smoke
+    from repro_torch import kernels as TK
     from repro_torch.diffusion.pipeline import SamplerConfig, sample
-    from repro_torch.launch.serve import serving_engine_config
     from repro_torch.models import dit
-    cfg, ecfg = get_smoke("flux-mmdit"), serving_engine_config()
     g = torch.Generator()
     g.manual_seed(7)
     params = dit.init_params(cfg, g, "cpu")
     pe = torch.randn((cfg.patch_dim, cfg.d_model), generator=g) * 0.2
-    x0 = torch.randn((2, 96, cfg.patch_dim), generator=g)
+    x0 = torch.randn((2, nv, cfg.patch_dim), generator=g)
     text = torch.randn((2, cfg.n_text_tokens, cfg.d_model), generator=g)
     outs, traces = {}, {}
-    for dev in ("cpu", "cuda"):
+    for dev in ("cpu", DEVICE):
         to = lambda t: t.to(dev)
         p = {k: ({kk: to(vv) for kk, vv in v.items()} if isinstance(v, dict) else to(v))
              for k, v in params.items()}
         traces[dev] = []
+        TK.reset_launches()
         outs[dev] = sample(p, cfg, ecfg, text_emb=to(text), x0=to(x0), patch_embed=to(pe),
-                           scfg=SamplerConfig(num_steps=STEPS), trace=traces[dev]).cpu()
-    err = float((outs["cuda"] - outs["cpu"]).abs().max())
-    ok = torch.allclose(outs["cuda"], outs["cpu"], rtol=1e-3, atol=1e-4)
+                           scfg=SamplerConfig(num_steps=STEPS), trace=traces[dev],
+                           schedule=schedule).cpu()
+    launches = {fn.__name__: fn.launches for fn in TK.KERNELS}
+    err = float((outs[DEVICE] - outs["cpu"]).abs().max())
+    ok = torch.allclose(outs[DEVICE], outs["cpu"], rtol=1e-3, atol=1e-4)
     same_trace = all(abs(a["density"] - c["density"]) < 1e-6
                      and abs(a["pair_sparsity"] - c["pair_sparsity"]) < 1e-6
-                     for a, c in zip(traces["cpu"], traces["cuda"]))
-    emit({"phase": "small", "max_abs_err": err, "ok": bool(ok and same_trace),
-          "trace_matches": same_trace})
-    if not (ok and same_trace):
-        raise AssertionError(f"smoke sampler on the card disagrees with the CPU run "
-                             f"(max abs err {err:.3e}, trace match {same_trace})")
+                     for a, c in zip(traces["cpu"], traces[DEVICE]))
+    routed = all(launches[name] > 0 for name in expect)
+    res = {"run": label, "heads": cfg.n_heads, "n_tokens": nv + cfg.n_text_tokens,
+           "kv_buckets": ecfg.resolved_kv_buckets(), "max_abs_err": err,
+           "trace_matches": same_trace, "launches": launches,
+           "ok": bool(ok and same_trace and routed)}
+    if not res["ok"]:
+        raise AssertionError(f"smoke sampler {label} on the card disagrees with the CPU run "
+                             f"or missed its kernels: {res}")
+    return res
 
 
-def phase_serve() -> dict:
+def phase_small():
+    """Smoke-size samplers: kernels on the card vs plain versions on the CPU."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch.serve import serving_engine_config
+    cfg = get_smoke("flux-mmdit")
+    cfg4 = dataclasses.replace(cfg, n_heads=4, n_kv_heads=4)
+    runs = [
+        run_small("P1 flashomni", cfg, serving_engine_config(), 96, expect=P1_KERNELS),
+        run_small("P2' hunyuan-1.5x schedule, 4 heads", cfg4,
+                  serving_engine_config(kv_buckets=3), 96, schedule="hunyuan-1.5x",
+                  expect=P2_KERNELS),
+        run_small("sliding-window, auto buckets", cfg,
+                  serving_engine_config("sliding-window", kv_buckets=0), 480,
+                  expect=P2_KERNELS),
+    ]
+    emit({"phase": "small", "runs": runs, "ok": True})
+
+
+def serve_path(phase, expected, n_requests, **kw) -> tuple[dict, dict]:
+    """``serve_diffusion`` at full width with every launch count set to 0 just
+    before and read just after; fails unless the path's kernels each
+    launched ``expected`` times and every other kernel never."""
     import torch
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.launch.serve import serve_diffusion
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    results = serve_diffusion("flux-mmdit", smoke=False, n_vision=4096, batch=2,
-                              num_requests=REQUESTS, num_steps=STEPS, device="cuda",
-                              verbose=False)
+    results = serve_diffusion("flux-mmdit", smoke=False, n_vision=NV, batch=2,
+                              num_requests=n_requests, num_steps=STEPS, device=DEVICE,
+                              verbose=False, **kw)
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in KERNELS}
-    want = N_LAYERS * DISPATCH_STEPS * REQUESTS
+    want = N_LAYERS * DISPATCH_STEPS * n_requests
     reqs = []
     for rid, r in sorted(results.items()):
         out = r["out"]
@@ -310,21 +441,79 @@ def phase_serve() -> dict:
         reqs.append({"rid": rid, "latency_s": r["latency"], "shape": list(out.shape),
                      "finite": bool(torch.isfinite(out).all()),
                      "mean_dispatch_density": sum(dens) / len(dens),
-                     "kinds": [s["kind"] for s in r["trace"]]})
-    emit({"phase": "serve", "arch": "flux-mmdit", "batch": 2, "n_tokens": 4608,
-          "steps": STEPS, "wall_s": wall, "requests": reqs, "launches": launches,
-          "expected_launches": want,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    if not all(r["finite"] and r["shape"] == [2, 4096, 64] for r in reqs):
-        raise AssertionError("serve produced non-finite or misshapen latents")
-    if any(v != want for v in launches.values()):
-        raise AssertionError(f"kernel launches {launches}, expected {want} each")
+                     "kinds": [s["kind"] for s in r["trace"]],
+                     "step_s": [s["seconds"] for s in r["trace"]]})
+    res = {"phase": phase, "arch": "flux-mmdit", "batch": 2, "n_vision": NV,
+           "steps": STEPS, **kw, "wall_s": wall, "requests": reqs, "launches": launches,
+           "expected_launches": {name: (want if name in expected else 0)
+                                 for name in launches},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not all(r["finite"] and r["shape"] == [2, NV, PATCH_DIM] for r in reqs):
+        emit(res)
+        raise AssertionError(f"{phase} produced non-finite or misshapen latents")
+    if launches != res["expected_launches"]:
+        emit(res)
+        raise AssertionError(f"{phase}: kernel launches {launches}, expected "
+                             f"{res['expected_launches']}")
+    return res, launches
+
+
+def phase_serve() -> dict:
+    res, launches = serve_path("serve", P1_KERNELS, REQUESTS)
+    emit(res)
+    return launches
+
+
+def phase_serve_bucketed() -> dict:
+    """P2: sliding-window, kv_buckets=0 (auto: 2), 1 request; then the share of
+    work the buckets dropped at one interior layer's last Update plan."""
+    import torch
+    from repro_torch.core.engine import plan_from_state
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.models import dit
+    captured = {}
+    step = dit.denoise_step
+
+    def recording_step(*args, **kw):      # keeps the states of the last Update step
+        v, states = step(*args, **kw)
+        if kw.get("mode") == "update":
+            captured["states"] = states
+        return v, states
+
+    dit.denoise_step = recording_step
+    try:
+        res, launches = serve_path("serve_bucketed", P2_KERNELS, 1,
+                                   strategy="sliding-window", kv_buckets=0)
+    finally:
+        dit.denoise_step = step
+    ecfg = serving_engine_config("sliding-window", kv_buckets=0)
+    layer = N_LAYERS // 2
+    st = captured["states"][layer]
+    n = st.taylor.derivs.shape[-2]            # text + vision tokens (bias cache: B, N, d)
+    plan_b = st.plan
+    plan_u = plan_from_state(st, dataclasses.replace(ecfg, kv_buckets=1), n)
+
+    def live_kv(plan):
+        live = torch.arange(plan.kv_row_cnt.shape[-1], device=plan.q_cnt.device) \
+            < plan.q_cnt[..., None]
+        return int(torch.where(live, plan.kv_row_cnt, 0).sum())
+
+    kv_b, kv_u = live_kv(plan_b), live_kv(plan_u)
+    rh_b, rh_u = int(plan_b.head_cnt.sum()), int(plan_u.head_cnt.sum())
+    res["kv_buckets_resolved"] = ecfg.resolved_kv_buckets()
+    res["clamp"] = {"layer": layer, "live_kv_blocks": {"uniform": kv_u, "bucketed": kv_b,
+                                                      "dropped_share": 1 - kv_b / kv_u},
+                    "live_row_heads": {"uniform": rh_u, "bucketed": rh_b,
+                                       "dropped_share": 1 - rh_b / rh_u}}
+    emit(res)
     return launches
 
 
 def _kernel_group(name: str) -> str:
     for key, group in (("gemm_q_kernel", "gemm_q_sparse_kernel"),
+                       ("csr_bucketed_kernel", "flashomni_attention_csr_bucketed"),
                        ("csr_attention_kernel", "flashomni_attention_csr"),
+                       ("gemm_o_bucketed_kernel", "gemm_o_sparse_bucketed_kernel"),
                        ("gemm_o_kernel", "gemm_o_sparse_kernel")):
         if key in name:
             return group
@@ -336,23 +525,13 @@ def _kernel_group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def phase_profile():
-    """Device time by kernel within one Update and one Dispatch step at full width."""
+def profile_path(label, ecfg, cfg, params, xe, text, t) -> dict:
+    """Device time by kernel within one Update and one Dispatch step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.registry import get_config
-    from repro_torch.launch.serve import serving_engine_config
     from repro_torch.models import dit
-    dev = torch.device("cuda")
-    cfg, ecfg = get_config("flux-mmdit"), serving_engine_config()
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    params = dit.init_params(cfg, g, dev)
-    b, nv = 2, 4096
-    xe = torch.randn((b, nv, cfg.d_model), generator=g, device=dev)
-    text = torch.randn((b, cfg.n_text_tokens, cfg.d_model), generator=g, device=dev)
-    t = torch.full((b,), 0.5, device=dev)
-    states = dit.init_engine_states(cfg, ecfg, b, nv + cfg.n_text_tokens, dev)
+    b, nv = xe.shape[:2]
+    states = dit.init_engine_states(cfg, ecfg, b, nv + cfg.n_text_tokens, xe.device)
     report = {}
     for mode in ("update", "dispatch"):
         torch.cuda.synchronize()
@@ -376,10 +555,32 @@ def phase_profile():
         report[mode] = {"wall_ms": wall_ms, "device_busy_ms": busy or None,
                         "idle_share": (1 - busy / wall_ms) if busy else None,
                         "by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"]))}
+    return {"path": label, "strategy": ecfg.strategy,
+            "kv_buckets": ecfg.resolved_kv_buckets(), **report}
+
+
+def phase_profile():
+    """One Update and one Dispatch step of P1 and of P2 at full width."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.models import dit
+    dev = torch.device(DEVICE)
+    cfg = get_config("flux-mmdit")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = dit.init_params(cfg, g, dev)
+    b, nv = 2, NV
+    inputs = (torch.randn((b, nv, cfg.d_model), generator=g, device=dev),
+              torch.randn((b, cfg.n_text_tokens, cfg.d_model), generator=g, device=dev),
+              torch.full((b,), 0.5, device=dev))
+    paths = [profile_path(label, ecfg, cfg, params, *inputs) for label, ecfg in (
+        ("P1", serving_engine_config()),
+        ("P2", serving_engine_config("sliding-window", kv_buckets=0)))]
     emit({"phase": "profile", "arch": "flux-mmdit", "batch": b,
           "n_tokens": nv + cfg.n_text_tokens, "layers": cfg.n_layers,
           "note": "one denoise step per mode under torch.profiler (profiler on)",
-          **report})
+          "paths": paths})
 
 
 def main() -> int:
@@ -401,14 +602,18 @@ def main() -> int:
         smi = phase_build()
         rows = phase_kernels(torch.cuda.get_device_name(0), **FULL)
         phase_small()
-        launches = phase_serve()
+        by_path = {"P1": phase_serve(), "P2": phase_serve_bucketed()}
         phase_profile()
     except Exception:                     # report the failing phase, then fail
         traceback.print_exc()
         return 1
+    # A kernel's launches are those of the path it belongs to (GEMM-Q runs on
+    # both paths; its count is P1's, and both are listed).
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
-        "replaces": SOURCES[name][1], "launches": launches[name],
+        "replaces": SOURCES[name][1],
+        "launches": by_path["P1" if name in P1_KERNELS else "P2"][name],
+        "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
         "bound_by": rows[name]["bound_by"], "library_ms": rows[name]["library_ms"]}

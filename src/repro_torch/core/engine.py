@@ -11,8 +11,11 @@
 Cache modes: ``"bias"`` caches the GEMM-O bias ``B_c`` in output space
 (paper-optimised); ``"o_cache"`` caches per-head attention outputs.  Engine
 states are plain tensors updated out of place, so one initial state may be
-shared by every layer.  RoPE, lane-state helpers and mesh dispatch are not
-ported (the DiT serving path runs none of them).
+shared by every layer.  ``kv_buckets`` picks the Dispatch layout: 1 the
+uniform CSR grid, 2 or 3 the occupancy-bucketed one, 0 the bucket count the
+calibration table predicts for ``strategy`` (:func:`repro_torch.kernels.
+tuning.select_kv_buckets`).  RoPE, lane-state helpers and mesh dispatch are
+not ported (the DiT serving path runs none of them).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from repro_torch.core.backend import get_backend
 from repro_torch.core.masks import MaskConfig
 from repro_torch.core.plan import DispatchPlan, build_dispatch_plan, empty_plan_like
 from repro_torch.core.strategy import SparsityStrategy, StrategyContext, get_strategy
-from repro_torch.core.symbols import capacity_for, packed_len
+from repro_torch.core.symbols import capacity_for, packed_len, unpack_bits
+from repro_torch.kernels.tuning import select_kv_buckets
 from repro_torch.models.layers import rms_norm
 
 __all__ = [
@@ -38,6 +42,7 @@ __all__ = [
     "DispatchPlan",
     "init_layer_state",
     "is_update_step",
+    "plan_from_state",
     "resolve_schedule",
     "update_layer",
     "dispatch_layer",
@@ -57,8 +62,14 @@ class EngineConfig:
     use_gemm_o: bool = True
     cache_dtype: torch.dtype = torch.bfloat16
     backend: str = "kernels"
-    kv_buckets: int = 1                 # only the uniform CSR layout is ported
+    kv_buckets: int = 1                 # 1 uniform, 2/3 bucketed, 0 auto
     strategy: str = "flashomni"
+    schedule: Optional[str] = None      # named SparsitySchedule preset
+
+    def __post_init__(self):
+        if self.kv_buckets not in (0, 1, 2, 3):
+            raise ValueError(f"kv_buckets must be 0 (auto), 1, 2 or 3, "
+                             f"not {self.kv_buckets!r}")
 
     def cap_q_cmp(self, n_tokens: int) -> int:
         return capacity_for(self.mask.n_blocks(n_tokens), self.cap_q_frac, quantum=1)
@@ -66,11 +77,16 @@ class EngineConfig:
     def cap_kv_cmp(self, n_kv: int) -> int:
         return capacity_for(self.mask.n_blocks(n_kv), self.cap_kv_frac, quantum=1)
 
+    def resolved_kv_buckets(self) -> int:
+        """``kv_buckets`` with 0 ("auto") resolved from the calibration table's
+        occupancy histogram for ``strategy``: a function of the static config
+        alone, fixed before any plan is built."""
+        if self.kv_buckets != 0:
+            return self.kv_buckets
+        return select_kv_buckets(self.strategy)
+
     def caps(self, n_tokens: int, n_kv: Optional[int] = None) -> SparseAttentionSpec:
         """Block-granularity capacities (exact multiples of the compressed ones)."""
-        if self.kv_buckets != 1:
-            raise NotImplementedError("kv_buckets != 1 (bucketed and auto layouts) "
-                                      "is not ported yet")
         n_kv = n_tokens if n_kv is None else n_kv
         m = self.mask
         t_q = -(-n_tokens // m.block_q)
@@ -80,7 +96,7 @@ class EngineConfig:
             block_q=m.block_q, block_kv=m.block_kv,
             cap_q=min(self.cap_q_cmp(n_tokens) * fq, t_q),
             cap_kv=min(self.cap_kv_cmp(n_kv) * fk, t_kv),
-            kv_buckets=1)
+            kv_buckets=self.resolved_kv_buckets())
 
 
 class AttnParams(NamedTuple):
@@ -128,11 +144,32 @@ def is_update_step(step: int, cfg: EngineConfig) -> bool:
     return (step - m.warmup_steps) % m.interval == 0
 
 
-def resolve_schedule(cfg: EngineConfig, num_steps: int, n_layers: int):
-    """The config's (step × layer) :class:`~repro_torch.core.schedule.
-    SparsitySchedule` (no memo: the port compiles nothing per schedule)."""
-    from repro_torch.core.schedule import SparsitySchedule
-    return SparsitySchedule.from_config(cfg, num_steps, n_layers)
+def resolve_schedule(cfg: EngineConfig, num_steps: int, n_layers: int, *,
+                     schedule=None, layer_strategies=None):
+    """The (step × layer) :class:`~repro_torch.core.schedule.SparsitySchedule`
+    of a run: ``schedule`` (a preset name or a prebuilt schedule) wins over
+    ``layer_strategies``, which wins over ``cfg.schedule`` / ``cfg.strategy``.
+    No memo: the port compiles nothing per schedule."""
+    from repro_torch.core.schedule import SparsitySchedule, get_schedule
+    if schedule is not None:
+        return get_schedule(schedule, cfg, num_steps, n_layers)
+    return SparsitySchedule.from_config(cfg, num_steps, n_layers,
+                                        layer_strategies=layer_strategies)
+
+
+def _unpack(state: LayerState, cfg: EngineConfig, n_tokens: int):
+    t = cfg.mask.n_blocks(n_tokens)
+    m_c = unpack_bits(state.s_c, t)
+    m_s = unpack_bits(state.s_s, t * t).reshape(*state.s_s.shape[:-1], t, t)
+    return m_c, m_s
+
+
+def plan_from_state(state: LayerState, cfg: EngineConfig, n_tokens: int) -> DispatchPlan:
+    """Rebuild the DispatchPlan from the packed symbols; the stored
+    ``row_score`` re-ranks the truncations, so the rebuilt plan equals the
+    frozen one field for field."""
+    m_c, m_s = _unpack(state, cfg, n_tokens)
+    return build_dispatch_plan(m_c, m_s, cfg, n_tokens, row_score=state.plan.row_score)
 
 
 def _project_heads(x: torch.Tensor, w: torch.Tensor, heads: int) -> torch.Tensor:

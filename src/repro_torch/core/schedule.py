@@ -1,24 +1,32 @@
-"""Per-step sparsity schedule, port of ``repro.core.schedule`` (config
-mapping only).
+"""Per-step sparsity schedule, port of ``repro.core.schedule``.
 
 A :class:`SparsitySchedule` is a per-step mode array (dense / update /
 dispatch) plus a (step × layer) table of ids into its strategy tuple.  The
 reference traces both as data through one ``lax.scan``; the port's sampler
 is a Python loop, so the schedule stays on the host and the DiT looks each
-layer's strategy up by id.  Named presets (``hunyuan-1.5x``, ``step-ramp``)
-and per-layer tables are not ported yet.
+layer's strategy up by id.
+
+A ``multi-granularity`` strategy with a ``layer_assign`` table expands into
+per-layer variants, deduplicated by head template, with the id table
+pointing each layer at its variant: the deployment table is the schedule.
+Named presets: ``hunyuan-1.5x`` (the paper's HunyuanVideo 1.5× table);
+``step-ramp`` is not ported yet.  The batched-serving lane tables
+(``stack_schedules`` and friends) are not ported either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 
-from repro_torch.core.strategy import get_strategy
+from repro_torch.core.strategy import (MultiGranularityStrategy, SparsityStrategy,
+                                       get_strategy)
 
 __all__ = ["MODE_DENSE", "MODE_UPDATE", "MODE_DISPATCH", "MODE_NAMES",
-           "SparsitySchedule"]
+           "SparsitySchedule", "strategy_table", "register_schedule",
+           "get_schedule", "available_schedules"]
 
 MODE_DENSE, MODE_UPDATE, MODE_DISPATCH = 0, 1, 2
 MODE_NAMES = ("dense", "update", "dispatch")
@@ -29,6 +37,57 @@ def _mode_array(cfg, num_steps: int) -> np.ndarray:
     from repro_torch.core.engine import is_update_step
     return np.asarray([MODE_UPDATE if is_update_step(i, cfg) else MODE_DISPATCH
                        for i in range(num_steps)], np.int32)
+
+
+def _expand_layer_table(spec: Union[str, SparsityStrategy], n_layers: int):
+    """One strategy spec -> ``(strategies, per-layer ids)``; a
+    ``multi-granularity`` strategy with a layer table expands into per-layer
+    variants deduplicated by head template."""
+    strat = get_strategy(spec)
+    if isinstance(strat, MultiGranularityStrategy) and strat.layer_assign:
+        uniq: list = []
+        ids: list[int] = []
+        by_template: dict = {}
+        variants = strat.per_layer(n_layers)
+        for i in range(n_layers):
+            key = strat._template(i)
+            if key not in by_template:
+                by_template[key] = len(uniq)
+                uniq.append(variants[i])
+            ids.append(by_template[key])
+        return tuple(uniq), ids
+    return (strat,), [0] * n_layers
+
+
+def strategy_table(layer_strategies: Sequence, cfg, n_layers: int):
+    """A per-layer spec table -> ``(strategies, id row)``.
+
+    ``None`` entries fall back to ``cfg.strategy``; specs deduplicate by name
+    (registry strings) or identity (instances).  A ``multi-granularity``
+    entry with a layer table is pinned to its position's template."""
+    if len(layer_strategies) != n_layers:
+        raise ValueError(f"layer_strategies has {len(layer_strategies)} entries for "
+                         f"{n_layers} layers")
+    uniq: list = []
+    ids: list[int] = []
+    by_spec: dict = {}
+    for i, s in enumerate(layer_strategies):
+        spec = cfg.strategy if s is None else s
+        strat = get_strategy(spec)
+        key = spec if isinstance(spec, str) else id(spec)
+        if isinstance(strat, MultiGranularityStrategy) and strat.layer_assign:
+            tmpl = strat._template(i)
+            key = (key, tmpl)
+            if key not in by_spec:
+                by_spec[key] = len(uniq)
+                uniq.append(MultiGranularityStrategy(
+                    children=strat.children, head_assign=tmpl,
+                    name=f"{strat.name}[layer {i}]"))
+        elif key not in by_spec:
+            by_spec[key] = len(uniq)
+            uniq.append(strat)
+        ids.append(by_spec[key])
+    return tuple(uniq), np.asarray(ids, np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,14 +102,94 @@ class SparsitySchedule:
     def num_steps(self) -> int:
         return self.mode.shape[0]
 
+    @property
+    def n_layers(self) -> int:
+        return self.strategy_ids.shape[-1]
+
     def kinds(self) -> list[str]:
         """Per-step phase names (trace/diagnostics)."""
         return [MODE_NAMES[int(m)] for m in self.mode]
 
+    def validate(self) -> "SparsitySchedule":
+        if self.mode.ndim != 1 or self.strategy_ids.ndim != 2:
+            raise ValueError(f"schedule shapes: mode {self.mode.shape}, strategy_ids "
+                             f"{self.strategy_ids.shape}; want (S,) and (S, L)")
+        if self.strategy_ids.shape[0] != self.num_steps:
+            raise ValueError(f"strategy_ids covers {self.strategy_ids.shape[0]} steps, "
+                             f"mode covers {self.num_steps}")
+        if not self.strategies:
+            raise ValueError("schedule has no strategies")
+        ids = self.strategy_ids
+        if ids.min() < 0 or ids.max() >= len(self.strategies):
+            raise ValueError(f"strategy ids span [{ids.min()}, {ids.max()}] but only "
+                             f"{len(self.strategies)} strategies are in the schedule")
+        if self.mode.min() < MODE_DENSE or self.mode.max() > MODE_DISPATCH:
+            raise ValueError(f"mode values outside {MODE_NAMES}: {self.mode}")
+        return self
+
     @classmethod
-    def from_config(cls, cfg, num_steps: int, n_layers: int) -> "SparsitySchedule":
-        """Every layer runs ``cfg.strategy``; Update/Dispatch follow the
-        config's warmup and interval."""
+    def from_config(cls, cfg, num_steps: int, n_layers: int, *,
+                    layer_strategies: Optional[Sequence] = None) -> "SparsitySchedule":
+        """Resolution order: ``layer_strategies`` → ``cfg.schedule`` (a named
+        preset) → ``cfg.strategy`` (expanded when it carries a layer table)."""
+        if layer_strategies is not None:
+            uniq, ids = strategy_table(layer_strategies, cfg, n_layers)
+            return cls.from_table(cfg, num_steps, uniq, ids)
+        if cfg.schedule is not None:
+            return get_schedule(cfg.schedule, cfg, num_steps, n_layers)
+        strategies, ids = _expand_layer_table(cfg.strategy, n_layers)
+        return cls.from_table(cfg, num_steps, strategies, ids)
+
+    @classmethod
+    def from_table(cls, cfg, num_steps: int, strategies: tuple,
+                   layer_ids: Sequence[int]) -> "SparsitySchedule":
+        """A step-constant per-layer id row with the config's Update/Dispatch
+        mode pattern."""
+        row = np.asarray(layer_ids, np.int32)
         return cls(mode=_mode_array(cfg, num_steps),
-                   strategy_ids=np.zeros((num_steps, n_layers), np.int32),
-                   strategies=(get_strategy(cfg.strategy),))
+                   strategy_ids=np.broadcast_to(row[None, :],
+                                                (num_steps, row.shape[0])).copy(),
+                   strategies=tuple(strategies)).validate()
+
+
+ScheduleFactory = Callable[[Any, int, int], SparsitySchedule]
+
+_SCHEDULES: dict[str, ScheduleFactory] = {}
+
+# Registered in the reference, not ported yet (it needs ``cache-all``).
+_NOT_PORTED = ("step-ramp",)
+
+
+def register_schedule(name: str, factory: ScheduleFactory) -> None:
+    """Register ``factory(cfg, num_steps, n_layers) -> SparsitySchedule``."""
+    _SCHEDULES[name] = factory
+
+
+def available_schedules() -> tuple[str, ...]:
+    return tuple(_SCHEDULES)
+
+
+def get_schedule(spec: Union[str, SparsitySchedule], cfg, num_steps: int,
+                 n_layers: int) -> SparsitySchedule:
+    """Resolve a named schedule (or pass a prebuilt one through)."""
+    if isinstance(spec, SparsitySchedule):
+        if spec.num_steps != num_steps or spec.n_layers != n_layers:
+            raise ValueError(f"schedule is ({spec.num_steps} steps, {spec.n_layers} "
+                             f"layers); the run wants ({num_steps}, {n_layers})")
+        return spec.validate()
+    if spec in _NOT_PORTED:
+        raise NotImplementedError(f"schedule {spec!r} is not ported yet")
+    try:
+        factory = _SCHEDULES[spec]
+    except KeyError:
+        raise ValueError(f"unknown sparsity schedule {spec!r}; registered: "
+                         f"{available_schedules()}") from None
+    return factory(cfg, num_steps, n_layers).validate()
+
+
+def _hunyuan_schedule(cfg, num_steps: int, n_layers: int) -> SparsitySchedule:
+    strategies, ids = _expand_layer_table("hunyuan-1.5x", n_layers)
+    return SparsitySchedule.from_table(cfg, num_steps, strategies, ids)
+
+
+register_schedule("hunyuan-1.5x", _hunyuan_schedule)

@@ -3,13 +3,15 @@
 A strategy maps the Update-step Q/K plus a :class:`StrategyContext` to a
 :class:`SymbolSet`: packed ``s_c``/``s_s``, the post-clamp boolean masks and
 the ranking scores the static-capacity clamp used.  The registry keeps the
-reference's names; only ``flashomni`` (the paper's §3.3 rule) is ported so
-far, and the other built-ins raise when they are asked for.
+reference's names.  Ported: ``flashomni`` (the paper's §3.3 rule),
+``skip-only``, ``sliding-window``, ``multi-granularity`` and its
+``hunyuan-1.5x`` preset; ``cache-all`` and ``step-phased`` raise when they
+are asked for.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Protocol, Union
+from typing import Any, Callable, Mapping, NamedTuple, Optional, Protocol, Sequence, Union
 
 import torch
 
@@ -25,6 +27,9 @@ __all__ = [
     "get_strategy",
     "available_strategies",
     "FlashOmniStrategy",
+    "SkipOnlyStrategy",
+    "SlidingWindowStrategy",
+    "MultiGranularityStrategy",
 ]
 
 
@@ -92,11 +97,131 @@ class FlashOmniStrategy:
         return finalize_symbols(m_c, m_s, p_map.sum(dim=-2), p_map, ctx)
 
 
+def _full(q: torch.Tensor, t: int) -> torch.Tensor:
+    """(B, H, T) all-True mask matching q's batch and head dims."""
+    return torch.ones((q.shape[0], q.shape[1], t), dtype=torch.bool, device=q.device)
+
+
+class SkipOnlyStrategy:
+    """SpargeAttn-style: no feature caching, cumulative-mass block skipping only."""
+
+    name = "skip-only"
+
+    def __init__(self, tau_kv: Optional[float] = None):
+        self.tau_kv = tau_kv
+
+    def emit(self, q, k, ctx: StrategyContext) -> SymbolSet:
+        m = ctx.cfg.mask
+        p_map = masklib.compressed_attention_map(q, k, m.pool)
+        m_s = masklib.make_skip_mask(q, k, m, ctx.n_text, tau_kv=self.tau_kv)
+        return finalize_symbols(_full(q, m.n_blocks(ctx.n_tokens)), m_s,
+                                p_map.sum(dim=-2), p_map, ctx)
+
+
+class SlidingWindowStrategy:
+    """DiTFastAttnV2-style static band: ``S_s`` keeps |i−j| < window blocks,
+    with text rows and columns kept on top of the band when the config
+    protects text.  The clamp ranks protected pairs first, then the nearest
+    diagonals, so a tight ``cap_kv`` narrows the band from its far edge."""
+
+    name = "sliding-window"
+
+    def __init__(self, window: int = 4):
+        self.window = int(window)
+
+    def emit(self, q, k, ctx: StrategyContext) -> SymbolSet:
+        m = ctx.cfg.mask
+        t = m.n_blocks(ctx.n_tokens)
+        idx = torch.arange(t, device=q.device)
+        dist = (idx[:, None] - idx[None, :]).abs()
+        band = dist < self.window
+        protect = torch.zeros((t, t), dtype=torch.bool, device=q.device)
+        if m.protect_text and ctx.n_text:
+            is_text = idx < -(-ctx.n_text // m.pool)
+            protect = is_text[:, None] | is_text[None, :]
+            band = band | protect
+        m_c = _full(q, t)
+        m_s = m_c[..., None, :] & band
+        kv_scores = torch.where(protect, 1e9, -dist.to(torch.float32)).expand(m_s.shape)
+        return finalize_symbols(m_c, m_s, torch.ones(m_c.shape, device=q.device),
+                                kv_scores, ctx)
+
+
+class MultiGranularityStrategy:
+    """A per-layer / per-head table of child strategies (Sparse VideoGen's
+    spatial/temporal head classes, Sparse-vDiT's per-head patterns).
+
+    ``children`` index the tables; each child sees only the Q/K of its own
+    heads.  ``head_assign`` is a head template (tiled over H; default:
+    heads striped across children); ``layer_assign`` maps a layer to a
+    template or a single child.  ``emit`` never reads the layer: the
+    schedule expands ``layer_assign`` into per-layer variants
+    (:meth:`per_layer`) and points each layer's id at its variant.
+    """
+
+    name = "multi-granularity"
+
+    def __init__(self, children: Sequence[Union[str, SparsityStrategy]] = (
+                     "flashomni", "sliding-window"),
+                 head_assign: Optional[Sequence[int]] = None,
+                 layer_assign: Optional[Mapping[int, Any]] = None,
+                 name: Optional[str] = None):
+        self.children = tuple(get_strategy(c) for c in children)
+        self.head_assign = None if head_assign is None else tuple(head_assign)
+        self.layer_assign = dict(layer_assign or {})
+        if name is not None:
+            self.name = name
+
+    def _template(self, layer_idx: Optional[int]) -> Optional[tuple[int, ...]]:
+        """The head template of ``layer_idx`` (layer table, then head template)."""
+        a: Any = None if layer_idx is None else self.layer_assign.get(layer_idx)
+        if a is None:
+            a = self.head_assign
+        if a is None:
+            return None
+        return (a,) if isinstance(a, int) else tuple(a)
+
+    def _assignment(self, heads: int) -> list[int]:
+        a = self._template(None)
+        if a is None:
+            return [h % len(self.children) for h in range(heads)]
+        return [a[h % len(a)] for h in range(heads)]
+
+    def per_layer(self, n_layers: int) -> list["MultiGranularityStrategy"]:
+        """One strategy per layer with that layer's template pinned."""
+        return [MultiGranularityStrategy(children=self.children,
+                                         head_assign=self._template(i),
+                                         name=f"{self.name}[layer {i}]")
+                for i in range(n_layers)]
+
+    def emit(self, q, k, ctx: StrategyContext) -> SymbolSet:
+        heads = q.shape[1]
+        groups: dict[int, list[int]] = {}
+        for h, a in enumerate(self._assignment(heads)):
+            groups.setdefault(a, []).append(h)
+        # Each child emits over its own heads, clamped at its own capacity.
+        parts = {a: self.children[a].emit(q[:, hs], k[:, hs], ctx)
+                 for a, hs in groups.items()}
+
+        def sel(field: str) -> torch.Tensor:
+            cols: list = [None] * heads
+            for a, hs in groups.items():
+                arr = getattr(parts[a], field)
+                for j, h in enumerate(hs):
+                    cols[h] = arr[:, j]
+            return torch.stack(cols, dim=1)
+
+        m_c, m_s = sel("m_c"), sel("m_s")
+        return SymbolSet(s_c=pack_bits(m_c),
+                         s_s=pack_bits(m_s.reshape(*m_s.shape[:-2], -1)),
+                         m_c=m_c, m_s=m_s, q_scores=sel("q_scores"),
+                         kv_scores=sel("kv_scores"))
+
+
 _REGISTRY: dict[str, Callable[[], SparsityStrategy]] = {}
 
 # Registered in the reference, not ported yet (ROADMAP A.4).
-_NOT_PORTED = ("cache-all", "skip-only", "sliding-window", "multi-granularity",
-               "step-phased", "hunyuan-1.5x")
+_NOT_PORTED = ("cache-all", "step-phased")
 
 
 def register_strategy(name: str, factory: Callable[[], SparsityStrategy]) -> None:
@@ -122,3 +247,11 @@ def get_strategy(spec: Union[str, SparsityStrategy]) -> SparsityStrategy:
 
 
 register_strategy("flashomni", FlashOmniStrategy)
+register_strategy("skip-only", SkipOnlyStrategy)
+register_strategy("sliding-window", SlidingWindowStrategy)
+register_strategy("multi-granularity", MultiGranularityStrategy)
+# The paper's HunyuanVideo 1.5x table: skip-only boundary layers (0, 1);
+# interior layers run flashomni on 2 of 3 heads and a static band on the third.
+register_strategy("hunyuan-1.5x", lambda: MultiGranularityStrategy(
+    children=("flashomni", "skip-only", "sliding-window"),
+    head_assign=(0, 0, 2), layer_assign={0: 1, 1: 1}, name="hunyuan-1.5x"))

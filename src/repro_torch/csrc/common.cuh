@@ -1,6 +1,7 @@
 // Shared pieces of the FlashOmni Hopper kernels: element conversion, the
-// dtype codes of the C interface, and the register-blocked tile product that
-// the two sparse GEMMs (gemm_q.cu, gemm_o.cu) share.
+// dtype codes of the C interface, the tags of the instance dispatch, and the
+// register-blocked tile product that the sparse GEMMs (gemm_q.cu, gemm_o.cu)
+// share.
 //
 // Every kernel reads its operands as T (float or bf16), converts to float
 // on the way into shared memory and accumulates in float.
@@ -10,9 +11,16 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <type_traits>
+
 namespace fo {
 
 enum DType { kF32 = 0, kBF16 = 1 };
+
+// Type and value tags for the host-side dispatch over built instances: a
+// generic lambda receives them and names the kernel template instance.
+template <typename T> struct Tag { using type = T; };
+template <int V> using Int = std::integral_constant<int, V>;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

@@ -55,8 +55,15 @@ def pair_sparsity(states, ecfg: EngineConfig, n_tokens: int) -> float:
 def sample(params: dict, cfg: ArchConfig, ecfg: EngineConfig, *,
            text_emb: torch.Tensor, x0: torch.Tensor, patch_embed: torch.Tensor,
            scfg: SamplerConfig = SamplerConfig(),
-           trace: Optional[list] = None) -> torch.Tensor:
+           trace: Optional[list] = None, schedule=None,
+           layer_strategies: Optional[list] = None) -> torch.Tensor:
     """Run the sampling loop.  x0 (B, N_v, patch_dim) Gaussian noise.
+
+    The schedule is resolved once (:func:`repro_torch.core.engine.
+    resolve_schedule`): ``schedule`` (a preset name or a prebuilt
+    :class:`~repro_torch.core.schedule.SparsitySchedule`) wins over
+    ``layer_strategies`` (one strategy per layer), which wins over
+    ``ecfg.schedule`` / ``ecfg.strategy``.
 
     ``patch_embed`` (patch_dim, d_model) is the stub patchifier; the
     reference draws its default from a JAX key, so the port takes it as an
@@ -67,7 +74,8 @@ def sample(params: dict, cfg: ArchConfig, ecfg: EngineConfig, *,
     b, nv, _ = x0.shape
     n_tokens = nv + text_emb.shape[1]
     n_steps = scfg.num_steps
-    sched = resolve_schedule(ecfg, n_steps, cfg.n_layers)
+    sched = resolve_schedule(ecfg, n_steps, cfg.n_layers, schedule=schedule,
+                             layer_strategies=layer_strategies)
     states = dit.init_engine_states(cfg, ecfg, b, n_tokens, x0.device)
     dt = 1.0 / n_steps
     x = x0

@@ -2,15 +2,19 @@
 one wrapper per kernel with a launch counter, and their plain PyTorch
 versions (:mod:`repro_torch.kernels.ref`)."""
 
-from repro_torch.kernels.flashomni_attention import flashomni_attention_csr
-from repro_torch.kernels.gemm_o import gemm_o_sparse_kernel
+from repro_torch.kernels.flashomni_attention import (flashomni_attention_csr,
+                                                     flashomni_attention_csr_bucketed)
+from repro_torch.kernels.gemm_o import gemm_o_sparse_bucketed_kernel, gemm_o_sparse_kernel
 from repro_torch.kernels.gemm_q import gemm_q_sparse_kernel
 
 __all__ = ["gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel",
+           "flashomni_attention_csr_bucketed", "gemm_o_sparse_bucketed_kernel",
            "KERNELS", "reset_launches"]
 
-#: Every kernel wrapper of the port, in Dispatch order.
-KERNELS = (gemm_q_sparse_kernel, flashomni_attention_csr, gemm_o_sparse_kernel)
+#: Every kernel wrapper of the port: the uniform Dispatch path in order, then
+#: the bucketed attention and GEMM-O that replace B2 and B3 when kv_buckets > 1.
+KERNELS = (gemm_q_sparse_kernel, flashomni_attention_csr, gemm_o_sparse_kernel,
+           flashomni_attention_csr_bucketed, gemm_o_sparse_bucketed_kernel)
 
 
 def reset_launches() -> None:

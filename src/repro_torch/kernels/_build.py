@@ -12,6 +12,7 @@ back: without ``nvcc`` a CUDA call raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,8 +23,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.plan import bucket_row_offsets
+
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "load",
-           "check", "dtype_code", "stream_of", "raise_on_error"]
+           "check", "check_geometry", "row_offsets", "dtype_code", "stream_of",
+           "raise_on_error"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -39,6 +43,10 @@ _SIGNATURES = {
     "fo_csr_attention": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "fo_gemm_o": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "fo_csr_attention_bucketed": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "fo_gemm_o_bucketed": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _LIB = None
@@ -138,6 +146,20 @@ def check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype,
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_geometry(geometry, rows: int, slots: int) -> None:
+    """Raise unless a bucket geometry lays out ``rows`` rows over ``slots`` slots."""
+    if sum(r for r, _ in geometry) != rows or sum(r * w for r, w in geometry) != slots:
+        raise ValueError(f"bucket geometry {geometry} does not lay out {rows} rows "
+                         f"over {slots} slots")
+
+
+@functools.lru_cache(maxsize=16)
+def row_offsets(geometry, device: torch.device) -> torch.Tensor:
+    """(R,) int32 start of each layout row's list, on ``device``, built once
+    per geometry and device."""
+    return torch.from_numpy(bucket_row_offsets(geometry)).to(device)
 
 
 def stream_of(device: torch.device) -> int:

@@ -1,10 +1,14 @@
-"""FlashOmni CSR sparse attention (paper §3.4, Algorithm 1).
+"""FlashOmni CSR sparse attention (paper §3.4, Algorithm 1), uniform and
+occupancy-bucketed layouts.
 
-Port of ``repro.kernels.flashomni_attention.flashomni_attention_csr``.  The
-CUDA kernel is ``csrc/flashomni_attention.cu`` (its header says what bounds
-it on the H100 and how the design answers that); the plain version is
-:func:`repro_torch.kernels.ref.attention_csr_ref`.  A CPU tensor runs the
-plain version; a CUDA tensor launches the kernel or raises.
+Port of ``repro.kernels.flashomni_attention.flashomni_attention_csr`` and
+``flashomni_attention_csr_bucketed``.  The CUDA kernels are
+``csrc/flashomni_attention.cu`` and ``csrc/flashomni_attention_bucketed.cu``
+(their headers say what bounds them on the H100 and how the design answers
+that); the plain versions are
+:func:`repro_torch.kernels.ref.attention_csr_ref` and
+:func:`~repro_torch.kernels.ref.attention_csr_bucketed_ref`.  A CPU tensor
+runs the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -14,9 +18,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_csr_ref
+from repro_torch.kernels.ref import attention_csr_bucketed_ref, attention_csr_ref
 
-__all__ = ["flashomni_attention_csr"]
+__all__ = ["flashomni_attention_csr", "flashomni_attention_csr_bucketed"]
 
 
 def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,13 +47,7 @@ def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_kv = k.shape[1]
     n = o_reuse.shape[1]
     cq, ckv = kv_ids.shape[-2:]
-    if n_q % block_q or n % block_q or n_kv % block_kv:
-        raise ValueError(f"blocks ({block_q}, {block_kv}) must divide N_q {n_q}, "
-                         f"N {n} and N_kv {n_kv}")
-    if d not in (32, 64, 128) or block_q not in (16, 32, 64, 128) \
-            or block_kv not in (16, 32, 64, 128):
-        raise ValueError(f"unsupported head_dim {d} / blocks ({block_q}, {block_kv}); "
-                         "built: head_dim 32/64/128, blocks 16/32/64/128")
+    _check_sizes(n_q, n_kv, n, d, block_q, block_kv)
     dev, dt = q.device, q.dtype
     _build.check("q", q, dev, dt, (bh, n_q, d))
     _build.check("k", k, dev, dt, (bh, n_kv, d))
@@ -72,4 +70,67 @@ def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_sizes(n_q: int, n_kv: int, n: int, d: int, block_q: int, block_kv: int) -> None:
+    if n_q % block_q or n % block_q or n_kv % block_kv:
+        raise ValueError(f"blocks ({block_q}, {block_kv}) must divide N_q {n_q}, "
+                         f"N {n} and N_kv {n_kv}")
+    if d not in (32, 64, 128) or block_q not in (16, 32, 64, 128) \
+            or block_kv not in (16, 32, 64, 128):
+        raise ValueError(f"unsupported head_dim {d} / blocks ({block_q}, {block_kv}); "
+                         "built: head_dim 32/64/128, blocks 16/32/64/128")
+
+
+def flashomni_attention_csr_bucketed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     o_reuse: torch.Tensor, bkt_head: torch.Tensor,
+                                     bkt_q_ids: torch.Tensor, bkt_q_src: torch.Tensor,
+                                     bkt_kv_ids: torch.Tensor, bkt_kv_cnt: torch.Tensor,
+                                     geometry, *, heads: int, block_q: int, block_kv: int,
+                                     scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention over the occupancy-bucketed layout of a DispatchPlan.
+
+    q (B·H, N_q, d) — full layout, or compact with ``bkt_q_src`` holding
+    compact slots; k, v (B·H, N_kv, d); o_reuse (B·H, N, d); bkt_head,
+    bkt_q_ids (dead rows: N // block_q), bkt_q_src, bkt_kv_cnt (B, R) and
+    bkt_kv_ids (B, S) int32, laid out by ``geometry`` (``plan.
+    bucket_geometry``).  Dead layout rows are skipped and every row no live
+    layout row writes keeps ``o_reuse``, cloned once into the output.
+    ``flashomni_attention_csr_bucketed.launches`` counts the CUDA launches.
+    """
+    if q.device.type == "cpu":
+        return attention_csr_bucketed_ref(
+            q, k, v, o_reuse, bkt_head, bkt_q_ids, bkt_q_src, bkt_kv_ids, bkt_kv_cnt,
+            geometry, heads=heads, block_q=block_q, block_kv=block_kv, scale=scale)
+    lib = _build.load()
+    bh, n_q, d = q.shape
+    n_kv = k.shape[1]
+    n = o_reuse.shape[1]
+    b, r = bkt_head.shape
+    s = bkt_kv_ids.shape[-1]
+    _check_sizes(n_q, n_kv, n, d, block_q, block_kv)
+    if bh != b * heads:
+        raise ValueError(f"q has {bh} (batch, head) rows; the layout wants {b} x {heads}")
+    _build.check_geometry(geometry, r, s)
+    dev, dt = q.device, q.dtype
+    _build.check("q", q, dev, dt, (bh, n_q, d))
+    _build.check("k", k, dev, dt, (bh, n_kv, d))
+    _build.check("v", v, dev, dt, (bh, n_kv, d))
+    _build.check("o_reuse", o_reuse, dev, dt, (bh, n, d))
+    for name, t in (("bkt_head", bkt_head), ("bkt_q_ids", bkt_q_ids),
+                    ("bkt_q_src", bkt_q_src), ("bkt_kv_cnt", bkt_kv_cnt)):
+        _build.check(name, t, dev, torch.int32, (b, r))
+    _build.check("bkt_kv_ids", bkt_kv_ids, dev, torch.int32, (b, s))
+    scale = (d ** -0.5) if scale is None else scale
+    out = o_reuse.clone()
+    rc = lib.fo_csr_attention_bucketed(
+        _build.dtype_code(dt), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        bkt_head.data_ptr(), bkt_q_ids.data_ptr(), bkt_q_src.data_ptr(),
+        bkt_kv_ids.data_ptr(), bkt_kv_cnt.data_ptr(),
+        _build.row_offsets(geometry, dev).data_ptr(), b, heads, r, s, n_q, n_kv, n, d,
+        block_q, block_kv, float(scale), _build.stream_of(dev))
+    _build.raise_on_error(lib, rc, "flashomni_attention_csr_bucketed")
+    flashomni_attention_csr_bucketed.launches += 1
+    return out
+
+
 flashomni_attention_csr.launches = 0
+flashomni_attention_csr_bucketed.launches = 0

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the three Dispatch kernels.
+"""Plain PyTorch versions of the five Dispatch kernels.
 
 Same semantics as ``repro.kernels.ref`` (gemm_q_ref, attention_ref,
 gemm_o_ref), written in the index-list signatures the CUDA kernels take, so
 each kernel wrapper can run its plain version on CPU tensors and
 ``chip_smoke.py`` can hold each kernel against it on the card.  No tiling:
-gathers, dense products in float32 and masks.
+gathers, dense products in float32 and masks.  The two bucketed versions
+put the bucketed layout back into the uniform one and call the uniform
+version, so on the same plan they give its result bit for bit.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["gemm_q_ref", "attention_csr_ref", "gemm_o_ref"]
+from repro_torch.core.plan import bucket_row_offsets, bucket_row_widths
+
+__all__ = ["gemm_q_ref", "attention_csr_ref", "gemm_o_ref",
+           "attention_csr_bucketed_ref", "gemm_o_bucketed_ref"]
 
 _NEG_INF = -1e30
 
@@ -118,3 +123,58 @@ def gemm_o_ref(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     new = bias[b_idx[:, None], rows].to(torch.float32) + part[b_idx, c_idx]
     out[b_idx[:, None], rows] = new.to(out.dtype)
     return out
+
+
+def _row_lists(ids: torch.Tensor, geometry) -> torch.Tensor:
+    """Flat bucketed lists (B, S) -> (B, R, widest) per layout row; the tail
+    past a row's own width repeats its last slot (never read past the count)."""
+    off = torch.from_numpy(bucket_row_offsets(geometry)).to(ids.device).long()
+    width = torch.from_numpy(bucket_row_widths(geometry)).to(ids.device).long()
+    j = torch.arange(geometry[0][1], device=ids.device)
+    return ids[:, off[:, None] + torch.minimum(j, width[:, None] - 1)]
+
+
+def attention_csr_bucketed_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               o_reuse: torch.Tensor, bkt_head: torch.Tensor,
+                               bkt_q_ids: torch.Tensor, bkt_q_src: torch.Tensor,
+                               bkt_kv_ids: torch.Tensor, bkt_kv_cnt: torch.Tensor,
+                               geometry, *, heads: int, block_q: int, block_kv: int,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """CSR attention over the bucketed layout (B4's semantics).
+
+    q (B·H, N_q, d), k/v (B·H, N_kv, d), o_reuse (B·H, N, d); bkt_head,
+    bkt_q_ids (dead rows: N // block_q), bkt_q_src, bkt_kv_cnt (B, R);
+    bkt_kv_ids (B, S) laid out by ``geometry``.  Layout row r of batch b
+    attends ``q[b·H + bkt_head[b,r]]`` at block ``bkt_q_src[b,r]`` to its
+    ``bkt_kv_cnt`` listed KV blocks and writes block ``bkt_q_ids[b,r]``;
+    every other row keeps ``o_reuse``."""
+    b = bkt_head.shape[0]
+    r = bkt_head.shape[-1]
+    t_q = o_reuse.shape[1] // block_q
+    # Uniform slot order: per (b, h), live rows by ascending q block, then
+    # the dead rows (each head owns exactly R / H layout rows).
+    bh = torch.arange(b, device=k.device)[:, None] * heads + bkt_head.long()
+    order = torch.argsort((bh * (t_q + 1) + bkt_q_ids.long()).reshape(-1),
+                          stable=True).reshape(b * heads, r // heads)
+    take = lambda a: a.reshape(b * r, *a.shape[2:])[order]
+    return attention_csr_ref(
+        q, k, v, o_reuse, take(bkt_q_ids), take(bkt_q_src),
+        take(bkt_q_ids < t_q).sum(dim=-1), take(_row_lists(bkt_kv_ids, geometry)),
+        take(bkt_kv_cnt), block_q=block_q, block_kv=block_kv, scale=scale)
+
+
+def gemm_o_bucketed_ref(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                        gmo_rows: torch.Tensor, gmo_src: torch.Tensor,
+                        gmo_head_ids: torch.Tensor, gmo_head_cnt: torch.Tensor,
+                        geometry, *, block: int) -> torch.Tensor:
+    """GEMM-O over the bucketed row layout (B5's semantics).
+
+    gmo_rows (dead slots: N // block), gmo_src, gmo_head_cnt (B, Cr);
+    gmo_head_ids (B, S_o) laid out by ``geometry``.  A live slot reads and
+    writes row block ``gmo_src == gmo_rows``; slots with no head never store."""
+    order = torch.argsort(gmo_rows.long(), dim=-1, stable=True)   # dead slots last
+    take = lambda a: torch.gather(a, 1, order)
+    heads = _row_lists(gmo_head_ids, geometry)
+    heads = torch.gather(heads, 1, order[..., None].expand_as(heads))
+    return gemm_o_ref(o_heads, w, bias, take(gmo_src), heads, take(gmo_head_cnt),
+                      block=block)

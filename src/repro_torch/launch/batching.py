@@ -26,13 +26,18 @@ class Request:
     """One text-to-vision serving request.
 
     ``x0`` (B, N_v, patch_dim) Gaussian latents; ``text_emb`` (B, N_t,
-    d_model); ``arrival`` is seconds since the serving clock's start.
+    d_model); ``schedule`` / ``layer_strategies`` feed
+    :func:`repro_torch.core.engine.resolve_schedule` against the server's
+    shared ``EngineConfig`` (``None``: the config's own mapping);
+    ``arrival`` is seconds since the serving clock's start.
     """
 
     rid: Any
     x0: torch.Tensor
     text_emb: torch.Tensor
     num_steps: int
+    schedule: Any = None
+    layer_strategies: Any = None
     arrival: float = 0.0
 
 
@@ -58,7 +63,8 @@ def run_sequential(params: dict, cfg: ArchConfig, ecfg: EngineConfig, requests, 
         out = sample(params, cfg, ecfg, text_emb=req.text_emb, x0=req.x0,
                      patch_embed=patch_embed,
                      scfg=SamplerConfig(num_steps=req.num_steps, dtype=scfg_dtype),
-                     trace=trace)
+                     trace=trace, schedule=req.schedule,
+                     layer_strategies=req.layer_strategies)
         _sync(out.device)
         finish = time.perf_counter() - t0
         results[req.rid] = {"out": out, "trace": trace, "finish": finish,

@@ -7,6 +7,8 @@ Weights, latents, text embeddings and the stub patchifier are random, drawn
 from ``torch.Generator``s seeded from ``seed``.
 
     python -m repro_torch.launch.serve --arch flux-mmdit --full --steps 8
+    python -m repro_torch.launch.serve --full --strategy sliding-window --kv-buckets 0
+    python -m repro_torch.launch.serve --schedule hunyuan-1.5x --kv-buckets 3
 """
 
 from __future__ import annotations
@@ -19,17 +21,21 @@ import torch
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.masks import MaskConfig
+from repro_torch.core.schedule import available_schedules
+from repro_torch.core.strategy import available_strategies
 from repro_torch.launch.batching import Request, run_sequential
 from repro_torch.models import dit
 
 __all__ = ["serve_diffusion", "serving_engine_config", "resolve_device"]
 
 
-def serving_engine_config() -> EngineConfig:
-    """The serving engine config of the reference launcher (serve.py:76-78)."""
+def serving_engine_config(strategy: str = "flashomni", kv_buckets: int = 1) -> EngineConfig:
+    """The serving engine config of the reference launcher (serve.py:76-78);
+    ``kv_buckets`` 0 (auto), 2 or 3 selects the bucketed Dispatch layout."""
     return EngineConfig(mask=MaskConfig(
         tau_q=0.5, tau_kv=0.15, interval=4, order=1, degrade=0.3,
-        block_q=16, block_kv=16, pool=32, warmup_steps=2))
+        block_q=16, block_kv=16, pool=32, warmup_steps=2),
+        strategy=strategy, kv_buckets=kv_buckets)
 
 
 def resolve_device(device) -> torch.device:
@@ -43,10 +49,15 @@ def resolve_device(device) -> torch.device:
 
 def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
                     batch: int = 2, n_vision: int = 96, num_steps: int = 12,
-                    serving: str = "sequential", mesh: tuple = (1, 1), seed: int = 0,
-                    device="cuda", verbose: bool = True) -> dict:
-    """Queue-driven diffusion serving.  Returns the per-request result dict
-    of :func:`repro_torch.launch.batching.run_sequential`."""
+                    strategy: str = "flashomni", schedule: str = None,
+                    kv_buckets: int = 1, serving: str = "sequential",
+                    mesh: tuple = (1, 1), seed: int = 0, device="cuda",
+                    verbose: bool = True) -> dict:
+    """Queue-driven diffusion serving.  ``schedule`` names a SparsitySchedule
+    preset (e.g. ``hunyuan-1.5x``) that overrides the per-step mapping of
+    ``strategy``; ``kv_buckets`` picks the Dispatch layout (see
+    :func:`serving_engine_config`).  Returns the per-request result dict of
+    :func:`repro_torch.launch.batching.run_sequential`."""
     if serving != "sequential":
         raise NotImplementedError(f"serving mode {serving!r} is not ported yet; "
                                   "the port serves 'sequential'")
@@ -55,7 +66,7 @@ def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
                                   "one device")
     device = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
-    ecfg = serving_engine_config()
+    ecfg = serving_engine_config(strategy, kv_buckets)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = dit.init_params(cfg, gen, device)
@@ -67,7 +78,8 @@ def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
         x0 = torch.randn((batch, n_vision, cfg.patch_dim), generator=gen, device=device)
         text = torch.randn((batch, cfg.n_text_tokens, cfg.d_model), generator=gen,
                            device=device)
-        requests.append(Request(rid=req, x0=x0, text_emb=text, num_steps=num_steps))
+        requests.append(Request(rid=req, x0=x0, text_emb=text, num_steps=num_steps,
+                                schedule=schedule))
 
     t0 = time.perf_counter()
     results = run_sequential(params, cfg, ecfg, requests, patch_embed=patch_embed)
@@ -77,7 +89,7 @@ def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
             r = results[req.rid]
             dens = [s["density"] for s in r["trace"] if s["kind"] == "dispatch"]
             dtxt = f"mean dispatch density {sum(dens) / len(dens):.3f}  " if dens else ""
-            print(f"[serve] req {req.rid} ({serving}): {req.num_steps} "
+            print(f"[serve] req {req.rid} ({schedule or strategy}, {serving}): {req.num_steps} "
                   f"steps, latency {r['latency']:.2f}s  {dtxt}out "
                   f"{tuple(r['out'].shape)} finite={bool(torch.isfinite(r['out']).all())}")
         print(f"[serve] {serving}: {len(requests)} requests in {wall:.2f}s on {device}")
@@ -93,12 +105,21 @@ def main():
     ap.add_argument("--n-vision", type=int, default=None,
                     help="vision tokens (default: 96 smoke, 4096 full)")
     ap.add_argument("--steps", type=int, default=12)
+    ap.add_argument("--strategy", default="flashomni", choices=available_strategies(),
+                    help="sparse-symbol producer")
+    ap.add_argument("--schedule", default=None, choices=available_schedules(),
+                    help="named SparsitySchedule preset (overrides the --strategy "
+                         "per-step mapping)")
+    ap.add_argument("--kv-buckets", type=int, default=1, choices=(0, 1, 2, 3),
+                    help="Dispatch layout: 1 uniform, 2 or 3 occupancy buckets, "
+                         "0 the calibrated choice for --strategy")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     n_vision = args.n_vision or (4096 if args.full else 96)
     serve_diffusion(args.arch, smoke=not args.full, num_requests=args.requests,
                     batch=args.batch, n_vision=n_vision, num_steps=args.steps,
-                    device=args.device)
+                    strategy=args.strategy, schedule=args.schedule,
+                    kv_buckets=args.kv_buckets, device=args.device)
 
 
 if __name__ == "__main__":

@@ -8,15 +8,21 @@ device; on a machine with an H100 and nvcc run
 The sweep covers every built size: head_dim 32/64/128 and block sizes
 16/32/64/128, in float32 (rtol = atol = 1e-4, the sum order differs from the
 plain version's) and bfloat16 (2e-2), on random CSR lists with padded
-slots, an all-cached (b, h) and empty KV rows.
+slots, an all-cached (b, h) and empty KV rows.  The bucketed kernels (B4,
+B5) run on bucketed plans whose buckets clamp, against their plain versions
+and ``torch.equal`` to the uniform kernels fed the same clamped counts.
 """
 
 import pytest
 import torch
 
 from repro_torch import kernels as TK
+from repro_torch.core.engine import EngineConfig
+from repro_torch.core.masks import MaskConfig
+from repro_torch.core.plan import bucket_geometry, build_dispatch_plan
 from repro_torch.core.symbols import active_indices
-from repro_torch.kernels.ref import attention_csr_ref, gemm_o_ref, gemm_q_ref
+from repro_torch.kernels.ref import (attention_csr_bucketed_ref, attention_csr_ref,
+                                     gemm_o_bucketed_ref, gemm_o_ref, gemm_q_ref)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -97,6 +103,65 @@ def test_gemm_o_kernel_matches_plain(dev, dtype, bm):
     args = [a.to(dev) for a in (o, w, bias, row_ids, head_ids, head_cnt)]
     got = TK.gemm_o_sparse_kernel(*args, block_rows=bm)
     _close(got, gemm_o_ref(*args, block=bm), dtype)
+
+
+def _bucketed_plan(seed, b, h, n, bq, bkv, pool, kv_buckets):
+    """A bucketed plan with head skew (a diagonal head among near-full ones),
+    an all-cached (b, h) and clamping buckets, ids widened to int32."""
+    cfg = EngineConfig(mask=MaskConfig(block_q=bq, block_kv=bkv, pool=pool),
+                       cap_q_frac=1.0, cap_kv_frac=1.0, kv_buckets=kv_buckets)
+    g = _gen(seed)
+    t = n // pool
+    m_c = torch.rand((b, h, t), generator=g) < 0.7
+    m_c[:, 0] = True
+    m_c[-1, -1] = False
+    m_s = torch.rand((b, h, t, t), generator=g) < 0.9
+    m_s[:, 1] = torch.eye(t, dtype=torch.bool)
+    return cfg.caps(n), build_dispatch_plan(m_c, m_s, cfg, n).widen()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("bq,bkv,kb", [(16, 16, 2), (16, 16, 3), (32, 64, 3), (64, 32, 2),
+                                       (128, 128, 2)])
+def test_attention_bucketed_kernel_matches_plain_and_uniform(dev, dtype, d, bq, bkv, kb):
+    b, h, n = 2, 4, 1024
+    spec, plan = _bucketed_plan(d + bq + kb, b, h, n, bq, bkv, max(bq, bkv), kb)
+    geo = bucket_geometry(spec.cap_q, spec.cap_kv, h, kb)
+    g = _gen(d * 7 + bq)
+    q, k, v, o = (torch.randn((b * h, n, d), generator=g).to(dtype).to(dev) for _ in range(4))
+    bkt = [t.to(dev) for t in (plan.bkt_head, plan.bkt_q_ids, plan.bkt_q_src,
+                               plan.bkt_kv_ids, plan.bkt_kv_cnt)]
+    kw = dict(heads=h, block_q=bq, block_kv=bkv)
+    launches = TK.flashomni_attention_csr_bucketed.launches
+    got = TK.flashomni_attention_csr_bucketed(q, k, v, o, *bkt, geo, **kw)
+    assert TK.flashomni_attention_csr_bucketed.launches == launches + 1
+    _close(got, attention_csr_bucketed_ref(q, k, v, o, *bkt, geo, **kw), dtype)
+    flat = lambda a: a.reshape(b * h, *a.shape[2:]).contiguous().to(dev)
+    uni = TK.flashomni_attention_csr(q, k, v, o, flat(plan.q_ids), flat(plan.q_ids),
+                                     flat(plan.q_cnt), flat(plan.kv_row_ids),
+                                     flat(plan.kv_row_cnt), block_q=bq, block_kv=bkv)
+    assert torch.equal(got, uni)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm,kb", [(16, 2), (32, 3), (64, 2), (128, 3)])
+def test_gemm_o_bucketed_kernel_matches_plain_and_uniform(dev, dtype, bm, kb):
+    b, h, n, dh, f = 2, 6, 2048, 64, 200
+    _, plan = _bucketed_plan(300 + bm, b, h, n, bm, bm, bm, kb)
+    cr = plan.row_ids.shape[-1]
+    geo = bucket_geometry(cr, h, 1, kb)
+    g = _gen(bm + kb)
+    o = torch.randn((b, h, n, dh), generator=g).to(dtype).to(dev)
+    w = (torch.randn((h, dh, f), generator=g) * (h * dh) ** -0.5).to(dtype).to(dev)
+    bias = torch.randn((b, n, f), generator=g).to(dtype).to(dev)
+    gmo = [t.to(dev) for t in (plan.gmo_rows, plan.gmo_src, plan.gmo_head_ids,
+                               plan.gmo_head_cnt)]
+    got = TK.gemm_o_sparse_bucketed_kernel(o, w, bias, *gmo, geo, block_rows=bm)
+    _close(got, gemm_o_bucketed_ref(o, w, bias, *gmo, geo, block=bm), dtype)
+    uni = TK.gemm_o_sparse_kernel(o, w, bias, plan.row_ids.to(dev), plan.head_ids.to(dev),
+                                  plan.head_cnt.to(dev), block_rows=bm)
+    assert torch.equal(got, uni)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

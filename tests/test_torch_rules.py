@@ -84,7 +84,17 @@ def test_kernel_route_without_nvcc_raises(monkeypatch, tmp_path):
         lambda: TK.gemm_o_sparse_kernel(meta(2, 2, 64, 32), meta(2, 32, 32), meta(2, 64, 32),
                                         meta(2, 2, dtype=i32), meta(2, 2, 2, dtype=i32),
                                         meta(2, 2, dtype=i32), block_rows=32),
+        lambda: TK.flashomni_attention_csr_bucketed(
+            meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32),
+            meta(2, 8, dtype=i32), meta(2, 8, dtype=i32), meta(2, 8, dtype=i32),
+            meta(2, 24, dtype=i32), meta(2, 8, dtype=i32), ((2, 4), (6, 2)),
+            heads=2, block_q=16, block_kv=16),
+        lambda: TK.gemm_o_sparse_bucketed_kernel(
+            meta(2, 2, 64, 32), meta(2, 32, 32), meta(2, 64, 32), meta(2, 2, dtype=i32),
+            meta(2, 2, dtype=i32), meta(2, 3, dtype=i32), meta(2, 2, dtype=i32),
+            ((1, 2), (1, 1)), block_rows=32),
     ]
+    assert len(calls) == len(TK.KERNELS)
     before = [fn.launches for fn in TK.KERNELS]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
