@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Two serving paths run, each with the launch counts set to 0 just before it
-and read just after: P1 (``flashomni``, uniform layout: GEMM-Q, CSR
-attention, GEMM-O) and P2 (``sliding-window`` with ``kv_buckets=0``, which
-resolves to 2 buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O).
+Three paths run, each with the launch counts set to 0 just before it and
+read just after: P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
+GEMM-O), P2 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2
+buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O) and ``ops`` (the
+unified kernel entry on one full-width layer: the symbols attention and the
+Taylor reuse, beside the other five).
 
 Phases (each prints one JSON line; any failure exits non-zero without the
 final line):
@@ -19,15 +21,20 @@ final line):
                 against the plain PyTorch version on the card, kernel /
                 plain / library times (CUDA events) and the least time the
                 card could take for the same work.  GEMM-Q, CSR attention
-                and GEMM-O run on a ``flashomni`` plan; the bucketed
-                attention and GEMM-O on a ``sliding-window`` plan at 2
-                buckets and a ``hunyuan-1.5x`` interior plan at 3, each also
-                held ``torch.equal`` to the uniform kernel fed the same
-                plan's clamped counts;
+                and GEMM-O run on a ``flashomni`` plan, and the symbols
+                attention on the same symbols (also held ``torch.equal`` to
+                the CSR kernel on the lists of the same masks), the Taylor
+                reuse on its cached blocks; the bucketed attention and
+                GEMM-O on a ``sliding-window`` plan at 2 buckets and a
+                ``hunyuan-1.5x`` interior plan at 3, each also held
+                ``torch.equal`` to the uniform kernel fed the same plan's
+                clamped counts;
   3. small    — samplers at smoke size on the card (kernels) against the
                 same runs on the CPU (plain versions): P1; the hunyuan-1.5x
-                schedule at 3 buckets on a 4-head smoke variant; and
+                schedule at 3 buckets on a 4-head smoke variant;
                 sliding-window at ``kv_buckets=0`` with 480 vision tokens;
+                ``cache-all``; the ``step-ramp`` schedule; and
+                ``step-phased`` with a fractional boundary;
   4. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
                 request of 8 steps (steps 3, 4, 5 and 7 are Dispatch
                 steps): finite outputs, and GEMM-Q, CSR attention and GEMM-O
@@ -37,7 +44,14 @@ final line):
                 uniform attention and GEMM-O never; latency, density, peak
                 memory, and the share of live KV blocks and live (row, head)
                 pairs the buckets dropped at one interior layer's last plan;
-  6. profile  — device time by kernel group within one Update and one
+  6. ops      — ``python -m repro_torch.quickstart --full`` on the card: one
+                Update and one Dispatch of a flux-mmdit-width attention
+                layer, then every ``repro_torch.kernels.ops`` entry on the
+                layer's own symbols (symbols attention bit-equal to CSR, both
+                against the mask oracle, 2-bucket attention against its plain
+                version, Taylor reuse against the layer's forecast); the
+                symbols attention and the Taylor reuse must launch;
+  7. profile  — device time by kernel group within one Update and one
                 Dispatch step of P1 and of P2 at full width
                 (torch.profiler), and the device's idle share.
 
@@ -63,6 +77,7 @@ DEVICE, NV, PATCH_DIM = "cuda", 4096, 64       # the served latents: (2, NV, PAT
 P1_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel")
 P2_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr_bucketed",
               "gemm_o_sparse_bucketed_kernel")
+OPS_KERNELS = ("flashomni_attention_symbols", "taylor_reuse_kernel")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}       # rtol = atol per dtype
 HBM_BYTES_S = 3.35e12
 # Peak FLOP/s by card (NVIDIA data sheets, dense): f32 on the CUDA cores,
@@ -84,6 +99,20 @@ SOURCES = {
                                          "src/repro/kernels/flashomni_attention.py:240"),
     "gemm_o_sparse_bucketed_kernel": ("src/repro_torch/csrc/gemm_o.cu",
                                       "src/repro/kernels/gemm_o.py:178"),
+    "flashomni_attention_symbols": ("src/repro_torch/csrc/flashomni_attention_symbols.cu",
+                                    "src/repro/kernels/flashomni_attention.py:399"),
+    "taylor_reuse_kernel": ("src/repro_torch/csrc/taylor_reuse.cu",
+                            "src/repro/kernels/taylor_reuse.py:33"),
+}
+# The one PyTorch call each kernel is timed against (library_ms).
+LIBRARY = {
+    "gemm_q_sparse_kernel": "row gather + torch.matmul",
+    "flashomni_attention_csr": "scaled_dot_product_attention, plan token mask",
+    "gemm_o_sparse_kernel": "masked torch.einsum + bias",
+    "flashomni_attention_csr_bucketed": "scaled_dot_product_attention, plan token mask",
+    "gemm_o_sparse_bucketed_kernel": "masked torch.einsum + bias",
+    "flashomni_attention_symbols": "scaled_dot_product_attention, symbols token mask",
+    "taylor_reuse_kernel": "torch.tensordot + torch.where (two calls)",
 }
 
 
@@ -130,8 +159,9 @@ def phase_build():
 
 
 def serving_plan(dev, b, h, n, dh, n_text, strategy=None, kv_buckets=1):
-    """The port's DispatchPlan (ids widened) for a seeded Q/K (B, H, N, dh)
-    under ``strategy`` (default: flashomni) at ``kv_buckets``."""
+    """``(ecfg, symbols, plan)``: the SymbolSet and the port's DispatchPlan
+    (ids widened) for a seeded Q/K (B, H, N, dh) under ``strategy``
+    (default: flashomni) at ``kv_buckets``."""
     import torch
     from repro_torch.core.plan import build_dispatch_plan
     from repro_torch.core.strategy import FlashOmniStrategy, StrategyContext
@@ -144,7 +174,8 @@ def serving_plan(dev, b, h, n, dh, n_text, strategy=None, kv_buckets=1):
     syms = (strategy or FlashOmniStrategy()).emit(
         q, k, StrategyContext(cfg=ecfg, n_text=n_text, n_tokens=n))
     row_score = torch.where(syms.m_c, syms.q_scores, 0.0).sum(dim=-2)
-    return ecfg, build_dispatch_plan(syms.m_c, syms.m_s, ecfg, n, row_score=row_score).widen()
+    return ecfg, syms, build_dispatch_plan(syms.m_c, syms.m_s, ecfg, n,
+                                           row_score=row_score).widen()
 
 
 def check_close(name, dtype_name, got, want) -> float:
@@ -208,9 +239,9 @@ def plan_work(plan, ecfg, b, h, n):
 
 
 def measure(name, dn, kern, plain, library, flops, nbytes, peaks, twin=None) -> dict:
-    """Kernel vs plain version (and, for a bucketed kernel, ``torch.equal`` to
-    its uniform twin on the same plan, and the twin's time), then kernel /
-    plain / library times."""
+    """Kernel vs plain version (and, for a bucketed or the symbols kernel,
+    ``torch.equal`` to its uniform CSR twin on the same lists, and the twin's
+    time), then kernel / plain / library times."""
     import torch
     got = kern()
     want = plain()
@@ -221,7 +252,7 @@ def measure(name, dn, kern, plain, library, flops, nbytes, peaks, twin=None) -> 
         row["equal_to_uniform"] = bool(torch.equal(got, twin()))
         if not row["equal_to_uniform"]:
             raise AssertionError(f"{name} [{dn}] differs from the uniform kernel on the "
-                                 "same clamped plan")
+                                 "same lists")
     del got, want
     t_op, t_mem = flops / peaks[dn] * 1e3, nbytes / peaks["hbm"] * 1e3
     if twin is not None:        # the uniform kernel's time on the same plan
@@ -263,7 +294,7 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
               3, P2_KERNELS[1:])]
     rows, results, plans = {}, [], []
     for label, strategy, kb, names in cases:
-        ecfg, plan = serving_plan(dev, b, h, n, dh, n_text, strategy, kb)
+        ecfg, syms, plan = serving_plan(dev, b, h, n, dh, n_text, strategy, kb)
         m = ecfg.mask
         pool, bq, bkv = m.pool, m.block_q, m.block_kv
         spec = ecfg.caps(n)
@@ -345,19 +376,78 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
                         lambda: ref.gemm_o_bucketed_ref(o, wo, bias, *gmo, geo_o, block=pool),
                         einsum, go_flops, go_bytes, uni_gemm_o),
                 }
+            if kb == 1:
+                calls.update(ops_calls(syms, ecfg, dt, e, b, h, n, dh, rnd, k32, v32, ore32))
             for name, (kern, plain, library, flops, nbytes, twin) in calls.items():
                 row = {"plan": label, **measure(name, dn, kern, plain, library, flops,
                                                 nbytes, peaks, twin)}
                 results.append(row)
                 if dt == torch.float32 and name not in rows:    # the serving dtype
                     rows[name] = row
-        del w, qc32
+        del w, qc32, syms
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "shapes": {"B": b, "N": n, "heads": h, "head_dim": dh,
                                          "d_model": d, "block_q": 16, "block_kv": 16,
                                          "pool": 32},
           "plans": plans, "results": results})
     return rows
+
+
+def ops_calls(syms, ecfg, dt, e, b, h, n, dh, rnd, k32, v32, ore32) -> dict:
+    """The symbols attention on the flashomni symbols' post-clamp masks (its
+    twin: the CSR kernel on the CSR lists of the same masks, q in full
+    layout) and the Taylor reuse of a (2, B·H, N, dh) stack over the blocks
+    those masks cache, as ``measure`` rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as TK
+    from repro_torch.core.symbols import active_indices, pack_bits
+    from repro_torch.core.taylorseer import reuse_coefficients
+    from repro_torch.kernels import ref
+    m = ecfg.mask
+    bq, bkv, bh = m.block_q, m.block_kv, b * h
+    t_q, t_kv = n // bq, n // bkv
+    fq, fkv = m.pool // bq, m.pool // bkv
+    m_c = torch.repeat_interleave(syms.m_c, fq, dim=-1)[..., :t_q].reshape(bh, t_q)
+    m_s = torch.repeat_interleave(torch.repeat_interleave(syms.m_s, fq, dim=-2), fkv,
+                                  dim=-1)[..., :t_q, :t_kv].reshape(bh, t_q, t_kv)
+    s_c, s_s = pack_bits(m_c), pack_bits(m_s.reshape(bh, -1))
+    q_ids, q_cnt, kv_ids, kv_cnt, _ = ref.csr_layout(m_c, m_s)
+    qf, kk, vv, ore = rnd(bh, n, dh).to(dt), k32.to(dt), v32.to(dt), ore32.to(dt)
+    pairs = m_s & m_c[..., None]
+    live_rows, live_pairs = int(m_c.sum()), int(pairs.sum())
+    kv_union = int(pairs.any(dim=1).sum())
+    # SDPA yardstick: the symbols' token mask; cached rows attend everywhere
+    # (dense work either way).
+    tok = torch.repeat_interleave(torch.repeat_interleave(m_s | ~m_c[..., None], bq, dim=1),
+                                  bkv, dim=2)[:, None]
+    kw = dict(block_q=bq, block_kv=bkv)
+    calls = {"flashomni_attention_symbols": (
+        lambda: TK.flashomni_attention_symbols(qf, kk, vv, ore, s_c, s_s, **kw),
+        lambda: ref.attention_symbols_ref(qf, kk, vv, ore, s_c, s_s, **kw),
+        lambda: F.scaled_dot_product_attention(qf[:, None], kk[:, None], vv[:, None],
+                                               attn_mask=tok),
+        4.0 * live_pairs * bq * bkv * dh,
+        e * (live_rows * bq * dh + 2 * kv_union * bkv * dh + (bh * t_q - live_rows) * bq * dh
+             + bh * n * dh) + s_c.numel() + s_s.numel(),
+        lambda: TK.flashomni_attention_csr(qf, kk, vv, ore, q_ids, q_ids, q_cnt, kv_ids,
+                                           kv_cnt, **kw))}
+    # Taylor reuse: a first-order stack, the coefficients of the first
+    # Dispatch step after an Update (interval 4), the blocks m_c caches.
+    derivs, base = rnd(2, bh, n, dh).to(dt), rnd(bh, n, dh).to(dt)
+    coef = reuse_coefficients(1, 1, 4).to(derivs.device)
+    ids, cnt = active_indices(~m_c, t_q)
+    cached = int(cnt.sum())
+    tok_c = torch.repeat_interleave(~m_c, bq, dim=-1)[..., None]
+    calls["taylor_reuse_kernel"] = (
+        lambda: TK.taylor_reuse_kernel(derivs, coef, base, ids, cnt, block=bq),
+        lambda: ref.taylor_reuse_blocks_ref(derivs, coef, base, ids, cnt, block=bq),
+        lambda: torch.where(tok_c, torch.tensordot(coef.to(dt), derivs, dims=1), base),
+        2.0 * 2 * cached * bq * dh,
+        e * (2 * cached * bq * dh + (bh * n * dh - cached * bq * dh) + bh * n * dh)
+        + 4 * (cached + bh + 2),
+        None)
+    return calls
 
 
 def run_small(label, cfg, ecfg, nv, schedule=None, expect=()):
@@ -403,9 +493,12 @@ def run_small(label, cfg, ecfg, nv, schedule=None, expect=()):
 def phase_small():
     """Smoke-size samplers: kernels on the card vs plain versions on the CPU."""
     from repro_torch.configs.registry import get_smoke
+    from repro_torch.core.strategy import StepPhasedStrategy
     from repro_torch.launch.serve import serving_engine_config
     cfg = get_smoke("flux-mmdit")
     cfg4 = dataclasses.replace(cfg, n_heads=4, n_kv_heads=4)
+    # Steps 0-1 emit flashomni, steps 2+ cache-all: round(0.3 * 8) = 2.
+    phased = StepPhasedStrategy(phases=("flashomni", "cache-all"), boundaries=(0.3,))
     runs = [
         run_small("P1 flashomni", cfg, serving_engine_config(), 96, expect=P1_KERNELS),
         run_small("P2' hunyuan-1.5x schedule, 4 heads", cfg4,
@@ -414,6 +507,13 @@ def phase_small():
         run_small("sliding-window, auto buckets", cfg,
                   serving_engine_config("sliding-window", kv_buckets=0), 480,
                   expect=P2_KERNELS),
+        run_small("cache-all", cfg, serving_engine_config("cache-all"), 96,
+                  expect=P1_KERNELS),
+        run_small("step-ramp schedule", cfg, serving_engine_config(), 96,
+                  schedule="step-ramp", expect=P1_KERNELS),
+        run_small("step-phased flashomni -> cache-all at 0.3", cfg,
+                  dataclasses.replace(serving_engine_config(), strategy=phased), 96,
+                  expect=P1_KERNELS),
     ]
     emit({"phase": "small", "runs": runs, "ok": True})
 
@@ -506,6 +606,29 @@ def phase_serve_bucketed() -> dict:
                     "live_row_heads": {"uniform": rh_u, "bucketed": rh_b,
                                        "dropped_share": 1 - rh_b / rh_u}}
     emit(res)
+    return launches
+
+
+def phase_ops() -> dict:
+    """The quickstart at full width on the card, launch counts set to 0 just
+    before and read just after; fails unless its checks pass and the
+    symbols attention and the Taylor reuse each launched."""
+    import torch
+    from repro_torch import quickstart
+    from repro_torch.kernels import KERNELS, reset_launches
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    report = quickstart.main(["--full", "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    res = {"phase": "ops", "command": "python -m repro_torch.quickstart --full",
+           "wall_s": wall, "layer": report["layer"], "checks": report["ops"],
+           "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(res)
+    missing = [name for name in OPS_KERNELS if launches[name] < 1]
+    if missing:
+        raise AssertionError(f"ops: {missing} never launched")
     return launches
 
 
@@ -602,21 +725,24 @@ def main() -> int:
         smi = phase_build()
         rows = phase_kernels(torch.cuda.get_device_name(0), **FULL)
         phase_small()
-        by_path = {"P1": phase_serve(), "P2": phase_serve_bucketed()}
+        by_path = {"P1": phase_serve(), "P2": phase_serve_bucketed(), "ops": phase_ops()}
         phase_profile()
     except Exception:                     # report the failing phase, then fail
         traceback.print_exc()
         return 1
     # A kernel's launches are those of the path it belongs to (GEMM-Q runs on
-    # both paths; its count is P1's, and both are listed).
+    # every path; its count is P1's, and all are listed).
+    path_of = lambda name: ("P1" if name in P1_KERNELS else
+                            "P2" if name in P2_KERNELS else "ops")
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
-        "replaces": SOURCES[name][1],
-        "launches": by_path["P1" if name in P1_KERNELS else "P2"][name],
+        "replaces": SOURCES[name][1], "path": path_of(name),
+        "launches": by_path[path_of(name)][name],
         "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
-        "bound_by": rows[name]["bound_by"], "library_ms": rows[name]["library_ms"]}
+        "bound_by": rows[name]["bound_by"], "library_ms": rows[name]["library_ms"],
+        "library_call": LIBRARY[name]}
         for name in SOURCES]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

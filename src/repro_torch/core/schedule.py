@@ -9,9 +9,11 @@ layer's strategy up by id.
 A ``multi-granularity`` strategy with a ``layer_assign`` table expands into
 per-layer variants, deduplicated by head template, with the id table
 pointing each layer at its variant: the deployment table is the schedule.
-Named presets: ``hunyuan-1.5x`` (the paper's HunyuanVideo 1.5× table);
-``step-ramp`` is not ported yet.  The batched-serving lane tables
-(``stack_schedules`` and friends) are not ported either.
+Named presets, with the reference's one-line descriptions
+(:func:`schedule_summaries`): ``hunyuan-1.5x`` (the paper's HunyuanVideo
+1.5× table) and ``step-ramp`` (skip-only → flashomni → cache-all over the
+steps).  The batched-serving lane tables (``stack_schedules`` and friends)
+are not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.core.strategy import (MultiGranularityStrategy, SparsityStrateg
 
 __all__ = ["MODE_DENSE", "MODE_UPDATE", "MODE_DISPATCH", "MODE_NAMES",
            "SparsitySchedule", "strategy_table", "register_schedule",
-           "get_schedule", "available_schedules"]
+           "get_schedule", "available_schedules", "schedule_summaries"]
 
 MODE_DENSE, MODE_UPDATE, MODE_DISPATCH = 0, 1, 2
 MODE_NAMES = ("dense", "update", "dispatch")
@@ -155,18 +157,22 @@ class SparsitySchedule:
 ScheduleFactory = Callable[[Any, int, int], SparsitySchedule]
 
 _SCHEDULES: dict[str, ScheduleFactory] = {}
-
-# Registered in the reference, not ported yet (it needs ``cache-all``).
-_NOT_PORTED = ("step-ramp",)
+_SUMMARIES: dict[str, str] = {}
 
 
-def register_schedule(name: str, factory: ScheduleFactory) -> None:
+def register_schedule(name: str, factory: ScheduleFactory, summary: str = "") -> None:
     """Register ``factory(cfg, num_steps, n_layers) -> SparsitySchedule``."""
     _SCHEDULES[name] = factory
+    _SUMMARIES[name] = summary
 
 
 def available_schedules() -> tuple[str, ...]:
     return tuple(_SCHEDULES)
+
+
+def schedule_summaries() -> dict[str, str]:
+    """name -> one-line description (docs, ``--help``)."""
+    return dict(_SUMMARIES)
 
 
 def get_schedule(spec: Union[str, SparsitySchedule], cfg, num_steps: int,
@@ -177,8 +183,6 @@ def get_schedule(spec: Union[str, SparsitySchedule], cfg, num_steps: int,
             raise ValueError(f"schedule is ({spec.num_steps} steps, {spec.n_layers} "
                              f"layers); the run wants ({num_steps}, {n_layers})")
         return spec.validate()
-    if spec in _NOT_PORTED:
-        raise NotImplementedError(f"schedule {spec!r} is not ported yet")
     try:
         factory = _SCHEDULES[spec]
     except KeyError:
@@ -192,4 +196,21 @@ def _hunyuan_schedule(cfg, num_steps: int, n_layers: int) -> SparsitySchedule:
     return SparsitySchedule.from_table(cfg, num_steps, strategies, ids)
 
 
-register_schedule("hunyuan-1.5x", _hunyuan_schedule)
+def _step_ramp_schedule(cfg, num_steps: int, n_layers: int) -> SparsitySchedule:
+    names = ("skip-only", "flashomni", "cache-all")
+    phase = np.minimum((np.arange(num_steps) * len(names)) // max(num_steps, 1),
+                       len(names) - 1).astype(np.int32)
+    return SparsitySchedule(mode=_mode_array(cfg, num_steps),
+                            strategy_ids=np.broadcast_to(phase[:, None],
+                                                         (num_steps, n_layers)).copy(),
+                            strategies=tuple(get_strategy(n) for n in names))
+
+
+register_schedule(
+    "hunyuan-1.5x", _hunyuan_schedule,
+    "paper HunyuanVideo 1.5× deployment table expanded per layer "
+    "(skip-only boundaries, striped flashomni/sliding-window interior)")
+register_schedule(
+    "step-ramp", _step_ramp_schedule,
+    "denoising-phase ramp: skip-only -> flashomni -> cache-all over the "
+    "step axis (uniform across layers)")

@@ -3,16 +3,19 @@
 A strategy maps the Update-step Q/K plus a :class:`StrategyContext` to a
 :class:`SymbolSet`: packed ``s_c``/``s_s``, the post-clamp boolean masks and
 the ranking scores the static-capacity clamp used.  The registry keeps the
-reference's names.  Ported: ``flashomni`` (the paper's §3.3 rule),
-``skip-only``, ``sliding-window``, ``multi-granularity`` and its
-``hunyuan-1.5x`` preset; ``cache-all`` and ``step-phased`` raise when they
-are asked for.
+reference's names and one-line descriptions: ``flashomni`` (the paper's
+§3.3 rule), ``cache-all``, ``skip-only``, ``sliding-window``,
+``multi-granularity``, ``step-phased`` and the ``hunyuan-1.5x`` preset.
+The port's ``emit`` runs eagerly with host-side context values, so
+``step-phased`` picks its phase on the host where the reference switches on
+a traced step.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping, NamedTuple, Optional, Protocol, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import masks as masklib
@@ -26,10 +29,13 @@ __all__ = [
     "register_strategy",
     "get_strategy",
     "available_strategies",
+    "strategy_summaries",
     "FlashOmniStrategy",
+    "CacheAllStrategy",
     "SkipOnlyStrategy",
     "SlidingWindowStrategy",
     "MultiGranularityStrategy",
+    "StepPhasedStrategy",
 ]
 
 
@@ -100,6 +106,24 @@ class FlashOmniStrategy:
 def _full(q: torch.Tensor, t: int) -> torch.Tensor:
     """(B, H, T) all-True mask matching q's batch and head dims."""
     return torch.ones((q.shape[0], q.shape[1], t), dtype=torch.bool, device=q.device)
+
+
+class CacheAllStrategy:
+    """FORA / TaylorSeer family: cache and forecast EVERY vision block.
+
+    No block skipping; text rows stay live (Observation 1: text refreshes
+    every step).  The forecast order is the engine's ``MaskConfig.order``."""
+
+    name = "cache-all"
+
+    def emit(self, q, k, ctx: StrategyContext) -> SymbolSet:
+        m = ctx.cfg.mask
+        t = m.n_blocks(ctx.n_tokens)
+        n_t = -(-ctx.n_text // m.pool) if ctx.n_text else 0
+        m_c = _full(q, t) & (torch.arange(t, device=q.device) < n_t)
+        m_s = torch.ones((*m_c.shape, t), dtype=torch.bool, device=q.device)
+        return finalize_symbols(m_c, m_s, m_c.to(torch.float32),
+                                torch.ones(m_s.shape, device=q.device), ctx)
 
 
 class SkipOnlyStrategy:
@@ -218,27 +242,78 @@ class MultiGranularityStrategy:
                          kv_scores=sel("kv_scores"))
 
 
+class StepPhasedStrategy:
+    """Schedule-varying producer: re-classify at step boundaries (Sparse
+    VideoGen's per-step head re-classification, Sparse-vDiT's per-head
+    patterns over a step schedule).
+
+    ``phases`` are child strategies, one per phase; ``boundaries`` the
+    ascending phase-change steps, ``len(phases) - 1`` of them: ints are step
+    indices, floats fractions of ``ctx.num_steps``, resolved as the
+    reference does, by rounding the float32 product half to even (0.3·5 is
+    1.5000001 in f32 and rounds to 2; in f64 it would round to 1).  Without
+    a step (``ctx.step_idx is None``, a direct ``update_layer`` call) phase
+    0 emits."""
+
+    name = "step-phased"
+
+    def __init__(self, phases: Sequence[Union[str, SparsityStrategy]] = (
+                     "flashomni", "cache-all"),
+                 boundaries: Sequence[Union[int, float]] = (0.5,),
+                 name: Optional[str] = None):
+        self.phases = tuple(get_strategy(p) for p in phases)
+        self.boundaries = tuple(boundaries)
+        if len(self.phases) != len(self.boundaries) + 1:
+            raise ValueError(f"{len(self.phases)} phases need {len(self.phases) - 1} "
+                             f"boundaries, got {len(self.boundaries)}")
+        if name is not None:
+            self.name = name
+
+    def _boundary_steps(self, num_steps: Optional[int]) -> list[int]:
+        steps = []
+        for b in self.boundaries:
+            if isinstance(b, float):
+                if num_steps is None:
+                    raise ValueError(f"{self.name}: fractional boundary {b} needs "
+                                     "StrategyContext.num_steps (run under a "
+                                     "SparsitySchedule)")
+                b = np.round(np.float32(b) * np.float32(num_steps))
+            steps.append(int(b))
+        if steps != sorted(steps):
+            raise ValueError(f"{self.name}: boundaries must ascend: {steps}")
+        return steps
+
+    def emit(self, q, k, ctx: StrategyContext) -> SymbolSet:
+        if ctx.step_idx is None or len(self.phases) == 1:
+            return self.phases[0].emit(q, k, ctx)
+        phase = sum(int(ctx.step_idx) >= s for s in self._boundary_steps(ctx.num_steps))
+        return self.phases[phase].emit(q, k, ctx)
+
+
 _REGISTRY: dict[str, Callable[[], SparsityStrategy]] = {}
-
-# Registered in the reference, not ported yet (ROADMAP A.4).
-_NOT_PORTED = ("cache-all", "step-phased")
+_SUMMARIES: dict[str, str] = {}
 
 
-def register_strategy(name: str, factory: Callable[[], SparsityStrategy]) -> None:
+def register_strategy(name: str, factory: Callable[[], SparsityStrategy],
+                      summary: str = "") -> None:
     """Register a zero-arg factory under ``name`` (``EngineConfig.strategy``)."""
     _REGISTRY[name] = factory
+    _SUMMARIES[name] = summary
 
 
 def available_strategies() -> tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+def strategy_summaries() -> dict[str, str]:
+    """name -> one-line description (docs, ``--help``)."""
+    return dict(_SUMMARIES)
+
+
 def get_strategy(spec: Union[str, SparsityStrategy]) -> SparsityStrategy:
     """Resolve a registry name (or pass a strategy object through)."""
     if not isinstance(spec, str):
         return spec
-    if spec in _NOT_PORTED:
-        raise NotImplementedError(f"strategy {spec!r} is not ported yet")
     try:
         return _REGISTRY[spec]()
     except KeyError:
@@ -246,12 +321,32 @@ def get_strategy(spec: Union[str, SparsityStrategy]) -> SparsityStrategy:
                          f"{available_strategies()}") from None
 
 
-register_strategy("flashomni", FlashOmniStrategy)
-register_strategy("skip-only", SkipOnlyStrategy)
-register_strategy("sliding-window", SlidingWindowStrategy)
-register_strategy("multi-granularity", MultiGranularityStrategy)
+register_strategy(
+    "flashomni", FlashOmniStrategy,
+    "paper §3.3: C∧G cummass caching + cummass BSS (seed rule, bit-exact)")
+register_strategy(
+    "cache-all", CacheAllStrategy,
+    "FORA / TaylorSeer: forecast every vision block, no skipping")
+register_strategy(
+    "skip-only", SkipOnlyStrategy,
+    "SpargeAttn: per-row cummass block skipping, no caching")
+register_strategy(
+    "sliding-window", SlidingWindowStrategy,
+    "DiTFastAttnV2: static |i-j|<w band as S_s, text protected")
+register_strategy(
+    "multi-granularity", MultiGranularityStrategy,
+    "per-layer/per-head table of child strategies (SVG / Sparse-vDiT)")
+register_strategy(
+    "step-phased", StepPhasedStrategy,
+    "SVG-style per-step re-classification: switch phase children at "
+    "traced step boundaries")
 # The paper's HunyuanVideo 1.5x table: skip-only boundary layers (0, 1);
 # interior layers run flashomni on 2 of 3 heads and a static band on the third.
-register_strategy("hunyuan-1.5x", lambda: MultiGranularityStrategy(
-    children=("flashomni", "skip-only", "sliding-window"),
-    head_assign=(0, 0, 2), layer_assign={0: 1, 1: 1}, name="hunyuan-1.5x"))
+register_strategy(
+    "hunyuan-1.5x",
+    lambda: MultiGranularityStrategy(
+        children=("flashomni", "skip-only", "sliding-window"),
+        head_assign=(0, 0, 2), layer_assign={0: 1, 1: 1}, name="hunyuan-1.5x"),
+    "paper HunyuanVideo 1.5× table: flashomni/sliding-window striped "
+    "heads; skip-only boundary layers via the schedule's per-layer "
+    "strategy-id table (SparsitySchedule.from_config expansion)")

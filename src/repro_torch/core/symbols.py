@@ -21,6 +21,8 @@ __all__ = [
     "packed_len",
     "pack_bits",
     "unpack_bits",
+    "decode_spatial",
+    "decode_reduction",
     "capacity_for",
     "clamp_mask_topk",
     "slot_positions",
@@ -52,6 +54,24 @@ def unpack_bits(sym: torch.Tensor, n_bits: int) -> torch.Tensor:
     bits = (sym.to(torch.int32)[..., :, None] >> shifts) & 1
     bits = bits.reshape(*sym.shape[:-1], -1)
     return bits[..., :n_bits].to(torch.bool)
+
+
+def decode_spatial(sym: torch.Tensor, i) -> torch.Tensor:
+    """Paper's spatial decoder ``F(S_c, i) = (S_c[i // 8] >> (7 - i % 8)) & 1``
+    -> 0/1 (int32); ``sym``'s last dim indexes bytes, ``i`` is a block index
+    (an int or an integer tensor) along the unpacked axis."""
+    i = torch.as_tensor(i, dtype=torch.int64, device=sym.device)
+    byte = torch.index_select(sym, -1, (i // 8).reshape(-1)).to(torch.int32)
+    return ((byte >> (7 - i % 8).reshape(-1).to(torch.int32)) & 1).reshape(
+        *sym.shape[:-1], *i.shape)
+
+
+def decode_reduction(sym_flat: torch.Tensor, i, j, t_kv: int) -> torch.Tensor:
+    """Paper's reduction decoder ``J(S_s, i, j) = F(S_s, i·T_kv + j)`` over a
+    row-major packed (T_q × T_kv) bit matrix with no per-row byte padding."""
+    flat = (torch.as_tensor(i, dtype=torch.int64) * t_kv
+            + torch.as_tensor(j, dtype=torch.int64))
+    return decode_spatial(sym_flat, flat)
 
 
 def capacity_for(t: int, fraction: float, quantum: int = 8) -> int:

@@ -1,8 +1,9 @@
-// The per-row body of the FlashOmni CSR attention kernels
-// (flashomni_attention.cu, flashomni_attention_bucketed.cu):
+// The per-row body of the FlashOmni attention kernels
+// (flashomni_attention.cu, flashomni_attention_bucketed.cu,
+// flashomni_attention_symbols.cu):
 // one q block of BQ rows attends its own KV-block list with an f32 online
-// softmax. The uniform kernel and the occupancy-bucketed kernel both call it,
-// so that on the same lists the two give the same bits.
+// softmax. The uniform, the occupancy-bucketed and the symbols kernel all
+// call it, so that on the same lists they give the same bits.
 //
 // Called by all kThreads threads of a block, with attention_smem_bytes(D, BQ,
 // bkv) bytes of dynamic shared memory. Q stays in shared memory for the whole
@@ -20,7 +21,7 @@ namespace fo {
 
 constexpr float kNegInf = -1e30f;  // the reference's finite -inf (no inf - inf)
 
-inline size_t attention_smem_bytes(int d, int bq, int bkv) {
+__host__ __device__ inline size_t attention_smem_bytes(int d, int bq, int bkv) {
   return sizeof(float) * ((size_t)bq * (d + 1) + (size_t)bkv * (d + 1) +
                           (size_t)bq * (bkv + 1) + 3 * (size_t)bq);
 }

@@ -47,6 +47,9 @@ _SIGNATURES = {
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "fo_gemm_o_bucketed": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "fo_symbols_attention": (_I, [_I, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "fo_taylor_reuse": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _LIB = None

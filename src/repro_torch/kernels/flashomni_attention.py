@@ -1,14 +1,16 @@
-"""FlashOmni CSR sparse attention (paper §3.4, Algorithm 1), uniform and
-occupancy-bucketed layouts.
+"""FlashOmni sparse attention (paper §3.4, Algorithm 1): CSR lists in the
+uniform and the occupancy-bucketed layouts, and the packed symbols.
 
-Port of ``repro.kernels.flashomni_attention.flashomni_attention_csr`` and
-``flashomni_attention_csr_bucketed``.  The CUDA kernels are
-``csrc/flashomni_attention.cu`` and ``csrc/flashomni_attention_bucketed.cu``
-(their headers say what bounds them on the H100 and how the design answers
-that); the plain versions are
-:func:`repro_torch.kernels.ref.attention_csr_ref` and
-:func:`~repro_torch.kernels.ref.attention_csr_bucketed_ref`.  A CPU tensor
-runs the plain version; a CUDA tensor launches the kernel or raises.
+Port of ``repro.kernels.flashomni_attention.flashomni_attention_csr``,
+``flashomni_attention_csr_bucketed`` and ``flashomni_attention_symbols``.
+The CUDA kernels are ``csrc/flashomni_attention.cu``,
+``csrc/flashomni_attention_bucketed.cu`` and
+``csrc/flashomni_attention_symbols.cu`` (their headers say what bounds them
+on the H100 and how the design answers that); the plain versions are
+:func:`repro_torch.kernels.ref.attention_csr_ref`,
+:func:`~repro_torch.kernels.ref.attention_csr_bucketed_ref` and
+:func:`~repro_torch.kernels.ref.attention_symbols_ref`.  A CPU tensor runs
+the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -17,10 +19,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.symbols import packed_len
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_csr_bucketed_ref, attention_csr_ref
+from repro_torch.kernels.ref import (attention_csr_bucketed_ref, attention_csr_ref,
+                                     attention_symbols_ref)
 
-__all__ = ["flashomni_attention_csr", "flashomni_attention_csr_bucketed"]
+__all__ = ["flashomni_attention_csr", "flashomni_attention_csr_bucketed",
+           "flashomni_attention_symbols"]
 
 
 def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,5 +137,46 @@ def flashomni_attention_csr_bucketed(q: torch.Tensor, k: torch.Tensor, v: torch.
     return out
 
 
+def flashomni_attention_symbols(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                o_reuse: torch.Tensor, s_c: torch.Tensor, s_s: torch.Tensor,
+                                *, block_q: int, block_kv: int,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """Algorithm 1 on the packed sparse symbols.
+
+    q, o_reuse (BH, N, d); k, v (BH, N_kv, d); s_c (BH, ⌈T_q/8⌉) and s_s
+    (BH, ⌈T_q·T_kv/8⌉) uint8, big-endian within a byte, ``s_s`` the
+    row-major (T_q × T_kv) bit matrix.  A row block whose ``s_c`` bit is 0
+    copies ``o_reuse``; a live one attends its live KV blocks (zeros when it
+    has none).  The kernel writes every row, so nothing is cloned.
+    ``flashomni_attention_symbols.launches`` counts the CUDA launches.
+    """
+    if q.device.type == "cpu":
+        return attention_symbols_ref(q, k, v, o_reuse, s_c, s_s, block_q=block_q,
+                                     block_kv=block_kv, scale=scale)
+    lib = _build.load()
+    bh, n, d = q.shape
+    n_kv = k.shape[1]
+    _check_sizes(n, n_kv, n, d, block_q, block_kv)
+    t_q, t_kv = n // block_q, n_kv // block_kv
+    c_bytes, s_bytes = packed_len(t_q), packed_len(t_q * t_kv)
+    dev, dt = q.device, q.dtype
+    _build.check("q", q, dev, dt, (bh, n, d))
+    _build.check("k", k, dev, dt, (bh, n_kv, d))
+    _build.check("v", v, dev, dt, (bh, n_kv, d))
+    _build.check("o_reuse", o_reuse, dev, dt, (bh, n, d))
+    _build.check("s_c", s_c, dev, torch.uint8, (bh, c_bytes))
+    _build.check("s_s", s_s, dev, torch.uint8, (bh, s_bytes))
+    scale = (d ** -0.5) if scale is None else scale
+    out = torch.empty_like(o_reuse)
+    rc = lib.fo_symbols_attention(
+        _build.dtype_code(dt), q.data_ptr(), k.data_ptr(), v.data_ptr(), o_reuse.data_ptr(),
+        out.data_ptr(), s_c.data_ptr(), s_s.data_ptr(), bh, n, n_kv, d, c_bytes, s_bytes,
+        block_q, block_kv, float(scale), _build.stream_of(dev))
+    _build.raise_on_error(lib, rc, "flashomni_attention_symbols")
+    flashomni_attention_symbols.launches += 1
+    return out
+
+
 flashomni_attention_csr.launches = 0
 flashomni_attention_csr_bucketed.launches = 0
+flashomni_attention_symbols.launches = 0

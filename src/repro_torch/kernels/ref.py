@@ -1,12 +1,16 @@
-"""Plain PyTorch versions of the five Dispatch kernels.
+"""Plain PyTorch versions of the seven kernels, and the reference's oracles.
 
 Same semantics as ``repro.kernels.ref`` (gemm_q_ref, attention_ref,
-gemm_o_ref), written in the index-list signatures the CUDA kernels take, so
-each kernel wrapper can run its plain version on CPU tensors and
-``chip_smoke.py`` can hold each kernel against it on the card.  No tiling:
-gathers, dense products in float32 and masks.  The two bucketed versions
-put the bucketed layout back into the uniform one and call the uniform
-version, so on the same plan they give its result bit for bit.
+gemm_o_ref, taylor_reuse_ref), written in the index-list signatures the CUDA
+kernels take, so each kernel wrapper can run its plain version on CPU
+tensors and ``chip_smoke.py`` can hold each kernel against it on the card.
+No tiling: gathers, dense products in float32 and masks.  The two bucketed
+versions put the bucketed layout back into the uniform one and call the
+uniform version, so on the same plan they give its result bit for bit; the
+symbols version decodes the packed bits into the uniform lists the same way.
+
+:func:`attention_ref` and :func:`taylor_reuse_ref` are the reference's own
+oracles in its signatures (masks and coefficient stacks, no index lists).
 """
 
 from __future__ import annotations
@@ -16,9 +20,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.plan import bucket_row_offsets, bucket_row_widths
+from repro_torch.core.symbols import active_indices, unpack_bits
 
 __all__ = ["gemm_q_ref", "attention_csr_ref", "gemm_o_ref",
-           "attention_csr_bucketed_ref", "gemm_o_bucketed_ref"]
+           "attention_csr_bucketed_ref", "gemm_o_bucketed_ref",
+           "csr_layout", "attention_symbols_ref", "taylor_reuse_blocks_ref",
+           "attention_ref", "taylor_reuse_ref"]
 
 _NEG_INF = -1e30
 
@@ -178,3 +185,92 @@ def gemm_o_bucketed_ref(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Tens
     heads = torch.gather(heads, 1, order[..., None].expand_as(heads))
     return gemm_o_ref(o_heads, w, bias, take(gmo_src), heads, take(gmo_head_cnt),
                       block=block)
+
+
+def csr_layout(m_c: torch.Tensor, m_s: torch.Tensor, cap_q: Optional[int] = None,
+               cap_kv: Optional[int] = None):
+    """The CSR lists of block masks m_c (BH, T_q) and m_s (BH, T_q, T_kv):
+    ``(q_ids, q_cnt, kv_ids, kv_cnt, rows)`` — live q blocks ascending (at
+    most ``cap_q``), each one's live KV blocks ascending (at most
+    ``cap_kv``), and the listed rows of ``m_s`` (BH, Cq, T_kv)."""
+    t_q, t_kv = m_c.shape[-1], m_s.shape[-1]
+    q_ids, q_cnt = active_indices(m_c, t_q if cap_q is None else cap_q)
+    rows = torch.gather(m_s, -2, q_ids.long()[..., None].expand(*q_ids.shape, t_kv))
+    kv_ids, kv_cnt = active_indices(rows, t_kv if cap_kv is None else cap_kv)
+    return q_ids, q_cnt, kv_ids, kv_cnt, rows
+
+
+def attention_symbols_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o_reuse: torch.Tensor, s_c: torch.Tensor, s_s: torch.Tensor, *,
+                          block_q: int, block_kv: int,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Algorithm 1 on the packed symbols (B6's semantics).
+
+    q, o_reuse (BH, N, d); k, v (BH, N_kv, d); s_c (BH, ⌈T_q/8⌉) and s_s
+    (BH, ⌈T_q·T_kv/8⌉) uint8, big-endian, ``s_s`` the row-major (T_q × T_kv)
+    bit matrix.  A row block whose ``s_c`` bit is 0 copies ``o_reuse``; a
+    live one attends its live KV blocks in ascending order (zeros when it
+    has none)."""
+    bh, n, _ = q.shape
+    t_q, t_kv = n // block_q, k.shape[1] // block_kv
+    q_ids, q_cnt, kv_ids, kv_cnt, _ = csr_layout(
+        unpack_bits(s_c, t_q), unpack_bits(s_s, t_q * t_kv).reshape(bh, t_q, t_kv))
+    return attention_csr_ref(q, k, v, o_reuse, q_ids, q_ids, q_cnt, kv_ids, kv_cnt,
+                             block_q=block_q, block_kv=block_kv, scale=scale)
+
+
+def taylor_reuse_blocks_ref(derivs: torch.Tensor, coef: torch.Tensor, base: torch.Tensor,
+                            ids: torch.Tensor, cnt: torch.Tensor, *,
+                            block: int) -> torch.Tensor:
+    """OP_reuse over the listed blocks (B7's semantics).
+
+    derivs (D+1, BH, N, d), coef (D+1,) f32 (any shape of D+1 elements),
+    base (BH, N, d), ids (BH, Cc) and cnt (BH,) int32.  Row block
+    ``ids[bh, c]`` for ``c < cnt[bh]`` becomes ``Σ_d coef[d]·derivs[d, bh,
+    block]`` in f32, stored in ``base``'s dtype; every other block keeps
+    ``base``."""
+    o1, bh, n, d = derivs.shape
+    cc = ids.shape[-1]
+    live = torch.arange(cc, device=base.device) < cnt[:, None]         # (BH, Cc)
+    b_idx, c_idx = live.nonzero(as_tuple=True)
+    rows = (ids[b_idx, c_idx].long()[:, None] * block
+            + torch.arange(block, device=base.device))                # (L, block)
+    blocks = derivs[:, b_idx[:, None], rows].to(torch.float32)         # (D+1, L, block, d)
+    out = base.clone()
+    out[b_idx[:, None], rows] = torch.tensordot(
+        coef.reshape(o1).to(torch.float32), blocks, dims=1).to(base.dtype)
+    return out
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, m_c: torch.Tensor,
+                  m_s: torch.Tensor, o_reuse: torch.Tensor, *, block_q: int, block_kv: int,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """The reference's mask oracle (``repro.kernels.ref.attention_ref``).
+
+    q (BH, N, d), k/v (BH, N_kv, d), m_c (BH, T_q), m_s (BH, T_q, T_kv)
+    bool (True = compute), o_reuse (BH, N, d).  Dense masked softmax; rows
+    of cached blocks take ``o_reuse``.  As in the reference, a live row
+    whose mask row is empty gets a uniform softmax over every key (all its
+    scores are -1e30), where the kernels write zeros (ROADMAP C.4).  The
+    leading axis runs in chunks to bound the score tensor's memory."""
+    bh, n, d = q.shape
+    n_kv = k.shape[-2]
+    scale = (d ** -0.5) if scale is None else scale
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    chunk = max(1, _SCORE_ELEMS // max(1, n * n_kv))
+    for s0 in range(0, bh, chunk):
+        sl = slice(s0, s0 + chunk)
+        tok = torch.repeat_interleave(torch.repeat_interleave(m_s[sl], block_q, dim=-2),
+                                      block_kv, dim=-1)[..., :n, :n_kv]
+        s = (q[sl] @ k[sl].transpose(-1, -2)).to(torch.float32) * scale
+        p = torch.softmax(torch.where(tok, s, _NEG_INF), dim=-1)
+        out[sl] = (p @ v[sl].to(torch.float32)).to(q.dtype)
+    row_live = torch.repeat_interleave(m_c, block_q, dim=-1)[..., :n]
+    return torch.where(row_live[..., None], out, o_reuse)
+
+
+def taylor_reuse_ref(derivs: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
+    """The reference's OP_reuse oracle: ``Σ_d coefs[d] · derivs[d]`` in f32,
+    returned in ``derivs``' dtype (TaylorSeer forecast)."""
+    return torch.tensordot(coefs.to(torch.float32), derivs.to(torch.float32),
+                           dims=1).to(derivs.dtype)

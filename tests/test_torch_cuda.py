@@ -10,7 +10,11 @@ The sweep covers every built size: head_dim 32/64/128 and block sizes
 plain version's) and bfloat16 (2e-2), on random CSR lists with padded
 slots, an all-cached (b, h) and empty KV rows.  The bucketed kernels (B4,
 B5) run on bucketed plans whose buckets clamp, against their plain versions
-and ``torch.equal`` to the uniform kernels fed the same clamped counts.
+and ``torch.equal`` to the uniform kernels fed the same clamped counts.  The
+symbols attention (B6) runs on packed masks with empty rows, all-cached and
+all-live rows, against its plain version and ``torch.equal`` to B2 on the
+CSR lists of the same masks; the Taylor reuse (B7) over orders 1-3 and
+widths 32-3072 against its plain version.
 """
 
 import pytest
@@ -20,9 +24,11 @@ from repro_torch import kernels as TK
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.masks import MaskConfig
 from repro_torch.core.plan import bucket_geometry, build_dispatch_plan
-from repro_torch.core.symbols import active_indices
+from repro_torch.core.symbols import active_indices, pack_bits
 from repro_torch.kernels.ref import (attention_csr_bucketed_ref, attention_csr_ref,
-                                     gemm_o_bucketed_ref, gemm_o_ref, gemm_q_ref)
+                                     attention_symbols_ref, csr_layout, gemm_o_bucketed_ref,
+                                     gemm_o_ref,
+                                     gemm_q_ref, taylor_reuse_blocks_ref)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -162,6 +168,59 @@ def test_gemm_o_bucketed_kernel_matches_plain_and_uniform(dev, dtype, bm, kb):
     uni = TK.gemm_o_sparse_kernel(o, w, bias, plan.row_ids.to(dev), plan.head_ids.to(dev),
                                   plan.head_cnt.to(dev), block_rows=bm)
     assert torch.equal(got, uni)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("bq,bkv", [(16, 16), (32, 16), (16, 64), (64, 32), (64, 64)])
+@pytest.mark.parametrize("masks", ["random", "all-cached", "all-live"])
+def test_symbols_kernel_matches_plain_and_csr(dev, dtype, d, bq, bkv, masks):
+    g = _gen(d * 100 + bq * 10 + bkv)
+    bh, n, n_kv = 4, 512, 384                             # T_q * T_kv bits not byte-aligned
+    tq, tkv = n // bq, n_kv // bkv
+    m_c = torch.rand((bh, tq), generator=g) < 0.6
+    m_c[1] = False                                        # an all-cached (b, h)
+    m_c[0, :2] = True
+    if masks != "random":
+        m_c[:] = masks == "all-live"
+    m_s = torch.rand((bh, tq, tkv), generator=g) < 0.5
+    m_s[0, 0] = False                                     # a live row with no KV block
+    q, o = (torch.randn((bh, n, d), generator=g).to(dtype).to(dev) for _ in range(2))
+    k, v = (torch.randn((bh, n_kv, d), generator=g).to(dtype).to(dev) for _ in range(2))
+    s_c = pack_bits(m_c).to(dev)
+    s_s = pack_bits(m_s.reshape(bh, -1)).to(dev)
+    kw = dict(block_q=bq, block_kv=bkv)
+    launches = TK.flashomni_attention_symbols.launches
+    got = TK.flashomni_attention_symbols(q, k, v, o, s_c, s_s, **kw)
+    assert TK.flashomni_attention_symbols.launches == launches + 1
+    _close(got, attention_symbols_ref(q, k, v, o, s_c, s_s, **kw), dtype)
+    q_ids, q_cnt, kv_ids, kv_cnt, _ = csr_layout(m_c, m_s)
+    lists = [t.to(dev) for t in (q_ids, q_ids, q_cnt, kv_ids, kv_cnt)]
+    assert torch.equal(got, TK.flashomni_attention_csr(q, k, v, o, *lists, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("d,block", [(32, 16), (128, 16), (200, 32), (3072, 32)])
+def test_taylor_reuse_kernel_matches_plain(dev, dtype, order, d, block):
+    g = _gen(order * 1000 + d)
+    bh, n = 3, 256
+    t = n // block
+    derivs = torch.randn((order + 1, bh, n, d), generator=g).to(dtype).to(dev)
+    base = torch.randn((bh, n, d), generator=g).to(dtype).to(dev)
+    coef = torch.randn((order + 1,), generator=g).to(dev)
+    cached = torch.rand((bh, t), generator=g) < 0.5
+    cached[1] = False                                     # nothing cached: base
+    ids, cnt = active_indices(cached, t - 1)              # padded and truncated lists
+    ids, cnt = ids.to(dev), cnt.to(dev)
+    launches = TK.taylor_reuse_kernel.launches
+    got = TK.taylor_reuse_kernel(derivs, coef, base, ids, cnt, block=block)
+    assert TK.taylor_reuse_kernel.launches == launches + 1
+    _close(got, taylor_reuse_blocks_ref(derivs, coef, base, ids, cnt, block=block), dtype)
+    assert torch.equal(got[1], base[1])
+    mixed = TK.taylor_reuse_kernel(derivs.float(), coef, base, ids, cnt, block=block)
+    _close(mixed, taylor_reuse_blocks_ref(derivs.float(), coef, base, ids, cnt, block=block),
+           dtype)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

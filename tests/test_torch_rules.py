@@ -3,7 +3,8 @@
 (a) No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
     ``jax``, ``jaxlib`` or the JAX package ``repro``.
 (b) Importing the port's entry points loads neither ``jax`` nor ``repro``.
-(c) The serving entry point defaults to the card and raises without one.
+(c) The serving entry point and the quickstart default to the card and
+    raise without one.
 (d) A kernel call on a tensor that is not on the CPU builds or raises: with
     no ``nvcc`` it raises and never falls back to the plain version.  (A
     CPU-only PyTorch cannot make a CUDA tensor, so a ``meta`` tensor stands
@@ -49,7 +50,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_entry_points_load_no_jax():
     code = ("import sys\n"
             "from repro_torch.launch.serve import serve_diffusion\n"
-            "import repro_torch.convert, repro_torch.kernels\n"
+            "import repro_torch.convert, repro_torch.kernels, repro_torch.kernels.ops\n"
+            "import repro_torch.quickstart\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "PYTHONPATH": str(ROOT / "src"),
@@ -66,6 +68,14 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
     from repro_torch.launch.serve import serve_diffusion
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_diffusion("flux-mmdit", num_requests=1, num_steps=1)
+
+
+def test_quickstart_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch import quickstart
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
 
 
 def test_kernel_route_without_nvcc_raises(monkeypatch, tmp_path):
@@ -93,6 +103,12 @@ def test_kernel_route_without_nvcc_raises(monkeypatch, tmp_path):
             meta(2, 2, 64, 32), meta(2, 32, 32), meta(2, 64, 32), meta(2, 2, dtype=i32),
             meta(2, 2, dtype=i32), meta(2, 3, dtype=i32), meta(2, 2, dtype=i32),
             ((1, 2), (1, 1)), block_rows=32),
+        lambda: TK.flashomni_attention_symbols(
+            meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32),
+            meta(4, 1, dtype=torch.uint8), meta(4, 2, dtype=torch.uint8),
+            block_q=16, block_kv=16),
+        lambda: TK.taylor_reuse_kernel(meta(2, 4, 64, 32), meta(2), meta(4, 64, 32),
+                                       meta(4, 4, dtype=i32), meta(4, dtype=i32), block=16),
     ]
     assert len(calls) == len(TK.KERNELS)
     before = [fn.launches for fn in TK.KERNELS]

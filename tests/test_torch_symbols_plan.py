@@ -75,6 +75,29 @@ def test_pack_unpack_bits_match(t):
     assert TSym.packed_len(t) == JSym.packed_len(t)
 
 
+@pytest.mark.parametrize("t_q,t_kv", [(5, 7), (8, 8), (13, 3)])
+def test_decode_spatial_and_reduction_match(t_q, t_kv):
+    """The paper's decoders F(S_c, i) and J(S_s, i, j), big-endian, on the
+    row-major (T_q x T_kv) matrix with no per-row byte padding: exact."""
+    rng = np.random.default_rng(t_q * t_kv)
+    m_c = rng.random((2, 3, t_q)) < 0.5
+    m_s = rng.random((2, 3, t_q, t_kv)) < 0.5
+    js_c, ts_c = JSym.pack_bits(jnp.asarray(m_c)), TSym.pack_bits(torch.from_numpy(m_c))
+    flat = m_s.reshape(2, 3, -1)
+    js_s, ts_s = JSym.pack_bits(jnp.asarray(flat)), TSym.pack_bits(torch.from_numpy(flat))
+    for i in range(t_q):
+        got = TSym.decode_spatial(ts_c, i)
+        _same(f"F(S_c, {i})", JSym.decode_spatial(js_c, i), got)
+        assert np.array_equal(got.numpy(), m_c[..., i])
+        for j in range(t_kv):
+            got = TSym.decode_reduction(ts_s, i, j, t_kv)
+            _same(f"J(S_s, {i}, {j})", JSym.decode_reduction(js_s, i, j, t_kv), got)
+            assert np.array_equal(got.numpy(), m_s[..., i, j])
+    idx = np.arange(t_q, dtype=np.int32)[::-1].copy()
+    _same("F(S_c, ids)", JSym.decode_spatial(js_c, jnp.asarray(idx)),
+          TSym.decode_spatial(ts_c, torch.from_numpy(idx)))
+
+
 @pytest.mark.parametrize("cap", [1, 3, 7, 12])
 def test_active_indices_and_slot_positions_match(cap):
     rng = np.random.default_rng(cap)
@@ -150,8 +173,7 @@ def test_flashomni_strategy_matches(seed, n, kw):
         _same(f, getattr(want, f), getattr(got, f))
     np.testing.assert_allclose(got.q_scores.numpy(), np.asarray(want.q_scores),
                                rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        TS.get_strategy("cache-all")
+    assert isinstance(TS.get_strategy("cache-all"), TS.CacheAllStrategy)
 
 
 @pytest.mark.parametrize("seed,n,kw,score", [
