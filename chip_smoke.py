@@ -81,13 +81,19 @@ OPS_KERNELS = ("flashomni_attention_symbols", "taylor_reuse_kernel")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}       # rtol = atol per dtype
 HBM_BYTES_S = 3.35e12
 # Peak FLOP/s by card (NVIDIA data sheets, dense): f32 on the CUDA cores,
-# bf16 on the tensor cores, and the memory rate.  The SXM figures are the
-# default; other H100 variants are matched by name.
+# bf16 and TF32 on the tensor cores, and the memory rate.  The SXM figures
+# are the default; other H100 variants are matched by name.
 PEAKS = (
-    ("PCIe", {"float32": 51.2e12, "bfloat16": 756e12, "hbm": 2.0e12}),
-    ("NVL", {"float32": 60e12, "bfloat16": 835e12, "hbm": 3.9e12}),
-    ("", {"float32": 67e12, "bfloat16": 989e12, "hbm": HBM_BYTES_S}),
+    ("PCIe", {"float32": 51.2e12, "bfloat16": 756e12, "tf32": 378e12, "hbm": 2.0e12}),
+    ("NVL", {"float32": 60e12, "bfloat16": 835e12, "tf32": 417.5e12, "hbm": 3.9e12}),
+    ("", {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12, "hbm": HBM_BYTES_S}),
 )
+# The attention kernels. Their f32 instance runs on the tensor cores in
+# 3xTF32 (three TF32 products per f32 product), so their f32 bound is
+# 3 * FLOPs over the TF32 peak; and they count their grouped walk on the card
+# (kernels.flashomni_attention.count_walk).
+ATTENTION = ("flashomni_attention_csr", "flashomni_attention_csr_bucketed",
+             "flashomni_attention_symbols")
 SOURCES = {
     "gemm_q_sparse_kernel": ("src/repro_torch/csrc/gemm_q.cu",
                              "src/repro/kernels/gemm_q.py:74"),
@@ -149,9 +155,9 @@ def phase_build():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()
     log = lib_path.parent / f"ptxas_{lib_path.stem.split('_')[-1]}.log"
-    if log.exists():     # registers / shared memory / spills per kernel
+    if log.exists():     # registers / shared memory / spills per kernel instance
         for line in log.read_text().splitlines():
-            if "Used" in line or "spill" in line:
+            if "entry function" in line or "Used" in line or "spill" in line:
                 print(line.strip(), file=sys.stderr)
     emit({"phase": "build", "seconds": round(build_s, 3), "library": lib_path.name,
           "gpu": torch.cuda.get_device_name(0), "nvidia_smi": smi[0] if smi else None})
@@ -254,7 +260,9 @@ def measure(name, dn, kern, plain, library, flops, nbytes, peaks, twin=None) -> 
             raise AssertionError(f"{name} [{dn}] differs from the uniform kernel on the "
                                  "same lists")
     del got, want
-    t_op, t_mem = flops / peaks[dn] * 1e3, nbytes / peaks["hbm"] * 1e3
+    x3 = name in ATTENTION and dn == "float32"
+    t_op = (3 * flops / peaks["tf32"] if x3 else flops / peaks[dn]) * 1e3
+    t_mem = nbytes / peaks["hbm"] * 1e3
     if twin is not None:        # the uniform kernel's time on the same plan
         row["uniform_ms"] = time_ms(twin, 10)
     row.update({"ms": time_ms(kern, 10), "plain_ms": time_ms(plain, 2, warmup=1),
@@ -263,6 +271,21 @@ def measure(name, dn, kern, plain, library, flops, nbytes, peaks, twin=None) -> 
                 "flops": flops, "bytes": nbytes})
     torch.cuda.empty_cache()
     return row
+
+
+def walk_counts(name, dn, kern, flops, bkv, dh) -> dict:
+    """The KV blocks an attention kernel's block walks staged and the
+    (16-row warp, KV block) updates its warps made, counted on the card in
+    a launch of its own; the updates must be the work its bound counts."""
+    import torch
+    from repro_torch.kernels.flashomni_attention import count_walk
+    with count_walk(torch.cuda.current_device()) as counts:
+        kern()
+        staged, updates = counts.tolist()
+    if updates * 4 * 16 * bkv * dh != flops:
+        raise AssertionError(f"{name} [{dn}]: {updates} warp updates on the card, "
+                             f"{flops / (4 * 16 * bkv * dh):.0f} in its lists")
+    return {"kv_staged_blocks": staged, "kv_warp_updates": updates}
 
 
 def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d=3072,
@@ -381,6 +404,8 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
             for name, (kern, plain, library, flops, nbytes, twin) in calls.items():
                 row = {"plan": label, **measure(name, dn, kern, plain, library, flops,
                                                 nbytes, peaks, twin)}
+                if name in ATTENTION:
+                    row.update(walk_counts(name, dn, kern, flops, bkv, dh))
                 results.append(row)
                 if dt == torch.float32 and name not in rows:    # the serving dtype
                     rows[name] = row
@@ -632,12 +657,19 @@ def phase_ops() -> dict:
     return launches
 
 
+# Profiler kernel name (the ``__global__`` function in csrc/*.cu) -> the
+# wrapper that launches it; first match wins.
+KERNEL_GROUPS = (("gemm_q_kernel", "gemm_q_sparse_kernel"),
+                 ("csr_bucketed_kernel", "flashomni_attention_csr_bucketed"),
+                 ("csr_attention_kernel", "flashomni_attention_csr"),
+                 ("symbols_attention_kernel", "flashomni_attention_symbols"),
+                 ("gemm_o_bucketed_kernel", "gemm_o_sparse_bucketed_kernel"),
+                 ("gemm_o_kernel", "gemm_o_sparse_kernel"),
+                 ("taylor_reuse_kernel", "taylor_reuse_kernel"))
+
+
 def _kernel_group(name: str) -> str:
-    for key, group in (("gemm_q_kernel", "gemm_q_sparse_kernel"),
-                       ("csr_bucketed_kernel", "flashomni_attention_csr_bucketed"),
-                       ("csr_attention_kernel", "flashomni_attention_csr"),
-                       ("gemm_o_bucketed_kernel", "gemm_o_sparse_bucketed_kernel"),
-                       ("gemm_o_kernel", "gemm_o_sparse_kernel")):
+    for key, group in KERNEL_GROUPS:
         if key in name:
             return group
     lowered = name.lower()

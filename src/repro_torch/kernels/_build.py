@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.plan import bucket_row_offsets
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "load",
-           "check", "check_geometry", "row_offsets", "dtype_code", "stream_of",
+           "check", "check_aligned", "check_geometry", "row_offsets", "dtype_code", "stream_of",
            "raise_on_error"]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -41,14 +41,14 @@ _SIGNATURES = {
     "fo_error_string": (ctypes.c_char_p, [_I]),
     "fo_gemm_q": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "fo_csr_attention": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P]),
     "fo_gemm_o": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fo_csr_attention_bucketed": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P]),
     "fo_gemm_o_bucketed": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fo_symbols_attention": (_I, [_I, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P]),
     "fo_taylor_reuse": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
@@ -149,6 +149,14 @@ def check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype,
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_aligned(name: str, t: torch.Tensor, nbytes: int = 16) -> None:
+    """Raise unless ``t`` starts on an ``nbytes`` boundary (the attention
+    kernels copy and store 16 bytes at a time)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: expected a tensor whose data starts on a {nbytes}-byte "
+                         f"boundary, got address {t.data_ptr():#x}")
 
 
 def check_geometry(geometry, rows: int, slots: int) -> None:

@@ -11,11 +11,14 @@ on the H100 and how the design answers that); the plain versions are
 :func:`~repro_torch.kernels.ref.attention_csr_bucketed_ref` and
 :func:`~repro_torch.kernels.ref.attention_symbols_ref`.  A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises.
+:func:`count_walk` counts, on the card, what the grouped walk of the
+kernels launched inside it staged and computed.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import torch
 
@@ -25,7 +28,38 @@ from repro_torch.kernels.ref import (attention_csr_bucketed_ref, attention_csr_r
                                      attention_symbols_ref)
 
 __all__ = ["flashomni_attention_csr", "flashomni_attention_csr_bucketed",
-           "flashomni_attention_symbols"]
+           "flashomni_attention_symbols", "count_walk"]
+
+_WALK: Optional[torch.Tensor] = None
+
+
+@contextlib.contextmanager
+def count_walk(device) -> Iterator[torch.Tensor]:
+    """Count the grouped walk of the attention kernels launched on
+    ``device`` inside the block: yields a (2,) int64 tensor on the card to
+    which each launch adds the KV blocks its block walks staged ([0]) and
+    the (16-row warp, KV block) updates its warps made ([1]).  For
+    measurement: outside the block the kernels count nothing."""
+    global _WALK
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the walk is counted on a CUDA device, not {device}")
+    _WALK = torch.zeros(2, dtype=torch.int64, device=device)
+    try:
+        yield _WALK
+    finally:
+        _WALK = None
+
+
+def _walk_ptr(device: torch.device) -> Optional[int]:
+    return _WALK.data_ptr() if _WALK is not None and _WALK.device == device else None
+
+
+def _check_attention_tensors(dev, dt, q, k, v, o_reuse, q_shape, kv_shape, o_shape) -> None:
+    for name, t, shape in (("q", q, q_shape), ("k", k, kv_shape), ("v", v, kv_shape),
+                           ("o_reuse", o_reuse, o_shape)):
+        _build.check(name, t, dev, dt, shape)
+        _build.check_aligned(name, t)
 
 
 def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,10 +88,8 @@ def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cq, ckv = kv_ids.shape[-2:]
     _check_sizes(n_q, n_kv, n, d, block_q, block_kv)
     dev, dt = q.device, q.dtype
-    _build.check("q", q, dev, dt, (bh, n_q, d))
-    _build.check("k", k, dev, dt, (bh, n_kv, d))
-    _build.check("v", v, dev, dt, (bh, n_kv, d))
-    _build.check("o_reuse", o_reuse, dev, dt, (bh, n, d))
+    _check_attention_tensors(dev, dt, q, k, v, o_reuse, (bh, n_q, d), (bh, n_kv, d),
+                             (bh, n, d))
     _build.check("q_ids", q_ids, dev, torch.int32, (bh, cq))
     _build.check("q_src", q_src, dev, torch.int32, (bh, cq))
     _build.check("q_cnt", q_cnt, dev, torch.int32, (bh,))
@@ -69,7 +101,7 @@ def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.dtype_code(dt), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_ids.data_ptr(), q_src.data_ptr(), q_cnt.data_ptr(), kv_ids.data_ptr(),
         kv_cnt.data_ptr(), bh, n_q, n_kv, n, d, cq, ckv, block_q, block_kv,
-        float(scale), _build.stream_of(dev))
+        float(scale), _walk_ptr(dev), _build.stream_of(dev))
     _build.raise_on_error(lib, rc, "flashomni_attention_csr")
     flashomni_attention_csr.launches += 1
     return out
@@ -116,10 +148,8 @@ def flashomni_attention_csr_bucketed(q: torch.Tensor, k: torch.Tensor, v: torch.
         raise ValueError(f"q has {bh} (batch, head) rows; the layout wants {b} x {heads}")
     _build.check_geometry(geometry, r, s)
     dev, dt = q.device, q.dtype
-    _build.check("q", q, dev, dt, (bh, n_q, d))
-    _build.check("k", k, dev, dt, (bh, n_kv, d))
-    _build.check("v", v, dev, dt, (bh, n_kv, d))
-    _build.check("o_reuse", o_reuse, dev, dt, (bh, n, d))
+    _check_attention_tensors(dev, dt, q, k, v, o_reuse, (bh, n_q, d), (bh, n_kv, d),
+                             (bh, n, d))
     for name, t in (("bkt_head", bkt_head), ("bkt_q_ids", bkt_q_ids),
                     ("bkt_q_src", bkt_q_src), ("bkt_kv_cnt", bkt_kv_cnt)):
         _build.check(name, t, dev, torch.int32, (b, r))
@@ -131,7 +161,7 @@ def flashomni_attention_csr_bucketed(q: torch.Tensor, k: torch.Tensor, v: torch.
         bkt_head.data_ptr(), bkt_q_ids.data_ptr(), bkt_q_src.data_ptr(),
         bkt_kv_ids.data_ptr(), bkt_kv_cnt.data_ptr(),
         _build.row_offsets(geometry, dev).data_ptr(), b, heads, r, s, n_q, n_kv, n, d,
-        block_q, block_kv, float(scale), _build.stream_of(dev))
+        block_q, block_kv, float(scale), _walk_ptr(dev), _build.stream_of(dev))
     _build.raise_on_error(lib, rc, "flashomni_attention_csr_bucketed")
     flashomni_attention_csr_bucketed.launches += 1
     return out
@@ -160,10 +190,8 @@ def flashomni_attention_symbols(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     t_q, t_kv = n // block_q, n_kv // block_kv
     c_bytes, s_bytes = packed_len(t_q), packed_len(t_q * t_kv)
     dev, dt = q.device, q.dtype
-    _build.check("q", q, dev, dt, (bh, n, d))
-    _build.check("k", k, dev, dt, (bh, n_kv, d))
-    _build.check("v", v, dev, dt, (bh, n_kv, d))
-    _build.check("o_reuse", o_reuse, dev, dt, (bh, n, d))
+    _check_attention_tensors(dev, dt, q, k, v, o_reuse, (bh, n, d), (bh, n_kv, d),
+                             (bh, n, d))
     _build.check("s_c", s_c, dev, torch.uint8, (bh, c_bytes))
     _build.check("s_s", s_s, dev, torch.uint8, (bh, s_bytes))
     scale = (d ** -0.5) if scale is None else scale
@@ -171,7 +199,7 @@ def flashomni_attention_symbols(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     rc = lib.fo_symbols_attention(
         _build.dtype_code(dt), q.data_ptr(), k.data_ptr(), v.data_ptr(), o_reuse.data_ptr(),
         out.data_ptr(), s_c.data_ptr(), s_s.data_ptr(), bh, n, n_kv, d, c_bytes, s_bytes,
-        block_q, block_kv, float(scale), _build.stream_of(dev))
+        block_q, block_kv, float(scale), _walk_ptr(dev), _build.stream_of(dev))
     _build.raise_on_error(lib, rc, "flashomni_attention_symbols")
     flashomni_attention_symbols.launches += 1
     return out

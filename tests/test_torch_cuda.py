@@ -14,7 +14,15 @@ and ``torch.equal`` to the uniform kernels fed the same clamped counts.  The
 symbols attention (B6) runs on packed masks with empty rows, all-cached and
 all-live rows, against its plain version and ``torch.equal`` to B2 on the
 CSR lists of the same masks; the Taylor reuse (B7) over orders 1-3 and
-widths 32-3072 against its plain version.
+widths 32-3072 against its plain version.  The grouped walk of the
+attention kernels (8 warps of one (b, h) sharing each staged KV block) runs
+on lists that stress it: live counts that leave the last group part idle,
+an empty row among live ones, disjoint and identical lists within a group,
+full lists; B4 and B6 ``torch.equal`` to B2 on each, and B2 unchanged bit
+for bit when its live slots are permuted into other groups.  The walk
+counters (``count_walk``) read one staged KV block per block of a group's
+union and one update per listed block of each 16-row warp; the attention
+wrappers refuse a view whose data does not start on a 16-byte boundary.
 """
 
 import pytest
@@ -25,6 +33,7 @@ from repro_torch.core.engine import EngineConfig
 from repro_torch.core.masks import MaskConfig
 from repro_torch.core.plan import bucket_geometry, build_dispatch_plan
 from repro_torch.core.symbols import active_indices, pack_bits
+from repro_torch.kernels.flashomni_attention import count_walk
 from repro_torch.kernels.ref import (attention_csr_bucketed_ref, attention_csr_ref,
                                      attention_symbols_ref, csr_layout, gemm_o_bucketed_ref,
                                      gemm_o_ref,
@@ -197,6 +206,182 @@ def test_symbols_kernel_matches_plain_and_csr(dev, dtype, d, bq, bkv, masks):
     q_ids, q_cnt, kv_ids, kv_cnt, _ = csr_layout(m_c, m_s)
     lists = [t.to(dev) for t in (q_ids, q_ids, q_cnt, kv_ids, kv_cnt)]
     assert torch.equal(got, TK.flashomni_attention_csr(q, k, v, o, *lists, **kw))
+
+
+def _group_masks(case, bh, tq, tkv, group, g):
+    """Block masks (m_c (BH, T_q), m_s (BH, T_q, T_kv)) that stress the
+    grouped walk, in which a block of ``group`` consecutive q slots (or q
+    blocks) of one (b, h) stages the union of their KV lists."""
+    m_c = torch.ones((bh, tq), dtype=torch.bool)
+    m_s = torch.rand((bh, tq, tkv), generator=g) < 0.5
+    if case == "ragged":                  # live counts that are no multiple of the group
+        m_c[:] = False
+        for i, live in enumerate((2 * group + 3, group - 1, tq, tq // 2 + 1)):
+            m_c[i, torch.randperm(tq, generator=g)[:min(live, tq)]] = True
+    elif case == "empty-row":             # one live row with no KV block among live rows
+        m_s[:, 1] = False
+        m_s[:, group + 2] = False
+    elif case == "disjoint":              # the rows of a group share no KV block
+        j = torch.arange(tkv)
+        m_s = (j[None, :] % group == torch.arange(tq)[:, None] % group).expand(bh, tq, tkv)
+        m_s = m_s.clone()
+    elif case == "identical":             # the rows of a group share one list
+        m_s = m_s[:, ::group].repeat_interleave(group, dim=1)[:, :tq].clone()
+    elif case == "full":                  # every row lists every KV block
+        m_c = torch.rand((bh, tq), generator=g) < 0.7
+        m_s[:] = True
+    m_c[-1, 0] = True
+    return m_c, m_s
+
+
+def _as_layout(q_ids, q_src, q_cnt, kv_ids, kv_cnt, heads, n_blocks, g):
+    """The uniform CSR lists as a one-bucket layout for B4, its rows in a
+    random order: (bkt_head, bkt_q_ids, bkt_q_src, bkt_kv_ids, bkt_kv_cnt)
+    and the geometry."""
+    bh, cq = q_ids.shape
+    ckv, b, r = kv_ids.shape[-1], bh // heads, heads * cq
+    live = torch.arange(cq) < q_cnt[:, None]
+    head = torch.arange(heads).repeat_interleave(cq).expand(b, r)
+    q_write = torch.where(live, q_ids, n_blocks).reshape(b, r)
+    cnt = torch.where(live, kv_cnt, 0).reshape(b, r)
+    perm = torch.randperm(r, generator=g)
+    rows = [t[:, perm] for t in (head, q_write, q_src.reshape(b, r), cnt)]
+    ids = kv_ids.reshape(b, r, ckv)[:, perm].reshape(b, r * ckv)
+    return [t.int().contiguous() for t in (*rows[:3], ids, rows[3])], ((r, ckv),)
+
+
+GROUP_CASES = ["ragged", "empty-row", "disjoint", "identical", "full"]
+GROUP_SHAPES = [(128, 16, 16), (64, 32, 64), (32, 64, 32), (128, 128, 128), (128, 16, 128)]
+
+
+def _group_inputs(case, dtype, d, bq, bkv, dev):
+    g = _gen(GROUP_CASES.index(case) * 1000 + d + bq + bkv)
+    heads, b, n = 2, 2, 1024
+    bh, tq, tkv = b * heads, n // bq, n // bkv
+    m_c, m_s = _group_masks(case, bh, tq, tkv, 128 // bq, g)
+    q, k, v, o = (torch.randn((bh, n, d), generator=g).to(dtype).to(dev) for _ in range(4))
+    return g, heads, n, m_c, m_s, (q, k, v, o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,bq,bkv", GROUP_SHAPES)
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_grouped_walk_b2_b4_b6_agree(dev, dtype, d, bq, bkv, case):
+    """B2 against its plain version on lists that stress the grouped walk;
+    B4 (the same lists as a shuffled one-bucket layout) and B6 (the packed
+    masks) ``torch.equal`` to B2."""
+    g, heads, n, m_c, m_s, (q, k, v, o) = _group_inputs(case, dtype, d, bq, bkv, dev)
+    q_ids, q_cnt, kv_ids, kv_cnt, _ = csr_layout(m_c, m_s)
+    lists = [t.to(dev) for t in (q_ids, q_ids, q_cnt, kv_ids, kv_cnt)]
+    kw = dict(block_q=bq, block_kv=bkv)
+    uni = TK.flashomni_attention_csr(q, k, v, o, *lists, **kw)
+    _close(uni, attention_csr_ref(q, k, v, o, *lists, **kw), dtype)
+    empty = m_c & ~m_s.any(-1)            # live rows with no KV block write zeros
+    rows = empty.repeat_interleave(bq, dim=1).to(dev)
+    assert not uni[rows].any()
+    assert torch.equal(uni[~m_c.repeat_interleave(bq, dim=1).to(dev)],
+                       o[~m_c.repeat_interleave(bq, dim=1).to(dev)])
+    bkt, geo = _as_layout(q_ids, q_ids, q_cnt, kv_ids, kv_cnt, heads, n // bq, g)
+    got = TK.flashomni_attention_csr_bucketed(q, k, v, o, *[t.to(dev) for t in bkt], geo,
+                                              heads=heads, **kw)
+    assert torch.equal(got, uni)
+    bh = q.shape[0]
+    sym = TK.flashomni_attention_symbols(q, k, v, o, pack_bits(m_c).to(dev),
+                                         pack_bits(m_s.reshape(bh, -1)).to(dev), **kw)
+    assert torch.equal(sym, uni)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,bq,bkv", GROUP_SHAPES)
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_regrouped_slots_give_the_same_bits(dev, dtype, d, bq, bkv, case):
+    """Permuting the live slots of each (b, h) (and the compact Q blocks
+    they read) puts the same rows in other groups of B2's walk: the output
+    does not change by one bit."""
+    g, _, _, m_c, m_s, (q, k, v, o) = _group_inputs(case, dtype, d, bq, bkv, dev)
+    q_ids, q_cnt, kv_ids, kv_cnt, _ = csr_layout(m_c, m_s)
+    bh, cq = q_ids.shape
+    # A compact Q layout: slot c reads block q_src[c] of a shuffled copy.
+    src = torch.stack([torch.randperm(cq, generator=g) for _ in range(bh)]).int()
+    qc = torch.empty_like(q).reshape(bh, cq, bq, d)
+    qc[torch.arange(bh)[:, None], src.long()] = q.reshape(bh, cq, bq, d)[
+        torch.arange(bh)[:, None], q_ids.long()]
+    qc = qc.reshape(q.shape)
+    kw = dict(block_q=bq, block_kv=bkv)
+    base = TK.flashomni_attention_csr(
+        qc, k, v, o, *[t.to(dev) for t in (q_ids, src, q_cnt, kv_ids, kv_cnt)], **kw)
+    perm = torch.stack([torch.cat([torch.randperm(int(c), generator=g),
+                                   torch.arange(int(c), cq)]) for c in q_cnt])
+    take = lambda t: torch.gather(t, 1, perm if t.dim() == 2 else
+                                  perm[..., None].expand_as(t)).contiguous()
+    moved = TK.flashomni_attention_csr(
+        qc, k, v, o, *[t.to(dev) for t in (take(q_ids), take(src), q_cnt, take(kv_ids),
+                                           take(kv_cnt))], **kw)
+    assert torch.equal(moved, base)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,bq,bkv", GROUP_SHAPES)
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_walk_counters_count_the_grouped_walk(dev, dtype, d, bq, bkv, case):
+    """Inside ``count_walk`` B2 and B6 stage one KV block per block of the
+    union of each group of 128 / BQ consecutive live q blocks, B4 one per
+    listed block of each layout row, and all three make one update per
+    listed block of each 16-row warp; the counted launch gives the same bits."""
+    g, heads, n, m_c, m_s, (q, k, v, o) = _group_inputs(case, dtype, d, bq, bkv, dev)
+    q_ids, q_cnt, kv_ids, kv_cnt, _ = csr_layout(m_c, m_s)
+    lists = [t.to(dev) for t in (q_ids, q_ids, q_cnt, kv_ids, kv_cnt)]
+    kw = dict(block_q=bq, block_kv=bkv)
+    live = m_s & m_c[..., None]
+    group = 128 // bq
+    staged = sum(int(rows[s:s + group].any(0).sum())
+                 for rows in (live[i][m_c[i]] for i in range(live.shape[0]))
+                 for s in range(0, rows.shape[0], group))
+    pairs = int(live.sum())
+    updates = pairs * bq // 16
+    uni = TK.flashomni_attention_csr(q, k, v, o, *lists, **kw)
+    with count_walk(dev) as counts:
+        got = TK.flashomni_attention_csr(q, k, v, o, *lists, **kw)
+        assert counts.tolist() == [staged, updates]
+    assert torch.equal(got, uni)
+    bkt, geo = _as_layout(q_ids, q_ids, q_cnt, kv_ids, kv_cnt, heads, n // bq, g)
+    with count_walk(dev) as counts:
+        got = TK.flashomni_attention_csr_bucketed(q, k, v, o, *[t.to(dev) for t in bkt], geo,
+                                                  heads=heads, **kw)
+        assert counts.tolist() == [pairs, updates]
+    assert torch.equal(got, uni)
+    bh = q.shape[0]
+    with count_walk(dev) as counts:
+        got = TK.flashomni_attention_symbols(q, k, v, o, pack_bits(m_c).to(dev),
+                                             pack_bits(m_s.reshape(bh, -1)).to(dev), **kw)
+        assert counts.tolist() == [staged, updates]
+    assert torch.equal(got, uni)
+    TK.flashomni_attention_csr(q, k, v, o, *lists, **kw)
+    assert counts.tolist() == [staged, updates]          # nothing counted outside
+
+
+@pytest.mark.parametrize("arg", ["q", "k", "v", "o_reuse"])
+def test_attention_wrappers_refuse_a_misaligned_view(dev, arg):
+    bh, n, d = 2, 64, 32
+    m_c = torch.ones((bh, 4), dtype=torch.bool)
+    m_s = torch.ones((bh, 4, 4), dtype=torch.bool)
+    q_ids, q_cnt, kv_ids, kv_cnt, _ = csr_layout(m_c, m_s)
+    lists = [t.to(dev) for t in (q_ids, q_ids, q_cnt, kv_ids, kv_cnt)]
+    t = {name: torch.randn((bh, n, d), device=dev) for name in ("q", "k", "v", "o_reuse")}
+    t[arg] = torch.randn(bh * n * d + 1, device=dev)[1:].view(bh, n, d)    # 4 bytes off
+    assert t[arg].is_contiguous()
+    args = (t["q"], t["k"], t["v"], t["o_reuse"])
+    kw = dict(block_q=16, block_kv=16)
+    bkt, geo = _as_layout(q_ids, q_ids, q_cnt, kv_ids, kv_cnt, 1, 4, _gen(0))
+    calls = [
+        lambda: TK.flashomni_attention_csr(*args, *lists, **kw),
+        lambda: TK.flashomni_attention_csr_bucketed(*args, *[x.to(dev) for x in bkt], geo,
+                                                    heads=1, **kw),
+        lambda: TK.flashomni_attention_symbols(*args, pack_bits(m_c).to(dev),
+                                               pack_bits(m_s.reshape(bh, -1)).to(dev), **kw)]
+    for call in calls:
+        with pytest.raises(ValueError, match=f"{arg}: .*16-byte boundary"):
+            call()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

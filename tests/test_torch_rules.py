@@ -9,10 +9,18 @@
     no ``nvcc`` it raises and never falls back to the plain version.  (A
     CPU-only PyTorch cannot make a CUDA tensor, so a ``meta`` tensor stands
     in for one: both take the kernel route.)
+(e) The profile of ``chip_smoke.py`` sees every kernel: each ``__global__``
+    function in ``csrc/*.cu`` falls into the group of the wrapper that
+    launches it, never into "other".
+(f) The attention kernels' input checks: a contiguous view whose data does
+    not start on a 16-byte boundary is refused, and the walk is counted
+    only on a CUDA device.
 """
 
 import ast
+import importlib.util
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -130,3 +138,57 @@ def test_find_nvcc_honours_path_and_cuda_home(monkeypatch, tmp_path):
     nvcc.write_text("#!/bin/sh\n")
     nvcc.chmod(0o755)
     assert _build.find_nvcc() == str(nvcc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_aligned_refuses_an_offset_view(dtype):
+    base = torch.zeros(4 * 64, dtype=dtype)
+    _build.check_aligned("q", base)
+    step = 16 // base.element_size()
+    _build.check_aligned("q", base[step:])                  # 16 bytes in: aligned
+    view = base[1:].view(5, 51)                             # contiguous, misaligned
+    assert view.is_contiguous()
+    with pytest.raises(ValueError, match="q: .*16-byte boundary"):
+        _build.check_aligned("q", view)
+
+
+def test_count_walk_wants_a_cuda_device():
+    from repro_torch.kernels.flashomni_attention import _walk_ptr, count_walk
+    with pytest.raises(ValueError, match="CUDA"):
+        with count_walk("cpu"):
+            pass
+    assert _walk_ptr(torch.device("cpu")) is None
+
+
+def _global_kernels():
+    """(source file, kernel name) of every ``__global__`` function in csrc/*.cu."""
+    found = []
+    for path in sorted((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")):
+        for m in re.finditer(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                             path.read_text()):
+            found.append((path.name, m.group(1)))
+    assert len(found) >= 7
+    return found
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("src,kernel", _global_kernels(), ids=lambda v: str(v))
+def test_profile_groups_every_cuda_kernel_under_its_wrapper(src, kernel):
+    smoke = _chip_smoke()
+    # As torch.profiler names a template instance of the kernel.
+    group = smoke._kernel_group(f"void (anonymous namespace)::{kernel}<float, 128, 16>(float "
+                                "const*, int)")
+    assert group in {fn.__name__ for fn in TK.KERNELS}, (src, kernel, group)
+    assert smoke.SOURCES[group][0].endswith(f"csrc/{src}")
+
+
+def test_profile_groups_cover_every_wrapper():
+    smoke = _chip_smoke()
+    groups = {smoke._kernel_group(kernel) for _, kernel in _global_kernels()}
+    assert groups == {fn.__name__ for fn in TK.KERNELS}
