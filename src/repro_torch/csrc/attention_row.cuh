@@ -15,6 +15,8 @@
 //         columns 2t and 2t+1 where the A layout wants t and t+4, so the
 //         k index of P V is relabelled (k' = t <-> kv row 2t, t+4 <-> 2t+1)
 //         and V is read in the same order.
+// (The cp.async, ldmatrix, mma.sync and 3xTF32 primitives are mma.cuh's,
+// shared with the sparse-GEMM tile.)
 // A row's softmax step runs in registers per KV block, in base 2 (one
 // ex2.approx per probability): the row max and sum go over the quad that
 // holds the row (__shfl_xor_sync 1, 2), and the O rescale is skipped when
@@ -47,14 +49,13 @@
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace fo {
 
 constexpr float kNegInf = -1e30f;       // the reference's finite -inf (no inf - inf)
 constexpr int kWarps = kThreads / 32;   // warps of a full block
 constexpr int kRows = 16;               // query rows of one warp: the mma M
-constexpr size_t kSmemMax = 232448;     // dynamic shared memory a block may use (227 KB)
 constexpr size_t kMaskReserve = 8192;   // room kept for the KV masks when sizing the ring
 
 // Shared-memory layout of a block of `warps` warps: the warps' Q slices,
@@ -79,95 +80,13 @@ struct RowLayout {
   }
 };
 
-// ---- PTX wrappers ---------------------------------------------------------
-
-__device__ __forceinline__ unsigned char* dyn_smem() {
-  extern __shared__ __align__(16) unsigned char fo_smem[];
-  return fo_smem;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b on one m16n8k16 bf16 tile (f32 accumulators).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b on one m16n8k8 TF32 tile.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// c += a b in 3xTF32: the two small cross terms first, the large one last.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const unsigned (&ah)[4],
-                                           const unsigned (&al)[4], unsigned bh0, unsigned bh1,
-                                           unsigned bl0, unsigned bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
+// ---- softmax --------------------------------------------------------------
 
 // 2^x (ex2.approx: relative error about 2^-22; ex2(-1e30) = 0).
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // ---- the per-warp update ----------------------------------------------------
@@ -327,20 +246,6 @@ __device__ __forceinline__ unsigned long long mask_count(const unsigned* mask, i
   return n;
 }
 
-// Warp-wide: the mask of a CSR list ids[0..n) (bit j of word j / 32 for
-// each listed block j < tkv); n = 0 clears it.
-__device__ __forceinline__ void mask_from_list(unsigned* mask, int words,
-                                               const int* __restrict__ ids, int n, int tkv) {
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < words; i += 32) mask[i] = 0u;
-  __syncwarp();
-  for (int e = lane; e < n; e += 32) {
-    const int j = ids[e];
-    if ((unsigned)j < (unsigned)tkv) atomicOr(&mask[j >> 5], 1u << (j & 31));
-  }
-  __syncwarp();
-}
-
 // Called by every thread of the block after each warp has built its mask
 // (warp_mask). qw: the warp's 16 Q rows; ow: where its 16 output rows go
 // (O / l, zeros when l == 0); kbh, vbh: the block's (b, h) K and V
@@ -437,18 +342,6 @@ __device__ __forceinline__ void attend_rows(const T* __restrict__ qw, T* __restr
 }
 
 // ---- host side --------------------------------------------------------------
-
-// Raise a kernel's dynamic shared-memory limit and launch it; returns the
-// attribute call's error, 0 otherwise.
-template <typename Kernel, typename... Args>
-int launch_rows(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
-                Args... args) {
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return 0;
-}
 
 inline bool q_block_built(int bq) { return bq == 16 || bq == 32 || bq == 64 || bq == 128; }
 

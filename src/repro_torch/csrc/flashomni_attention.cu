@@ -67,15 +67,14 @@ extern "C" int fo_csr_attention(int dtype, const void* q, const void* k, const v
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dd)::value, BKV = decltype(bb)::value;
     const int slots = fo::kWarps * fo::kRows / bq;      // slots per block
-    return fo::launch_rows(csr_attention_kernel<T, D, BKV>, dim3((Cq + slots - 1) / slots, BH),
-                           fo::kThreads, fo::RowLayout<T, D, BKV>::bytes(fo::kWarps, Nkv / BKV),
-                           static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
-                           static_cast<const T*>(k), static_cast<const T*>(v),
-                           static_cast<T*>(out), static_cast<const int*>(q_ids),
-                           static_cast<const int*>(q_src), static_cast<const int*>(q_cnt),
-                           static_cast<const int*>(kv_ids), static_cast<const int*>(kv_cnt), Nq,
-                           Nkv, N, Cq, Ckv, bq, scale,
-                           static_cast<unsigned long long*>(walk));
+    return fo::launch_with_smem(
+        csr_attention_kernel<T, D, BKV>, dim3((Cq + slots - 1) / slots, BH), fo::kThreads,
+        fo::RowLayout<T, D, BKV>::bytes(fo::kWarps, Nkv / BKV), static_cast<cudaStream_t>(stream),
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), static_cast<const int*>(q_ids), static_cast<const int*>(q_src),
+        static_cast<const int*>(q_cnt), static_cast<const int*>(kv_ids),
+        static_cast<const int*>(kv_cnt), Nq, Nkv, N, Cq, Ckv, bq, scale,
+        static_cast<unsigned long long*>(walk));
   });
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -68,15 +68,14 @@ extern "C" int fo_csr_attention_bucketed(int dtype, const void* q, const void* k
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dd)::value, BKV = decltype(bb)::value;
     const int warps = bq / fo::kRows;
-    return fo::launch_rows(csr_bucketed_kernel<T, D, BKV>, dim3(B * R), 32 * warps,
-                           fo::RowLayout<T, D, BKV>::bytes(warps, Nkv / BKV),
-                           static_cast<cudaStream_t>(stream), static_cast<const T*>(q),
-                           static_cast<const T*>(k), static_cast<const T*>(v),
-                           static_cast<T*>(out), static_cast<const int*>(head),
-                           static_cast<const int*>(q_write), static_cast<const int*>(q_read),
-                           static_cast<const int*>(kv_ids), static_cast<const int*>(kv_cnt),
-                           static_cast<const int*>(row_off), B, H, R, S, Nq, Nkv, N, bq, scale,
-                           static_cast<unsigned long long*>(walk));
+    return fo::launch_with_smem(
+        csr_bucketed_kernel<T, D, BKV>, dim3(B * R), 32 * warps,
+        fo::RowLayout<T, D, BKV>::bytes(warps, Nkv / BKV), static_cast<cudaStream_t>(stream),
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), static_cast<const int*>(head), static_cast<const int*>(q_write),
+        static_cast<const int*>(q_read), static_cast<const int*>(kv_ids),
+        static_cast<const int*>(kv_cnt), static_cast<const int*>(row_off), B, H, R, S, Nq, Nkv,
+        N, bq, scale, static_cast<unsigned long long*>(walk));
   });
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -109,7 +109,7 @@ extern "C" int fo_symbols_attention(int dtype, const void* q, const void* k, con
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dd)::value, BKV = decltype(bb)::value;
     const int per_block = fo::kWarps * fo::kRows / bq;  // q blocks per block
-    return fo::launch_rows(
+    return fo::launch_with_smem(
         symbols_attention_kernel<T, D, BKV>, dim3((N / bq + per_block - 1) / per_block, BH),
         fo::kThreads, fo::RowLayout<T, D, BKV>::bytes(fo::kWarps, Nkv / BKV),
         static_cast<cudaStream_t>(stream), static_cast<const T*>(q), static_cast<const T*>(k),

@@ -26,8 +26,8 @@ import torch
 from repro_torch.core.plan import bucket_row_offsets
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build", "load",
-           "check", "check_aligned", "check_geometry", "row_offsets", "dtype_code", "stream_of",
-           "raise_on_error"]
+           "check", "check_aligned", "aligned_rows", "check_geometry", "row_offsets",
+           "dtype_code", "stream_of", "raise_on_error"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -39,13 +39,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: (restype, argtypes) of every exported entry point.
 _SIGNATURES = {
     "fo_error_string": (ctypes.c_char_p, [_I]),
-    "fo_gemm_q": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "fo_gemm_q": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "fo_csr_attention": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P]),
-    "fo_gemm_o": (_I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "fo_gemm_o": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fo_csr_attention_bucketed": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P]),
-    "fo_gemm_o_bucketed": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+    "fo_gemm_o_bucketed": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fo_symbols_attention": (_I, [_I, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P]),
@@ -157,6 +157,14 @@ def check_aligned(name: str, t: torch.Tensor, nbytes: int = 16) -> None:
     if t.data_ptr() % nbytes:
         raise ValueError(f"{name}: expected a tensor whose data starts on a {nbytes}-byte "
                          f"boundary, got address {t.data_ptr():#x}")
+
+
+def aligned_rows(*rows: tuple) -> bool:
+    """True when every ``(tensor, row_length)`` pair starts on a 16-byte
+    boundary and has rows of a multiple of 16 bytes.  The GEMM tile then
+    stages by 16-byte ``cp.async``; otherwise (a bfloat16 row of 100
+    elements is 200 bytes) element by element, with the same bits."""
+    return all(t.data_ptr() % 16 == 0 and n * t.element_size() % 16 == 0 for t, n in rows)
 
 
 def check_geometry(geometry, rows: int, slots: int) -> None:

@@ -47,7 +47,8 @@ def gemm_o_sparse_kernel(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Ten
     _build.check("head_ids", head_ids, dev, torch.int32, (b, cr, h))
     _build.check("head_cnt", head_cnt, dev, torch.int32, (b, cr))
     out = bias.clone()
-    rc = lib.fo_gemm_o(_build.dtype_code(dt), o_heads.data_ptr(), w.data_ptr(),
+    vec = _build.aligned_rows((o_heads, dh), (w, f), (out, f))
+    rc = lib.fo_gemm_o(_build.dtype_code(dt), int(vec), o_heads.data_ptr(), w.data_ptr(),
                        row_ids.data_ptr(), head_ids.data_ptr(), head_cnt.data_ptr(),
                        out.data_ptr(), b, h, n, dh, f, cr, block_rows,
                        _build.stream_of(dev))
@@ -90,8 +91,9 @@ def gemm_o_sparse_bucketed_kernel(o_heads: torch.Tensor, w: torch.Tensor,
         _build.check(name, t, dev, torch.int32, (b, cr))
     _build.check("gmo_head_ids", gmo_head_ids, dev, torch.int32, (b, s))
     out = bias.clone()
+    vec = _build.aligned_rows((o_heads, dh), (w, f), (out, f))
     rc = lib.fo_gemm_o_bucketed(
-        _build.dtype_code(dt), o_heads.data_ptr(), w.data_ptr(), gmo_rows.data_ptr(),
+        _build.dtype_code(dt), int(vec), o_heads.data_ptr(), w.data_ptr(), gmo_rows.data_ptr(),
         gmo_src.data_ptr(), gmo_head_ids.data_ptr(), gmo_head_cnt.data_ptr(),
         _build.row_offsets(geometry, dev).data_ptr(), out.data_ptr(), b, h, n, dh, f, cr,
         s, block_rows, _build.stream_of(dev))

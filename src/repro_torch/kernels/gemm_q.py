@@ -40,7 +40,8 @@ def gemm_q_sparse_kernel(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor
     _build.check("row_ids", row_ids, dev, torch.int32, (b, cr))
     _build.check("row_cnt", row_cnt, dev, torch.int32, (b,))
     out = torch.empty((b, cr * block_rows, f), dtype=x.dtype, device=dev)
-    rc = lib.fo_gemm_q(_build.dtype_code(x.dtype), x.data_ptr(), w.data_ptr(),
+    vec = _build.aligned_rows((x, k), (w, f), (out, f))
+    rc = lib.fo_gemm_q(_build.dtype_code(x.dtype), int(vec), x.data_ptr(), w.data_ptr(),
                        row_ids.data_ptr(), row_cnt.data_ptr(), out.data_ptr(),
                        b, n, k, f, cr, block_rows, _build.stream_of(dev))
     _build.raise_on_error(lib, rc, "gemm_q_sparse_kernel")

@@ -23,6 +23,12 @@ for bit when its live slots are permuted into other groups.  The walk
 counters (``count_walk``) read one staged KV block per block of a group's
 union and one update per listed block of each 16-row warp; the attention
 wrappers refuse a view whose data does not start on a 16-byte boundary.
+The sparse-GEMM tile (B1, B3, B5) runs at the served width (K = F = 3072,
+24 heads x 128) against the plain f32 version at 1e-4, on padding tiles
+that must store zeros, on groups of GEMM-O slots whose head lists are
+disjoint, identical or dead (dead rows keep the bias bit for bit; permuted
+slots and B5 give the same bits), on rows of 200 bytes and on misaligned
+views, which stage element by element and give the 16-byte path's bits.
 """
 
 import pytest
@@ -422,3 +428,178 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         TK.gemm_q_sparse_kernel(x, w, ids.long(), cnt, block_rows=32)
     with pytest.raises(ValueError, match="CUDA"):
         TK.gemm_q_sparse_kernel(x, w.cpu(), ids, cnt, block_rows=32)
+
+
+def _nan_filled_cache(dev, nbytes=64 << 20):
+    """Leave NaN in the allocator's free blocks, so that an output the
+    kernel fails to write shows."""
+    torch.full((nbytes // 4,), float("nan"), device=dev)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_q_serving_width_sum(dev, dtype):
+    """K = F = 3072 (the served d_model): the 3xTF32 sum stays within 1e-4
+    of the plain f32 product (plain TF32 would not)."""
+    g = _gen(3072)
+    b, n, k, bm = 2, 1024, 3072, 32
+    t = n // bm
+    live = torch.zeros((b, t), dtype=torch.bool)
+    live[0, torch.randperm(t, generator=g)[:5]] = True
+    live[1, torch.randperm(t, generator=g)[:9]] = True
+    row_ids, row_cnt = active_indices(live, t)
+    x = torch.randn((b, n, k), generator=g).to(dtype)
+    w = (torch.randn((k, k), generator=g) * k ** -0.5).to(dtype)
+    args = [a.to(dev) for a in (x, w, row_ids, row_cnt)]
+    _close(TK.gemm_q_sparse_kernel(*args, block_rows=bm), gemm_q_ref(*args, block=bm), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_o_serving_width_sum(dev, dtype):
+    """24 heads x 128 into F = 3072: the 3xTF32 sum over up to 3072 products
+    a row stays within 1e-4 of the plain f32 version."""
+    g = _gen(24128)
+    b, h, n, dh, f, bm = 2, 24, 512, 128, 3072, 32
+    t = n // bm
+    m_ch = torch.rand((b, t, h), generator=g) < 0.8
+    m_ch[:, ::3] = False                                  # some rows keep no head
+    row_ids, _ = active_indices(m_ch.any(-1), t)
+    hm = torch.gather(m_ch, 1, row_ids.long()[..., None].expand(b, t, h))
+    head_ids, head_cnt = active_indices(hm, h)
+    o = torch.randn((b, h, n, dh), generator=g).to(dtype)
+    w = (torch.randn((h, dh, f), generator=g) * (h * dh) ** -0.5).to(dtype)
+    bias = torch.randn((b, n, f), generator=g).to(dtype)
+    args = [a.to(dev) for a in (o, w, bias, row_ids, head_ids, head_cnt)]
+    _close(TK.gemm_o_sparse_kernel(*args, block_rows=bm), gemm_o_ref(*args, block=bm), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm", [16, 32, 64])
+def test_gemm_q_padding_tiles_store_zeros(dev, dtype, bm):
+    """Tiles made only of padding slots (a batch with no live slot, and the
+    tiles past the live prefix) skip the reduction and store zeros."""
+    g = _gen(7 + bm)
+    b, n, k, f = 2, 2048, 96, 520
+    t = n // bm
+    live = torch.zeros((b, t), dtype=torch.bool)
+    live[0, torch.randperm(t, generator=g)[:3]] = True    # one partial tile, then padding
+    row_ids, row_cnt = active_indices(live, t)
+    x = torch.randn((b, n, k), generator=g).to(dtype).to(dev)
+    w = (torch.randn((k, f), generator=g) * k ** -0.5).to(dtype).to(dev)
+    row_ids, row_cnt = row_ids.to(dev), row_cnt.to(dev)
+    _nan_filled_cache(dev)
+    got = TK.gemm_q_sparse_kernel(x, w, row_ids, row_cnt, block_rows=bm)
+    _close(got, gemm_q_ref(x, w, row_ids, row_cnt, block=bm), dtype)
+    assert not got[0, 3 * bm:].any() and not got[1].any()
+
+
+def _head_groups(case, b, h, t, group, g):
+    """(B, T, H) head masks of T slots, laid out so that the groups of
+    ``group`` consecutive slots GEMM-O's tile takes hold disjoint or
+    identical head lists, or dead slots among live ones."""
+    m = torch.rand((b, t, h), generator=g) < 0.6
+    if case == "disjoint":
+        m = (torch.arange(h)[None, None, :] % group
+             == torch.arange(t)[None, :, None] % group).expand(b, t, h).clone()
+    elif case == "identical":
+        m = m[:, ::group].repeat_interleave(group, dim=1)[:, :t].clone()
+    elif case == "dead":
+        m[:, 1::3] = False                                # dead slots inside groups
+        m[:, group:2 * group] = False                     # a whole group dead
+    m[:, 0, 0] = True
+    return m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", ["disjoint", "identical", "dead", "random"])
+def test_gemm_o_head_groups(dev, dtype, bm, case):
+    """GEMM-O over groups of slots whose head lists are disjoint, identical,
+    or hold dead slots: within tolerance of the plain version, every row no
+    live slot covers keeps the bias bit for bit, the same lists with the
+    slots permuted (other groups) give the same bits, and so does B5 on them
+    as a one-bucket layout in another order."""
+    g = _gen(["disjoint", "identical", "dead", "random"].index(case) * 100 + bm)
+    b, h, n, dh, f = 2, 6, 2048, 64, 264
+    t, group = n // bm, 128 // bm
+    hm = _head_groups(case, b, h, t, group, g)            # in slot order
+    row_ids = torch.stack([torch.randperm(t, generator=g) for _ in range(b)]).int()
+    head_ids, head_cnt = active_indices(hm, h)
+    o = torch.randn((b, h, n, dh), generator=g).to(dtype).to(dev)
+    w = (torch.randn((h, dh, f), generator=g) * (h * dh) ** -0.5).to(dtype).to(dev)
+    bias = torch.randn((b, n, f), generator=g).to(dtype).to(dev)
+    lists = [a.to(dev) for a in (row_ids, head_ids, head_cnt)]
+    got = TK.gemm_o_sparse_kernel(o, w, bias, *lists, block_rows=bm)
+    _close(got, gemm_o_ref(o, w, bias, *lists, block=bm), dtype)
+    dead = torch.zeros((b, t), dtype=torch.bool)
+    dead.scatter_(1, row_ids.long(), head_cnt == 0)
+    keep = dead.repeat_interleave(bm, dim=1).to(dev)
+    assert torch.equal(got[keep], bias[keep])
+    perm = torch.stack([torch.randperm(t, generator=g) for _ in range(b)])
+    take = lambda a: torch.gather(a, 1, perm if a.dim() == 2 else
+                                  perm[..., None].expand_as(a)).contiguous()
+    moved = TK.gemm_o_sparse_kernel(o, w, bias, *[take(a).to(dev) for a in
+                                                  (row_ids, head_ids, head_cnt)], block_rows=bm)
+    assert torch.equal(moved, got)
+    rows = torch.where(head_cnt > 0, row_ids, n // bm)
+    gmo = [take(a).to(dev) for a in (rows, row_ids)]
+    gmo += [take(head_ids).reshape(b, t * h).to(dev), take(head_cnt).to(dev)]
+    geo = ((t, h),)
+    bkt = TK.gemm_o_sparse_bucketed_kernel(o, w, bias, *gmo, geo, block_rows=bm)
+    assert torch.equal(bkt, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_short_rows_take_the_element_path(dev, dtype):
+    """Rows of 100 elements (200 bytes in bfloat16: no 16-byte cp.async)
+    stage element by element; GEMM-Q, GEMM-O and B5 stay within tolerance of
+    their plain versions."""
+    from repro_torch.kernels import _build
+    g = _gen(100)
+    b, h, n, d, bm = 2, 3, 256, 100, 32
+    t = n // bm
+    x = torch.randn((b, n, d), generator=g).to(dtype).to(dev)
+    wq = (torch.randn((d, d), generator=g) * d ** -0.5).to(dtype).to(dev)
+    assert _build.aligned_rows((x, d)) == (dtype == torch.float32)
+    live = torch.rand((b, t), generator=g) < 0.5
+    row_ids, row_cnt = [a.to(dev) for a in active_indices(live, t)]
+    _close(TK.gemm_q_sparse_kernel(x, wq, row_ids, row_cnt, block_rows=bm),
+           gemm_q_ref(x, wq, row_ids, row_cnt, block=bm), dtype)
+    o = torch.randn((b, h, n, d), generator=g).to(dtype).to(dev)
+    wo = (torch.randn((h, d, d), generator=g) * (h * d) ** -0.5).to(dtype).to(dev)
+    bias = torch.randn((b, n, d), generator=g).to(dtype).to(dev)
+    hm = torch.rand((b, t, h), generator=g) < 0.6
+    head_ids, head_cnt = active_indices(hm, h)
+    lists = [a.to(dev) for a in (torch.arange(t).expand(b, t).int(), head_ids, head_cnt)]
+    got = TK.gemm_o_sparse_kernel(o, wo, bias, *lists, block_rows=bm)
+    _close(got, gemm_o_ref(o, wo, bias, *lists, block=bm), dtype)
+    gmo = [torch.where(lists[2] > 0, lists[0], n // bm), lists[0],
+           lists[1].reshape(b, t * h).contiguous(), lists[2]]
+    assert torch.equal(TK.gemm_o_sparse_bucketed_kernel(o, wo, bias, *gmo, ((t, h),),
+                                                        block_rows=bm), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arg", ["x", "w_q", "o_heads", "w_o"])
+def test_gemm_misaligned_view_gives_the_aligned_bits(dev, dtype, arg):
+    """A view whose data does not start on a 16-byte boundary stages element
+    by element and gives the 16-byte path's bits."""
+    g = _gen(16)
+    b, h, n, d, f, bm = 2, 4, 512, 128, 256, 32
+    t = n // bm
+    shapes = {"x": (b, n, d), "w_q": (d, f), "o_heads": (b, h, n, d), "w_o": (h, d, f)}
+    vals = {k: torch.randn(s, generator=g).to(dtype).to(dev) for k, s in shapes.items()}
+    shifted = dict(vals)
+    flat = torch.empty(vals[arg].numel() + 1, dtype=dtype, device=dev)[1:]
+    shifted[arg] = flat.view(shapes[arg]).copy_(vals[arg])
+    assert shifted[arg].data_ptr() % 16 and shifted[arg].is_contiguous()
+    live = torch.rand((b, t), generator=g) < 0.5
+    row_ids, row_cnt = [a.to(dev) for a in active_indices(live, t)]
+    hm = torch.rand((b, t, h), generator=g) < 0.6
+    head_ids, head_cnt = [a.to(dev) for a in active_indices(hm, h)]
+    ids = torch.arange(t, device=dev).expand(b, t).int().contiguous()
+    bias = torch.randn((b, n, f), generator=g).to(dtype).to(dev)
+    runs = [(TK.gemm_q_sparse_kernel(v["x"], v["w_q"], row_ids, row_cnt, block_rows=bm),
+             TK.gemm_o_sparse_kernel(v["o_heads"], v["w_o"], bias, ids, head_ids, head_cnt,
+                                     block_rows=bm)) for v in (vals, shifted)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])

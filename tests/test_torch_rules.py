@@ -15,6 +15,9 @@
 (f) The attention kernels' input checks: a contiguous view whose data does
     not start on a 16-byte boundary is refused, and the walk is counted
     only on a CUDA device.
+(g) The sparse GEMMs' staging path: 16-byte copies only where every row
+    starts on a 16-byte boundary, and ``chip_smoke.py`` reads each built
+    instance's registers and spills from the ``ptxas`` report.
 """
 
 import ast
@@ -150,6 +153,39 @@ def test_check_aligned_refuses_an_offset_view(dtype):
     assert view.is_contiguous()
     with pytest.raises(ValueError, match="q: .*16-byte boundary"):
         _build.check_aligned("q", view)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cols,offset", [(128, 0), (104, 0), (100, 0), (128, 1)])
+def test_gemm_staging_path_follows_rows_and_pointers(dtype, cols, offset):
+    """16-byte staging needs data that starts on a 16-byte boundary and rows
+    of a multiple of 16 bytes: 100 float32 are 400 bytes, 100 bfloat16 200."""
+    base = torch.zeros(8 * cols + 8, dtype=dtype)
+    t = base[offset:offset + 8 * cols].view(8, cols)
+    want = offset == 0 and not (cols == 100 and dtype == torch.bfloat16)
+    assert _build.aligned_rows((t, cols)) == want
+    assert not _build.aligned_rows((t, cols), (base[1:9], 8))
+
+
+def test_chip_smoke_reads_ptxas_usage(tmp_path, monkeypatch):
+    smoke = _chip_smoke()
+    lib = tmp_path / "libflashomni_0123456789abcdef.so"
+    (tmp_path / "ptxas_0123456789abcdef.log").write_text(
+        "== gemm_q.cu\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_113gemm_q_kernelIfLb1EEEvPKT_S3_PKiS5_PS1_iiiii' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_113gemm_q_kernelIfLb1EEEv\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 404 bytes cmem[0]\n")
+    monkeypatch.setattr(_build, "build", lambda: lib)
+    usage = smoke.ptxas_usage()
+    stem = smoke.serving_instance("gemm_q_sparse_kernel", "float32")
+    (key,) = [k for k in usage if stem in k]
+    assert usage[key] == {"registers": 168, "spill_bytes": 20}
+    assert smoke.serving_instance("gemm_o_sparse_bucketed_kernel", "bfloat16") \
+        == "gemm_o_bucketed_kernelI13__nv_bfloat16Lb1E"
+    assert smoke.serving_instance("flashomni_attention_csr", "float32") \
+        == "csr_attention_kernelIfLi128ELi16E"
 
 
 def test_count_walk_wants_a_cuda_device():
