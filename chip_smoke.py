@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Three paths run, each with the launch counts set to 0 just before it and
+Four paths run, each with the launch counts set to 0 just before it and
 read just after: P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
 GEMM-O), P2 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2
-buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O) and ``ops`` (the
+buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
 unified kernel entry on one full-width layer: the symbols attention and the
-Taylor reuse, beside the other five).
+Taylor reuse, beside the other five) and H1 (hunyuan-video-dit at the
+paper's 33K tokens: GEMM-Q, CSR attention, GEMM-O).  Every dense baseline
+run launches no kernel.
 
 Phases (each prints one JSON line; any failure exits non-zero without the
 final line):
@@ -53,9 +55,24 @@ final line):
                 against the mask oracle, 2-bucket attention against its plain
                 version, Taylor reuse against the layer's forecast); the
                 symbols attention and the Taylor reuse must launch;
-  7. profile  — device time by kernel group within one Update and one
-                Dispatch step of P1 and of P2 at full width
-                (torch.profiler), and the device's idle share.
+  7. dense    — P1's request under ``force_dense`` on the same weights and
+                noise (no kernel launches): P1's and P2's speedup over it and
+                their relative L2 / PSNR against its latents; then P1, P2
+                and the dense run in bfloat16;
+  8. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
+                (48 blocks, B=1, 256 + 32 768 tokens), ``hunyuan-1.5x``,
+                uniform layout, float32, 8 steps (3-5 and 7 Dispatch):
+                GEMM-Q, CSR attention and GEMM-O each launched 48 x 4 = 192
+                times, the others never; then its dense run on the same
+                inputs: latency, step seconds, peak memory, speedup, rel-L2
+                / PSNR against dense, and the 50-step projection;
+  9. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
+                and the bucketed pair on the ``hunyuan-1.5x`` interior plan
+                at 3 buckets, at H1's shapes (B=1, N=33 024) in float32;
+ 10. profile  — device time by kernel group within one Update and one
+                Dispatch step of P1, P2 and H1 (at 12 of its 48 blocks) at
+                full width (torch.profiler; the chunked dense attention as its
+                own group), and the device's idle share.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power-limit line, and
 the device line last.
@@ -63,7 +80,9 @@ the device line last.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -75,8 +94,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-N_LAYERS, DISPATCH_STEPS, REQUESTS, STEPS = 38, 4, 1, 8
-DEVICE, NV, PATCH_DIM = "cuda", 4096, 64       # the served latents: (2, NV, PATCH_DIM)
+REQUESTS, STEPS, DEVICE = 1, 8, "cuda"
+# The served cells: flux-mmdit (P1, P2 and their dense run) and H1, the
+# paper's 33K HunyuanVideo cell (256 text + 32 768 vision tokens).
+FLUX = dict(arch="flux-mmdit", batch=2, n_vision=4096)
+H1 = dict(arch="hunyuan-video-dit", batch=1, n_vision=32768)
+# H1 runs P1's 8 steps (a dense or Update step takes 40-47 s at this width
+# on one H100 at 700 W, PERF.md section 5).
+H1_STEPS = STEPS
+# Every served path at 8 steps: steps 0-2 and 6 Update, 3-5 and 7 Dispatch.
+# Held against the resolved schedule, so that a schedule fault that drops
+# Dispatch steps cannot lower the launches expected of it.
+DISPATCH_STEPS = 4
+# The profile runs H1 at 12 of its 48 blocks (full width): a step's 48
+# blocks under the profiler take minutes to trace and read back.
+H1_PROFILE_LAYERS = 12
+# H1's kernel shapes: batch, heads, tokens, head_dim, d_model, text tokens.
+H1_SHAPE = dict(b=1, h=24, n=33024, dh=128, d=3072, n_text=256)
+# The SDPA yardstick of the attention rows runs only where its token mask
+# fits this many bytes (at H1's shapes it would take 19.6 GB).
+SDPA_MASK_BYTES = 8e9
 P1_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel")
 P2_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr_bucketed",
               "gemm_o_sparse_bucketed_kernel")
@@ -130,6 +167,15 @@ LIBRARY = {
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def timed(run, /, *args, **kw):
+    """``run(*args, **kw)``, its seconds written to stderr."""
+    t0 = time.perf_counter()
+    out = run(*args, **kw)
+    print(f"chip_smoke: {kw.get('phase', run.__name__)} took "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    return out
 
 
 def peaks_for(name: str) -> dict:
@@ -242,8 +288,9 @@ FULL = dict(b=2, h=24, n=4608, dh=128, d=3072, n_text=512)
 
 def plan_work(plan, ecfg, b, h, n):
     """What a plan's clamped lists really need: live counts for the bounds,
-    the token mask of the attention yardstick and the (B, N, H) head mask
-    of the GEMM-O yardstick."""
+    the token mask of the attention yardstick (None where it would exceed
+    ``SDPA_MASK_BYTES``) and the (B, N, H) head mask of the GEMM-O
+    yardstick."""
     import torch
     dev = plan.q_ids.device
     m = ecfg.mask
@@ -262,12 +309,15 @@ def plan_work(plan, ecfg, b, h, n):
     # Token mask of the plan over the compact Q rows for the SDPA yardstick
     # (rows of no live slot attend everywhere: dense work either way).
     tc = cr * pool // bq
-    blk = torch.ones((b * h, tc + 1, t_kv + 1), dtype=torch.bool, device=dev)
-    dst = torch.where(slot_live, q_src.long(), tc)       # dead slots -> trash row
-    blk.scatter_(1, dst[..., None].expand(-1, -1, t_kv + 1), per_slot)
-    sdpa_mask = blk[:, :tc, :t_kv].repeat_interleave(bq, dim=1) \
-        .repeat_interleave(bkv, dim=2)[:, None]
-    del blk, per_slot
+    sdpa_mask = None
+    if b * h * tc * bq * n <= SDPA_MASK_BYTES:
+        blk = torch.ones((b * h, tc + 1, t_kv + 1), dtype=torch.bool, device=dev)
+        dst = torch.where(slot_live, q_src.long(), tc)       # dead slots -> trash row
+        blk.scatter_(1, dst[..., None].expand(-1, -1, t_kv + 1), per_slot)
+        sdpa_mask = blk[:, :tc, :t_kv].repeat_interleave(bq, dim=1) \
+            .repeat_interleave(bkv, dim=2)[:, None]
+        del blk
+    del per_slot
     # The clamped (row, head) mask in token layout.
     t = m.n_blocks(n)
     rows = torch.zeros((b, t + 1, h), dtype=torch.bool, device=dev)
@@ -281,13 +331,15 @@ def plan_work(plan, ecfg, b, h, n):
         kv_live_blocks=int(torch.where(slot_live, kv_cnt, 0).sum()),
         kv_union_blocks=int(union.sum()), live_heads=int(plan.head_cnt.sum()),
         heads_used=int(plan.head_mask.any(dim=(0, 1)).sum()),
-        sdpa_mask=sdpa_mask, m_tok=m_tok)
+        sdpa_mask=sdpa_mask, sdpa_mask_bytes=b * h * tc * bq * n, m_tok=m_tok)
 
 
-def measure(name, dn, kern, plain, library, flops, nbytes, peaks, twin=None) -> dict:
+def measure(name, dn, kern, plain, library, flops, nbytes, peaks, twin=None,
+            iters=10) -> dict:
     """Kernel vs plain version (and, for a bucketed or the symbols kernel,
     ``torch.equal`` to its uniform CSR twin on the same lists, and the twin's
-    time), then kernel / plain / library times."""
+    time), then kernel / plain / library times (``library`` None: no library
+    call fits on the card at these shapes)."""
     import torch
     got = kern()
     want = plain()
@@ -304,9 +356,12 @@ def measure(name, dn, kern, plain, library, flops, nbytes, peaks, twin=None) -> 
     t_op = (3 * flops / peaks["tf32"] if x3 else flops / peaks[dn]) * 1e3
     t_mem = nbytes / peaks["hbm"] * 1e3
     if twin is not None:        # the uniform kernel's time on the same plan
-        row["uniform_ms"] = time_ms(twin, 10)
-    row.update({"ms": time_ms(kern, 10), "plain_ms": time_ms(plain, 2, warmup=1),
-                "library_ms": time_ms(library, 5, warmup=1), "bound_ms": max(t_op, t_mem),
+        row["uniform_ms"] = time_ms(twin, iters)
+    row.update({"ms": time_ms(kern, iters),
+                "plain_ms": time_ms(plain, max(1, iters // 5), warmup=1),
+                "library_ms": (time_ms(library, max(1, iters // 2), warmup=1)
+                               if library is not None else None),
+                "bound_ms": max(t_op, t_mem),
                 "bound_by": "operations" if t_op >= t_mem else "bytes",
                 "flops": flops, "bytes": nbytes})
     torch.cuda.empty_cache()
@@ -329,9 +384,13 @@ def walk_counts(name, dn, kern, flops, bkv, dh) -> dict:
 
 
 def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d=3072,
-                  n_text=512) -> dict:
-    """Kernel vs plain vs library at the serving shapes; returns the float32
-    row of every kernel (the serving dtype)."""
+                  n_text=512, *, plans=("flashomni", "sliding-window", "hunyuan-1.5x interior"),
+                  dtypes=("float32", "bfloat16"), with_ops=True, iters=10,
+                  phase="kernels") -> dict:
+    """Kernel vs plain vs library at the serving shapes, on the named
+    ``plans`` in ``dtypes`` (``with_ops``: the symbols attention and the
+    Taylor reuse on the flashomni symbols too), ``iters`` timed launches a
+    kernel; returns the float32 row of every kernel (the serving dtype)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as TK
@@ -355,6 +414,7 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
              ("hunyuan-1.5x interior", MultiGranularityStrategy(
                  children=("flashomni", "skip-only", "sliding-window"), head_assign=(0, 0, 2)),
               3, P2_KERNELS[1:])]
+    cases = [case for case in cases if case[0] in plans]
     usage = ptxas_usage()
     rows, results, plans = {}, [], []
     for label, strategy, kb, names in cases:
@@ -372,8 +432,8 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
                           "geometry_o": bucket_geometry(cr, h, 1, kb)} if kb > 1 else {}),
                       **{key: w[key] for key in ("live_rows", "live_slots", "kv_live_blocks",
                                                  "kv_union_blocks", "live_heads")}})
-        for dt in (torch.float32, torch.bfloat16):
-            dn = str(dt).split(".")[-1]
+        for dn in dtypes:
+            dt = getattr(torch, dn)
             e = torch.finfo(dt).bits // 8
             x, wq = x32.to(dt), wq32.to(dt)
             qc, kk, vv, ore = qc32.to(dt), k32.to(dt), v32.to(dt), ore32.to(dt)
@@ -384,8 +444,9 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
             uni_gemm_o = lambda: TK.gemm_o_sparse_kernel(o, wo, bias, plan.row_ids,
                                                          plan.head_ids, plan.head_cnt,
                                                          block_rows=pool)
-            sdpa = lambda: F.scaled_dot_product_attention(qc[:, None], kk[:, None], vv[:, None],
-                                                          attn_mask=w["sdpa_mask"])
+            sdpa = None if w["sdpa_mask"] is None else (
+                lambda: F.scaled_dot_product_attention(qc[:, None], kk[:, None], vv[:, None],
+                                                       attn_mask=w["sdpa_mask"]))
             einsum = lambda: torch.einsum("bnhd,hdf->bnf", torch.where(
                 w["m_tok"][..., None], o.transpose(1, 2), 0), wo) + bias
             attn_flops = 4.0 * w["kv_live_blocks"] * bq * bkv * dh
@@ -440,22 +501,25 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
                         lambda: ref.gemm_o_bucketed_ref(o, wo, bias, *gmo, geo_o, block=pool),
                         einsum, go_flops, go_bytes, uni_gemm_o),
                 }
-            if kb == 1:
+            if kb == 1 and with_ops:
                 calls.update(ops_calls(syms, ecfg, dt, e, b, h, n, dh, rnd, k32, v32, ore32))
             for name, (kern, plain, library, flops, nbytes, twin) in calls.items():
                 row = {"plan": label, **measure(name, dn, kern, plain, library, flops,
-                                                nbytes, peaks, twin)}
+                                                nbytes, peaks, twin, iters)}
+                if library is None:
+                    row["library_skipped"] = (f"the SDPA token mask would take "
+                                              f"{w['sdpa_mask_bytes'] / 1e9:.1f} GB")
                 if name in ATTENTION:
                     row.update(walk_counts(name, dn, kern, flops, bkv, dh))
                 if name in TF32X3:          # registers and spills of the instance it ran
                     stem = serving_instance(name, dn)
                     row["ptxas"] = next((u for key, u in usage.items() if stem in key), None)
                 results.append(row)
-                if dt == torch.float32 and name not in rows:    # the serving dtype
+                if dn == "float32" and name not in rows:    # the serving dtype
                     rows[name] = row
         del w, qc32, syms
         torch.cuda.empty_cache()
-    emit({"phase": "kernels", "shapes": {"B": b, "N": n, "heads": h, "head_dim": dh,
+    emit({"phase": phase, "shapes": {"B": b, "N": n, "heads": h, "head_dim": dh,
                                          "d_model": d, "block_q": 16, "block_kv": 16,
                                          "pool": 32},
           "plans": plans, "results": results})
@@ -635,58 +699,133 @@ def phase_small():
     emit({"phase": "small", "runs": runs, "ok": True})
 
 
-def serve_path(phase, expected, n_requests, **kw) -> tuple[dict, dict]:
-    """``serve_diffusion`` at full width with every launch count set to 0 just
-    before and read just after; fails unless the path's kernels each
-    launched ``expected`` times and every other kernel never."""
+def dispatch_steps(sched, dense=False) -> int:
+    """The schedule's Dispatch steps; fails unless a served path's schedule
+    has ``STEPS`` steps and ``DISPATCH_STEPS`` of them Dispatch, or none
+    under ``force_dense``."""
+    from repro_torch.core.schedule import MODE_DISPATCH
+    n, want = int((sched.mode == MODE_DISPATCH).sum()), 0 if dense else DISPATCH_STEPS
+    if sched.mode.shape[0] != STEPS or n != want:
+        raise AssertionError(f"resolved schedule has {sched.mode.shape[0]} steps, {n} "
+                             f"Dispatch; expected {STEPS} steps, {want} Dispatch")
+    return n
+
+
+def request_record(rid, r) -> dict:
+    """One served request: latency, the latents' shape and finiteness, the
+    mean Dispatch density and each step's kind and seconds."""
     import torch
-    from repro_torch.kernels import KERNELS, reset_launches
-    from repro_torch.launch.serve import serve_diffusion
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    results = serve_diffusion("flux-mmdit", smoke=False, n_vision=NV, batch=2,
-                              num_requests=n_requests, num_steps=STEPS, device=DEVICE,
-                              verbose=False, **kw)
-    wall = time.perf_counter() - t0
+    out = r["out"]
+    dens = [s["density"] for s in r["trace"] if s["kind"] == "dispatch"]
+    return {"rid": rid, "latency_s": r["latency"], "shape": list(out.shape),
+            "finite": bool(torch.isfinite(out).all()),
+            "mean_dispatch_density": sum(dens) / len(dens) if dens else None,
+            "kinds": [s["kind"] for s in r["trace"]],
+            "step_s": [s["seconds"] for s in r["trace"]]}
+
+
+def check_served(res, records, shape, expected) -> dict:
+    """Fails (after printing ``res``) unless every request gave finite
+    latents of ``shape`` and the kernels of ``expected`` (name -> launches)
+    each launched that often and every other kernel never."""
+    from repro_torch.kernels import KERNELS
     launches = {fn.__name__: fn.launches for fn in KERNELS}
-    want = N_LAYERS * DISPATCH_STEPS * n_requests
-    reqs = []
-    for rid, r in sorted(results.items()):
-        out = r["out"]
-        dens = [s["density"] for s in r["trace"] if s["kind"] == "dispatch"]
-        reqs.append({"rid": rid, "latency_s": r["latency"], "shape": list(out.shape),
-                     "finite": bool(torch.isfinite(out).all()),
-                     "mean_dispatch_density": sum(dens) / len(dens),
-                     "kinds": [s["kind"] for s in r["trace"]],
-                     "step_s": [s["seconds"] for s in r["trace"]]})
-    res = {"phase": phase, "arch": "flux-mmdit", "batch": 2, "n_vision": NV,
-           "steps": STEPS, **kw, "wall_s": wall, "requests": reqs, "launches": launches,
-           "expected_launches": {name: (want if name in expected else 0)
-                                 for name in launches},
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    if not all(r["finite"] and r["shape"] == [2, NV, PATCH_DIM] for r in reqs):
+    res["launches"] = launches
+    res["expected_launches"] = {name: expected.get(name, 0) for name in launches}
+    if not all(r["finite"] and r["shape"] == shape for r in records):
         emit(res)
-        raise AssertionError(f"{phase} produced non-finite or misshapen latents")
+        raise AssertionError(f"{res.get('phase', res.get('run'))} produced non-finite or "
+                             "misshapen latents")
     if launches != res["expected_launches"]:
         emit(res)
-        raise AssertionError(f"{phase}: kernel launches {launches}, expected "
-                             f"{res['expected_launches']}")
-    return res, launches
-
-
-def phase_serve() -> dict:
-    res, launches = serve_path("serve", P1_KERNELS, REQUESTS)
-    emit(res)
+        raise AssertionError(f"{res.get('phase', res.get('run'))}: kernel launches "
+                             f"{launches}, expected {res['expected_launches']}")
     return launches
 
 
-def phase_serve_bucketed() -> dict:
+def serve_path(phase, expected, n_requests, arch, batch, n_vision, steps=STEPS,
+               **kw) -> tuple[dict, dict, dict]:
+    """``serve_diffusion`` at full width with every launch count set to 0 just
+    before and read just after; fails unless the path's kernels each
+    launched (layers x Dispatch steps x requests) times and every other
+    kernel never.  Returns the result line, the launches and the latents by
+    request."""
+    import torch
+    from repro_torch.core.engine import resolve_schedule
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.serve import get_config, serve_diffusion, serving_engine_config
+    cfg = get_config(arch)
+    ecfg = serving_engine_config(kw.get("strategy", "flashomni"), kw.get("kv_buckets", 1))
+    want = cfg.n_layers * dispatch_steps(resolve_schedule(
+        ecfg, steps, cfg.n_layers, schedule=kw.get("schedule"))) * n_requests
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = serve_diffusion(arch, smoke=False, n_vision=n_vision, batch=batch,
+                              num_requests=n_requests, num_steps=steps, device=DEVICE,
+                              verbose=False, **kw)
+    wall = time.perf_counter() - t0
+    reqs = [request_record(rid, r) for rid, r in sorted(results.items())]
+    res = {"phase": phase, "arch": arch, "layers": cfg.n_layers, "batch": batch,
+           "n_vision": n_vision, "steps": steps, **kw, "wall_s": wall, "requests": reqs,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    launches = check_served(res, reqs, [batch, n_vision, cfg.patch_dim],
+                            {name: want for name in expected})
+    return res, launches, {rid: r["out"] for rid, r in results.items()}
+
+
+def serve_request(run, cfg, ecfg, inputs, expected=(), dtype="float32",
+                  dense=False) -> tuple[dict, object]:
+    """Request 0 of ``inputs`` (``launch.serve.serving_inputs``: the weights,
+    latents, text and patch embedding that ``serve_diffusion`` draws from the
+    same seed) through ``run_sequential`` in ``dtype``; ``dense`` serves the
+    force_dense baseline.  Launch counts as in :func:`serve_path`: a dense
+    run must launch no kernel.  Returns the record and the latents."""
+    import torch
+    from repro_torch.core.engine import resolve_schedule
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.batching import run_sequential
+    params, patch_embed, (req,) = inputs
+    sched = resolve_schedule(ecfg, req.num_steps, cfg.n_layers, force_dense=dense)
+    want = cfg.n_layers * dispatch_steps(sched, dense)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    r = run_sequential(params, cfg, ecfg, [dataclasses.replace(req, schedule=sched)],
+                       patch_embed=patch_embed, scfg_dtype=getattr(torch, dtype))[req.rid]
+    rec = {"run": run, "dtype": dtype, "force_dense": dense,
+           "strategy": ecfg.strategy, "kv_buckets": ecfg.resolved_kv_buckets(),
+           **request_record(req.rid, r),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check_served(rec, [rec], list(req.x0.shape), {name: want for name in expected})
+    return rec, r["out"]
+
+
+def fidelity(out, dense) -> dict:
+    """Relative L2 ``||out - dense|| / ||dense||`` and the PSNR of
+    ``benchmarks/common.psnr``: peak max |dense| (1 if 0), the MSE floored
+    at 1e-12 (in float64 here)."""
+    import math
+    a, b = out.double(), dense.double()
+    mse = float(((a - b) ** 2).mean())
+    peak = float(b.abs().max()) or 1.0
+    return {"rel_l2": float((a - b).norm() / b.norm()),
+            "psnr_db": 10 * math.log10(peak * peak / max(mse, 1e-12))}
+
+
+def phase_serve() -> tuple[dict, tuple]:
+    res, launches, outs = serve_path("serve", P1_KERNELS, REQUESTS, **FLUX)
+    emit(res)
+    return launches, (res["requests"][0]["latency_s"], outs[0])
+
+
+def phase_serve_bucketed() -> tuple[dict, tuple]:
     """P2: sliding-window, kv_buckets=0 (auto: 2), 1 request; then the share of
     work the buckets dropped at one interior layer's last Update plan."""
     import torch
     from repro_torch.core.engine import plan_from_state
-    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.launch.serve import get_config, serving_engine_config
     from repro_torch.models import dit
     captured = {}
     step = dit.denoise_step
@@ -694,18 +833,18 @@ def phase_serve_bucketed() -> dict:
     def recording_step(*args, **kw):      # keeps the states of the last Update step
         v, states = step(*args, **kw)
         if kw.get("mode") == "update":
-            captured["states"] = states
+            captured["states"] = list(states)     # the sampler replaces the entries
         return v, states
 
     dit.denoise_step = recording_step
     try:
-        res, launches = serve_path("serve_bucketed", P2_KERNELS, 1,
-                                   strategy="sliding-window", kv_buckets=0)
+        res, launches, outs = serve_path("serve_bucketed", P2_KERNELS, 1,
+                                         strategy="sliding-window", kv_buckets=0, **FLUX)
     finally:
         dit.denoise_step = step
     ecfg = serving_engine_config("sliding-window", kv_buckets=0)
-    layer = N_LAYERS // 2
-    st = captured["states"][layer]
+    layer = get_config(FLUX["arch"]).n_layers // 2
+    st = captured.pop("states")[layer]
     n = st.taylor.derivs.shape[-2]            # text + vision tokens (bias cache: B, N, d)
     plan_b = st.plan
     plan_u = plan_from_state(st, dataclasses.replace(ecfg, kv_buckets=1), n)
@@ -722,6 +861,86 @@ def phase_serve_bucketed() -> dict:
                                                       "dropped_share": 1 - kv_b / kv_u},
                     "live_row_heads": {"uniform": rh_u, "bucketed": rh_b,
                                        "dropped_share": 1 - rh_b / rh_u}}
+    emit(res)
+    return launches, (res["requests"][0]["latency_s"], outs[0])
+
+
+def phase_dense(served: dict) -> None:
+    """The dense baseline: P1's request under ``force_dense`` (every step
+    dense, no kernel may launch) on the weights, latents, text and patch
+    embedding that served P1 and P2; each sparse run's speedup (dense
+    latency / its latency) and rel-L2 / PSNR against the dense latents.
+    Then P1, P2 and the dense run again in bfloat16, each also read against
+    the float32 dense latents.  ``served``: path -> (latency, latents)."""
+    import torch
+    from repro_torch.launch.serve import get_config, serving_engine_config, serving_inputs
+    cfg = get_config(FLUX["arch"])
+    inputs = serving_inputs(cfg, n_vision=FLUX["n_vision"], batch=FLUX["batch"],
+                            num_requests=1, num_steps=STEPS, device=DEVICE)
+    ecfgs = {"P1": (serving_engine_config(), P1_KERNELS),
+             "P2": (serving_engine_config("sliding-window", kv_buckets=0), P2_KERNELS)}
+    dense32, ref32 = serve_request("dense", cfg, ecfgs["P1"][0], inputs, dense=True)
+    dense16, ref16 = serve_request("dense", cfg, ecfgs["P1"][0], inputs, dtype="bfloat16",
+                                   dense=True)
+    runs, compare = [dense32, dense16], []
+    for path, (ecfg, kernels) in ecfgs.items():
+        latency, out = served[path]
+        compare.append({"path": path, "dtype": "float32", "latency_s": latency,
+                        "dense_latency_s": dense32["latency_s"],
+                        "speedup": dense32["latency_s"] / latency,
+                        "vs_dense": fidelity(out, ref32)})
+        rec, out16 = serve_request(path, cfg, ecfg, inputs, kernels, dtype="bfloat16")
+        runs.append(rec)
+        compare.append({"path": path, "dtype": "bfloat16", "latency_s": rec["latency_s"],
+                        "dense_latency_s": dense16["latency_s"],
+                        "speedup": dense16["latency_s"] / rec["latency_s"],
+                        "vs_dense": fidelity(out16, ref16),
+                        "vs_dense_float32": fidelity(out16, ref32)})
+    compare.append({"path": "dense", "dtype": "bfloat16",
+                    "speedup_over_dense_float32": dense32["latency_s"] / dense16["latency_s"],
+                    "vs_dense_float32": fidelity(ref16, ref32)})
+    emit({"phase": "dense", **FLUX, "layers": cfg.n_layers, "steps": STEPS, "runs": runs,
+          "compare": compare})
+
+
+def step_median(rec, kind) -> float:
+    import statistics
+    return statistics.median(s for s, k in zip(rec["step_s"], rec["kinds"]) if k == kind)
+
+
+def phase_hunyuan() -> dict:
+    """H1, the paper's 33K cell: hunyuan-video-dit at full width (48 blocks,
+    B = 1, 256 text + 32 768 vision tokens) under the ``hunyuan-1.5x``
+    schedule on the uniform layout in float32, served by ``serve_diffusion``;
+    then its dense run on the same inputs.  Reports the speedup, rel-L2 and
+    PSNR against dense, and the 50-step projection ``50 t_dense / (n_U t_U +
+    n_D t_D)`` from the measured median step times and the schedule's step
+    counts at 50 steps."""
+    import torch
+    from repro_torch.core.engine import resolve_schedule
+    from repro_torch.core.schedule import MODE_DISPATCH, MODE_UPDATE
+    from repro_torch.launch.serve import get_config, serving_engine_config, serving_inputs
+    res, launches, outs = serve_path("hunyuan", P1_KERNELS, 1, steps=H1_STEPS,
+                                     schedule="hunyuan-1.5x", kv_buckets=1, **H1)
+    cfg, ecfg = get_config(H1["arch"]), serving_engine_config()
+    inputs = serving_inputs(cfg, n_vision=H1["n_vision"], batch=H1["batch"],
+                            num_requests=1, num_steps=H1_STEPS, device=DEVICE)
+    dense, ref = serve_request("dense", cfg, ecfg, inputs, dense=True)
+    del inputs
+    torch.cuda.empty_cache()
+    sparse = res["requests"][0]
+    t_u, t_d = step_median(sparse, "update"), step_median(sparse, "dispatch")
+    t_dense = step_median(dense, "dense")
+    mode50 = resolve_schedule(ecfg, 50, cfg.n_layers, schedule="hunyuan-1.5x").mode
+    n_u, n_d = int((mode50 == MODE_UPDATE).sum()), int((mode50 == MODE_DISPATCH).sum())
+    res.update({
+        "dense": dense, "speedup": dense["latency_s"] / sparse["latency_s"],
+        "vs_dense": fidelity(outs[0], ref),
+        "step_median_s": {"update": t_u, "dispatch": t_d, "dense": t_dense},
+        "projection_50_steps": {
+            "note": "a projection from this run's median step times, not a measurement",
+            "n_update": n_u, "n_dispatch": n_d,
+            "speedup": 50 * t_dense / (n_u * t_u + n_d * t_d)}})
     emit(res)
     return launches
 
@@ -772,60 +991,155 @@ def _kernel_group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile_path(label, ecfg, cfg, params, xe, text, t) -> dict:
-    """Device time by kernel within one Update and one Dispatch step."""
+# The profile's group for the kernels that the chunked dense attention
+# (core.attention.dense_attention) launches.
+DENSE_ATTENTION = "dense attention (chunked: Update and dense steps)"
+
+
+@contextlib.contextmanager
+def annotated_dense_attention(spans: list):
+    """Runs every ``dense_attention`` call of the engine and the DiT inside a
+    ``record_function("dense_attention")`` range and between two CUDA
+    events, appended to ``spans``."""
+    import torch
+    from torch.profiler import record_function
+    from repro_torch.core import engine
+    from repro_torch.models import dit
+    plain = engine.dense_attention
+
+    def annotated(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with record_function("dense_attention"):
+            start.record()
+            out = plain(*args, **kw)
+            end.record()
+        spans.append((start, end))
+        return out
+
+    engine.dense_attention = dit.dense_attention = annotated
+    try:
+        yield
+    finally:
+        engine.dense_attention = dit.dense_attention = plain
+
+
+def dense_attention_kernels(events, calls) -> list:
+    """``(kernel name, us)`` of every kernel that ran within the device-side
+    spans of the ``dense_attention`` ranges (one stream, so nothing else
+    ran there).  Fails if ``calls`` (the calls the CUDA events timed) is not
+    0 and the trace holds no such span."""
+    import bisect
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in events
+                   if ev.device_type == cuda and ev.name == "dense_attention")
+    if calls and not spans:
+        raise AssertionError(f"{calls} dense_attention calls ran, but the trace holds no "
+                             "device-side span of them")
+    kernels = sorted((ev.time_range.start, ev.name, ev.time_range.elapsed_us())
+                     for ev in events if ev.device_type == cuda
+                     and ev.name != "dense_attention" and not ev.is_user_annotation)
+    starts = [k[0] for k in kernels]
+    found = []
+    for lo, hi in spans:
+        found.extend((name, us) for _, name, us in
+                     kernels[bisect.bisect_left(starts, lo):bisect.bisect_right(starts, hi)])
+    return found
+
+
+def profile_path(label, ecfg, cfg, params, xe, text, t, schedule=None) -> dict:
+    """Device time by kernel group within one Update and one Dispatch step
+    (the Update step's strategies from the path's schedule at step 0); the
+    dense attention's kernels form a group of their own, whose total is
+    reported beside the time CUDA events took around each call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import resolve_schedule
     from repro_torch.models import dit
     b, nv = xe.shape[:2]
+    sched = resolve_schedule(ecfg, STEPS, cfg.n_layers, schedule=schedule)
     states = dit.init_engine_states(cfg, ecfg, b, nv + cfg.n_text_tokens, xe.device)
     report = {}
     for mode in ("update", "dispatch"):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        spans = []
+        # The traces hold millions of Python objects: no collection may pause
+        # the host inside the timed step.
+        gc.collect()
+        gc.disable()
+        with annotated_dense_attention(spans), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            _, new_states = dit.denoise_step(params, cfg, ecfg, states, xe, text, t,
-                                             mode=mode, dtype=torch.float32)
+            _, states = dit.denoise_step(params, cfg, ecfg, states, xe, text, t,
+                                         mode=mode, dtype=torch.float32,
+                                         strategies=sched.strategies,
+                                         strategy_row=sched.strategy_ids[0],
+                                         step_idx=0, num_steps=STEPS)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        if mode == "update":
-            states = new_states
+        gc.enable()
         groups, busy = {}, 0.0
+
+        def add(name, ms, calls):
+            grp = groups.setdefault(name, {"ms": 0.0, "calls": 0})
+            grp["ms"] += ms
+            grp["calls"] += calls
+
         for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if (ev.device_type != torch.autograd.DeviceType.CUDA or ev.is_user_annotation
+                    or ev.key == "dense_attention"):
                 continue
             ms = ev.self_device_time_total / 1e3
             busy += ms
-            grp = groups.setdefault(_kernel_group(ev.key), {"ms": 0.0, "calls": 0})
-            grp["ms"] += ms
-            grp["calls"] += ev.count
+            add(_kernel_group(ev.key), ms, ev.count)
+        # The dense attention's kernels move from their own groups to its group.
+        for name, us in dense_attention_kernels(prof.events(), len(spans)):
+            add(_kernel_group(name), -us / 1e3, -1)
+            add(DENSE_ATTENTION, us / 1e3, 1)
+        groups = {k: v for k, v in groups.items() if v["calls"]}
         report[mode] = {"wall_ms": wall_ms, "device_busy_ms": busy or None,
                         "idle_share": (1 - busy / wall_ms) if busy else None,
-                        "by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"]))}
-    return {"path": label, "strategy": ecfg.strategy,
+                        "by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1]["ms"])),
+                        "dense_attention_event_ms": sum(a.elapsed_time(z) for a, z in spans)}
+        del prof
+    return {"path": label, "arch": cfg.name, "layers": cfg.n_layers, "batch": b,
+            "n_tokens": nv + cfg.n_text_tokens, "strategy": schedule or ecfg.strategy,
             "kv_buckets": ecfg.resolved_kv_buckets(), **report}
 
 
+def profile_inputs(cfg, batch, n_vision, seed=0):
+    """Weights and one step's inputs (latent patch embeddings, text, t = 0.5)."""
+    import torch
+    from repro_torch.models import dit
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return (dit.init_params(cfg, g, dev),
+            torch.randn((batch, n_vision, cfg.d_model), generator=g, device=dev),
+            torch.randn((batch, cfg.n_text_tokens, cfg.d_model), generator=g, device=dev),
+            torch.full((batch,), 0.5, device=dev))
+
+
 def phase_profile():
-    """One Update and one Dispatch step of P1 and of P2 at full width."""
+    """One Update and one Dispatch step of P1 and of P2 at full width, then
+    of H1 at full width and ``H1_PROFILE_LAYERS`` blocks (its Update step on
+    the hunyuan-1.5x schedule's strategies)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serving_engine_config
-    from repro_torch.models import dit
-    dev = torch.device(DEVICE)
-    cfg = get_config("flux-mmdit")
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    params = dit.init_params(cfg, g, dev)
-    b, nv = 2, NV
-    inputs = (torch.randn((b, nv, cfg.d_model), generator=g, device=dev),
-              torch.randn((b, cfg.n_text_tokens, cfg.d_model), generator=g, device=dev),
-              torch.full((b,), 0.5, device=dev))
-    paths = [profile_path(label, ecfg, cfg, params, *inputs) for label, ecfg in (
+    cfg = get_config(FLUX["arch"])
+    inputs = profile_inputs(cfg, FLUX["batch"], FLUX["n_vision"])
+    paths = [profile_path(label, ecfg, cfg, *inputs) for label, ecfg in (
         ("P1", serving_engine_config()),
         ("P2", serving_engine_config("sliding-window", kv_buckets=0)))]
-    emit({"phase": "profile", "arch": "flux-mmdit", "batch": b,
-          "n_tokens": nv + cfg.n_text_tokens, "layers": cfg.n_layers,
+    del inputs
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(H1["arch"]), n_layers=H1_PROFILE_LAYERS)
+    paths.append(profile_path("H1", serving_engine_config(), cfg,
+                              *profile_inputs(cfg, H1["batch"], H1["n_vision"]),
+                              schedule="hunyuan-1.5x"))
+    torch.cuda.empty_cache()
+    emit({"phase": "profile",
           "note": "one denoise step per mode under torch.profiler (profiler on)",
           "paths": paths})
 
@@ -846,11 +1160,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        smi = phase_build()
-        rows = phase_kernels(torch.cuda.get_device_name(0), **FULL)
-        phase_small()
-        by_path = {"P1": phase_serve(), "P2": phase_serve_bucketed(), "ops": phase_ops()}
-        phase_profile()
+        smi = timed(phase_build)
+        rows = timed(phase_kernels, torch.cuda.get_device_name(0), **FULL)
+        timed(phase_small)
+        served, by_path = {}, {}
+        by_path["P1"], served["P1"] = timed(phase_serve)
+        by_path["P2"], served["P2"] = timed(phase_serve_bucketed)
+        by_path["ops"] = timed(phase_ops)
+        timed(phase_dense, served)
+        del served
+        by_path["H1"] = timed(phase_hunyuan)
+        timed(phase_kernels, torch.cuda.get_device_name(0), **H1_SHAPE,
+              plans=("flashomni", "hunyuan-1.5x interior"), dtypes=("float32",),
+              with_ops=False, iters=3, phase="kernels_33k")
+        timed(phase_profile)
     except Exception:                     # report the failing phase, then fail
         traceback.print_exc()
         return 1

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.symbols import active_indices, clamp_mask_topk
@@ -12,6 +13,8 @@ from repro_torch.core.symbols import active_indices, clamp_mask_topk
 __all__ = ["SparseAttentionSpec", "dense_attention", "attention_plan_indices"]
 
 _NEG_INF = -1e30
+# Elements of the f32 score chunk dense_attention forms at once (1 GiB).
+_SCORE_ELEMS = 1 << 28
 
 
 class SparseAttentionSpec(NamedTuple):
@@ -25,19 +28,39 @@ class SparseAttentionSpec(NamedTuple):
 
 
 def dense_attention(q, k, v, *, scale: Optional[float] = None, mask=None):
-    """Plain softmax attention (einsum + softmax, not SDPA).  q,k,v: (..., N, d).
+    """Plain softmax attention (einsum + softmax, not SDPA).  q,k,v: (..., N, d);
+    ``mask`` (broadcast to (..., N_q, N_kv)) keeps the True pairs.
 
-    The (..., N, N) score tensor is the dominant allocation at full width
-    (4 GB at flux-mmdit, B=2), so the softmax runs in place on it.
+    The (..., N_q, N_kv) f32 score tensor does not fit on a card at full width
+    (105 GB at hunyuan-video-dit, B=1), so the scores are formed for one chunk
+    of heads (the last leading dim) and query rows at a time, at most
+    ``_SCORE_ELEMS`` elements; every row's softmax is whole within its chunk,
+    and runs in place.  The chunks are views: no input is copied.
     """
     scale = (q.shape[-1] ** -0.5) if scale is None else scale
-    s = torch.einsum("...qd,...kd->...qk", q, k).to(torch.float32)
-    s.mul_(scale)
-    if mask is not None:
-        s.masked_fill_(~mask, _NEG_INF)
-    s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
-    s.div_(s.sum(dim=-1, keepdim=True))
-    return torch.einsum("...qk,...kd->...qd", s, v.to(torch.float32)).to(q.dtype)
+    lead = tuple(np.broadcast_shapes(q.shape[:-2], k.shape[:-2], v.shape[:-2]))
+    n_q, n_kv, d_v = q.shape[-2], k.shape[-2], v.shape[-1]
+    # (rest, heads, N, d): every leading dim but the last folds into ``rest``.
+    fold = lambda t, *tail: t.expand(*lead, *tail).reshape(-1, *(lead[-1:] or (1,)), *tail)
+    q4, k4 = fold(q, n_q, q.shape[-1]), fold(k, n_kv, k.shape[-1])
+    v4 = fold(v, n_kv, d_v).to(torch.float32)
+    m4 = None if mask is None else fold(mask, n_q, n_kv)
+    out = torch.empty((*q4.shape[:2], n_q, d_v), dtype=q.dtype, device=q.device)
+    rows = max(1, min(n_q, _SCORE_ELEMS // max(1, n_kv)))
+    heads = max(1, _SCORE_ELEMS // max(1, rows * n_kv)) if rows == n_q else 1
+    for i in range(q4.shape[0]):
+        for h0 in range(0, q4.shape[1], heads):
+            hs = slice(h0, h0 + heads)
+            for r0 in range(0, n_q, rows):
+                rs = slice(r0, r0 + rows)
+                s = torch.einsum("...qd,...kd->...qk", q4[i, hs, rs], k4[i, hs]).to(torch.float32)
+                s.mul_(scale)
+                if m4 is not None:
+                    s.masked_fill_(~m4[i, hs, rs], _NEG_INF)
+                s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+                s.div_(s.sum(dim=-1, keepdim=True))
+                out[i, hs, rs] = torch.einsum("...qk,...kd->...qd", s, v4[i, hs]).to(q.dtype)
+    return out.reshape(*lead, n_q, d_v)
 
 
 def attention_plan_indices(m_c: torch.Tensor, m_s: torch.Tensor,

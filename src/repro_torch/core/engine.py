@@ -145,16 +145,18 @@ def is_update_step(step: int, cfg: EngineConfig) -> bool:
 
 
 def resolve_schedule(cfg: EngineConfig, num_steps: int, n_layers: int, *,
-                     schedule=None, layer_strategies=None):
+                     schedule=None, layer_strategies=None, force_dense: bool = False):
     """The (step × layer) :class:`~repro_torch.core.schedule.SparsitySchedule`
-    of a run: ``schedule`` (a preset name or a prebuilt schedule) wins over
+    of a run: ``force_dense`` (every step dense, the baseline) wins over
+    ``schedule`` (a preset name or a prebuilt schedule), which wins over
     ``layer_strategies``, which wins over ``cfg.schedule`` / ``cfg.strategy``.
     No memo: the port compiles nothing per schedule."""
     from repro_torch.core.schedule import SparsitySchedule, get_schedule
-    if schedule is not None:
+    if schedule is not None and not force_dense:
         return get_schedule(schedule, cfg, num_steps, n_layers)
     return SparsitySchedule.from_config(cfg, num_steps, n_layers,
-                                        layer_strategies=layer_strategies)
+                                        layer_strategies=layer_strategies,
+                                        force_dense=force_dense)
 
 
 def _unpack(state: LayerState, cfg: EngineConfig, n_tokens: int):

@@ -131,9 +131,15 @@ class SparsitySchedule:
 
     @classmethod
     def from_config(cls, cfg, num_steps: int, n_layers: int, *,
-                    layer_strategies: Optional[Sequence] = None) -> "SparsitySchedule":
-        """Resolution order: ``layer_strategies`` → ``cfg.schedule`` (a named
-        preset) → ``cfg.strategy`` (expanded when it carries a layer table)."""
+                    layer_strategies: Optional[Sequence] = None,
+                    force_dense: bool = False) -> "SparsitySchedule":
+        """Resolution order: ``force_dense`` (the all-dense baseline) →
+        ``layer_strategies`` → ``cfg.schedule`` (a named preset) →
+        ``cfg.strategy`` (expanded when it carries a layer table)."""
+        if force_dense:
+            return cls(mode=np.full((num_steps,), MODE_DENSE, np.int32),
+                       strategy_ids=np.zeros((num_steps, n_layers), np.int32),
+                       strategies=(get_strategy(cfg.strategy),)).validate()
         if layer_strategies is not None:
             uniq, ids = strategy_table(layer_strategies, cfg, n_layers)
             return cls.from_table(cfg, num_steps, uniq, ids)

@@ -31,38 +31,38 @@ class SamplerConfig:
     dtype: torch.dtype = torch.float32
 
 
-def _caching_masks(states, t: int) -> torch.Tensor:
-    """(L, B, H, T) compute masks unpacked from every layer's ``S_c``."""
-    return unpack_bits(torch.stack([st.s_c for st in states]), t)
-
-
 def step_density(states, ecfg: EngineConfig, n_tokens: int) -> float:
-    """Fig. 7 density: fraction of (q-block, head) work still live."""
-    m_c = _caching_masks(states, ecfg.mask.n_blocks(n_tokens))
-    return float(m_c.to(torch.float32).mean())
+    """Fig. 7 density: fraction of (q-block, head) work still live.  Counted
+    layer by layer, so no stack of every layer's masks is formed."""
+    t = ecfg.mask.n_blocks(n_tokens)
+    live = sum(unpack_bits(st.s_c, t).sum(dtype=torch.int64) for st in states)
+    return int(live) / (len(states) * states[0].s_c[..., 0].numel() * t)
 
 
 def pair_sparsity(states, ecfg: EngineConfig, n_tokens: int) -> float:
     """Skipped (Q_i K_j, P_ij V_j) pairs / total: feature caching (dead rows)
-    and block-sparse skipping together."""
+    and block-sparse skipping together.  Counted layer by layer."""
     t = ecfg.mask.n_blocks(n_tokens)
-    s_s = torch.stack([st.s_s for st in states])
-    m_s = unpack_bits(s_s, t * t).reshape(*s_s.shape[:-1], t, t)
-    live = m_s & _caching_masks(states, t)[..., None]
-    return float(1.0 - live.to(torch.float32).mean())
+    live = 0
+    for st in states:
+        m_s = unpack_bits(st.s_s, t * t).reshape(*st.s_s.shape[:-1], t, t)
+        live = live + (m_s & unpack_bits(st.s_c, t)[..., None]).sum(dtype=torch.int64)
+    return 1.0 - int(live) / (len(states) * states[0].s_s[..., 0].numel() * t * t)
 
 
 def sample(params: dict, cfg: ArchConfig, ecfg: EngineConfig, *,
            text_emb: torch.Tensor, x0: torch.Tensor, patch_embed: torch.Tensor,
            scfg: SamplerConfig = SamplerConfig(),
            trace: Optional[list] = None, schedule=None,
-           layer_strategies: Optional[list] = None) -> torch.Tensor:
+           layer_strategies: Optional[list] = None,
+           force_dense: bool = False) -> torch.Tensor:
     """Run the sampling loop.  x0 (B, N_v, patch_dim) Gaussian noise.
 
     The schedule is resolved once (:func:`repro_torch.core.engine.
-    resolve_schedule`): ``schedule`` (a preset name or a prebuilt
-    :class:`~repro_torch.core.schedule.SparsitySchedule`) wins over
-    ``layer_strategies`` (one strategy per layer), which wins over
+    resolve_schedule`): ``force_dense`` (every step dense: the baseline the
+    sparse runs are read against) wins over ``schedule`` (a preset name or a
+    prebuilt :class:`~repro_torch.core.schedule.SparsitySchedule`), which
+    wins over ``layer_strategies`` (one strategy per layer), which wins over
     ``ecfg.schedule`` / ``ecfg.strategy``.
 
     ``patch_embed`` (patch_dim, d_model) is the stub patchifier; the
@@ -75,7 +75,8 @@ def sample(params: dict, cfg: ArchConfig, ecfg: EngineConfig, *,
     n_tokens = nv + text_emb.shape[1]
     n_steps = scfg.num_steps
     sched = resolve_schedule(ecfg, n_steps, cfg.n_layers, schedule=schedule,
-                             layer_strategies=layer_strategies)
+                             layer_strategies=layer_strategies,
+                             force_dense=force_dense)
     states = dit.init_engine_states(cfg, ecfg, b, n_tokens, x0.device)
     dt = 1.0 / n_steps
     x = x0

@@ -9,6 +9,8 @@ from ``torch.Generator``s seeded from ``seed``.
     python -m repro_torch.launch.serve --arch flux-mmdit --full --steps 8
     python -m repro_torch.launch.serve --full --strategy sliding-window --kv-buckets 0
     python -m repro_torch.launch.serve --schedule hunyuan-1.5x --kv-buckets 3
+    python -m repro_torch.launch.serve --arch hunyuan-video-dit --full \
+        --n-vision 32768 --batch 1 --requests 1 --steps 8 --schedule hunyuan-1.5x
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from repro_torch.core.strategy import available_strategies
 from repro_torch.launch.batching import Request, run_sequential
 from repro_torch.models import dit
 
-__all__ = ["serve_diffusion", "serving_engine_config", "resolve_device"]
+__all__ = ["serve_diffusion", "serving_engine_config", "serving_inputs", "resolve_device"]
 
 
 def serving_engine_config(strategy: str = "flashomni", kv_buckets: int = 1) -> EngineConfig:
@@ -45,6 +47,29 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
                            "the kernels' plain versions on the CPU")
     return device
+
+
+def serving_inputs(cfg, *, n_vision: int, batch: int, num_requests: int,
+                   num_steps: int, schedule: str = None, seed: int = 0, device="cuda"):
+    """``(params, patch_embed, requests)`` of :func:`serve_diffusion`: the
+    weights and the stub patchifier from ``seed``, request ``i``'s latents
+    and text from ``seed + 100 + i``.  A dense baseline run on these inputs
+    sees the same weights and noise as the served one."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = dit.init_params(cfg, gen, device)
+    patch_embed = torch.randn((cfg.patch_dim, cfg.d_model), generator=gen,
+                              device=device).mul_(0.2)
+    requests = []
+    for req in range(num_requests):
+        gen.manual_seed(seed + 100 + req)
+        x0 = torch.randn((batch, n_vision, cfg.patch_dim), generator=gen, device=device)
+        text = torch.randn((batch, cfg.n_text_tokens, cfg.d_model), generator=gen,
+                           device=device)
+        requests.append(Request(rid=req, x0=x0, text_emb=text, num_steps=num_steps,
+                                schedule=schedule))
+    return params, patch_embed, requests
 
 
 def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
@@ -67,20 +92,9 @@ def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
     device = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     ecfg = serving_engine_config(strategy, kv_buckets)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    params = dit.init_params(cfg, gen, device)
-    patch_embed = torch.randn((cfg.patch_dim, cfg.d_model), generator=gen,
-                              device=device).mul_(0.2)
-    requests = []
-    for req in range(num_requests):
-        gen.manual_seed(seed + 100 + req)
-        x0 = torch.randn((batch, n_vision, cfg.patch_dim), generator=gen, device=device)
-        text = torch.randn((batch, cfg.n_text_tokens, cfg.d_model), generator=gen,
-                           device=device)
-        requests.append(Request(rid=req, x0=x0, text_emb=text, num_steps=num_steps,
-                                schedule=schedule))
-
+    params, patch_embed, requests = serving_inputs(
+        cfg, n_vision=n_vision, batch=batch, num_requests=num_requests,
+        num_steps=num_steps, schedule=schedule, seed=seed, device=device)
     t0 = time.perf_counter()
     results = run_sequential(params, cfg, ecfg, requests, patch_embed=patch_embed)
     wall = time.perf_counter() - t0
@@ -103,7 +117,8 @@ def main():
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--n-vision", type=int, default=None,
-                    help="vision tokens (default: 96 smoke, 4096 full)")
+                    help="vision tokens (default: 96 smoke, 4096 full; the paper's "
+                         "hunyuan-video-dit cell is 32768)")
     ap.add_argument("--steps", type=int, default=12)
     ap.add_argument("--strategy", default="flashomni", choices=available_strategies(),
                     help="sparse-symbol producer")

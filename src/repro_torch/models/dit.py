@@ -128,6 +128,12 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
     (B, N_t, d_model); t (B,) diffusion time in [0, 1].  ``strategies`` and
     ``strategy_row`` (one id per layer, a schedule's step slice) choose each
     layer's symbol producer at Update steps.  Returns (velocity, new_states).
+
+    ``states`` is consumed: each layer's entry is replaced by its new state
+    as soon as the layer has run, so the old one can be freed (at
+    hunyuan-video-dit's width two copies of every layer's plan and
+    TaylorSeer stack do not fit on the card).  The returned list is
+    ``states`` itself.
     """
     n_text = text_emb.shape[1]
     x = torch.cat([text_emb.to(dtype), x_vision.to(dtype)], dim=1)
@@ -135,7 +141,6 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
     t_emb = (F.silu(t_emb) @ params["t_mlp2"].to(dtype)).to(dtype)
 
     blocks = params["blocks"]
-    new_states = []
     for li in range(cfg.n_layers):
         strategy = None
         if strategies is not None and mode == "update":
@@ -144,9 +149,9 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
         x, st = _block(cfg, ecfg, p, states[li], x, t_emb, mode=mode, n_text=n_text,
                        strategy=strategy, layer_idx=li, step_idx=step_idx,
                        num_steps=num_steps)
-        new_states.append(st)
+        states[li] = st
     mod = F.silu(t_emb) @ params["final_mod"].to(dtype)
     sh, sc = mod.chunk(2, dim=-1)
     x = _modulate(rms_norm(x, params["final_norm"], cfg.norm_eps), sh, sc)
     v = x[:, n_text:] @ params["final_proj"].to(dtype)
-    return v, new_states
+    return v, states

@@ -29,6 +29,9 @@ that must store zeros, on groups of GEMM-O slots whose head lists are
 disjoint, identical or dead (dead rows keep the bias bit for bit; permuted
 slots and B5 give the same bits), on rows of 200 bytes and on misaligned
 views, which stage element by element and give the 16-byte path's bits.
+B2 also runs at hunyuan-video-dit's width (33 024 tokens, T_kv = 2064, with
+a full and an empty KV list), and the chunked dense attention of the Update
+step runs on the card against the CPU at widths that span several chunks.
 """
 
 import pytest
@@ -603,3 +606,42 @@ def test_gemm_misaligned_view_gives_the_aligned_bits(dev, dtype, arg):
              TK.gemm_o_sparse_kernel(v["o_heads"], v["w_o"], bias, ids, head_ids, head_cnt,
                                      block_rows=bm)) for v in (vals, shifted)]
     assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_at_the_33k_width(dev, dtype):
+    """B2 at hunyuan-video-dit's 33 024 tokens: T_kv = 2064 KV blocks of 16
+    (the widest KV mask the row body holds), with a full list, an empty
+    list and random half-full ones over ~10 % live q blocks."""
+    g = _gen(33024)
+    bh, n, d, bq, bkv = 2, 33024, 128, 16, 16
+    tq, tkv = n // bq, n // bkv
+    m_c = torch.rand((bh, tq), generator=g) < 0.1
+    q_ids, q_cnt = active_indices(m_c, 320)
+    m_s = torch.rand((bh, tq, tkv), generator=g) < 0.5
+    m_s[0, q_ids[0, 0]] = True                            # a row over every KV block
+    m_s[1, q_ids[1, 1]] = False                           # a live row with no KV block
+    rows = torch.gather(m_s, 1, q_ids.long()[..., None].expand(bh, q_ids.shape[1], tkv))
+    kv_ids, kv_cnt = active_indices(rows, tkv)
+    assert int(kv_cnt[0, 0]) == tkv
+    q, k, v, o = (torch.randn((bh, n, d), generator=g).to(dtype) for _ in range(4))
+    args = [t.to(dev) for t in (q, k, v, o, q_ids, q_ids, q_cnt, kv_ids, kv_cnt)]
+    got = TK.flashomni_attention_csr(*args, block_q=bq, block_kv=bkv)
+    _close(got, attention_csr_ref(*args, block_q=bq, block_kv=bkv), dtype)
+
+
+@pytest.mark.parametrize("budget,lead,n", [(None, (1, 1), 17000), (1 << 20, (2, 3), 3000)])
+def test_chunked_dense_attention_on_the_card_matches_the_cpu(dev, monkeypatch, budget,
+                                                             lead, n):
+    """The Update step's dense attention in f32 on the card against the same
+    call on the CPU, at an N that spans several chunks of the score budget
+    (the real one at 17 000 tokens: 2 row chunks; a small one: 9)."""
+    from repro_torch.core import attention
+    if budget is not None:
+        monkeypatch.setattr(attention, "_SCORE_ELEMS", budget)
+    g = _gen(n)
+    q, k, v = (torch.randn((*lead, n, 128), generator=g) for _ in range(3))
+    want = attention.dense_attention(q, k, v)
+    got = attention.dense_attention(q.to(dev), k.to(dev), v.to(dev))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    _close(got.cpu(), want, torch.float32)
