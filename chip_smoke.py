@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Four paths run, each with the launch counts set to 0 just before it and
+Five paths run, each with the launch counts set to 0 just before it and
 read just after: P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
 GEMM-O), P2 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2
 buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
 unified kernel entry on one full-width layer: the symbols attention and the
-Taylor reuse, beside the other five) and H1 (hunyuan-video-dit at the
-paper's 33K tokens: GEMM-Q, CSR attention, GEMM-O).  Every dense baseline
-run launches no kernel.
+Taylor reuse, beside the other five), C1 (batched serving: GEMM-Q, CSR
+attention, GEMM-O, in each of its three modes) and H1 (hunyuan-video-dit at
+the paper's 33K tokens: GEMM-Q, CSR attention, GEMM-O).  Every dense
+baseline run launches no kernel.
 
 Phases (each prints one JSON line; any failure exits non-zero without the
 final line):
@@ -55,21 +56,38 @@ final line):
                 against the mask oracle, 2-bucket attention against its plain
                 version, Taylor reuse against the layer's forecast); the
                 symbols attention and the Taylor reuse must launch;
-  7. dense    — P1's request under ``force_dense`` on the same weights and
+  7. twin     — one flux-width Dispatch layer under the kernels and under
+                the structural twin (``backend="torch"``, no kernel) on three
+                plans (union layout at ``cap_kv = T_kv``, sliding-window at 2
+                buckets, per-row layout at ``cap_kv < T_kv``): the largest
+                difference and its share of the float32 tolerance, with the
+                rows of empty KV lists zeroed, and both times;
+  8. dense    — P1's request under ``force_dense`` on the same weights and
                 noise (no kernel launches): P1's and P2's speedup over it and
                 their relative L2 / PSNR against its latents; then P1, P2
                 and the dense run in bfloat16;
-  8. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
+  9. serve_batched — C1: flux-mmdit at full width, 6 requests of batch 1 at
+                t = 0 with 8 and 6 steps in turn, served sequentially,
+                stacked and by the continuous batcher (4 lanes,
+                ``grouped="auto"``: grouped and scan ticks both run):
+                requests per second, p50 / p95 latency, peak memory, each
+                request's rel-L2 / PSNR and differing plan fields against
+                its sequential run (rel-L2 at most 3e-4), launches equal to
+                layers x Dispatch calls; then the stacking witness: the
+                stacked 8-step group and its requests alone in lockstep up
+                to the first step whose plans differ, with the Q/K and
+                library-GEMM differences there;
+ 10. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
                 (48 blocks, B=1, 256 + 32 768 tokens), ``hunyuan-1.5x``,
                 uniform layout, float32, 8 steps (3-5 and 7 Dispatch):
                 GEMM-Q, CSR attention and GEMM-O each launched 48 x 4 = 192
                 times, the others never; then its dense run on the same
                 inputs: latency, step seconds, peak memory, speedup, rel-L2
                 / PSNR against dense, and the 50-step projection;
-  9. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
+ 11. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
                 and the bucketed pair on the ``hunyuan-1.5x`` interior plan
                 at 3 buckets, at H1's shapes (B=1, N=33 024) in float32;
- 10. profile  — device time by kernel group within one Update and one
+ 12. profile  — device time by kernel group within one Update and one
                 Dispatch step of P1, P2 and H1 (at 12 of its 48 blocks) at
                 full width (torch.profiler; the chunked dense attention as its
                 own group), and the device's idle share.
@@ -109,6 +127,23 @@ DISPATCH_STEPS = 4
 # The profile runs H1 at 12 of its 48 blocks (full width): a step's 48
 # blocks under the profiler take minutes to trace and read back.
 H1_PROFILE_LAYERS = 12
+# C1, the batched-serving cell: flux-mmdit at full width, requests of batch
+# 1 arriving together with steps alternating 8 and 6, served sequentially,
+# stacked and by the continuous batcher; every request held to its own
+# sequential run within C1_REL_L2: 2.5x the largest reading on one H100 at
+# 700 W (stacked, 1.19e-4, the same in three runs; PERF.md section 5), 22x
+# under what sparsity itself costs against dense (6.5e-3).
+C1 = dict(arch="flux-mmdit", batch=1, n_vision=4096, requests=6, lanes=4)
+C1_REL_L2 = 3e-4
+# The stacking witness steps C1's 8-step stacked group (batch 3) and each
+# of its requests alone (batch 1) in lockstep through at most this many
+# steps (0-2 Update, 3 Dispatch), stopping after the first step whose plans
+# differ.  Step 0 is an Update step, whose output no plan shapes, so its
+# latents differ only by the rounding of the batch's library GEMMs: within
+# WITNESS_STEP0_REL_L2 of the lone runs (6.4x the 1.56e-7 read on one H100
+# at 700 W); a fault that mixed samples would lie far beyond.
+WITNESS_STEPS = 4
+WITNESS_STEP0_REL_L2 = 1e-6
 # H1's kernel shapes: batch, heads, tokens, head_dim, d_model, text tokens.
 H1_SHAPE = dict(b=1, h=24, n=33024, dh=128, d=3072, n_text=256)
 # The SDPA yardstick of the attention rows runs only where its token mask
@@ -248,15 +283,16 @@ def phase_build():
     return smi[0] if smi else ""
 
 
-def serving_plan(dev, b, h, n, dh, n_text, strategy=None, kv_buckets=1):
+def serving_plan(dev, b, h, n, dh, n_text, strategy=None, kv_buckets=1, **cfg_kw):
     """``(ecfg, symbols, plan)``: the SymbolSet and the port's DispatchPlan
     (ids widened) for a seeded Q/K (B, H, N, dh) under ``strategy``
-    (default: flashomni) at ``kv_buckets``."""
+    (default: flashomni) at ``kv_buckets``; ``cfg_kw`` overrides fields of
+    the serving engine config."""
     import torch
     from repro_torch.core.plan import build_dispatch_plan
     from repro_torch.core.strategy import FlashOmniStrategy, StrategyContext
     from repro_torch.launch.serve import serving_engine_config
-    ecfg = serving_engine_config(kv_buckets=kv_buckets)
+    ecfg = dataclasses.replace(serving_engine_config(kv_buckets=kv_buckets), **cfg_kw)
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     q = torch.randn((b, h, n, dh), generator=g, device=dev)
@@ -968,6 +1004,274 @@ def phase_ops() -> dict:
     return launches
 
 
+def phase_twin(b=2, h=24, n=4608, dh=128, d=3072, n_text=512, iters=3) -> dict:
+    """One Dispatch layer (``engine.dispatch_layer``) at the flux shapes under
+    ``backend="kernels"`` and under ``backend="torch"`` (the structural twin,
+    which launches no kernel), on three plans from a seeded Q/K: flashomni
+    at ``cap_kv = T_kv`` (the twin's union layout), sliding-window at 2
+    buckets, and flashomni at the serving ``cap_kv < T_kv`` (its per-row
+    layout).  The layer outputs agree within the float32 tolerance once the
+    token rows where some head's live row has an empty KV list are zeroed
+    (the twin gives those a uniform softmax, the kernels zeros); the twin's
+    time is the library figure of a whole Dispatch layer."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.core import taylorseer
+    from repro_torch.core.strategy import SlidingWindowStrategy
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2468)
+    rnd = lambda *s, std=1.0: torch.randn(s, generator=g, device=dev).mul_(std)
+    params = E.AttnParams(wq=rnd(d, h * dh, std=d ** -0.5), wk=rnd(d, h * dh, std=d ** -0.5),
+                          wv=rnd(d, h * dh, std=d ** -0.5), wo=rnd(h * dh, d, std=d ** -0.5),
+                          q_scale=torch.ones(dh, device=dev), k_scale=torch.ones(dh, device=dev))
+    x = rnd(b, n, d)
+    cases = [("flashomni, cap_kv = T_kv (union layout)", None, 1, dict(cap_kv_frac=1.0)),
+             ("sliding-window, 2 buckets", SlidingWindowStrategy(), 2, {}),
+             ("flashomni, cap_kv < T_kv (per-row layout)", None, 1, {})]
+    rows = []
+    for label, strategy, kb, over in cases:
+        ecfg, syms, plan = serving_plan(dev, b, h, n, dh, n_text, strategy, kb, **over)
+        spec = ecfg.caps(n)
+        derivs = rnd(ecfg.mask.order + 1, b, n, d).to(ecfg.cache_dtype)
+        state = E.LayerState(s_c=syms.s_c, s_s=syms.s_s, k_since=1, plan=plan,
+                             taylor=taylorseer.TaylorState(derivs, n_updates=2))
+        del syms
+        run = {name: (lambda c=dataclasses.replace(ecfg, backend=name):
+                      E.dispatch_layer(params, x, state, c, n_text=n_text, heads=h)[0])
+               for name in ("kernels", "torch")}
+        out_k, out_t = run["kernels"](), run["torch"]()
+        # Token rows where a live q block of some head has an empty KV list.
+        live = torch.arange(plan.q_ids.shape[-1], device=dev) < plan.q_cnt[..., None]
+        empty = live & (plan.kv_row_cnt == 0)
+        t_q = n // ecfg.mask.block_q
+        blocks = torch.zeros((b, h, t_q + 1), dtype=torch.bool, device=dev)
+        blocks.scatter_(-1, torch.where(empty, plan.q_ids.long(), t_q), True)
+        bad = blocks[..., :t_q].any(dim=1).repeat_interleave(ecfg.mask.block_q, dim=-1)
+        zero = lambda o: torch.where(bad[..., None], 0.0, o)
+        max_err, share = check_close(f"twin [{label}]", "float32", zero(out_t), zero(out_k))
+        del out_k, out_t
+        rows.append({"plan": label, "kv_buckets": kb, "cap_kv": spec.cap_kv, "t_kv": n // 16,
+                     "layout": ("per-row" if spec.cap_kv < n // 16 or kb > 1 else "union"),
+                     "empty_live_rows": int(empty.sum()), "zeroed_token_rows": int(bad.sum()),
+                     "max_abs_err": max_err, "tol_share": share,
+                     "kernels_ms": time_ms(run["kernels"], iters),
+                     "twin_ms": time_ms(run["torch"], iters, warmup=1)})
+        del run, state, plan
+        torch.cuda.empty_cache()
+    res = {"phase": "twin", "b": b, "h": h, "n": n, "dh": dh, "d": d, "dtype": "float32",
+           "tolerance": TOL["float32"], "cases": rows}
+    emit(res)
+    return res
+
+
+def stack_witness(params, cfg, ecfg, pe, reqs) -> dict:
+    """Where stacking first changes a plan, and why.  C1's 8-step requests
+    step once as the stacked batch ``run_stacked`` forms and once each
+    alone, in lockstep from fresh states through at most ``WITNESS_STEPS``
+    steps (after the first step whose plans differ, none).  Per step:
+    each request's latent rel-L2 against its lone run and its count of
+    differing integer plan fields (layer x field); at Update the largest
+    difference of any layer's Q and K between the two runs and of the
+    Q projection's library GEMM on one and the same input (the batch's
+    rows at once against one sample's rows at a time).  At the first
+    differing (step, layer, field): that layer's Q and K difference and its
+    GEMM's.  Fails if a plan differs at a layer whose Q and K are equal in
+    both runs (then the plan did not follow a rounding upstream), or if a
+    request's step-0 latents lie beyond ``WITNESS_STEP0_REL_L2``."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.core.plan import DispatchPlan
+    from repro_torch.core.schedule import MODE_NAMES
+    from repro_torch.diffusion.pipeline import _step_lanes
+    from repro_torch.models import dit
+    group = [r for r in reqs if r.num_steps == STEPS]
+    sched = group[0].resolve(ecfg, cfg.n_layers)
+    n_tokens = group[0].x0.shape[1] + group[0].text_emb.shape[1]
+    xb, tb = torch.cat([r.x0 for r in group]), torch.cat([r.text_emb for r in group])
+    sb = dit.init_engine_states(cfg, ecfg, len(group), n_tokens, xb.device)
+    xs = [r.x0 for r in group]
+    ss = [dit.init_engine_states(cfg, ecfg, 1, n_tokens, xb.device) for _ in group]
+    orig_qk = E._qk
+
+    def run(states, x, text, step, hook):
+        E._qk = hook
+        try:
+            (x,), states = _step_lanes(params, cfg, ecfg, states, [x], [text], pe,
+                                       mode=MODE_NAMES[int(sched.mode[step])], steps=[step],
+                                       num_steps=[STEPS], strategies=sched.strategies,
+                                       strategy_row=sched.strategy_ids[step],
+                                       dtype=torch.float32)
+        finally:
+            E._qk = orig_qk
+        return x, states
+
+    steps, first = [], None
+    for step in range(WITNESS_STEPS):
+        stored = []                   # per layer: the batch's Q, K and its GEMM difference
+
+        def keep(p, x, heads):
+            q, k = orig_qk(p, x, heads)
+            rows = torch.cat([x[i:i + 1] @ p.wq for i in range(x.shape[0])])
+            stored.append((q.clone(), k.clone(), float((x @ p.wq - rows).abs().max())))
+            return q, k
+
+        xb, sb = run(sb, xb, tb, step, keep)
+        qk_diff = []                  # [request][layer] = (Q, K) max abs difference
+        for i in range(len(group)):
+            seen = []
+
+            def compare(p, x, heads, i=i, seen=seen):
+                q, k = orig_qk(p, x, heads)
+                qb, kb, _ = stored[len(seen)]
+                seen.append((float((q - qb[i:i + 1]).abs().max()),
+                             float((k - kb[i:i + 1]).abs().max())))
+                return q, k
+
+            xs[i], ss[i] = run(ss[i], xs[i], group[i].text_emb, step, compare)
+            qk_diff.append(seen)
+        rel, differ = [], []
+        for i in range(len(group)):
+            rel.append(fidelity(xb[i:i + 1], xs[i])["rel_l2"])
+            n = 0
+            for li, (stb, st1) in enumerate(zip(sb, ss[i])):
+                mine = DispatchPlan(*(None if f is None else f[i:i + 1] for f in stb.plan))
+                for f, a, b in zip(mine._fields, mine, st1.plan):
+                    if a is None or f == "row_score" or torch.equal(a, b):
+                        continue
+                    n += 1
+                    at = (li, mine._fields.index(f))
+                    if first is None or (first["step"] == step and at < first["_at"]):
+                        first = {"step": step, "layer": li, "field": f, "rid": group[i].rid,
+                                 "_at": at}
+            differ.append(n)
+        entry = {"step": step, "mode": MODE_NAMES[int(sched.mode[step])],
+                 "latent_rel_l2": rel, "plan_fields_differ": differ}
+        if stored:
+            entry.update(qk_max_abs_diff=max(max(max(d) for d in req) for req in qk_diff),
+                         layer0_qk_max_abs_diff=max(max(req[0]) for req in qk_diff),
+                         gemm_batch_vs_rows_max_abs=max(g for _, _, g in stored))
+        if first is not None and first["step"] == step:
+            li = first.pop("_at")[0]
+            i = [r.rid for r in group].index(first["rid"])
+            first.update(q_max_abs_diff=qk_diff[i][li][0] if stored else None,
+                         k_max_abs_diff=qk_diff[i][li][1] if stored else None,
+                         gemm_batch_vs_rows_max_abs=stored[li][2] if stored else None)
+        steps.append(entry)
+        del stored
+        if first is not None:
+            break
+    del sb, ss, xb, xs
+    torch.cuda.empty_cache()
+    res = {"requests": [r.rid for r in group], "batch": len(group), "steps": steps,
+           "first_difference": first}
+    if first is not None and not (first["q_max_abs_diff"] or first["k_max_abs_diff"]):
+        raise AssertionError(f"stack_witness: a plan differs where Q and K are equal: {res}")
+    if not max(steps[0]["latent_rel_l2"]) <= WITNESS_STEP0_REL_L2:
+        raise AssertionError(f"stack_witness: step-0 latents beyond {WITNESS_STEP0_REL_L2} "
+                             f"of the lone runs: {res}")
+    return res
+
+
+def phase_serve_batched() -> dict:
+    """C1: flux-mmdit at full width, ``C1["requests"]`` requests of batch 1
+    arriving together, steps alternating 8 and 6 (``mixed_steps``), served
+    in turn by ``run_sequential``, ``run_stacked`` and the continuous batcher
+    (``C1["lanes"]`` lanes, ``grouped="auto"``), each with the launch counts
+    set to 0 just before and read just after.  Per mode: requests per second,
+    p50 / p95 latency, peak memory and, for each request, rel-L2 / PSNR of its
+    latents and the count of integer plan fields (layer x field) that differ
+    from its sequential run.  Fails if a request's latents are not finite or
+    lie beyond ``C1_REL_L2`` of sequential, if the batcher ran no grouped or
+    no scan tick, if a request's trace holds another count of Dispatch steps
+    than its schedule or the batcher's Dispatch lane steps another sum, or
+    if a Dispatch kernel's launches differ from layers x the Dispatch
+    ``denoise_step`` calls of the mode.  Then :func:`stack_witness`, outside
+    the counted runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.schedule import MODE_DISPATCH
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.batching import ContinuousBatcher, run_sequential, run_stacked
+    from repro_torch.launch.serve import get_config, serving_engine_config, serving_inputs
+    cfg, ecfg = get_config(C1["arch"]), serving_engine_config()
+    params, pe, reqs = serving_inputs(cfg, n_vision=C1["n_vision"], batch=C1["batch"],
+                                      num_requests=C1["requests"], num_steps=STEPS,
+                                      mixed_steps=True, device=DEVICE)
+    n_dispatch = {r.rid: int((r.resolve(ecfg, cfg.n_layers).mode == MODE_DISPATCH).sum())
+                  for r in reqs}
+    runs, seq, total = [], None, {fn.__name__: 0 for fn in KERNELS}
+    for mode in ("sequential", "stacked", "continuous"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = {}
+        if mode == "continuous":
+            bat = ContinuousBatcher(params, cfg, ecfg, patch_embed=pe, lanes=C1["lanes"],
+                                    grouped="auto", keep_plans=True)
+            bat.submit_all(reqs)
+            res = bat.run()
+            stats = {k: bat.stats[k] for k in ("ticks", "grouped_ticks", "scan_ticks",
+                                               "denoise_calls", "lane_steps", "lockstep")}
+            calls = stats["denoise_calls"]["dispatch"]
+            # The batcher's own count cannot vouch for itself: every request
+            # ran its schedule's Dispatch steps, and the folds advanced as many
+            # lane steps.
+            kinds = {r.rid: sum(s["kind"] == "dispatch" for s in res[r.rid]["trace"])
+                     for r in reqs}
+            if kinds != n_dispatch or stats["lane_steps"]["dispatch"] != sum(
+                    n_dispatch.values()):
+                raise AssertionError(f"serve_batched [continuous]: Dispatch steps by request "
+                                     f"{kinds} and lane steps {stats['lane_steps']}, expected "
+                                     f"{n_dispatch} (sum {sum(n_dispatch.values())})")
+        else:
+            run = run_sequential if mode == "sequential" else run_stacked
+            res = run(params, cfg, ecfg, reqs, patch_embed=pe, keep_plans=True)
+            # Stacked: one sampler call per step count (the two groups).
+            calls = (sum(n_dispatch.values()) if mode == "sequential"
+                     else sum({r.num_steps: n_dispatch[r.rid] for r in reqs}.values()))
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in KERNELS}
+        for name, count in launches.items():
+            total[name] += count
+        expected = {name: cfg.n_layers * calls if name in P1_KERNELS else 0
+                    for name in launches}
+        seq = res if seq is None else seq
+        lat = np.asarray([res[r.rid]["latency"] for r in reqs])
+        per_req = []
+        for r in reqs:
+            out, want = res[r.rid]["out"], seq[r.rid]["out"]
+            differ = sum(int(not torch.equal(a, b_))
+                         for pa, pb in zip(res[r.rid]["plans"], seq[r.rid]["plans"])
+                         for f, a, b_ in zip(pa._fields, pa, pb)
+                         if a is not None and f != "row_score")
+            per_req.append({"rid": r.rid, "steps": r.num_steps, "latency_s": float(lat[r.rid]),
+                            "finite": bool(torch.isfinite(out).all()),
+                            "plan_fields_differ": differ, **fidelity(out, want)})
+        runs.append({"mode": mode, "wall_s": wall, "req_per_s": len(reqs) / wall,
+                     "latency_p50_s": float(np.percentile(lat, 50)),
+                     "latency_p95_s": float(np.percentile(lat, 95)),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "dispatch_calls": calls, "launches": launches, **stats,
+                     "requests": per_req})
+        bad = [q for q in per_req if not q["finite"] or not q["rel_l2"] <= C1_REL_L2]
+        if bad or launches != expected or (mode == "continuous" and not (
+                stats["grouped_ticks"] and stats["scan_ticks"])):
+            emit({"phase": "serve_batched", "runs": runs, "expected_launches": expected})
+            raise AssertionError(f"serve_batched [{mode}]: requests {bad} beyond rel-L2 "
+                                 f"{C1_REL_L2} or not finite, launches {launches} (expected "
+                                 f"{expected}), or a tick kind missing: {stats}")
+        if mode != "sequential":
+            for r in reqs:
+                res[r.rid].pop("plans")
+    witness = stack_witness(params, cfg, ecfg, pe, reqs)
+    emit({"phase": "serve_batched", **C1, "steps": [r.num_steps for r in reqs],
+          "layers": cfg.n_layers, "dtype": "float32", "rel_l2_limit": C1_REL_L2,
+          "runs": runs, "stack_witness": witness})
+    return total
+
+
 # Profiler kernel name (the ``__global__`` function in csrc/*.cu) -> the
 # wrapper that launches it; first match wins.
 KERNEL_GROUPS = (("gemm_q_kernel", "gemm_q_sparse_kernel"),
@@ -1167,8 +1471,10 @@ def main() -> int:
         by_path["P1"], served["P1"] = timed(phase_serve)
         by_path["P2"], served["P2"] = timed(phase_serve_bucketed)
         by_path["ops"] = timed(phase_ops)
+        timed(phase_twin, **FULL)
         timed(phase_dense, served)
         del served
+        by_path["C1"] = timed(phase_serve_batched)
         by_path["H1"] = timed(phase_hunyuan)
         timed(phase_kernels, torch.cuda.get_device_name(0), **H1_SHAPE,
               plans=("flashomni", "hunyuan-1.5x interior"), dtypes=("float32",),

@@ -1,15 +1,44 @@
-"""Dispatch backend, port of ``repro.core.backend.PallasBackend``.
+"""Dispatch backends, port of ``repro.core.backend``.
 
-One Dispatch step is GEMM-Q → CSR sparse attention → GEMM-O plus the
-forecast bias, driven by the frozen :class:`~repro_torch.core.plan.
-DispatchPlan` and chained through the compact GEMM-Q layout: attention reads
-Q straight out of the ``(B, Cr·pool, H·dh)`` projection through
-``plan.q_slots``.  Batch and heads are part of each kernel's grid, so one
-launch per stage covers the whole batch.  With ``kv_buckets > 1`` the plan
-carries the bucketed layouts and attention and GEMM-O run the bucketed
-kernels (B4, B5) instead of B2 and B3.  Each kernel wrapper routes by the
-tensors' device: CPU tensors run the plain versions, CUDA tensors the
-Hopper kernels.
+One Dispatch step is GEMM-Q → sparse attention → GEMM-O plus the forecast
+bias, driven by the frozen :class:`~repro_torch.core.plan.DispatchPlan`.
+Two implementations sit behind one interface, picked by
+``EngineConfig.backend``:
+
+  * :class:`KernelBackend` (``"kernels"``, the default; the reference's
+    ``PallasBackend``): the Hopper kernels, chained through the compact
+    GEMM-Q layout: attention reads Q straight out of the
+    ``(B, Cr·pool, H·dh)`` projection through ``plan.q_slots``.  Batch and
+    heads are part of each kernel's grid, so one launch per stage covers
+    the whole batch.  With ``kv_buckets > 1`` attention and GEMM-O run the
+    bucketed kernels (B4, B5) instead of B2 and B3.  Each kernel wrapper
+    routes by the tensors' device: CPU tensors run the plain versions, CUDA
+    tensors the kernels.
+  * :class:`TorchBackend` (``"torch"``; the reference's ``XlaBackend``):
+    the structural twin, plain torch gathers, einsums and softmax over the
+    same plan, launching no kernel.  It shares the kernels' truncation:
+    whenever ``cap_kv`` can truncate a row it reads the per-row CSR lists
+    (``kv_row_ids``/``kv_row_cnt``), and ``plan.head_mask`` carries the
+    GEMM-O bucket clamp.  It follows its reference on a live row whose KV
+    list is empty (a uniform softmax, where the kernels write zeros), so a
+    comparison with the kernels zeroes those rows first.  The twin holds
+    "kernel ≡ structural path" checkable inside the port, to f32 rounding
+    (the reference holds it to allclose as well).
+
+There is no ``"auto"``: the kernel wrappers already route by the tensor's
+device.  ``MeshBackend`` is not ported (one card).
+
+Batched serving (:mod:`repro_torch.launch.batching`) folds lanes into the
+batch axis of these backends.  Both keep batch as a leading axis of every
+plan field and of every kernel's grid, so a folded call computes each
+sample as its own call would (the library GEMMs around them may round
+otherwise at more rows).  Lanes fold only when their whole step context is
+equal: the mode, every layer's ``k_since`` and ``taylor.n_updates``, at
+Update also the strategy-id row, the step and the step count, and the lane
+shape (``pipeline.make_grouped_lane_tick``).  Not applicable here: the
+reference's compile budget (≤ 4 executables per lane shape), ``core/lru.py``,
+``schedule_cache_stats`` and ``stats["executables"]``, since the port
+compiles nothing per configuration.
 """
 
 from __future__ import annotations
@@ -18,13 +47,51 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.attention import SparseAttentionSpec
+from repro_torch.core import sparse_gemm
+from repro_torch.core.attention import SparseAttentionSpec, sparse_attention_from_plan
 from repro_torch.core.plan import DispatchPlan, bucket_geometry
 from repro_torch.kernels import (flashomni_attention_csr, flashomni_attention_csr_bucketed,
                                  gemm_o_sparse_bucketed_kernel, gemm_o_sparse_kernel,
                                  gemm_q_sparse_kernel)
 
-__all__ = ["KernelBackend", "get_backend"]
+__all__ = ["TorchBackend", "KernelBackend", "get_backend", "available_backends"]
+
+
+class TorchBackend:
+    """The structural twin over precomputed plan indices (no kernel)."""
+
+    name = "torch"
+    compact_q = False
+
+    def gemm_q(self, x: torch.Tensor, w: torch.Tensor, plan: DispatchPlan, *,
+               block: int) -> torch.Tensor:
+        """(B, N, d_in) @ (d_in, F) -> (B, N, F), zeros on cached rows."""
+        plan = plan.widen()
+        return sparse_gemm.gemm_q_from_plan(x, w, plan.row_ids, plan.row_cnt, block=block)
+
+    def attention(self, q, k, v, o_reuse, plan: DispatchPlan,
+                  spec: SparseAttentionSpec, *, scale: Optional[float] = None,
+                  compact_q: bool = False) -> torch.Tensor:
+        """q (B, H, N_q, dh) [compact when ``compact_q``]; k/v/o_reuse full.
+        The per-row lists go along with the union layout and are read
+        whenever ``cap_kv`` can truncate.  A mesh-folded plan carries its pair
+        clamp in ``kv_row_cnt`` only, so it forces the per-row layout; the
+        ``shd_*`` fields are not ported yet, so that branch is never taken."""
+        plan = plan.widen()
+        return sparse_attention_from_plan(
+            q, k, v, o_reuse, plan.q_ids, plan.q_cnt, plan.kv_ids, plan.kv_cnt,
+            plan.pair_live, spec, scale=scale,
+            q_src_ids=plan.q_slots if compact_q else None,
+            kv_row_ids=plan.kv_row_ids, kv_row_cnt=plan.kv_row_cnt,
+            force_per_row=getattr(plan, "shd_q_ids", None) is not None)
+
+    def gemm_o(self, o_tok, w, plan: DispatchPlan, bias: torch.Tensor, *, block: int,
+               spec: Optional[SparseAttentionSpec] = None) -> torch.Tensor:
+        """o_tok (B, N, H, dh), w (H, dh, F), bias (B, N, F) -> (B, N, F); the
+        bucket clamp is already in ``plan.head_mask``."""
+        plan = plan.widen()
+        return sparse_gemm.gemm_o_from_plan(o_tok, w, plan.head_mask, plan.row_ids,
+                                            plan.row_cnt, bias, block=block)
 
 
 class KernelBackend:
@@ -86,13 +153,17 @@ class KernelBackend:
                                     plan.head_cnt, block_rows=block)
 
 
-_KERNELS = KernelBackend()
+_BACKENDS = {"torch": TorchBackend(), "kernels": KernelBackend()}
 
 
-def get_backend(cfg) -> KernelBackend:
-    """Resolve ``EngineConfig.backend`` (only ``"kernels"`` is ported)."""
-    if cfg.backend != "kernels":
-        raise NotImplementedError(
-            f"engine backend {cfg.backend!r} is not ported yet; the port runs "
-            "'kernels'")
-    return _KERNELS
+def available_backends() -> tuple[str, ...]:
+    return tuple(_BACKENDS)
+
+
+def get_backend(cfg):
+    """Resolve ``EngineConfig.backend`` to a backend instance."""
+    try:
+        return _BACKENDS[cfg.backend]
+    except KeyError:
+        raise ValueError(f"unknown engine backend {cfg.backend!r}; expected one of "
+                         f"{available_backends()}") from None

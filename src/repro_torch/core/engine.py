@@ -14,8 +14,24 @@ states are plain tensors updated out of place, so one initial state may be
 shared by every layer.  ``kv_buckets`` picks the Dispatch layout: 1 the
 uniform CSR grid, 2 or 3 the occupancy-bucketed one, 0 the bucket count the
 calibration table predicts for ``strategy`` (:func:`repro_torch.kernels.
-tuning.select_kv_buckets`).  RoPE, lane-state helpers and mesh dispatch are
-not ported (the DiT serving path runs none of them).
+tuning.select_kv_buckets`).  ``EngineConfig.backend`` picks the Dispatch
+backend: ``"kernels"`` (the Hopper kernels) or ``"torch"`` (the structural
+twin), see :mod:`repro_torch.core.backend`.  :func:`refresh_symbols` keeps
+the seed §3.3 rule as the oracle of the ``flashomni`` strategy.
+
+Lane states (batched serving): the continuous batcher holds one request
+per lane, and a lane's state is the port's state of one request, a list of
+:class:`LayerState` per layer with batch-leading tensors.  The lane-stacked
+form is a list over lanes of such lists: lanes differ in their Python-int
+``k_since`` and ``taylor.n_updates`` counters, which one LayerState cannot
+carry per sample.  :func:`gather_lane_states` folds lanes into the batch
+axis (a copy) for one ``denoise_step``, :func:`scatter_lane_states` splits
+the result back into lanes of their own tensors; :func:`stack_lane_states`,
+:func:`merge_lane_states` and :func:`set_lane_state` are the reference's
+host-side lane operations.  The reference's ``schedule_cache_stats`` has no
+counterpart: :func:`resolve_schedule` keeps no memo, since the port compiles
+nothing per schedule.  RoPE and mesh dispatch are not ported (the DiT
+serving path runs neither).
 """
 
 from __future__ import annotations
@@ -25,13 +41,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import masks as masklib
 from repro_torch.core import sparse_gemm, taylorseer
 from repro_torch.core.attention import SparseAttentionSpec, dense_attention
 from repro_torch.core.backend import get_backend
 from repro_torch.core.masks import MaskConfig
 from repro_torch.core.plan import DispatchPlan, build_dispatch_plan, empty_plan_like
 from repro_torch.core.strategy import SparsityStrategy, StrategyContext, get_strategy
-from repro_torch.core.symbols import capacity_for, packed_len, unpack_bits
+from repro_torch.core.symbols import (capacity_for, clamp_mask_topk, pack_bits, packed_len,
+                                      unpack_bits)
 from repro_torch.kernels.tuning import select_kv_buckets
 from repro_torch.models.layers import rms_norm
 
@@ -44,6 +62,12 @@ __all__ = [
     "is_update_step",
     "plan_from_state",
     "resolve_schedule",
+    "stack_lane_states",
+    "gather_lane_states",
+    "scatter_lane_states",
+    "merge_lane_states",
+    "set_lane_state",
+    "refresh_symbols",
     "update_layer",
     "dispatch_layer",
     "rms_norm",
@@ -61,7 +85,7 @@ class EngineConfig:
     use_gemm_q: bool = True
     use_gemm_o: bool = True
     cache_dtype: torch.dtype = torch.bfloat16
-    backend: str = "kernels"
+    backend: str = "kernels"           # "kernels" | "torch" (the structural twin)
     kv_buckets: int = 1                 # 1 uniform, 2/3 bucketed, 0 auto
     strategy: str = "flashomni"
     schedule: Optional[str] = None      # named SparsitySchedule preset
@@ -136,6 +160,88 @@ def init_layer_state(batch: int, heads: int, n_tokens: int, d_model: int,
         plan=empty_plan_like(batch, heads, n_tokens, cfg, device))
 
 
+def _fold(parts: list[LayerState]) -> LayerState:
+    """Several requests' states of one layer as one batch (a copy)."""
+    if len(parts) == 1:
+        return parts[0]
+    first = parts[0]
+    counters = {(p.k_since, p.taylor.n_updates) for p in parts}
+    if len(counters) != 1:
+        raise ValueError(f"lanes with different (k_since, n_updates) {sorted(counters)} "
+                         "cannot share a batch")
+    cat = lambda name, obj: (None if getattr(obj(first), name) is None else
+                             torch.cat([getattr(obj(p), name) for p in parts]))
+    plan = DispatchPlan(**{f: cat(f, lambda p: p.plan) for f in DispatchPlan._fields})
+    derivs = torch.cat([p.taylor.derivs for p in parts], dim=1)      # (order+1, B, ...)
+    return LayerState(s_c=cat("s_c", lambda p: p), s_s=cat("s_s", lambda p: p),
+                      taylor=taylorseer.TaylorState(derivs, first.taylor.n_updates),
+                      k_since=first.k_since, plan=plan)
+
+
+def _split(state: LayerState, n: int) -> list[LayerState]:
+    """``n`` equal batch shares of one layer's state, each its own copy."""
+    part = lambda t, dim=0: (None if t is None else
+                             [c.clone() for c in t.chunk(n, dim=dim)])
+    plan = {f: part(getattr(state.plan, f)) for f in DispatchPlan._fields}
+    s_c, s_s, derivs = part(state.s_c), part(state.s_s), part(state.taylor.derivs, 1)
+    return [LayerState(s_c=s_c[j], s_s=s_s[j],
+                       taylor=taylorseer.TaylorState(derivs[j], state.taylor.n_updates),
+                       k_since=state.k_since,
+                       plan=DispatchPlan(**{f: None if v is None else v[j]
+                                            for f, v in plan.items()}))
+            for j in range(n)]
+
+
+def stack_lane_states(states: list[LayerState], n_lanes: int) -> list[list[LayerState]]:
+    """One request's per-layer states as the state of ``n_lanes`` lanes.  The
+    lanes share the tensors: states are replaced, never updated in place."""
+    return [list(states) for _ in range(n_lanes)]
+
+
+def gather_lane_states(stacked: list[list[LayerState]], lane_ids) -> list[LayerState]:
+    """Lanes ``lane_ids`` folded into the batch axis, in that order: per
+    layer, every tensor is the lanes' tensors concatenated on the batch dim
+    (a copy; one lane is returned as its own list).  The lanes must agree on
+    every shape but the batch and on each layer's ``k_since`` and
+    ``taylor.n_updates``."""
+    lanes = [stacked[int(w)] for w in lane_ids]
+    return [_fold([lane[li] for lane in lanes]) for li in range(len(lanes[0]))]
+
+
+def scatter_lane_states(stacked: list[list[LayerState]], lane_ids,
+                        values: list[LayerState]) -> list[list[LayerState]]:
+    """``stacked`` with lanes ``lane_ids`` replaced by equal batch shares of
+    the folded ``values``, in that order, each share its own tensors (not a
+    view of the fold, so nothing can alias across lanes).  ``values`` is
+    consumed: each layer's entry is released once it is split, so a fold and
+    its split coexist one layer at a time.  Other lanes keep their state."""
+    ids = [int(w) for w in lane_ids]
+    per_lane = [[] for _ in ids]
+    for li in range(len(values)):
+        shares = [values[li]] if len(ids) == 1 else _split(values[li], len(ids))
+        values[li] = None
+        for j, share in enumerate(shares):
+            per_lane[j].append(share)
+    out = list(stacked)
+    for w, lane in zip(ids, per_lane):
+        out[w] = lane
+    return out
+
+
+def merge_lane_states(old: list, new: list, lane_mask) -> list:
+    """Per-lane select: lanes where ``lane_mask`` is True take ``new``'s
+    state, the others keep ``old``'s.
+    Kept for parity with the reference; nothing in the port calls it."""
+    return [n if bool(m) else o for o, n, m in zip(old, new, lane_mask)]
+
+
+def set_lane_state(stacked: list, lane: int, fresh: list[LayerState]) -> list:
+    """``stacked`` with lane ``lane`` replaced by ``fresh`` (a lane refill)."""
+    out = list(stacked)
+    out[int(lane)] = list(fresh)
+    return out
+
+
 def is_update_step(step: int, cfg: EngineConfig) -> bool:
     """Update/Dispatch phase of one step (warmup + every ``interval``)."""
     m = cfg.mask
@@ -157,6 +263,24 @@ def resolve_schedule(cfg: EngineConfig, num_steps: int, n_layers: int, *,
     return SparsitySchedule.from_config(cfg, num_steps, n_layers,
                                         layer_strategies=layer_strategies,
                                         force_dense=force_dense)
+
+
+def refresh_symbols(q: torch.Tensor, k: torch.Tensor, cfg: EngineConfig, n_text: int,
+                    n_tokens: int):
+    """The seed §3.3 rule, kept as the oracle of the ``flashomni`` strategy:
+    ``(s_c, s_s, m_c, m_s)``, packed uint8 symbols and the compressed-
+    granularity masks (True = compute) after the capacity clamps.
+    Kept for parity with the reference; nothing in the port calls it."""
+    m = cfg.mask
+    m_c = masklib.apply_degradation(masklib.make_caching_mask(q, k, m, n_text), m.degrade)
+    # Static-capacity clamp on live blocks, ranked by total column mass.
+    p_map = masklib.compressed_attention_map(q, k, m.pool)
+    m_c = clamp_mask_topk(m_c, p_map.sum(dim=-2), cfg.cap_q_cmp(n_tokens))
+    m_s = masklib.make_skip_mask(q, k, m, n_text)
+    cap_kv = cfg.cap_kv_cmp(n_tokens)
+    if cap_kv < m_s.shape[-1]:
+        m_s = clamp_mask_topk(m_s, p_map, cap_kv)
+    return pack_bits(m_c), pack_bits(m_s.reshape(*m_s.shape[:-2], -1)), m_c, m_s
 
 
 def _unpack(state: LayerState, cfg: EngineConfig, n_tokens: int):

@@ -24,14 +24,18 @@ from typing import Any, Callable, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.core.strategy import (MultiGranularityStrategy, SparsityStrategy,
-                                       get_strategy)
+                                       get_strategy, strategy_key)
 
-__all__ = ["MODE_DENSE", "MODE_UPDATE", "MODE_DISPATCH", "MODE_NAMES",
-           "SparsitySchedule", "strategy_table", "register_schedule",
+__all__ = ["MODE_DENSE", "MODE_UPDATE", "MODE_DISPATCH", "MODE_IDLE", "MODE_NAMES",
+           "SparsitySchedule", "strategy_table", "merge_strategies", "schedule_lane_rows",
+           "stack_schedules", "tick_mode_groups", "register_schedule",
            "get_schedule", "available_schedules", "schedule_summaries"]
 
 MODE_DENSE, MODE_UPDATE, MODE_DISPATCH = 0, 1, 2
-MODE_NAMES = ("dense", "update", "dispatch")
+# Lane tables pad past a schedule's end with MODE_IDLE: the lane holds no
+# work at that step.  A SparsitySchedule never carries it (validate()).
+MODE_IDLE = 3
+MODE_NAMES = ("dense", "update", "dispatch", "idle")
 
 
 def _mode_array(cfg, num_steps: int) -> np.ndarray:
@@ -158,6 +162,85 @@ class SparsitySchedule:
                    strategy_ids=np.broadcast_to(row[None, :],
                                                 (num_steps, row.shape[0])).copy(),
                    strategies=tuple(strategies)).validate()
+
+
+def merge_strategies(schedules: Sequence[SparsitySchedule]) -> tuple:
+    """Union of the schedules' strategy sets, deduplicated by
+    :func:`~repro_torch.core.strategy.strategy_key` (value-equal built-ins
+    merge even as distinct objects; ad-hoc strategies by identity), in first
+    appearance order: the one set every lane's id rows index."""
+    uniq: list = []
+    seen: dict = {}
+    for sched in schedules:
+        for s in sched.strategies:
+            key = strategy_key(s)
+            if key not in seen:
+                seen[key] = len(uniq)
+                uniq.append(s)
+    return tuple(uniq)
+
+
+def schedule_lane_rows(sched: SparsitySchedule, strategies: tuple,
+                       num_steps: int) -> tuple[np.ndarray, np.ndarray]:
+    """One schedule remapped onto a shared strategy set and padded to a lane.
+
+    Returns ``(mode_row (num_steps,), id_row (num_steps, L))`` int32: the
+    schedule's steps keep their mode, with ids remapped into ``strategies``
+    (matched by value key); steps past ``sched.num_steps`` pad with
+    :data:`MODE_IDLE` and id 0."""
+    if sched.num_steps > num_steps:
+        raise ValueError(f"schedule has {sched.num_steps} steps; the lane table holds "
+                         f"{num_steps} (raise the batcher's max_steps)")
+    index: dict = {}
+    for i, s in enumerate(strategies):
+        index.setdefault(strategy_key(s), i)
+    missing = [s.name for s in sched.strategies if strategy_key(s) not in index]
+    if missing:
+        raise ValueError(f"schedule strategies {missing} are not in the shared lane "
+                         f"strategy set {[s.name for s in strategies]}; rebuild the "
+                         "batcher universe (merge_strategies) over all queued requests")
+    remap = np.asarray([index[strategy_key(s)] for s in sched.strategies], np.int32)
+    mode_row = np.full((num_steps,), MODE_IDLE, np.int32)
+    mode_row[: sched.num_steps] = sched.mode
+    id_row = np.zeros((num_steps, sched.n_layers), np.int32)
+    id_row[: sched.num_steps] = remap[sched.strategy_ids]
+    return mode_row, id_row
+
+
+def stack_schedules(schedules: Sequence[SparsitySchedule],
+                    num_steps: Optional[int] = None):
+    """Pad and stack mixed-length schedules into lane tables.
+
+    Returns ``(mode (lanes, S), strategy_ids (lanes, S, L), strategies,
+    lengths)``: int32 host arrays, the merged strategy set they index and
+    each schedule's own step count.  ``num_steps`` fixes S (default: the
+    longest schedule).
+    Kept for parity with the reference; nothing in the port calls it."""
+    if not schedules:
+        raise ValueError("stack_schedules needs at least one schedule")
+    n_layers = {s.n_layers for s in schedules}
+    if len(n_layers) != 1:
+        raise ValueError(f"mixed n_layers across schedules: {n_layers}")
+    lengths = [s.num_steps for s in schedules]
+    s_max = max(lengths) if num_steps is None else int(num_steps)
+    strategies = merge_strategies(schedules)
+    rows = [schedule_lane_rows(s, strategies, s_max) for s in schedules]
+    return (np.stack([m for m, _ in rows]), np.stack([i for _, i in rows]),
+            strategies, lengths)
+
+
+def tick_mode_groups(mode_tab: np.ndarray, steps: np.ndarray,
+                     active: np.ndarray) -> list[tuple[int, np.ndarray]]:
+    """The active lanes of one serving tick, partitioned by their mode at
+    their own step: ``[(mode, lane_mask (lanes,) bool), ...]`` sorted by
+    mode; inactive lanes belong to no group."""
+    mode_tab = np.asarray(mode_tab)
+    steps = np.asarray(steps)
+    active = np.asarray(active, bool)
+    n_lanes, s_max = mode_tab.shape
+    cur = mode_tab[np.arange(n_lanes), np.clip(steps, 0, s_max - 1)]
+    return [(int(m), active & (cur == m))
+            for m in sorted({int(c) for c, a in zip(cur, active) if a})]
 
 
 ScheduleFactory = Callable[[Any, int, int], SparsitySchedule]

@@ -8,7 +8,12 @@ reference's names and one-line descriptions: ``flashomni`` (the paper's
 ``multi-granularity``, ``step-phased`` and the ``hunyuan-1.5x`` preset.
 The port's ``emit`` runs eagerly with host-side context values, so
 ``step-phased`` picks its phase on the host where the reference switches on
-a traced step.
+a traced step, and :func:`emit_switch` indexes the schedule's strategy set
+on the host where the reference runs a ``lax.switch``.  :func:`strategy_key`
+keys the built-in strategies by value, so that serving deduplicates
+value-equal producers (``schedule.merge_strategies``), and
+:func:`step_strategy_key` keys what a strategy emits at one step, so that
+the continuous batcher folds Update lanes that sit at different steps.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ __all__ = [
     "finalize_symbols",
     "register_strategy",
     "get_strategy",
+    "emit_switch",
+    "strategy_key",
+    "step_strategy_key",
     "available_strategies",
     "strategy_summaries",
     "FlashOmniStrategy",
@@ -283,11 +291,14 @@ class StepPhasedStrategy:
             raise ValueError(f"{self.name}: boundaries must ascend: {steps}")
         return steps
 
+    def phase_at(self, step_idx: Optional[int], num_steps: Optional[int]) -> int:
+        """The phase that emits at ``step_idx`` of a ``num_steps``-step run."""
+        if step_idx is None or len(self.phases) == 1:
+            return 0
+        return sum(int(step_idx) >= s for s in self._boundary_steps(num_steps))
+
     def emit(self, q, k, ctx: StrategyContext) -> SymbolSet:
-        if ctx.step_idx is None or len(self.phases) == 1:
-            return self.phases[0].emit(q, k, ctx)
-        phase = sum(int(ctx.step_idx) >= s for s in self._boundary_steps(ctx.num_steps))
-        return self.phases[phase].emit(q, k, ctx)
+        return self.phases[self.phase_at(ctx.step_idx, ctx.num_steps)].emit(q, k, ctx)
 
 
 _REGISTRY: dict[str, Callable[[], SparsityStrategy]] = {}
@@ -319,6 +330,84 @@ def get_strategy(spec: Union[str, SparsityStrategy]) -> SparsityStrategy:
     except KeyError:
         raise ValueError(f"unknown sparsity strategy {spec!r}; registered: "
                          f"{available_strategies()}") from None
+
+
+def emit_switch(strategy_id, q: torch.Tensor, k: torch.Tensor, ctx: StrategyContext,
+                strategies: Sequence[Union[str, SparsityStrategy]]) -> SymbolSet:
+    """Emit the symbols of ``strategies[strategy_id]`` (an entry of a
+    schedule's strategy-id table; an int or a 0-d tensor), a host-side
+    dispatch on the id.
+    Kept for parity with the reference; nothing in the port calls it."""
+    return get_strategy(strategies[int(strategy_id)]).emit(q, k, ctx)
+
+
+def _key_part(v):
+    """Hashable value key of one constructor parameter (see strategy_key)."""
+    if v is None or isinstance(v, (str, int, float, bool)):
+        return v
+    if isinstance(v, (tuple, list)):
+        return tuple(_key_part(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _key_part(x)) for k, x in v.items()))
+    key = strategy_key(v)
+    if key[0] == "id":
+        raise TypeError(f"no value key for {v!r}")
+    return key
+
+
+def strategy_key(strategy: SparsityStrategy):
+    """Value key of a built-in strategy; ``("id", id(strategy))`` otherwise.
+
+    Two instances of a built-in class with the same ``name`` and the same
+    constructor parameters (compared recursively through child strategies)
+    have the same key, so serving treats them as one producer: their
+    ``emit`` is a pure function of those parameters.  Ad-hoc strategies are
+    keyed by identity, correct but never merged."""
+    cls = type(strategy)
+    if cls not in _VALUE_KEYED_CLASSES:
+        return ("id", id(strategy))
+    try:
+        params = tuple(sorted((k, _key_part(v)) for k, v in vars(strategy).items()
+                              if k != "name"))
+    except TypeError:
+        return ("id", id(strategy))
+    return (cls.__name__, strategy.name, params)
+
+
+_VALUE_KEYED_CLASSES = (FlashOmniStrategy, CacheAllStrategy, SkipOnlyStrategy,
+                        SlidingWindowStrategy, MultiGranularityStrategy, StepPhasedStrategy)
+_STEP_FREE_CLASSES = (FlashOmniStrategy, CacheAllStrategy, SkipOnlyStrategy,
+                      SlidingWindowStrategy)
+
+
+def _reads_step(strategy) -> bool:
+    """Whether ``strategy.emit`` may depend on the context's step or step
+    count (an ad-hoc strategy may)."""
+    cls = type(strategy)
+    if cls in _STEP_FREE_CLASSES:
+        return False
+    if cls is MultiGranularityStrategy:
+        return any(_reads_step(c) for c in strategy.children)
+    if cls is StepPhasedStrategy:
+        return len(strategy.phases) > 1 or _reads_step(strategy.phases[0])
+    return True
+
+
+def step_strategy_key(strategy, step_idx: Optional[int], num_steps: Optional[int]):
+    """Value key of what ``strategy.emit`` computes at ``step_idx`` of a
+    ``num_steps``-step run: a ``step-phased`` strategy keys as the phase it
+    picks there, a strategy that reads no step as its :func:`strategy_key`,
+    and any other (ad-hoc, or one holding a step-phased child) as that key
+    with the step and the step count.  Layers of equal keys emit the same
+    symbols from the same Q/K, so the continuous batcher folds Update lanes
+    on these keys whatever their steps."""
+    strategy = get_strategy(strategy)
+    if type(strategy) is StepPhasedStrategy:
+        return step_strategy_key(strategy.phases[strategy.phase_at(step_idx, num_steps)],
+                                 step_idx, num_steps)
+    if not _reads_step(strategy):
+        return strategy_key(strategy)
+    return ("step", strategy_key(strategy), step_idx, num_steps)
 
 
 register_strategy(

@@ -1,12 +1,29 @@
-"""Diffusion serving launcher, port of ``repro.launch.serve.serve_diffusion``
-(sequential serving).
+"""Diffusion serving launcher, port of ``repro.launch.serve.serve_diffusion``.
 
 Text-to-vision requests run through the FlashOmni Update–Dispatch sampler
 on one CUDA device; the three Dispatch stages launch the Hopper kernels.
 Weights, latents, text embeddings and the stub patchifier are random, drawn
-from ``torch.Generator``s seeded from ``seed``.
+from ``torch.Generator``s seeded from ``seed``.  Three serving modes, from
+:mod:`repro_torch.launch.batching`:
+
+  * ``sequential``: one request at a time (the baseline);
+  * ``stacked``: requests of one shape, step count and schedule stack on
+    the batch axis into one sampler call;
+  * ``continuous``: ``--lanes`` requests resident at once, each lane
+    advancing one step a tick, retiring and refilling from the queue; ticks
+    whose lanes share their step context fold them into one batch.
+    ``--shape-buckets`` rounds near-miss ``N_v`` up to canonical lane sizes;
+    the lane-bucket map is printed after the run.
+
+``--arrival-interval`` spaces the requests' arrivals (latency counts from
+arrival), ``--mixed-steps`` alternates step counts (``steps`` and
+``3·steps//4``), ``--mixed-shapes`` vision lengths (``n_vision`` and
+``n_vision − pool``).
 
     python -m repro_torch.launch.serve --arch flux-mmdit --full --steps 8
+    python -m repro_torch.launch.serve --full --batch 1 --requests 6 --steps 8 \
+        --serving continuous --lanes 4 --mixed-steps
+    python -m repro_torch.launch.serve --serving stacked --device cpu
     python -m repro_torch.launch.serve --full --strategy sliding-window --kv-buckets 0
     python -m repro_torch.launch.serve --schedule hunyuan-1.5x --kv-buckets 3
     python -m repro_torch.launch.serve --arch hunyuan-video-dit --full \
@@ -25,10 +42,14 @@ from repro_torch.core.engine import EngineConfig
 from repro_torch.core.masks import MaskConfig
 from repro_torch.core.schedule import available_schedules
 from repro_torch.core.strategy import available_strategies
-from repro_torch.launch.batching import Request, run_sequential
+from repro_torch.launch.batching import (ContinuousBatcher, Request, run_sequential,
+                                         run_stacked)
 from repro_torch.models import dit
 
-__all__ = ["serve_diffusion", "serving_engine_config", "serving_inputs", "resolve_device"]
+__all__ = ["serve_diffusion", "serving_engine_config", "serving_inputs", "resolve_device",
+           "SERVING_MODES"]
+
+SERVING_MODES = ("sequential", "stacked", "continuous")
 
 
 def serving_engine_config(strategy: str = "flashomni", kv_buckets: int = 1) -> EngineConfig:
@@ -50,11 +71,18 @@ def resolve_device(device) -> torch.device:
 
 
 def serving_inputs(cfg, *, n_vision: int, batch: int, num_requests: int,
-                   num_steps: int, schedule: str = None, seed: int = 0, device="cuda"):
+                   num_steps: int, schedule: str = None, seed: int = 0, device="cuda",
+                   arrival_interval: float = 0.0, mixed_steps: bool = False,
+                   mixed_shapes: bool = False):
     """``(params, patch_embed, requests)`` of :func:`serve_diffusion`: the
     weights and the stub patchifier from ``seed``, request ``i``'s latents
     and text from ``seed + 100 + i``.  A dense baseline run on these inputs
-    sees the same weights and noise as the served one."""
+    sees the same weights and noise as the served one.  Request ``i``
+    arrives at ``i · arrival_interval``; with ``mixed_steps`` the odd
+    requests take ``max(3·num_steps//4, 1)`` steps, with ``mixed_shapes``
+    ``max(n_vision − pool, pool)`` vision tokens (pool of
+    :func:`serving_engine_config`)."""
+    pool = serving_engine_config().mask.pool
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -63,29 +91,39 @@ def serving_inputs(cfg, *, n_vision: int, batch: int, num_requests: int,
                               device=device).mul_(0.2)
     requests = []
     for req in range(num_requests):
+        odd = req % 2 == 1
+        nv = max(n_vision - pool, pool) if mixed_shapes and odd else n_vision
         gen.manual_seed(seed + 100 + req)
-        x0 = torch.randn((batch, n_vision, cfg.patch_dim), generator=gen, device=device)
+        x0 = torch.randn((batch, nv, cfg.patch_dim), generator=gen, device=device)
         text = torch.randn((batch, cfg.n_text_tokens, cfg.d_model), generator=gen,
                            device=device)
-        requests.append(Request(rid=req, x0=x0, text_emb=text, num_steps=num_steps,
-                                schedule=schedule))
+        requests.append(Request(
+            rid=req, x0=x0, text_emb=text, schedule=schedule, arrival=req * arrival_interval,
+            num_steps=max(3 * num_steps // 4, 1) if mixed_steps and odd else num_steps))
     return params, patch_embed, requests
 
 
 def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
                     batch: int = 2, n_vision: int = 96, num_steps: int = 12,
                     strategy: str = "flashomni", schedule: str = None,
-                    kv_buckets: int = 1, serving: str = "sequential",
+                    kv_buckets: int = 1, serving: str = "sequential", lanes: int = 4,
+                    arrival_interval: float = 0.0, mixed_steps: bool = False,
+                    mixed_shapes: bool = False, shape_buckets=None,
                     mesh: tuple = (1, 1), seed: int = 0, device="cuda",
                     verbose: bool = True) -> dict:
-    """Queue-driven diffusion serving.  ``schedule`` names a SparsitySchedule
-    preset (e.g. ``hunyuan-1.5x``) that overrides the per-step mapping of
+    """Queue-driven diffusion serving in one of :data:`SERVING_MODES` (see
+    the module docstring).  ``schedule`` names a SparsitySchedule preset
+    (e.g. ``hunyuan-1.5x``) that overrides the per-step mapping of
     ``strategy``; ``kv_buckets`` picks the Dispatch layout (see
-    :func:`serving_engine_config`).  Returns the per-request result dict of
-    :func:`repro_torch.launch.batching.run_sequential`."""
-    if serving != "sequential":
-        raise NotImplementedError(f"serving mode {serving!r} is not ported yet; "
-                                  "the port serves 'sequential'")
+    :func:`serving_engine_config`); ``arrival_interval``, ``mixed_steps`` and
+    ``mixed_shapes`` shape the requests (:func:`serving_inputs`);
+    ``lanes`` and ``shape_buckets`` (default with ``mixed_shapes``:
+    ``(n_vision,)``, so the near-miss shape folds in) go to the continuous
+    batcher.  Returns the per-request result dict of
+    :mod:`repro_torch.launch.batching`."""
+    if serving not in SERVING_MODES:
+        raise ValueError(f"unknown serving mode {serving!r}; expected one of "
+                         f"{SERVING_MODES}")
     if tuple(mesh) != (1, 1):
         raise NotImplementedError(f"mesh {mesh} is not ported yet; the port runs on "
                                   "one device")
@@ -94,19 +132,42 @@ def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
     ecfg = serving_engine_config(strategy, kv_buckets)
     params, patch_embed, requests = serving_inputs(
         cfg, n_vision=n_vision, batch=batch, num_requests=num_requests,
-        num_steps=num_steps, schedule=schedule, seed=seed, device=device)
+        num_steps=num_steps, schedule=schedule, seed=seed, device=device,
+        arrival_interval=arrival_interval, mixed_steps=mixed_steps,
+        mixed_shapes=mixed_shapes)
+    extra = ""
     t0 = time.perf_counter()
-    results = run_sequential(params, cfg, ecfg, requests, patch_embed=patch_embed)
+    if serving == "continuous":
+        if shape_buckets is None and mixed_shapes:
+            shape_buckets = (n_vision,)
+        batcher = ContinuousBatcher(params, cfg, ecfg, patch_embed=patch_embed, lanes=lanes,
+                                    shape_buckets=shape_buckets)
+        batcher.submit_all(requests)
+        results = batcher.run()
+        st = batcher.stats
+        extra = (f"  ticks {st['ticks']} ({st['grouped_ticks']} grouped/"
+                 f"{st['scan_ticks']} scan)")
+    elif serving == "stacked":
+        results = run_stacked(params, cfg, ecfg, requests, patch_embed=patch_embed)
+    else:
+        results = run_sequential(params, cfg, ecfg, requests, patch_embed=patch_embed)
     wall = time.perf_counter() - t0
     if verbose:
+        if serving == "continuous":
+            # Lane-bucket map: which admitted shape folded into which lane shape.
+            print(f"[serve] lane shape buckets ({st['shape_partitions']} partition(s)):")
+            for orig, canon in sorted(st["shape_buckets"].items()):
+                print(f"[serve]   x0 {orig[0]} {'=' if orig == canon else '->'} lane "
+                      f"{canon[0]}")
         for req in requests:
             r = results[req.rid]
-            dens = [s["density"] for s in r["trace"] if s["kind"] == "dispatch"]
+            dens = [s["density"] for s in (r["trace"] or []) if s["kind"] == "dispatch"]
             dtxt = f"mean dispatch density {sum(dens) / len(dens):.3f}  " if dens else ""
             print(f"[serve] req {req.rid} ({schedule or strategy}, {serving}): {req.num_steps} "
                   f"steps, latency {r['latency']:.2f}s  {dtxt}out "
                   f"{tuple(r['out'].shape)} finite={bool(torch.isfinite(r['out']).all())}")
-        print(f"[serve] {serving}: {len(requests)} requests in {wall:.2f}s on {device}")
+        print(f"[serve] {serving}: {len(requests)} requests in {wall:.2f}s "
+              f"({len(requests) / max(wall, 1e-9):.2f} req/s) on {device}{extra}")
     return results
 
 
@@ -128,13 +189,30 @@ def main():
     ap.add_argument("--kv-buckets", type=int, default=1, choices=(0, 1, 2, 3),
                     help="Dispatch layout: 1 uniform, 2 or 3 occupancy buckets, "
                          "0 the calibrated choice for --strategy")
+    ap.add_argument("--serving", default="sequential", choices=SERVING_MODES,
+                    help="serving mode (see the module docstring)")
+    ap.add_argument("--lanes", type=int, default=4,
+                    help="continuous batcher: requests resident at once")
+    ap.add_argument("--arrival-interval", type=float, default=0.0,
+                    help="seconds between request arrivals")
+    ap.add_argument("--mixed-steps", action="store_true",
+                    help="alternate request step counts (steps and 3*steps//4)")
+    ap.add_argument("--mixed-shapes", action="store_true",
+                    help="alternate request vision lengths (n_vision and n_vision - pool)")
+    ap.add_argument("--shape-buckets", type=int, nargs="*", default=None,
+                    help="continuous batcher: canonical N_v lane sizes (near-miss "
+                         "shapes round up)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     n_vision = args.n_vision or (4096 if args.full else 96)
     serve_diffusion(args.arch, smoke=not args.full, num_requests=args.requests,
                     batch=args.batch, n_vision=n_vision, num_steps=args.steps,
                     strategy=args.strategy, schedule=args.schedule,
-                    kv_buckets=args.kv_buckets, device=args.device)
+                    kv_buckets=args.kv_buckets, serving=args.serving, lanes=args.lanes,
+                    arrival_interval=args.arrival_interval, mixed_steps=args.mixed_steps,
+                    mixed_shapes=args.mixed_shapes,
+                    shape_buckets=tuple(args.shape_buckets) if args.shape_buckets else None,
+                    device=args.device)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,12 @@ from repro_torch.models.layers import rms_norm
 __all__ = ["init_params", "init_engine_states", "denoise_step", "timestep_embedding"]
 
 
+def _canonicalize_layer_strategies(layer_strategies, ecfg: EngineConfig, n_layers: int):
+    """Per-layer spec table -> (strategy set, int32 id row)."""
+    from repro_torch.core.schedule import strategy_table
+    return strategy_table(layer_strategies, ecfg, n_layers)
+
+
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
     half = dim // 2
     freqs = torch.exp(-math.log(max_period)
@@ -119,15 +125,19 @@ def _block(cfg: ArchConfig, ecfg: EngineConfig, p: dict, state: LayerState,
 def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
                  states: list[LayerState], x_vision: torch.Tensor,
                  text_emb: torch.Tensor, t: torch.Tensor, *, mode: str,
-                 dtype: torch.dtype = torch.bfloat16, strategies: Optional[tuple] = None,
-                 strategy_row=None, step_idx: Optional[int] = None,
-                 num_steps: Optional[int] = None):
+                 dtype: torch.dtype = torch.bfloat16, layer_strategies=None,
+                 strategies: Optional[tuple] = None, strategy_row=None,
+                 step_idx: Optional[int] = None, num_steps: Optional[int] = None):
     """One diffusion step: the velocity field for ``x_vision``.
 
     x_vision (B, N_v, d_model) latent patch embeddings; text_emb
-    (B, N_t, d_model); t (B,) diffusion time in [0, 1].  ``strategies`` and
+    (B, N_t, d_model); t (B,) diffusion time in [0, 1] (per sample, so
+    folded serving lanes may sit at different steps).  ``strategies`` and
     ``strategy_row`` (one id per layer, a schedule's step slice) choose each
-    layer's symbol producer at Update steps.  Returns (velocity, new_states).
+    layer's symbol producer at Update steps; ``layer_strategies`` (one spec
+    per layer, ``None`` entries falling back to ``ecfg.strategy``) is
+    canonicalized into that pair (kept for parity with the reference; no
+    caller in the port passes it).  Returns (velocity, new_states).
 
     ``states`` is consumed: each layer's entry is replaced by its new state
     as soon as the layer has run, so the old one can be freed (at
@@ -135,6 +145,12 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
     TaylorSeer stack do not fit on the card).  The returned list is
     ``states`` itself.
     """
+    if layer_strategies is not None:
+        if strategies is not None or strategy_row is not None:
+            raise ValueError("pass either layer_strategies or strategies/strategy_row, "
+                             "not both")
+        strategies, strategy_row = _canonicalize_layer_strategies(layer_strategies, ecfg,
+                                                                  cfg.n_layers)
     n_text = text_emb.shape[1]
     x = torch.cat([text_emb.to(dtype), x_vision.to(dtype)], dim=1)
     t_emb = timestep_embedding(t * 1000.0, 256).to(dtype) @ params["t_mlp1"].to(dtype)

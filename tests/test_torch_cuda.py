@@ -32,7 +32,11 @@ views, which stage element by element and give the 16-byte path's bits.
 B2 also runs at hunyuan-video-dit's width (33 024 tokens, T_kv = 2064, with
 a full and an empty KV list), and the chunked dense attention of the Update
 step runs on the card against the CPU at widths that span several chunks.
+The continuous batcher serves a mixed-step queue at smoke size on the card
+(grouped and scan ticks, lane refills) against the same run on the CPU.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -645,3 +649,39 @@ def test_chunked_dense_attention_on_the_card_matches_the_cpu(dev, monkeypatch, b
     got = attention.dense_attention(q.to(dev), k.to(dev), v.to(dev))
     assert got.device.type == "cuda" and got.dtype == torch.float32
     _close(got.cpu(), want, torch.float32)
+
+
+@pytest.mark.parametrize("grouped", ["auto", True])
+def test_continuous_batcher_on_the_card_matches_the_cpu(dev, grouped):
+    """The continuous batcher at smoke size (lanes refill, mixed step counts,
+    grouped and scan ticks) on the card (the kernels) against the same run on
+    the CPU (their plain versions): latents at the smoke samplers' 1e-3 /
+    1e-4, trace modes exactly, and the Dispatch kernels launched."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch.batching import ContinuousBatcher
+    from repro_torch.launch.serve import serving_engine_config, serving_inputs
+    cfg, ecfg = get_smoke("flux-mmdit"), serving_engine_config()
+    params, pe, reqs = serving_inputs(cfg, n_vision=96, batch=1, num_requests=5, num_steps=8,
+                                      mixed_steps=True, device="cpu")
+    res = {}
+    for d in ("cpu", dev):
+        to = lambda t: t.to(d)
+        p = {k: ({kk: to(vv) for kk, vv in v.items()} if isinstance(v, dict) else to(v))
+             for k, v in params.items()}
+        TK.reset_launches()
+        bat = ContinuousBatcher(p, cfg, ecfg, patch_embed=to(pe), lanes=3, grouped=grouped)
+        bat.submit_all([dataclasses.replace(r, x0=to(r.x0), text_emb=to(r.text_emb))
+                        for r in reqs])
+        res[str(d)] = (bat.run(), bat.stats)
+    launches = {fn.__name__: fn.launches for fn in TK.KERNELS}
+    (cpu, cpu_stats), (card, card_stats) = res["cpu"], res[str(dev)]
+    assert card_stats["grouped_ticks"] == cpu_stats["grouped_ticks"] > 0
+    assert card_stats["scan_ticks"] == cpu_stats["scan_ticks"] > 0
+    for r in reqs:
+        assert card[r.rid]["out"].device.type == "cuda"
+        torch.testing.assert_close(card[r.rid]["out"].cpu(), cpu[r.rid]["out"], rtol=1e-3,
+                                   atol=1e-4)
+        assert [s["kind"] for s in card[r.rid]["trace"]] == \
+            [s["kind"] for s in cpu[r.rid]["trace"]]
+    want = cfg.n_layers * card_stats["denoise_calls"]["dispatch"]
+    assert launches["gemm_q_sparse_kernel"] == launches["flashomni_attention_csr"] == want
