@@ -24,7 +24,9 @@ final line):
                 against the plain PyTorch version on the card (and the
                 largest share of its tolerance an element uses), kernel /
                 plain / library times (CUDA events), the least time the
-                card could take for the same work and, for the tensor-core
+                card could take for the same work (its FLOPs and bytes from
+                ``analysis.cost_model.kernel_cost`` on the plan's live
+                counts, ``plan_counts``) and, for the tensor-core
                 kernels, the registers and spills of the instance that ran.
                 GEMM-Q, CSR attention and GEMM-O run on a ``flashomni``
                 plan, and the symbols attention on the same symbols (also
@@ -40,33 +42,41 @@ final line):
                 sliding-window at ``kv_buckets=0`` with 480 vision tokens;
                 ``cache-all``; the ``step-ramp`` schedule; and
                 ``step-phased`` with a fractional boundary;
-  4. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
+  4. analysis — the invariant analyzer on the card: ``run_analysis`` at its
+                geometry (dispatch purity with every kernel region present,
+                promotion, cost certificates, plan validator, source lint;
+                zero findings), the plan validator on the seeded plans of the
+                ``kernels`` cell (1-3 buckets) and of ``kernels_33k``, on the
+                38 plans of one full-width flux-mmdit Update step built with
+                ``validate_plans=True``, and the six smoke samplers again with
+                the hook on; the findings (any fails) and the seconds;
+  5. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
                 request of 8 steps (steps 3, 4, 5 and 7 are Dispatch
                 steps): finite outputs, and GEMM-Q, CSR attention and GEMM-O
                 each launched 38 layers x 4 steps = 152 times;
-  5. serve_bucketed — P2 at full width, 1 request of 8 steps: GEMM-Q and the
+  6. serve_bucketed — P2 at full width, 1 request of 8 steps: GEMM-Q and the
                 two bucketed kernels each launched 38 x 4 = 152 times, the
                 uniform attention and GEMM-O never; latency, density, peak
                 memory, and the share of live KV blocks and live (row, head)
                 pairs the buckets dropped at one interior layer's last plan;
-  6. ops      — ``python -m repro_torch.quickstart --full`` on the card: one
+  7. ops      — ``python -m repro_torch.quickstart --full`` on the card: one
                 Update and one Dispatch of a flux-mmdit-width attention
                 layer, then every ``repro_torch.kernels.ops`` entry on the
                 layer's own symbols (symbols attention bit-equal to CSR, both
                 against the mask oracle, 2-bucket attention against its plain
                 version, Taylor reuse against the layer's forecast); the
                 symbols attention and the Taylor reuse must launch;
-  7. twin     — one flux-width Dispatch layer under the kernels and under
+  8. twin     — one flux-width Dispatch layer under the kernels and under
                 the structural twin (``backend="torch"``, no kernel) on three
                 plans (union layout at ``cap_kv = T_kv``, sliding-window at 2
                 buckets, per-row layout at ``cap_kv < T_kv``): the largest
                 difference and its share of the float32 tolerance, with the
                 rows of empty KV lists zeroed, and both times;
-  8. dense    — P1's request under ``force_dense`` on the same weights and
+  9. dense    — P1's request under ``force_dense`` on the same weights and
                 noise (no kernel launches): P1's and P2's speedup over it and
                 their relative L2 / PSNR against its latents; then P1, P2
                 and the dense run in bfloat16;
-  9. serve_batched — C1: flux-mmdit at full width, 6 requests of batch 1 at
+ 10. serve_batched — C1: flux-mmdit at full width, 6 requests of batch 1 at
                 t = 0 with 8 and 6 steps in turn, served sequentially,
                 stacked and by the continuous batcher (4 lanes,
                 ``grouped="auto"``: grouped and scan ticks both run):
@@ -77,20 +87,22 @@ final line):
                 stacked 8-step group and its requests alone in lockstep up
                 to the first step whose plans differ, with the Q/K and
                 library-GEMM differences there;
- 10. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
+ 11. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
                 (48 blocks, B=1, 256 + 32 768 tokens), ``hunyuan-1.5x``,
                 uniform layout, float32, 8 steps (3-5 and 7 Dispatch):
                 GEMM-Q, CSR attention and GEMM-O each launched 48 x 4 = 192
                 times, the others never; then its dense run on the same
                 inputs: latency, step seconds, peak memory, speedup, rel-L2
                 / PSNR against dense, and the 50-step projection;
- 11. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
+ 12. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
                 and the bucketed pair on the ``hunyuan-1.5x`` interior plan
                 at 3 buckets, at H1's shapes (B=1, N=33 024) in float32;
- 12. profile  — device time by kernel group within one Update and one
+ 13. profile  — device time by kernel group within one Update and one
                 Dispatch step of P1, P2 and H1 (at 12 of its 48 blocks) at
                 full width (torch.profiler; the chunked dense attention as its
-                own group), and the device's idle share.
+                own group), and the device's idle share; dispatch purity on
+                the card: no Dispatch step may launch a sort or top-k kernel,
+                every Update step must launch one (scans are reported).
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power-limit line, and
 the device line last.
@@ -283,11 +295,12 @@ def phase_build():
     return smi[0] if smi else ""
 
 
-def serving_plan(dev, b, h, n, dh, n_text, strategy=None, kv_buckets=1, **cfg_kw):
+def serving_plan(dev, b, h, n, dh, n_text, strategy=None, kv_buckets=1, widen=True,
+                 **cfg_kw):
     """``(ecfg, symbols, plan)``: the SymbolSet and the port's DispatchPlan
-    (ids widened) for a seeded Q/K (B, H, N, dh) under ``strategy``
-    (default: flashomni) at ``kv_buckets``; ``cfg_kw`` overrides fields of
-    the serving engine config."""
+    (ids widened unless ``widen`` is False) for a seeded Q/K (B, H, N, dh)
+    under ``strategy`` (default: flashomni) at ``kv_buckets``; ``cfg_kw``
+    overrides fields of the serving engine config."""
     import torch
     from repro_torch.core.plan import build_dispatch_plan
     from repro_torch.core.strategy import FlashOmniStrategy, StrategyContext
@@ -300,8 +313,8 @@ def serving_plan(dev, b, h, n, dh, n_text, strategy=None, kv_buckets=1, **cfg_kw
     syms = (strategy or FlashOmniStrategy()).emit(
         q, k, StrategyContext(cfg=ecfg, n_text=n_text, n_tokens=n))
     row_score = torch.where(syms.m_c, syms.q_scores, 0.0).sum(dim=-2)
-    return ecfg, syms, build_dispatch_plan(syms.m_c, syms.m_s, ecfg, n,
-                                           row_score=row_score).widen()
+    plan = build_dispatch_plan(syms.m_c, syms.m_s, ecfg, n, row_score=row_score)
+    return ecfg, syms, plan.widen() if widen else plan
 
 
 def check_close(name, dtype_name, got, want) -> tuple[float, float]:
@@ -323,11 +336,13 @@ FULL = dict(b=2, h=24, n=4608, dh=128, d=3072, n_text=512)
 
 
 def plan_work(plan, ecfg, b, h, n):
-    """What a plan's clamped lists really need: live counts for the bounds,
-    the token mask of the attention yardstick (None where it would exceed
-    ``SDPA_MASK_BYTES``) and the (B, N, H) head mask of the GEMM-O
-    yardstick."""
+    """What a plan's clamped lists really need: its live counts
+    (``analysis.cost_model.plan_counts``, what every bound is billed at),
+    the flat (B·H) lists of the uniform attention, the token mask of the
+    attention yardstick (None where it would exceed ``SDPA_MASK_BYTES``)
+    and the (B, N, H) head mask of the GEMM-O yardstick."""
     import torch
+    from repro_torch.analysis.cost_model import plan_counts
     dev = plan.q_ids.device
     m = ecfg.mask
     pool, bq, bkv = m.pool, m.block_q, m.block_kv
@@ -336,24 +351,22 @@ def plan_work(plan, ecfg, b, h, n):
     flat = lambda a: a.reshape(b * h, *a.shape[2:]).contiguous()
     q_ids, q_src, q_cnt = flat(plan.q_ids), flat(plan.q_slots), flat(plan.q_cnt)
     kv_ids, kv_cnt = flat(plan.kv_row_ids), flat(plan.kv_row_cnt)
-    slot_live = torch.arange(cq, device=dev) < q_cnt[:, None]
-    j_live = (torch.arange(ckv, device=dev) < kv_cnt[..., None]) & slot_live[..., None]
     t_kv = n // bkv
-    per_slot = torch.zeros((b * h, cq, t_kv + 1), dtype=torch.bool, device=dev)
-    per_slot.scatter_(-1, torch.where(j_live, kv_ids.long(), t_kv), True)
-    union = per_slot[..., :t_kv].any(dim=1)
     # Token mask of the plan over the compact Q rows for the SDPA yardstick
     # (rows of no live slot attend everywhere: dense work either way).
     tc = cr * pool // bq
     sdpa_mask = None
     if b * h * tc * bq * n <= SDPA_MASK_BYTES:
+        slot_live = torch.arange(cq, device=dev) < q_cnt[:, None]
+        j_live = (torch.arange(ckv, device=dev) < kv_cnt[..., None]) & slot_live[..., None]
+        per_slot = torch.zeros((b * h, cq, t_kv + 1), dtype=torch.bool, device=dev)
+        per_slot.scatter_(-1, torch.where(j_live, kv_ids.long(), t_kv), True)
         blk = torch.ones((b * h, tc + 1, t_kv + 1), dtype=torch.bool, device=dev)
         dst = torch.where(slot_live, q_src.long(), tc)       # dead slots -> trash row
         blk.scatter_(1, dst[..., None].expand(-1, -1, t_kv + 1), per_slot)
         sdpa_mask = blk[:, :tc, :t_kv].repeat_interleave(bq, dim=1) \
             .repeat_interleave(bkv, dim=2)[:, None]
-        del blk
-    del per_slot
+        del blk, per_slot
     # The clamped (row, head) mask in token layout.
     t = m.n_blocks(n)
     rows = torch.zeros((b, t + 1, h), dtype=torch.bool, device=dev)
@@ -363,20 +376,21 @@ def plan_work(plan, ecfg, b, h, n):
     m_tok = torch.repeat_interleave(rows[:, :t], pool, dim=1)[:, :n]
     return dict(
         flat=dict(q_ids=q_ids, q_src=q_src, q_cnt=q_cnt, kv_ids=kv_ids, kv_cnt=kv_cnt),
-        live_rows=int(plan.row_cnt.sum()), live_slots=int(slot_live.sum()),
-        kv_live_blocks=int(torch.where(slot_live, kv_cnt, 0).sum()),
-        kv_union_blocks=int(union.sum()), live_heads=int(plan.head_cnt.sum()),
-        heads_used=int(plan.head_mask.any(dim=(0, 1)).sum()),
-        sdpa_mask=sdpa_mask, sdpa_mask_bytes=b * h * tc * bq * n, m_tok=m_tok)
+        counts=plan_counts(plan, ecfg, b, h, n), sdpa_mask=sdpa_mask,
+        sdpa_mask_bytes=b * h * tc * bq * n, m_tok=m_tok)
 
 
-def measure(name, dn, kern, plain, library, flops, nbytes, peaks, twin=None,
+def measure(name, dn, kern, plain, library, counts, peaks, twin=None,
             iters=10) -> dict:
     """Kernel vs plain version (and, for a bucketed or the symbols kernel,
     ``torch.equal`` to its uniform CSR twin on the same lists, and the twin's
     time), then kernel / plain / library times (``library`` None: no library
-    call fits on the card at these shapes)."""
+    call fits on the card at these shapes).  The bound is billed by
+    ``analysis.cost_model.kernel_cost`` on the work ``counts`` describes."""
     import torch
+    from repro_torch.analysis.cost_model import kernel_cost
+    cost = kernel_cost(name, counts, dn)
+    flops, nbytes = cost.flops, cost.hbm_bytes
     got = kern()
     want = plain()
     torch.cuda.synchronize()
@@ -466,11 +480,15 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
                       "Cq": plan.kv_row_ids.shape[-2], "Ckv": plan.kv_row_ids.shape[-1],
                       **({"geometry": bucket_geometry(spec.cap_q, spec.cap_kv, h, kb),
                           "geometry_o": bucket_geometry(cr, h, 1, kb)} if kb > 1 else {}),
-                      **{key: w[key] for key in ("live_rows", "live_slots", "kv_live_blocks",
-                                                 "kv_union_blocks", "live_heads")}})
+                      **{key: w["counts"][key] for key in (
+                          "live_rows", "live_slots", "kv_live_blocks", "kv_union_blocks",
+                          "live_heads")}})
+        # The work each kernel's bound is billed at (analysis.cost_model.kernel_cost).
+        gq_counts = dict(w["counts"], k=d, f=h * dh)
+        attn_counts = dict(w["counts"], dh=dh)
+        go_counts = dict(w["counts"], dh=dh, f=d)
         for dn in dtypes:
             dt = getattr(torch, dn)
-            e = torch.finfo(dt).bits // 8
             x, wq = x32.to(dt), wq32.to(dt)
             qc, kk, vv, ore = qc32.to(dt), k32.to(dt), v32.to(dt), ore32.to(dt)
             o, wo, bias = o32.to(dt), wo32.to(dt), bias32.to(dt)
@@ -485,13 +503,6 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
                                                        attn_mask=w["sdpa_mask"]))
             einsum = lambda: torch.einsum("bnhd,hdf->bnf", torch.where(
                 w["m_tok"][..., None], o.transpose(1, 2), 0), wo) + bias
-            attn_flops = 4.0 * w["kv_live_blocks"] * bq * bkv * dh
-            attn_bytes = e * (w["live_slots"] * bq * dh + 2 * w["kv_union_blocks"] * bkv * dh
-                              + 2 * b * h * n * dh) + 4 * (w["kv_live_blocks"]
-                                                          + 3 * w["live_slots"])
-            go_flops = 2.0 * w["live_heads"] * pool * dh * d
-            go_bytes = e * (w["live_heads"] * pool * dh + w["heads_used"] * dh * d
-                            + 2 * b * n * d) + 4 * (b * cr * (2 + h))
             if kb == 1:
                 calls = {
                     "gemm_q_sparse_kernel": (
@@ -501,20 +512,18 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
                         lambda: torch.matmul(
                             x.reshape(b, n // pool, pool, d)[
                                 torch.arange(b, device=dev)[:, None], plan.row_ids.long()], wq),
-                        2.0 * w["live_rows"] * pool * d * h * dh,
-                        e * (w["live_rows"] * pool * d + d * h * dh + b * cr * pool * h * dh)
-                        + 4 * (b * cr + b), None),
+                        gq_counts, None),
                     "flashomni_attention_csr": (
                         uni_attn,
                         lambda: ref.attention_csr_ref(
                             qc, kk, vv, ore, fl["q_ids"], fl["q_src"], fl["q_cnt"],
                             fl["kv_ids"], fl["kv_cnt"], block_q=bq, block_kv=bkv),
-                        sdpa, attn_flops, attn_bytes, None),
+                        sdpa, attn_counts, None),
                     "gemm_o_sparse_kernel": (
                         uni_gemm_o,
                         lambda: ref.gemm_o_ref(o, wo, bias, plan.row_ids, plan.head_ids,
                                                plan.head_cnt, block=pool),
-                        einsum, go_flops, go_bytes, None),
+                        einsum, go_counts, None),
                 }
             else:
                 geo = bucket_geometry(spec.cap_q, spec.cap_kv, h, kb)
@@ -522,31 +531,29 @@ def phase_kernels(gpu_name: str, dev: str = "cuda", b=2, h=24, n=4608, dh=128, d
                 bkt = (plan.bkt_head, plan.bkt_q_ids, plan.bkt_q_slots, plan.bkt_kv_ids,
                        plan.bkt_kv_cnt)
                 gmo = (plan.gmo_rows, plan.gmo_src, plan.gmo_head_ids, plan.gmo_head_cnt)
-                r_rows = plan.bkt_head.numel()
                 calls = {
                     "flashomni_attention_csr_bucketed": (
                         lambda: TK.flashomni_attention_csr_bucketed(
                             qc, kk, vv, ore, *bkt, geo, heads=h, block_q=bq, block_kv=bkv),
                         lambda: ref.attention_csr_bucketed_ref(
                             qc, kk, vv, ore, *bkt, geo, heads=h, block_q=bq, block_kv=bkv),
-                        sdpa, attn_flops,
-                        attn_bytes + 4 * (r_rows - w["live_slots"]), uni_attn),
+                        sdpa, attn_counts, uni_attn),
                     "gemm_o_sparse_bucketed_kernel": (
                         lambda: TK.gemm_o_sparse_bucketed_kernel(o, wo, bias, *gmo, geo_o,
                                                                  block_rows=pool),
                         lambda: ref.gemm_o_bucketed_ref(o, wo, bias, *gmo, geo_o, block=pool),
-                        einsum, go_flops, go_bytes, uni_gemm_o),
+                        einsum, go_counts, uni_gemm_o),
                 }
             if kb == 1 and with_ops:
-                calls.update(ops_calls(syms, ecfg, dt, e, b, h, n, dh, rnd, k32, v32, ore32))
-            for name, (kern, plain, library, flops, nbytes, twin) in calls.items():
-                row = {"plan": label, **measure(name, dn, kern, plain, library, flops,
-                                                nbytes, peaks, twin, iters)}
+                calls.update(ops_calls(syms, ecfg, dt, b, h, n, dh, rnd, k32, v32, ore32))
+            for name, (kern, plain, library, counts, twin) in calls.items():
+                row = {"plan": label, **measure(name, dn, kern, plain, library, counts,
+                                                peaks, twin, iters)}
                 if library is None:
                     row["library_skipped"] = (f"the SDPA token mask would take "
                                               f"{w['sdpa_mask_bytes'] / 1e9:.1f} GB")
                 if name in ATTENTION:
-                    row.update(walk_counts(name, dn, kern, flops, bkv, dh))
+                    row.update(walk_counts(name, dn, kern, row["flops"], bkv, dh))
                 if name in TF32X3:          # registers and spills of the instance it ran
                     stem = serving_instance(name, dn)
                     row["ptxas"] = next((u for key, u in usage.items() if stem in key), None)
@@ -610,7 +617,7 @@ def gemm_times(b=2, h=24, n=4608, dh=128, d=3072, n_text=512, iters=20) -> dict:
     return out
 
 
-def ops_calls(syms, ecfg, dt, e, b, h, n, dh, rnd, k32, v32, ore32) -> dict:
+def ops_calls(syms, ecfg, dt, b, h, n, dh, rnd, k32, v32, ore32) -> dict:
     """The symbols attention on the flashomni symbols' post-clamp masks (its
     twin: the CSR kernel on the CSR lists of the same masks, q in full
     layout) and the Taylor reuse of a (2, B·H, N, dh) stack over the blocks
@@ -644,9 +651,9 @@ def ops_calls(syms, ecfg, dt, e, b, h, n, dh, rnd, k32, v32, ore32) -> dict:
         lambda: ref.attention_symbols_ref(qf, kk, vv, ore, s_c, s_s, **kw),
         lambda: F.scaled_dot_product_attention(qf[:, None], kk[:, None], vv[:, None],
                                                attn_mask=tok),
-        4.0 * live_pairs * bq * bkv * dh,
-        e * (live_rows * bq * dh + 2 * kv_union * bkv * dh + (bh * t_q - live_rows) * bq * dh
-             + bh * n * dh) + s_c.numel() + s_s.numel(),
+        dict(bh=bh, n=n, dh=dh, block_q=bq, block_kv=bkv, live_rows=live_rows,
+             live_pairs=live_pairs, kv_union_blocks=kv_union,
+             symbol_bytes=s_c.numel() + s_s.numel()),
         lambda: TK.flashomni_attention_csr(qf, kk, vv, ore, q_ids, q_ids, q_cnt, kv_ids,
                                            kv_cnt, **kw))}
     # Taylor reuse: a first-order stack, the coefficients of the first
@@ -660,9 +667,7 @@ def ops_calls(syms, ecfg, dt, e, b, h, n, dh, rnd, k32, v32, ore32) -> dict:
         lambda: TK.taylor_reuse_kernel(derivs, coef, base, ids, cnt, block=bq),
         lambda: ref.taylor_reuse_blocks_ref(derivs, coef, base, ids, cnt, block=bq),
         lambda: torch.where(tok_c, torch.tensordot(coef.to(dt), derivs, dims=1), base),
-        2.0 * 2 * cached * bq * dh,
-        e * (2 * cached * bq * dh + (bh * n * dh - cached * bq * dh) + bh * n * dh)
-        + 4 * (cached + bh + 2),
+        dict(orders=2, bh=bh, n=n, dh=dh, block=bq, cached=cached),
         None)
     return calls
 
@@ -707,8 +712,10 @@ def run_small(label, cfg, ecfg, nv, schedule=None, expect=()):
     return res
 
 
-def phase_small():
-    """Smoke-size samplers: kernels on the card vs plain versions on the CPU."""
+def small_runs(validate: bool = False) -> list:
+    """The six smoke-size samplers, kernels on the card vs plain versions on
+    the CPU; ``validate`` turns on the plan validator's hook
+    (``EngineConfig.validate_plans``) in every run."""
     from repro_torch.configs.registry import get_smoke
     from repro_torch.core.strategy import StepPhasedStrategy
     from repro_torch.launch.serve import serving_engine_config
@@ -716,23 +723,107 @@ def phase_small():
     cfg4 = dataclasses.replace(cfg, n_heads=4, n_kv_heads=4)
     # Steps 0-1 emit flashomni, steps 2+ cache-all: round(0.3 * 8) = 2.
     phased = StepPhasedStrategy(phases=("flashomni", "cache-all"), boundaries=(0.3,))
-    runs = [
-        run_small("P1 flashomni", cfg, serving_engine_config(), 96, expect=P1_KERNELS),
-        run_small("P2' hunyuan-1.5x schedule, 4 heads", cfg4,
-                  serving_engine_config(kv_buckets=3), 96, schedule="hunyuan-1.5x",
+    ecfg = lambda *a, **kw: dataclasses.replace(serving_engine_config(*a),
+                                                validate_plans=validate, **kw)
+    return [
+        run_small("P1 flashomni", cfg, ecfg(), 96, expect=P1_KERNELS),
+        run_small("P2' hunyuan-1.5x schedule, 4 heads", cfg4, ecfg("flashomni", 3), 96,
+                  schedule="hunyuan-1.5x", expect=P2_KERNELS),
+        run_small("sliding-window, auto buckets", cfg, ecfg("sliding-window", 0), 480,
                   expect=P2_KERNELS),
-        run_small("sliding-window, auto buckets", cfg,
-                  serving_engine_config("sliding-window", kv_buckets=0), 480,
-                  expect=P2_KERNELS),
-        run_small("cache-all", cfg, serving_engine_config("cache-all"), 96,
+        run_small("cache-all", cfg, ecfg("cache-all"), 96, expect=P1_KERNELS),
+        run_small("step-ramp schedule", cfg, ecfg(), 96, schedule="step-ramp",
                   expect=P1_KERNELS),
-        run_small("step-ramp schedule", cfg, serving_engine_config(), 96,
-                  schedule="step-ramp", expect=P1_KERNELS),
-        run_small("step-phased flashomni -> cache-all at 0.3", cfg,
-                  dataclasses.replace(serving_engine_config(), strategy=phased), 96,
+        run_small("step-phased flashomni -> cache-all at 0.3", cfg, ecfg(strategy=phased), 96,
                   expect=P1_KERNELS),
     ]
-    emit({"phase": "small", "runs": runs, "ok": True})
+
+
+def phase_small():
+    """Smoke-size samplers: kernels on the card vs plain versions on the CPU."""
+    emit({"phase": "small", "runs": small_runs(), "ok": True})
+
+
+def phase_analysis():
+    """The invariant analyzer on the card: ``run_analysis`` at its geometry
+    (every pass, the kernels launched), the plan validator on the seeded
+    plans of the ``kernels`` cell (flux shapes, 1-3 buckets) and of
+    ``kernels_33k`` (H1's shapes), on the 38 plans of one full-width
+    flux-mmdit Update step built with ``validate_plans=True``, and the six
+    smoke samplers again with the hook on.  Any finding fails."""
+    import torch
+    from repro_torch.analysis import run_analysis
+    from repro_torch.analysis.op_walk import kernel_regions
+    from repro_torch.analysis.passes import _N, _engine_cfg, trace_pair
+    from repro_torch.analysis.plan_check import check_plan, hook_validate
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import resolve_schedule
+    from repro_torch.core.strategy import MultiGranularityStrategy, SlidingWindowStrategy
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.models import dit
+    res, findings, t_all = {}, [], time.perf_counter()
+    t0 = time.perf_counter()
+    found = run_analysis(device=DEVICE, verbose=False)
+    findings += [str(f) for f in found]
+    res["run_analysis"] = {"findings": len(found), "seconds": time.perf_counter() - t0,
+                           "dispatch_regions": {
+                               f"kernels/kv_buckets={kvb}": kernel_regions(trace_pair(
+                                   _engine_cfg(kv_buckets=kvb), _N, DEVICE)[1])
+                               for kvb in (1, 3)}}
+    # The seeded plans of the kernel cells (serving_plan, as phase_kernels builds them).
+    interior = MultiGranularityStrategy(children=("flashomni", "skip-only", "sliding-window"),
+                                        head_assign=(0, 0, 2))
+    cells = [("kernels", FULL, "flashomni", None, 1),
+             ("kernels", FULL, "sliding-window", SlidingWindowStrategy(), 2),
+             ("kernels", FULL, "hunyuan-1.5x interior", interior, 3),
+             ("kernels_33k", H1_SHAPE, "flashomni", None, 1),
+             ("kernels_33k", H1_SHAPE, "hunyuan-1.5x interior", interior, 3)]
+    checked = []
+    for cell, shape, label, strategy, kb in cells:
+        sh = {k: shape[k] for k in ("b", "h", "n", "dh", "n_text")}
+        ecfg, syms, plan = serving_plan(torch.device(DEVICE), **sh, strategy=strategy,
+                                        kv_buckets=kb, widen=False)
+        del syms
+        t0 = time.perf_counter()
+        msgs = check_plan(plan, ecfg, shape["n"])
+        checked.append({"cell": cell, "plan": label, "kv_buckets": kb, "findings": msgs,
+                        "seconds": time.perf_counter() - t0})
+        findings += [f"{cell}/{label}: {m}" for m in msgs]
+        del plan
+        torch.cuda.empty_cache()
+    res["kernel_cell_plans"] = checked
+    # One full-width flux-mmdit Update step with the hook on: one check per layer.
+    cfg = get_config(FLUX["arch"])
+    ecfg = dataclasses.replace(serving_engine_config(), validate_plans=True)
+    params, xe, text, t = profile_inputs(cfg, FLUX["batch"], FLUX["n_vision"])
+    states = dit.init_engine_states(cfg, ecfg, FLUX["batch"],
+                                    FLUX["n_vision"] + cfg.n_text_tokens, xe.device)
+    sched = resolve_schedule(ecfg, STEPS, cfg.n_layers)
+    hook_validate.calls = 0
+    t0 = time.perf_counter()
+    dit.denoise_step(params, cfg, ecfg, states, xe, text, t, mode="update",
+                     dtype=torch.float32, strategies=sched.strategies,
+                     strategy_row=sched.strategy_ids[0], step_idx=0, num_steps=STEPS)
+    torch.cuda.synchronize()
+    res["update_step"] = {"layers": cfg.n_layers, "plans_checked": hook_validate.calls,
+                          "seconds": time.perf_counter() - t0}
+    if hook_validate.calls != cfg.n_layers:
+        findings.append(f"the Update step checked {hook_validate.calls} plans, expected "
+                        f"{cfg.n_layers}")
+    del params, xe, text, t, states
+    torch.cuda.empty_cache()
+    # The smoke samplers with the hook on (CPU and card runs alike).
+    hook_validate.calls = 0
+    t0 = time.perf_counter()
+    runs = small_runs(validate=True)
+    res["small_validated"] = {"runs": len(runs), "plans_checked": hook_validate.calls,
+                              "seconds": time.perf_counter() - t0}
+    if not hook_validate.calls:
+        findings.append("the smoke samplers ran with validate_plans=True and checked no plan")
+    res.update(findings=findings, seconds=time.perf_counter() - t_all)
+    emit({"phase": "analysis", **res})
+    if findings:
+        raise AssertionError(f"the analyzer reported {len(findings)} finding(s): {findings}")
 
 
 def dispatch_steps(sched, dense=False) -> int:
@@ -1283,6 +1374,14 @@ KERNEL_GROUPS = (("gemm_q_kernel", "gemm_q_sparse_kernel"),
                  ("taylor_reuse_kernel", "taylor_reuse_kernel"))
 
 
+# The device side of the dispatch-purity claim: a Dispatch step launches
+# no kernel of this group, an Update step (which builds the plans) at least
+# one.  Scans (cumulative sums) are a group of their own, reported and not
+# held to it: the reference's index-decode set has no cumsum.
+SORT_GROUP = "sort/top-k (plan build)"
+SCAN_GROUP = "scan"
+
+
 def _kernel_group(name: str) -> str:
     for key, group in KERNEL_GROUPS:
         if key in name:
@@ -1290,8 +1389,10 @@ def _kernel_group(name: str) -> str:
     lowered = name.lower()
     if "gemm" in lowered or "cutlass" in lowered or "xmma" in lowered:
         return "library GEMM (dense projections, MLP, dense attention)"
-    if "sort" in lowered or "scan" in lowered or "radix" in lowered:
-        return "sort/scan (plan build)"
+    if any(key in lowered for key in ("sort", "radix", "topk", "kthvalue")):
+        return SORT_GROUP
+    if "scan" in lowered:
+        return SCAN_GROUP
     return "other (elementwise, reductions, copies)"
 
 
@@ -1443,9 +1544,20 @@ def phase_profile():
                               *profile_inputs(cfg, H1["batch"], H1["n_vision"]),
                               schedule="hunyuan-1.5x"))
     torch.cuda.empty_cache()
+    calls = lambda path, mode, group: path[mode]["by_group"].get(group, {}).get("calls", 0)
+    purity = {p["path"]: {"dispatch_sort_kernels": calls(p, "dispatch", SORT_GROUP),
+                          "update_sort_kernels": calls(p, "update", SORT_GROUP),
+                          "dispatch_scan_kernels": calls(p, "dispatch", SCAN_GROUP),
+                          "update_scan_kernels": calls(p, "update", SCAN_GROUP)}
+              for p in paths}
     emit({"phase": "profile",
           "note": "one denoise step per mode under torch.profiler (profiler on)",
-          "paths": paths})
+          "paths": paths, "dispatch_purity": purity})
+    bad = {path: c for path, c in purity.items()
+           if c["dispatch_sort_kernels"] or not c["update_sort_kernels"]}
+    if bad:
+        raise AssertionError(f"dispatch purity on the card: a Dispatch step launched a sort or "
+                             f"top-k kernel, or an Update step none: {bad}")
 
 
 def main() -> int:
@@ -1467,6 +1579,7 @@ def main() -> int:
         smi = timed(phase_build)
         rows = timed(phase_kernels, torch.cuda.get_device_name(0), **FULL)
         timed(phase_small)
+        timed(phase_analysis)
         served, by_path = {}, {}
         by_path["P1"], served["P1"] = timed(phase_serve)
         by_path["P2"], served["P2"] = timed(phase_serve_bucketed)

@@ -1,0 +1,215 @@
+"""The op stream of one call (the analyzer's shared walker), the port's
+counterpart of ``repro.analysis.jaxpr_walk``.
+
+:func:`record_call` runs a function under a ``TorchDispatchMode`` and
+records every aten op that reaches the dispatcher: its name, the shapes,
+dtypes and storages of its inputs and outputs, and the path of kernel
+regions it runs in.  PyTorch decomposes composite ops before they reach the
+mode, so an ``einsum`` arrives as permutes and views around a ``bmm`` and a
+stable ``argsort`` as ``aten.sort.stable``.  The recorder reads shapes and
+storage identities only, so it never waits for the card.
+
+**Kernel regions.**  The CUDA kernels launch through ``ctypes``, which the
+dispatcher never sees.  Each kernel wrapper is a named region
+(:mod:`repro_torch.kernels._region`), recorded as one node of kind
+``"kernel"`` with the wrapper's bound arguments; the ops it runs (on the
+card its output clone, on the CPU its whole plain version) follow it with
+the region's name in their path.  So a Dispatch record shows B1–B3 (or
+B1/B4/B5) as nodes on either device, and a kernel missing from a record is
+visible.
+
+Storages are keyed by their untyped storage (``_cdata``) and held by the
+record for its lifetime, so a key cannot be reused by a later allocation;
+a view shares its base's key.  Records are for small analysis shapes.
+
+Entry points: :func:`record_call`, :func:`iter_nodes`,
+:func:`primitive_counts`, :func:`find_ops`, :func:`eqn_count`,
+:func:`index_decode_ops`, :func:`kernel_regions`,
+:func:`collective_counts`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import Counter
+from typing import Any, Iterator, NamedTuple, Sequence
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_map
+
+from repro_torch.kernels._region import listening
+
+__all__ = ["TensorMeta", "OpNode", "OpRecord", "record_call", "iter_nodes",
+           "primitive_counts", "find_ops", "eqn_count", "INDEX_DECODE_OPS",
+           "index_decode_ops", "kernel_regions", "COLLECTIVE_NAMESPACES",
+           "collective_counts"]
+
+# Index-decode work (mask -> plan extraction): any of these inside a
+# Dispatch record means the engine is rebuilding the plan instead of reading
+# it.  ``argsort`` lowers to ``aten.sort`` and ``torch.topk`` to
+# ``aten.topk``; the uint8 symbol unpack has no op of its own, and is
+# matched by its signature in :func:`index_decode_ops`.
+INDEX_DECODE_OPS = frozenset({"aten.sort", "aten.argsort", "aten.msort", "aten.topk",
+                              "aten.kthvalue"})
+_UNPACK_OPS = frozenset({"aten.__rshift__", "aten.bitwise_right_shift", "aten.bitwise_and"})
+# Ops through which a tensor keeps the uint8 symbol buffer's provenance
+# (the unpack converts the bytes to int32 before it shifts).
+_CARRY_U8 = frozenset({"aten._to_copy", "aten.clone", "aten.index_select", "aten.gather",
+                       "aten.index", "aten.slice", "aten.select", "aten.view",
+                       "aten._unsafe_view", "aten.unsqueeze", "aten.expand",
+                       "aten.reshape", "aten.permute", "aten.squeeze", "aten.alias"})
+# Cross-device collectives (torch.distributed's ops): none until mesh
+# dispatch is ported (ROADMAP A.8).
+COLLECTIVE_NAMESPACES = frozenset({"c10d", "_c10d_functional", "_c10d_functional_autograd"})
+
+
+class TensorMeta(NamedTuple):
+    """What the record keeps of a tensor: no data."""
+
+    shape: tuple
+    dtype: torch.dtype
+    key: int             # its untyped storage
+    nbytes: float        # the view's bytes (numel x itemsize)
+
+
+@dataclasses.dataclass
+class OpNode:
+    """One recorded op or kernel region."""
+
+    name: str            # "aten.mm" (namespace.op) or the kernel wrapper's name
+    kind: str            # "op" | "kernel"
+    path: tuple          # enclosing kernel regions, outermost first
+    inputs: tuple        # TensorMeta of every tensor argument
+    outputs: tuple       # TensorMeta of every tensor result
+    args: Any = None     # op: (args, kwargs) with tensors as TensorMeta;
+                         # kernel: {parameter: TensorMeta or value}
+    overload: str = ""   # the full op name, "aten.sort.stable"
+    u8: bool = False     # an input carries the uint8 symbol buffer
+
+
+@dataclasses.dataclass
+class OpRecord:
+    """The op stream of one call, with the storages it touched."""
+
+    nodes: list = dataclasses.field(default_factory=list)
+    inputs: set = dataclasses.field(default_factory=set)     # storages of the call's args
+    outputs: set = dataclasses.field(default_factory=set)    # storages of its result
+    storage_bytes: dict = dataclasses.field(default_factory=dict)
+    _held: dict = dataclasses.field(default_factory=dict, repr=False)
+    _u8: set = dataclasses.field(default_factory=set, repr=False)
+    _path: list = dataclasses.field(default_factory=list, repr=False)
+    _open: list = dataclasses.field(default_factory=list, repr=False)
+
+    def meta(self, t: torch.Tensor) -> TensorMeta:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key not in self._held:
+            self._held[key] = st
+            self.storage_bytes[key] = float(st.nbytes())
+            if t.dtype == torch.uint8:
+                self._u8.add(key)
+        return TensorMeta(tuple(t.shape), t.dtype, key, float(t.numel() * t.element_size()))
+
+    def _metas(self, tree) -> tuple:
+        leaves, _ = tree_flatten(tree)
+        return tuple(self.meta(x) for x in leaves if isinstance(x, torch.Tensor))
+
+    def _as_meta(self, x):
+        return self.meta(x) if isinstance(x, torch.Tensor) else x
+
+    def add_op(self, func, args, kwargs, out) -> None:
+        name = f"{func.namespace}.{func.overloadpacket.__name__}"
+        ins = self._metas((args, kwargs))
+        outs = self._metas(out)
+        u8 = any(m.key in self._u8 for m in ins)
+        if u8 and name in _CARRY_U8:
+            self._u8.update(m.key for m in outs)
+        self.nodes.append(OpNode(name, "op", tuple(self._path), ins, outs,
+                                 tree_map(self._as_meta, (args, kwargs)), str(func), u8))
+
+    # The kernel-region listener (repro_torch.kernels._region).
+    def enter_region(self, name: str, bound: dict) -> None:
+        ins = self._metas(list(bound.values()))
+        node = OpNode(name, "kernel", tuple(self._path), ins, (),
+                      {k: self._as_meta(v) for k, v in bound.items()}, name)
+        self.nodes.append(node)
+        self._open.append(node)
+        self._path.append(name)
+
+    def exit_region(self, name: str, result) -> None:
+        self._path.pop()
+        node = self._open.pop()
+        node.outputs = self._metas(result)
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self, record: OpRecord):
+        super().__init__()
+        self.record = record
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.record.add_op(func, args, kwargs, out)
+        return out
+
+
+def record_call(fn, *args, **kwargs):
+    """``(fn(*args, **kwargs), record)``: the call's result and its op stream."""
+    rec = OpRecord()
+    rec.inputs = {m.key for m in rec._metas((args, kwargs))}
+    with _Recorder(rec), listening(rec):
+        out = fn(*args, **kwargs)
+    rec.outputs = {m.key for m in rec._metas(out)}
+    return out, rec
+
+
+def iter_nodes(record: OpRecord) -> Iterator[tuple]:
+    """Every ``(path, node)`` in program order, the ops inside kernel
+    regions included (``path`` names the enclosing regions)."""
+    for node in record.nodes:
+        yield node.path, node
+
+
+def primitive_counts(record: OpRecord) -> Counter:
+    """Recursive op-name histogram (kernel regions by wrapper name)."""
+    return Counter(node.name for _, node in iter_nodes(record))
+
+
+def find_ops(record: OpRecord, names: Sequence[str]) -> list:
+    """All ``(path, node)`` whose name is in ``names``."""
+    names = frozenset(names)
+    return [(p, n) for p, n in iter_nodes(record) if n.name in names]
+
+
+def eqn_count(record: OpRecord, *, recursive: bool = False) -> int:
+    """Node count: outside kernel regions by default (a region is one
+    node), or every recorded op."""
+    if recursive:
+        return len(record.nodes)
+    return sum(1 for n in record.nodes if not n.path)
+
+
+def _is_uint8_unpack(node: OpNode) -> bool:
+    """The signature of ``symbols.unpack_bits``: a shift (or mask) whose
+    operand is the uint8 symbol buffer or a conversion of it."""
+    return node.name in _UNPACK_OPS and node.u8
+
+
+def index_decode_ops(record: OpRecord) -> list:
+    """All ``(path, node)`` doing index-decode work: the sort/top-k family
+    plus the uint8 symbol-unpack signature, inside kernel regions too."""
+    return [(p, n) for p, n in iter_nodes(record)
+            if n.name in INDEX_DECODE_OPS or _is_uint8_unpack(n)]
+
+
+def kernel_regions(record: OpRecord) -> list:
+    """Names of the outermost kernel regions, in program order."""
+    return [n.name for n in record.nodes if n.kind == "kernel" and not n.path]
+
+
+def collective_counts(record: OpRecord) -> Counter:
+    """Histogram of the collective ops (``c10d`` namespaces)."""
+    return Counter(n.name for _, n in iter_nodes(record)
+                   if n.name.split(".")[0] in COLLECTIVE_NAMESPACES)

@@ -138,20 +138,25 @@ def scatter_blocks(base: torch.Tensor, ids: torch.Tensor, cnt: torch.Tensor,
                    vals: torch.Tensor) -> torch.Tensor:
     """Scatter capacity-padded block rows into a copy of ``base`` (..., T, b, d).
 
-    Padding slots (slot >= cnt) are dropped, so they never clobber a live
-    block that shares their (duplicated) id; live ids are distinct.  The
-    reference writes through a one-hot einsum, a workaround for GSPMD
-    (a data-dependent scatter on a sequence-sharded axis gathered the whole
-    operand); every one-hot weight is 0 or 1 and each block receives at most
-    one live slot, so this masked index write gives the same values."""
-    out = base.clone(memory_format=torch.contiguous_format)
-    of = out.view(-1, *base.shape[-3:])
+    Padding slots (slot >= cnt) write to a trash block past ``T`` that is
+    sliced off, so they never clobber a live block that shares their
+    (duplicated) id; live ids are distinct.  Every shape is static: the
+    write costs the same for every plan of one capacity, and nothing waits
+    for the card.  The reference writes through a one-hot einsum, a
+    workaround for GSPMD (a data-dependent scatter on a sequence-sharded
+    axis gathered the whole operand); every one-hot weight is 0 or 1 and
+    each block receives at most one live slot, so this index write gives the
+    same values.  The result is a view of the padded copy."""
+    t = base.shape[-3]
+    out = base.new_empty((*base.shape[:-3], t + 1, *base.shape[-2:]))
+    out[..., :t, :, :] = base
+    of = out.view(-1, t + 1, *base.shape[-2:])
     idx = ids.reshape(-1, ids.shape[-1]).long()
     live = torch.arange(idx.shape[-1], device=ids.device) < cnt.reshape(-1, 1)
-    rows = torch.arange(idx.shape[0], device=ids.device)[:, None].expand_as(idx)
-    of[rows[live], idx[live]] = vals.reshape(-1, *vals.shape[-2:])[live.reshape(-1)] \
+    rows = torch.arange(idx.shape[0], device=ids.device)[:, None]
+    of[rows, torch.where(live, idx, t)] = vals.reshape(*idx.shape, *vals.shape[-2:]) \
         .to(base.dtype)
-    return out
+    return out[..., :t, :, :]
 
 
 def _masked_softmax_av(qg, kg, vg, live, scale, eq_s, eq_o, out_dtype):

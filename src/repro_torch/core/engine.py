@@ -89,6 +89,9 @@ class EngineConfig:
     kv_buckets: int = 1                 # 1 uniform, 2/3 bucketed, 0 auto
     strategy: str = "flashomni"
     schedule: Optional[str] = None      # named SparsitySchedule preset
+    validate_plans: bool = False        # check every built plan on the host
+                                        # (analysis/plan_check.py); or set
+                                        # REPRO_VALIDATE_PLANS=1
 
     def __post_init__(self):
         if self.kv_buckets not in (0, 1, 2, 3):

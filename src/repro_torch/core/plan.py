@@ -20,9 +20,11 @@ top-k, sort or index work.  Fields (kernel-block granularity unless noted):
     is folded back into ``kv_row_cnt`` / ``head_cnt`` / ``head_mask``, so
     the uniform and the bucketed kernels consume the same truncated lists.
 
-The mesh partition (``shd_*``) is not ported (ROADMAP A.12).  Id fields are
+The mesh partition (``shd_*``) is not ported (ROADMAP A.8).  Id fields are
 stored int16 when block ids fit in 15 bits and :meth:`DispatchPlan.widen`
-restores int32 before launch.
+restores int32 before launch.  With ``EngineConfig.validate_plans`` (or
+``REPRO_VALIDATE_PLANS=1``) every build ends in the structural validator
+(:mod:`repro_torch.analysis.plan_check`).
 """
 
 from __future__ import annotations
@@ -358,13 +360,20 @@ def build_dispatch_plan(m_c: torch.Tensor, m_s: torch.Tensor, cfg, n_tokens: int
         bkt = {k: v.to(torch.int16) if k in _BKT_IDS else v for k, v in bkt.items()}
         gmo = {k: v.to(torch.int16) if k in _GMO_IDS else v for k, v in gmo.items()}
 
-    return DispatchPlan(
+    plan = DispatchPlan(
         q_ids=q_ids, q_cnt=q_cnt, q_slots=q_slots,
         kv_ids=kv_ids, kv_cnt=kv_cnt, pair_live=pair_live,
         kv_row_ids=kv_row_ids, kv_row_cnt=kv_row_cnt,
         row_ids=row_ids, row_cnt=row_cnt,
         head_ids=head_ids, head_cnt=head_cnt, head_mask=head_mask,
         m_ch=m_ch, row_score=row_score, occ_hist=occ_hist, **bkt, **gmo)
+    # Opt-in check (EngineConfig.validate_plans / REPRO_VALIDATE_PLANS=1):
+    # the structural validator on the host, synchronously; raises
+    # PlanInvariantError.  Off, nothing is copied and nothing waits.
+    from repro_torch.analysis.plan_check import hook_validate, validation_enabled
+    if validation_enabled(cfg):
+        hook_validate(plan, cfg, n_tokens)
+    return plan
 
 
 def empty_plan_like(batch: int, heads: int, n_tokens: int, cfg,

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.symbols import packed_len
 from repro_torch.kernels import _build
+from repro_torch.kernels._region import kernel_region
 from repro_torch.kernels.ref import (attention_csr_bucketed_ref, attention_csr_ref,
                                      attention_symbols_ref)
 
@@ -62,6 +63,7 @@ def _check_attention_tensors(dev, dt, q, k, v, o_reuse, q_shape, kv_shape, o_sha
         _build.check_aligned(name, t)
 
 
+@kernel_region
 def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             o_reuse: torch.Tensor, q_ids: torch.Tensor,
                             q_src: torch.Tensor, q_cnt: torch.Tensor,
@@ -117,6 +119,7 @@ def _check_sizes(n_q: int, n_kv: int, n: int, d: int, block_q: int, block_kv: in
                          "built: head_dim 32/64/128, blocks 16/32/64/128")
 
 
+@kernel_region
 def flashomni_attention_csr_bucketed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      o_reuse: torch.Tensor, bkt_head: torch.Tensor,
                                      bkt_q_ids: torch.Tensor, bkt_q_src: torch.Tensor,
@@ -167,6 +170,7 @@ def flashomni_attention_csr_bucketed(q: torch.Tensor, k: torch.Tensor, v: torch.
     return out
 
 
+@kernel_region
 def flashomni_attention_symbols(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 o_reuse: torch.Tensor, s_c: torch.Tensor, s_s: torch.Tensor,
                                 *, block_q: int, block_kv: int,

@@ -14,11 +14,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._region import kernel_region
 from repro_torch.kernels.ref import gemm_o_bucketed_ref, gemm_o_ref
 
 __all__ = ["gemm_o_sparse_kernel", "gemm_o_sparse_bucketed_kernel"]
 
 
+@kernel_region
 def gemm_o_sparse_kernel(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          row_ids: torch.Tensor, head_ids: torch.Tensor,
                          head_cnt: torch.Tensor, *, block_rows: int) -> torch.Tensor:
@@ -57,6 +59,7 @@ def gemm_o_sparse_kernel(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Ten
     return out
 
 
+@kernel_region
 def gemm_o_sparse_bucketed_kernel(o_heads: torch.Tensor, w: torch.Tensor,
                                   bias: torch.Tensor, gmo_rows: torch.Tensor,
                                   gmo_src: torch.Tensor, gmo_head_ids: torch.Tensor,

@@ -12,11 +12,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._region import kernel_region
 from repro_torch.kernels.ref import gemm_q_ref
 
 __all__ = ["gemm_q_sparse_kernel"]
 
 
+@kernel_region
 def gemm_q_sparse_kernel(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor,
                          row_cnt: torch.Tensor, *, block_rows: int) -> torch.Tensor:
     """Compact ``(B, Cr·bm, F)`` projection of the live row blocks.

@@ -132,6 +132,31 @@ def gemm_o_ref(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+def _layout_order(key: torch.Tensor, group: torch.Tensor, n_groups: int,
+                  hi: int) -> torch.Tensor:
+    """(B, R) layout rows in the order of a stable sort by (group, key): the
+    rows of group g fill positions ``g·R/G`` to ``(g+1)·R/G``, live rows
+    (``key < hi``, unique within their group) by ascending key, then the
+    dead ones (``key == hi``) in layout order.  A counting sort (a table
+    and two cumulative sums), so the plain versions run no sort op, as the
+    kernels they stand for."""
+    b, r = key.shape
+    dev = key.device
+    live = key < hi
+    table = torch.zeros((b, n_groups * (hi + 1)), dtype=torch.int64, device=dev)
+    table.scatter_(1, group * (hi + 1) + key, 1)
+    table = table.reshape(b, n_groups, hi + 1)[..., :hi]
+    before = (table.cumsum(-1) - table).reshape(b, -1)         # smaller keys, same group
+    dead = (~live)[..., None] & (group[..., None] == torch.arange(n_groups, device=dev))
+    dead_before = dead.long().cumsum(1) - dead.long()           # earlier dead rows, same group
+    rank = torch.where(
+        live, torch.gather(before, 1, group * hi + key.clamp(max=hi - 1)),
+        torch.gather(table.sum(-1), 1, group)
+        + torch.gather(dead_before, 2, group[..., None])[..., 0])
+    dest = group * (r // n_groups) + rank
+    return torch.empty_like(key).scatter_(1, dest, torch.arange(r, device=dev).expand(b, r))
+
+
 def _row_lists(ids: torch.Tensor, geometry) -> torch.Tensor:
     """Flat bucketed lists (B, S) -> (B, R, widest) per layout row; the tail
     past a row's own width repeats its last slot (never read past the count)."""
@@ -160,9 +185,8 @@ def attention_csr_bucketed_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     t_q = o_reuse.shape[1] // block_q
     # Uniform slot order: per (b, h), live rows by ascending q block, then
     # the dead rows (each head owns exactly R / H layout rows).
-    bh = torch.arange(b, device=k.device)[:, None] * heads + bkt_head.long()
-    order = torch.argsort((bh * (t_q + 1) + bkt_q_ids.long()).reshape(-1),
-                          stable=True).reshape(b * heads, r // heads)
+    order = _layout_order(bkt_q_ids.long(), bkt_head.long(), heads, t_q)
+    order = (order + torch.arange(b, device=k.device)[:, None] * r).reshape(b * heads, r // heads)
     take = lambda a: a.reshape(b * r, *a.shape[2:])[order]
     return attention_csr_ref(
         q, k, v, o_reuse, take(bkt_q_ids), take(bkt_q_src),
@@ -179,7 +203,9 @@ def gemm_o_bucketed_ref(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Tens
     gmo_rows (dead slots: N // block), gmo_src, gmo_head_cnt (B, Cr);
     gmo_head_ids (B, S_o) laid out by ``geometry``.  A live slot reads and
     writes row block ``gmo_src == gmo_rows``; slots with no head never store."""
-    order = torch.argsort(gmo_rows.long(), dim=-1, stable=True)   # dead slots last
+    t = o_heads.shape[2] // block
+    order = _layout_order(gmo_rows.long(), torch.zeros_like(gmo_rows, dtype=torch.long), 1,
+                          t)                                      # dead slots last
     take = lambda a: torch.gather(a, 1, order)
     heads = _row_lists(gmo_head_ids, geometry)
     heads = torch.gather(heads, 1, order[..., None].expand_as(heads))

@@ -13,11 +13,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._region import kernel_region
 from repro_torch.kernels.ref import taylor_reuse_blocks_ref
 
 __all__ = ["taylor_reuse_kernel"]
 
 
+@kernel_region
 def taylor_reuse_kernel(derivs: torch.Tensor, coef: torch.Tensor, base: torch.Tensor,
                         ids: torch.Tensor, cnt: torch.Tensor, *, block: int) -> torch.Tensor:
     """``out[bh, block ids[bh,c]] = Σ_d coef[d]·derivs[d, bh, block]`` for

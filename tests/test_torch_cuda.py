@@ -34,6 +34,9 @@ a full and an empty KV list), and the chunked dense attention of the Update
 step runs on the card against the CPU at widths that span several chunks.
 The continuous batcher serves a mixed-step queue at smoke size on the card
 (grouped and scan ticks, lane refills) against the same run on the CPU.
+The invariant analyzer runs green with the engine on the card, its
+Dispatch records hold the kernels that launched, and the plan validator
+reads a plan on the card as it reads its copy on the CPU.
 """
 
 import dataclasses
@@ -685,3 +688,40 @@ def test_continuous_batcher_on_the_card_matches_the_cpu(dev, grouped):
             [s["kind"] for s in cpu[r.rid]["trace"]]
     want = cfg.n_layers * card_stats["denoise_calls"]["dispatch"]
     assert launches["gemm_q_sparse_kernel"] == launches["flashomni_attention_csr"] == want
+
+
+def test_analyzer_green_on_the_card(dev):
+    """``run_analysis`` with the engine on the card (the kernels launch at
+    the analyzer geometry): no finding."""
+    from repro_torch.analysis import run_analysis
+    assert run_analysis(device="cuda", verbose=False) == []
+
+
+@pytest.mark.parametrize("kv_buckets", [1, 3])
+def test_dispatch_record_on_the_card_holds_its_launched_kernels(dev, kv_buckets):
+    """On the card a Dispatch record shows its three kernels as regions,
+    each of which launched once, and no decode op."""
+    from repro_torch.analysis.op_walk import kernel_regions
+    from repro_torch.analysis.passes import _N, DispatchPurity, _engine_cfg, trace_pair
+    cfg = dataclasses.replace(_engine_cfg(kv_buckets=kv_buckets), cap_kv_frac=0.85)
+    trace_pair.cache_clear()
+    TK.reset_launches()
+    assert DispatchPurity().check("card", cfg, "cuda") == []
+    regions = kernel_regions(trace_pair(cfg, _N, "cuda")[1])
+    assert len(regions) == 3
+    assert all({fn.__name__: fn.launches for fn in TK.KERNELS}[name] == 1 for name in regions)
+
+
+def test_plan_validator_on_a_card_plan(dev):
+    """A plan built on the card validates, and a corrupted copy gives the
+    findings of the same corruption on the CPU."""
+    from repro_torch.analysis import PlanValidator
+    from repro_torch.analysis.passes import _N, _engine_cfg
+    from repro_torch.analysis.plan_check import check_plan
+    cfg = _engine_cfg(kv_buckets=3)
+    plan = PlanValidator.plan(cfg, "cuda")
+    assert plan.q_ids.device.type == "cuda"
+    assert check_plan(plan, cfg, _N) == []
+    bad = plan._replace(bkt_kv_cnt=plan.bkt_kv_cnt + 7)
+    cpu = bad._replace(**{f: None if v is None else v.cpu() for f, v in zip(bad._fields, bad)})
+    assert check_plan(bad, cfg, _N) == check_plan(cpu, cfg, _N) != []

@@ -63,6 +63,7 @@ def test_entry_points_load_no_jax():
             "from repro_torch.launch.serve import serve_diffusion\n"
             "import repro_torch.convert, repro_torch.kernels, repro_torch.kernels.ops\n"
             "import repro_torch.quickstart\n"
+            "import repro_torch.analysis.__main__, repro_torch.analysis.cost_passes\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "PYTHONPATH": str(ROOT / "src"),
