@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Five paths run, each with the launch counts set to 0 just before it and
+Six paths run, each with the launch counts set to 0 just before it and
 read just after: P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
 GEMM-O), P2 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2
 buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
 unified kernel entry on one full-width layer: the symbols attention and the
-Taylor reuse, beside the other five), C1 (batched serving: GEMM-Q, CSR
-attention, GEMM-O, in each of its three modes) and H1 (hunyuan-video-dit at
-the paper's 33K tokens: GEMM-Q, CSR attention, GEMM-O).  Every dense
-baseline run launches no kernel.
+Taylor reuse, beside the other five), M1 (P1's request across a (1, 2)
+mesh of two ranks on the card: GEMM-Q, CSR attention on each shard,
+GEMM-O, counted in each rank), C1 (batched serving: GEMM-Q, CSR attention,
+GEMM-O, in each of its three modes) and H1 (hunyuan-video-dit at the
+paper's 33K tokens: GEMM-Q, CSR attention, GEMM-O).  Every dense baseline
+run launches no kernel.
 
 Phases (each prints one JSON line; any failure exits non-zero without the
 final line):
@@ -72,13 +74,30 @@ final line):
                 buckets, per-row layout at ``cap_kv < T_kv``): the largest
                 difference and its share of the float32 tolerance, with the
                 rows of empty KV lists zeroed, and both times;
-  9. dense    — P1's request under ``force_dense`` on the same weights and
+  9. mesh     — plan-sharded Dispatch, every rank a process of its own on
+                the card over ``gloo`` (the kernels built before any rank
+                starts).  The layer cell: one flux-width Dispatch layer (B 2)
+                on mesh (2, 4), seq mode with flashomni at 1 and 3 buckets
+                and pair slack 1.5 (the clamp the identity) and 0.5 (it
+                binds), hunyuan-1.5x and multi-granularity, head mode; each
+                ``torch.equal`` to the single-device Dispatch on every
+                rank, B2 launched on every rank and its call at the shard's
+                shapes (Q compact and replicated, K/V the exchange buffer,
+                ``o_reuse`` the token shard) against its plain version on
+                the same card tensors, the a2a payload, the live blocks sent
+                and the dense all-gather's (blocks and bytes), peaks per
+                rank.  M1: P1's request through ``serve_diffusion(mesh=(1,
+                2))`` on two ranks: every integer plan field equal to P1's,
+                latents within rel-L2 1e-6 of P1's, B1-B3 launched 152 times
+                on each rank, B2's first call on each rank against its plain
+                version, latency beside P1's (not a speed number);
+ 10. dense    — P1's request under ``force_dense`` on the same weights and
                 noise (no kernel launches): P1's and P2's speedup over it and
                 their relative L2 / PSNR against its latents; then P1, P2
                 and the dense run in bfloat16;
- 10. serve_batched — C1: flux-mmdit at full width, 6 requests of batch 1 at
+ 11. serve_batched — C1: flux-mmdit at full width, 4 requests of batch 1 at
                 t = 0 with 8 and 6 steps in turn, served sequentially,
-                stacked and by the continuous batcher (4 lanes,
+                stacked and by the continuous batcher (3 lanes,
                 ``grouped="auto"``: grouped and scan ticks both run):
                 requests per second, p50 / p95 latency, peak memory, each
                 request's rel-L2 / PSNR and differing plan fields against
@@ -87,17 +106,17 @@ final line):
                 stacked 8-step group and its requests alone in lockstep up
                 to the first step whose plans differ, with the Q/K and
                 library-GEMM differences there;
- 11. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
+ 12. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
                 (48 blocks, B=1, 256 + 32 768 tokens), ``hunyuan-1.5x``,
                 uniform layout, float32, 8 steps (3-5 and 7 Dispatch):
                 GEMM-Q, CSR attention and GEMM-O each launched 48 x 4 = 192
                 times, the others never; then its dense run on the same
                 inputs: latency, step seconds, peak memory, speedup, rel-L2
                 / PSNR against dense, and the 50-step projection;
- 12. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
+ 13. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
                 and the bucketed pair on the ``hunyuan-1.5x`` interior plan
                 at 3 buckets, at H1's shapes (B=1, N=33 024) in float32;
- 13. profile  — device time by kernel group within one Update and one
+ 14. profile  — device time by kernel group within one Update and one
                 Dispatch step of P1, P2 and H1 (at 12 of its 48 blocks) at
                 full width (torch.profiler; the chunked dense attention as its
                 own group), and the device's idle share; dispatch purity on
@@ -144,10 +163,13 @@ H1_PROFILE_LAYERS = 12
 # stacked and by the continuous batcher; every request held to its own
 # sequential run within C1_REL_L2: 2.5x the largest reading on one H100 at
 # 700 W (stacked, 1.19e-4, the same in three runs; PERF.md section 5), 22x
-# under what sparsity itself costs against dense (6.5e-3).
-C1 = dict(arch="flux-mmdit", batch=1, n_vision=4096, requests=6, lanes=4)
+# under what sparsity itself costs against dense (6.5e-3).  Cut from 6
+# requests on 4 lanes to 4 on 3 lanes (the fourth request refills a lane,
+# so grouped and scan ticks both still run) to make room for the mesh phase
+# within the script's time limit.
+C1 = dict(arch="flux-mmdit", batch=1, n_vision=4096, requests=4, lanes=3)
 C1_REL_L2 = 3e-4
-# The stacking witness steps C1's 8-step stacked group (batch 3) and each
+# The stacking witness steps C1's 8-step stacked group (batch 2) and each
 # of its requests alone (batch 1) in lockstep through at most this many
 # steps (0-2 Update, 3 Dispatch), stopping after the first step whose plans
 # differ.  Step 0 is an Update step, whose output no plan shapes, so its
@@ -875,8 +897,8 @@ def serve_path(phase, expected, n_requests, arch, batch, n_vision, steps=STEPS,
     """``serve_diffusion`` at full width with every launch count set to 0 just
     before and read just after; fails unless the path's kernels each
     launched (layers x Dispatch steps x requests) times and every other
-    kernel never.  Returns the result line, the launches and the latents by
-    request."""
+    kernel never.  Returns the result line, the launches and the results by
+    request (``launch.batching``'s: latents, trace, latency, plans)."""
     import torch
     from repro_torch.core.engine import resolve_schedule
     from repro_torch.kernels import reset_launches
@@ -899,7 +921,7 @@ def serve_path(phase, expected, n_requests, arch, batch, n_vision, steps=STEPS,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     launches = check_served(res, reqs, [batch, n_vision, cfg.patch_dim],
                             {name: want for name in expected})
-    return res, launches, {rid: r["out"] for rid, r in results.items()}
+    return res, launches, results
 
 
 def serve_request(run, cfg, ecfg, inputs, expected=(), dtype="float32",
@@ -941,10 +963,11 @@ def fidelity(out, dense) -> dict:
             "psnr_db": 10 * math.log10(peak * peak / max(mse, 1e-12))}
 
 
-def phase_serve() -> tuple[dict, tuple]:
-    res, launches, outs = serve_path("serve", P1_KERNELS, REQUESTS, **FLUX)
+def phase_serve() -> tuple[dict, tuple, list]:
+    """P1; also returns its request's last plan of every layer (for M1)."""
+    res, launches, results = serve_path("serve", P1_KERNELS, REQUESTS, keep_plans=True, **FLUX)
     emit(res)
-    return launches, (res["requests"][0]["latency_s"], outs[0])
+    return launches, (res["requests"][0]["latency_s"], results[0]["out"]), results[0]["plans"]
 
 
 def phase_serve_bucketed() -> tuple[dict, tuple]:
@@ -965,8 +988,8 @@ def phase_serve_bucketed() -> tuple[dict, tuple]:
 
     dit.denoise_step = recording_step
     try:
-        res, launches, outs = serve_path("serve_bucketed", P2_KERNELS, 1,
-                                         strategy="sliding-window", kv_buckets=0, **FLUX)
+        res, launches, results = serve_path("serve_bucketed", P2_KERNELS, 1,
+                                            strategy="sliding-window", kv_buckets=0, **FLUX)
     finally:
         dit.denoise_step = step
     ecfg = serving_engine_config("sliding-window", kv_buckets=0)
@@ -989,7 +1012,279 @@ def phase_serve_bucketed() -> tuple[dict, tuple]:
                     "live_row_heads": {"uniform": rh_u, "bucketed": rh_b,
                                        "dropped_share": 1 - rh_b / rh_u}}
     emit(res)
-    return launches, (res["requests"][0]["latency_s"], outs[0])
+    return launches, (res["requests"][0]["latency_s"], results[0]["out"])
+
+
+# The mesh phase (plan-sharded Dispatch over torch.distributed, ranks that
+# share the one card over gloo).  The layer cell: one Dispatch layer at the
+# flux shapes (FULL) on mesh (2, 4), the shape of the reference's parity
+# test, each case checked on every rank against the single-device Dispatch;
+# a case is (label, strategy, kv_buckets, pair slack, mesh axis).  At
+# slack 1.5 pair_cap = kv_bps = 72 (the clamp is the identity), at 0.5
+# pair_cap = ceil(0.5 * 260 / 4) = 33 and the clamp binds.
+MESH_LAYER = (2, 4)
+MESH_CASES = (("seq, flashomni, 1 bucket, slack 1.5", "flashomni", 1, 1.5, "seq"),
+              ("seq, flashomni, 3 buckets, slack 1.5", "flashomni", 3, 1.5, "seq"),
+              ("seq, flashomni, 1 bucket, slack 0.5", "flashomni", 1, 0.5, "seq"),
+              ("seq, flashomni, 3 buckets, slack 0.5", "flashomni", 3, 0.5, "seq"),
+              ("seq, hunyuan-1.5x, 1 bucket", "hunyuan-1.5x", 1, 1.5, "seq"),
+              ("seq, multi-granularity, 1 bucket", "multi-granularity", 1, 1.5, "seq"),
+              ("head, flashomni, 1 bucket", "flashomni", 1, 1.5, "head"))
+MESH_SEED = 2468
+# M1: P1's request (same seed, weights and noise) served across mesh (1, 2).
+M1_MESH = (1, 2)
+M1_REL_L2 = 1e-6
+MESH_JOIN_S = 400
+
+
+def first_b2_call(run):
+    """``run()`` with the engine backend's B2 wrapper kept, as it launches,
+    with the inputs and output of its first call; returns ``run()``'s result
+    and that call (None if B2 did not run).  The wrapper counts launches as
+    always."""
+    from repro_torch.core import backend
+    kern, seen = backend.flashomni_attention_csr, []
+
+    def keep(*args, **kw):
+        out = kern(*args, **kw)
+        if not seen:
+            seen.append((args, kw, out))
+        return out
+
+    backend.flashomni_attention_csr = keep
+    try:
+        return run(), (seen[0] if seen else None)
+    finally:
+        backend.flashomni_attention_csr = kern
+
+
+def b2_vs_plain(call) -> dict:
+    """A kept B2 call held against its plain version on the same card
+    tensors (float32 tolerance): the shapes, the largest difference and its
+    largest share of the tolerance (the phase fails above 1)."""
+    import torch
+    from repro_torch.kernels.ref import attention_csr_ref
+    args, kw, out = call
+    want = attention_csr_ref(*args, **kw)
+    tol = TOL[str(out.dtype).removeprefix("torch.")]
+    err = (out.float() - want.float()).abs()
+    q, k, _, o_reuse = args[:4]
+    return {"q": list(q.shape), "kv": list(k.shape), "o_reuse": list(o_reuse.shape),
+            "lists": list(args[7].shape), "max_abs_err": float(err.max()),
+            "tol_share": float((err / (tol + tol * want.float().abs())).max()),
+            "tolerance": tol, "finite": bool(torch.isfinite(out).all())}
+
+
+def b2_agrees(row) -> bool:
+    """A :func:`b2_vs_plain` row within its tolerance (None: B2 never ran)."""
+    return row is not None and row["finite"] and row["tol_share"] <= 1
+
+
+def mesh_exchange(plan, cfg, n: int, dh: int, one_plan) -> dict:
+    """The seq exchange of a plan, summed over K and V and every (b, h,
+    shard): the all-to-all payload, the live blocks it carries and a dense
+    all-gather's, in blocks and f32 bytes, and the rows the pair clamp
+    shortened against ``one_plan`` (the same masks without a mesh)."""
+    from repro_torch.distributed.plan_shard import (dense_exchange_blocks, exchange_blocks,
+                                                    shard_geometry)
+    m, spec = cfg.mask, cfg.caps(n)
+    t_kv = n // m.block_kv
+    geom = shard_geometry(spec, n // m.block_q, t_kv, cfg.mesh_sp, cfg.mesh_pair_slack)
+    b, h = plan.q_cnt.shape
+    blk = m.block_kv * dh * 4
+    payload = 2 * b * h * cfg.mesh_sp * exchange_blocks(geom)
+    sent = 2 * int(plan.shd_send_cnt.sum())
+    dense = 2 * b * h * cfg.mesh_sp * dense_exchange_blocks(t_kv)
+    return {"cap_kv": spec.cap_kv, "t_kv": t_kv, "kv_bps": geom.kv_bps,
+            "pair_cap": geom.pair_cap, "union_cap": geom.cap_kv,
+            "a2a_payload_blocks": payload, "live_blocks_sent": sent,
+            "dense_allgather_blocks": dense, "a2a_payload_bytes": payload * blk,
+            "live_sent_bytes": sent * blk, "dense_allgather_bytes": dense * blk,
+            "payload_over_dense": payload / dense, "live_over_dense": sent / dense,
+            "folded_rows": int((plan.kv_row_cnt != one_plan.kv_row_cnt).sum())}
+
+
+def mesh_layer_rank(rank: int) -> list:
+    """One rank of the layer cell.  Each case: an Update of one seeded
+    attention layer at the flux shapes under the mesh config (every rank on
+    the same inputs), then its mesh Dispatch against this rank's
+    single-device Dispatch of the same state.  Returns this rank's rows:
+    ``torch.equal``, the largest difference, whether every rank built the
+    same plan (a gathered checksum), B2's launches and the host seconds of
+    the mesh Dispatch (one call), its peak memory, B2's first call at the
+    shard's shapes against its plain version, and the exchange's volume
+    (seq mode)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import flashomni_attention_csr
+    from repro_torch.launch.serve import serving_engine_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, n, dh, d, n_text = (FULL[k] for k in ("b", "h", "n", "dh", "d", "n_text"))
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(MESH_SEED)
+    rnd = lambda *shape, std=1.0: torch.randn(shape, generator=g, device=DEVICE).mul_(std)
+    ones = torch.ones(dh, device=DEVICE)
+    p = E.AttnParams(wq=rnd(d, h * dh, std=d ** -0.5), wk=rnd(d, h * dh, std=d ** -0.5),
+                     wv=rnd(d, h * dh, std=d ** -0.5), wo=rnd(h * dh, d, std=d ** -0.5),
+                     q_scale=ones, k_scale=ones)
+    x = rnd(b, n, d)
+    rows = []
+    for label, strategy, kvb, slack, axis in MESH_CASES:
+        cfg = dataclasses.replace(serving_engine_config(strategy, kvb, mesh=MESH_LAYER),
+                                  mesh_pair_slack=slack, mesh_axis=axis)
+        cfg1 = dataclasses.replace(cfg, mesh_dp=1, mesh_sp=1)
+        _, st = E.update_layer(p, x, E.init_layer_state(b, h, n, d, dh, cfg, DEVICE), cfg,
+                               n_text=n_text, heads=h, step_idx=2, num_steps=8)
+        plan = st.plan.widen()
+        ints = [t for t in plan if t is not None and not t.dtype.is_floating_point]
+        sums = [None] * dist.get_world_size()
+        dist.all_gather_object(sums, sum(int(t.long().sum()) * (i + 1)
+                                         for i, t in enumerate(ints)))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before, t0 = flashomni_attention_csr.launches, time.perf_counter()
+        (om, _), call = first_b2_call(
+            lambda: E.dispatch_layer(p, x, st, cfg, n_text=n_text, heads=h))
+        torch.cuda.synchronize()
+        row = {"case": label, "rank": dist.get_rank(), "plans_agree": len(set(sums)) == 1,
+               "b2_launches": flashomni_attention_csr.launches - before,
+               "mesh_dispatch_s": time.perf_counter() - t0,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "b2_vs_plain": b2_vs_plain(call) if call else None}
+        del call
+        o1, _ = E.dispatch_layer(p, x, st, cfg1, n_text=n_text, heads=h)
+        row.update(equal=bool(torch.equal(om, o1)), max_abs_diff=float((om - o1).abs().max()))
+        del om, o1
+        if axis == "seq":
+            one_plan = E.build_dispatch_plan(*E._unpack(st, cfg1, n), cfg1, n,
+                                             row_score=plan.row_score)
+            row["exchange"] = mesh_exchange(plan, cfg, n, dh, one_plan)
+        rows.append(row)
+        del st, plan
+    return rows
+
+
+def m1_rank(rank: int) -> dict:
+    """One rank of M1: P1's request through ``serve_diffusion(mesh=(1, 2))``,
+    launch counts set to 0 just before and read just after; B2's first call
+    (layer 0 of the first Dispatch step, at this shard's shapes) against its
+    plain version; rank 0 also returns its latents and its last plan of
+    every layer."""
+    import torch
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.serve import serve_diffusion
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, call = first_b2_call(lambda: serve_diffusion(
+        FLUX["arch"], smoke=False, n_vision=FLUX["n_vision"], batch=FLUX["batch"],
+        num_requests=1, num_steps=STEPS, mesh=M1_MESH, device=DEVICE, verbose=False,
+        keep_plans=True))
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    r = res[0]
+    out = {"rank": rank, "latency_s": r["latency"], "finite": bool(torch.isfinite(r["out"]).all()),
+           "kinds": [s["kind"] for s in r["trace"]], "step_s": [s["seconds"] for s in r["trace"]],
+           "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "b2_vs_plain": b2_vs_plain(call) if call else None}
+    del call
+    if rank == 0:
+        cpu = lambda p: p._replace(**{f: None if v is None else v.cpu()
+                                      for f, v in zip(p._fields, p)})
+        out.update(latents=r["out"].cpu(), plans=[cpu(p) for p in r["plans"]])
+    return out
+
+
+def phase_mesh(p1: tuple, p1_plans: list) -> dict:
+    """The ``mesh`` phase: the layer cell on mesh (2, 4), then M1 on mesh
+    (1, 2), every rank a process of its own on the one card over ``gloo``
+    (NCCL refuses two ranks on one card).  The kernels are built here,
+    before any rank starts.  Fails if a rank fails, a case's sharded output
+    is not ``torch.equal`` to a rank's single-device Dispatch, B2 did not
+    launch on every rank, B2 at a shard's shapes (a case's, or M1's first
+    Dispatch layer's) disagrees with its plain version on the same card
+    tensors, an M1 integer plan field differs from P1's, or M1's latents lie
+    beyond ``M1_REL_L2`` of P1's.  M1's latency is not a
+    speed number: its two ranks share one card and exchange through the
+    host.  ``p1``: P1's (latency, latents); ``p1_plans``: its last plans."""
+    import torch
+    from repro_torch.core.engine import resolve_schedule
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_local_mesh
+    from repro_torch.launch.serve import get_config, serving_engine_config
+    _build.load()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_local_mesh(mesh_layer_rank, *MESH_LAYER, timeout=MESH_JOIN_S)
+    layer_s = time.perf_counter() - t0
+    cases = []
+    for i, (label, *_) in enumerate(MESH_CASES):
+        per_rank = [r[i] for r in ranks]
+        cases.append({**{k: v for k, v in per_rank[0].items()
+                         if k not in ("rank", "b2_launches", "peak_mem_gb", "mesh_dispatch_s",
+                                      "b2_vs_plain")},
+                      "equal": all(r["equal"] for r in per_rank),
+                      "max_abs_diff": max(r["max_abs_diff"] for r in per_rank),
+                      "plans_agree": all(r["plans_agree"] for r in per_rank),
+                      "b2_launches_by_rank": [r["b2_launches"] for r in per_rank],
+                      "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in per_rank],
+                      "mesh_dispatch_s_by_rank": [r["mesh_dispatch_s"] for r in per_rank],
+                      "b2_vs_plain_by_rank": [r["b2_vs_plain"] for r in per_rank]})
+    res = {"phase": "mesh", "layer_cell": {"mesh": MESH_LAYER, "transport": "gloo", **FULL,
+                                           "seconds": layer_s, "cases": cases}}
+    bad = [c["case"] for c in cases if not (c["equal"] and c["plans_agree"]
+                                            and all(n == 1 for n in c["b2_launches_by_rank"])
+                                            and all(b2_agrees(v) for v in c["b2_vs_plain_by_rank"]))]
+    if bad:
+        emit(res)
+        raise AssertionError(f"mesh layer cell: cases {bad} differ from one device, "
+                             "disagree on the plan, did not launch B2 on every rank or "
+                             "B2 disagrees with its plain version at a shard's shapes")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m1 = run_local_mesh(m1_rank, *M1_MESH, timeout=MESH_JOIN_S)
+    m1_s = time.perf_counter() - t0
+    cfg = get_config(FLUX["arch"])
+    want = cfg.n_layers * dispatch_steps(resolve_schedule(serving_engine_config(), STEPS,
+                                                          cfg.n_layers))
+    latents, plans = m1[0].pop("latents"), m1[0].pop("plans")
+    p1_latency, p1_out = p1
+    ref = p1_out.cpu().double()
+    rel = float((latents.double() - ref).norm() / ref.norm())
+    differ, row_score_equal = [], True
+    for li, (a, b) in enumerate(zip(p1_plans, plans)):
+        for f, va in zip(a._fields, a):
+            if va is None:
+                continue
+            vb = getattr(b, f)
+            if f == "row_score":
+                row_score_equal &= bool(torch.equal(va.cpu(), vb))
+            elif not torch.equal(va.cpu(), vb):
+                differ.append([li, f])
+    res["m1"] = {"mesh": M1_MESH, "transport": "gloo", **FLUX, "layers": cfg.n_layers,
+                 "steps": STEPS, "wall_s": m1_s, "ranks": m1,
+                 "p1_latency_s": p1_latency,
+                 "latency_note": "not a speed number: two ranks share one card and the "
+                                 "exchange goes through the host",
+                 "latents_rel_l2_vs_p1": rel, "latents_bit_equal": rel == 0.0,
+                 "plan_layers": len(plans), "plan_fields_differ": differ,
+                 "shd_fields": sorted(f for f in plans[0]._fields
+                                      if f.startswith("shd_") and getattr(plans[0], f) is not None),
+                 "row_score_equal": row_score_equal,
+                 "expected_launches": {name: want for name in P1_KERNELS}}
+    emit(res)
+    for r in m1:
+        if not r["finite"] or any(r["launches"][name] != want for name in P1_KERNELS):
+            raise AssertionError(f"M1 rank {r['rank']}: non-finite latents or launches "
+                                 f"{r['launches']}, expected {want} of each of {P1_KERNELS}")
+        if not b2_agrees(r["b2_vs_plain"]):
+            raise AssertionError(f"M1 rank {r['rank']}: B2 at the shard's shapes disagrees "
+                                 f"with its plain version: {r['b2_vs_plain']}")
+    if differ or len(plans) != cfg.n_layers or not rel <= M1_REL_L2:
+        raise AssertionError(f"M1: {len(differ)} plan fields differ from P1's, rel-L2 "
+                             f"{rel:.3e} (limit {M1_REL_L2})")
+    return m1[0]["launches"]
 
 
 def phase_dense(served: dict) -> None:
@@ -1062,7 +1357,7 @@ def phase_hunyuan() -> dict:
     n_u, n_d = int((mode50 == MODE_UPDATE).sum()), int((mode50 == MODE_DISPATCH).sum())
     res.update({
         "dense": dense, "speedup": dense["latency_s"] / sparse["latency_s"],
-        "vs_dense": fidelity(outs[0], ref),
+        "vs_dense": fidelity(outs[0]["out"], ref),
         "step_median_s": {"update": t_u, "dispatch": t_d, "dense": t_dense},
         "projection_50_steps": {
             "note": "a projection from this run's median step times, not a measurement",
@@ -1581,10 +1876,12 @@ def main() -> int:
         timed(phase_small)
         timed(phase_analysis)
         served, by_path = {}, {}
-        by_path["P1"], served["P1"] = timed(phase_serve)
+        by_path["P1"], served["P1"], p1_plans = timed(phase_serve)
         by_path["P2"], served["P2"] = timed(phase_serve_bucketed)
         by_path["ops"] = timed(phase_ops)
         timed(phase_twin, **FULL)
+        by_path["M1"] = timed(phase_mesh, served["P1"], p1_plans)
+        del p1_plans
         timed(phase_dense, served)
         del served
         by_path["C1"] = timed(phase_serve_batched)

@@ -6,13 +6,13 @@ point, :func:`run_analysis` (CLI: ``python -m repro_torch.analysis``):
 1. **Op-stream passes** (:mod:`repro_torch.analysis.passes`) — run real
    engine entry points under the op recorder of
    :mod:`repro_torch.analysis.op_walk` and walk the aten op streams:
-   ``dispatch-purity``, ``promotion-check``; ``executable-budget`` (N/A: the
-   port compiles nothing per configuration) and ``collective-budget`` (a
-   skip until mesh dispatch, ROADMAP A.8) record notes.
+   ``dispatch-purity``, ``promotion-check``, ``collective-budget``;
+   ``executable-budget`` (N/A: the port compiles nothing per
+   configuration) records a note.
 2. **Cost passes** (:mod:`repro_torch.analysis.cost_passes`, on the cost
    model of :mod:`repro_torch.analysis.cost_model`):
-   ``cost-dispatch-scaling``, ``cost-update-amortization``,
-   ``cost-memory-footprint``; ``cost-collective-bytes`` waits for A.8.
+   ``cost-dispatch-scaling``, ``cost-collective-bytes``,
+   ``cost-update-amortization``, ``cost-memory-footprint``.
 3. **Plan validator** (:mod:`repro_torch.analysis.plan_check`) —
    structural checks over real plans of every strategy × ``kv_buckets ∈
    {1, 2, 3}``; also the opt-in hook behind ``EngineConfig.validate_plans``
@@ -26,7 +26,11 @@ abstract trace), on ``ctx.device``: the card by default, the CPU when asked
 region).  The geometry is one the built kernels accept: ``B, H, N = 1, 2,
 128``, head_dim 32, d_model 64, blocks 16/16, pool 32 (the reference's
 head_dim 16 cannot launch); the serving-tick passes run the flux-mmdit
-smoke config (3 layers, d_model 64, 2 heads of 32).
+smoke config (3 layers, d_model 64, 2 heads of 32).  The mesh combos (seq
+and head mesh ``(1, 2)``: the mesh half of ``dispatch-purity`` and of the
+cost groups, ``collective-budget``, ``cost-collective-bytes``) run in a
+``torch.distributed`` world of two ranks (``torchrun --nproc-per-node 2
+-m repro_torch.analysis``); in one process they are noted skips.
 
 Adding a pass: a class with a ``name`` and ``run(ctx) -> list[Finding]``
 (``ctx.note(msg)`` records a diagnostic that does not fail), appended to

@@ -2,10 +2,13 @@
 
     python -m repro_torch.analysis [--passes GLOBS] [--fixture NAME] [--src DIR]
                                    [--device cuda|cpu] [-q]
+    torchrun --nproc-per-node 2 -m repro_torch.analysis --device cpu
 
 Exit code 0 = no findings; 1 = at least one finding.  The engine runs on
 the card unless ``--device cpu`` is given (the kernel wrappers then run
-their plain versions); without a card the default raises.
+their plain versions); without a card the default raises.  Under
+``torchrun`` with two ranks the mesh combos run too (a ``gloo`` world;
+rank 0 prints); in one process they are noted skips.
 
 ``--fixture NAME`` runs the owning pass against a deliberately broken input
 instead of the repo: each fixture MUST produce findings (exit 1).
@@ -21,19 +24,22 @@ instead of the repo: each fixture MUST produce findings (exit 1).
 * ``rebuild-every-dispatch`` — an engine paying Update's plan build on every
                                Dispatch step
 * ``memory-hog``             — a call whose peak live bytes blow the budget
-
-``mesh-allgather`` (a mesh body shipping the full KV) waits for mesh
-dispatch (ROADMAP A.8): asked for, it exits with code 2.
+* ``mesh-allgather``         — a mesh body all-gathering the full K and V
+                               instead of the plan-live blocks (needs the
+                               two-rank world; without one it exits 1 with
+                               the reason)
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 FIXTURES = ("injected-sort", "bad-plan", "uncovered-field", "id-cache",
             "dense-einsum-dispatch", "rebuild-every-dispatch", "memory-hog")
-WAITING = {"mesh-allgather": "mesh dispatch is not ported yet (ROADMAP A.8)"}
+# Fixtures that need the two-rank world of the mesh combos.
+MESH_FIXTURES = ("mesh-allgather",)
 
 
 def _fixture_findings(name: str, device: str):
@@ -122,10 +128,37 @@ def _fixture_findings(name: str, device: str):
                "    return _PLAN_CACHE[key]\n")
         return [Finding("source-lint", rule, f"fixture[id-cache]:{line}", msg)
                 for _, line, rule, msg in lint_source(src)]
-    if name in WAITING:                   # not a finding: nothing to run yet
-        print(f"fixture {name!r} waits: {WAITING[name]}", file=sys.stderr)
-        raise SystemExit(2)
-    raise SystemExit(f"unknown fixture {name!r}; known: {list(FIXTURES)}")
+    if name == "mesh-allgather":
+        import torch.distributed as dist
+
+        from repro_torch.analysis.cost_model import cost_of_record
+        from repro_torch.analysis.cost_passes import (collective_findings,
+                                                      expected_a2a_payload,
+                                                      expected_gather_payload, matched)
+        from repro_torch.analysis.passes import (_B, _DH, _H, MESH, _engine_cfg,
+                                                 mesh_skip_reason)
+        from repro_torch.distributed.plan_shard import _all_gather
+        if mesh_skip_reason() is not None:
+            raise SystemExit(f"mesh-allgather fixture {mesh_skip_reason()}")
+        n = 256
+        cfg = matched(_engine_cfg(mesh_dp=MESH[0], mesh_sp=MESH[1]), 2, 2, n)
+
+        def body(k, v):
+            # ships the FULL K and V instead of the plan-live pair_cap blocks
+            out = []
+            for x in (k, v):
+                full = x.new_empty((dist.get_world_size() * x.shape[0], *x.shape[1:]))
+                _all_gather(full, x)
+                out.append(full)
+            return out
+
+        kv = torch.ones((_B * _H * n // dist.get_world_size(), _DH), device=device)
+        _, rec = record_call(body, kv, kv)
+        return collective_findings(
+            "cost-collective-bytes", "fixture[mesh-allgather]", cost_of_record(rec),
+            expected_a2a_payload(cfg, n), 2.0 * (_B * _H * n * _DH) * 4,
+            expected_gather_payload(n))
+    raise SystemExit(f"unknown fixture {name!r}; known: {list(FIXTURES + MESH_FIXTURES)}")
 
 
 def main(argv=None) -> int:
@@ -145,10 +178,16 @@ def main(argv=None) -> int:
 
     from repro_torch.analysis import ALL_PASSES, _check_device, run_analysis
     _check_device(args.device)
+    import torch.distributed as dist
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        dist.init_process_group("gloo")              # torchrun's env:// variables
+    if dist.is_initialized() and dist.get_rank() != 0:
+        args.quiet = True
     if args.fixture:
         findings = _fixture_findings(args.fixture, args.device)
-        for f in findings:
-            print(f"  {f}")
+        if not args.quiet:
+            for f in findings:
+                print(f"  {f}")
         print(f"fixture {args.fixture}: {len(findings)} finding(s)")
         return 1 if findings else 0
 

@@ -4,8 +4,8 @@ port's counterpart of ``repro.analysis.cost_model``.
 :func:`cost_of_record` folds a per-op cost table over an
 :class:`~repro_torch.analysis.op_walk.OpRecord` and returns a
 :class:`CostEstimate`: FLOPs (2 per multiply-add, as
-``torch.utils.flop_counter`` and XLA count them) and memory bytes; there
-is no collective rule yet (mesh dispatch, ROADMAP A.8).  The table:
+``torch.utils.flop_counter`` and XLA count them), memory bytes and, per
+collective kind, the payload and the count.  The table:
 
 =================================  ===========================================
 op family                          cost rule
@@ -25,6 +25,11 @@ views (``view``, ``permute``, …)   0 FLOPs, 0 bytes (they move nothing)
 layout moves (``clone``,           0 FLOPs, in + out bytes (``copy_``,
 ``_to_copy``, ``cat``, …)          ``fill_``: the written bytes, not the old
                                    values)
+collectives (``c10d.*``)           payload = the result buffer (``all_to_all``:
+                                   the exchanged buffer; ``all_gather``: the
+                                   gathered one), count 1 per op, keyed by
+                                   :func:`~repro_torch.analysis.op_walk.
+                                   collective_kind`; bytes = the buffers
 everything else (elementwise)      FLOPs = out_elems; bytes = in + out
 a kernel region                    :func:`kernel_cost` at the plan's
                                    CAPACITY counts (:func:`region_counts`)
@@ -74,7 +79,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.analysis.op_walk import OpNode, OpRecord
+from repro_torch.analysis.op_walk import OpNode, OpRecord, collective_kind
 
 __all__ = ["CostEstimate", "cost_of_record", "op_cost", "peak_bytes_of", "kernel_cost",
            "region_counts", "plan_counts", "VIEW_OPS", "LAYOUT_OPS"]
@@ -86,10 +91,16 @@ class CostEstimate:
 
     flops: float = 0.0
     hbm_bytes: float = 0.0
+    coll_payload: Dict[str, float] = dataclasses.field(default_factory=dict)
+    coll_count: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def add(self, other: "CostEstimate") -> None:
         self.flops += other.flops
         self.hbm_bytes += other.hbm_bytes
+        for kind, v in other.coll_payload.items():
+            self.coll_payload[kind] = self.coll_payload.get(kind, 0.0) + v
+        for kind, v in other.coll_count.items():
+            self.coll_count[kind] = self.coll_count.get(kind, 0) + v
 
 
 # Ops that alias their input: no data moves.
@@ -209,9 +220,21 @@ def _attention_cost(node: OpNode) -> CostEstimate:
     return CostEstimate(flops=4.0 * _elems(q) * k.shape[-2], hbm_bytes=_io(node))
 
 
+def _collective_cost(node: OpNode, kind: str) -> CostEstimate:
+    # The torch collectives write into a caller's buffer, the first tensor
+    # argument: the exchanged (all_to_all) or the gathered (all_gather) one.
+    # The group's size is not in the op stream, so wire bytes are not modelled.
+    payload = node.inputs[0].nbytes if node.inputs else 0.0
+    return CostEstimate(hbm_bytes=_io(node), coll_payload={kind: payload},
+                        coll_count={kind: 1})
+
+
 def op_cost(node: OpNode) -> CostEstimate:
     """The cost of one recorded op (a kernel region: see :func:`kernel_cost`)."""
     name = node.name
+    kind = collective_kind(name)
+    if kind is not None:
+        return _collective_cost(node, kind)
     if node.kind == "kernel":
         dtype = next((m.dtype for m in node.inputs if m.dtype.is_floating_point),
                      torch.float32)

@@ -26,8 +26,15 @@ at plan capacity by ``kernel_cost``):
   bytes of every Update and Dispatch record stay within
   :data:`PEAK_BUDGETS`, and the batcher's scan tick's peak is affine in
   the lane count (the marginal bytes of lanes 2 → 4 and 4 → 6 agree).
-* :class:`CollectiveBytesBudget` (``cost-collective-bytes``) — a noted
-  skip until mesh dispatch (ROADMAP A.8).
+* :class:`CollectiveBytesBudget` (``cost-collective-bytes``) — a seq-mesh
+  Dispatch layer's all-to-all payload equals the ``pair_cap`` formula
+  (:func:`expected_a2a_payload`), under half the dense K/V all-gather, and
+  the only other collective is the named output all-gather
+  (:func:`expected_gather_payload`); head mode has the all-gather alone.
+
+The mesh groups (``mesh_dp=1, mesh_sp=2``) run in a ``torch.distributed``
+world of two ranks and are noted skips without one
+(:func:`~repro_torch.analysis.passes.mesh_skip_reason`).
 
 Thresholds were recalibrated on the port's own op stream at its geometry
 (CPU and card give the same costs: a kernel region is billed by rule, not
@@ -35,7 +42,10 @@ by what its plain version runs).  Measured on the four groups:
 
 * per-token slope 1.00× (kernels) and 1.02× (twin) the FLOP reference,
   1.47× and 2.52× the byte reference: ``KAPPA_TOKEN = 1.5``,
-  ``KAPPA_TOKEN_BYTES = 3.5``;
+  ``KAPPA_TOKEN_BYTES = 3.5``; the mesh groups 2.05× and 3.57× the bytes
+  (the staged local slice and the output all-gather):
+  ``KAPPA_TOKEN_BYTES_MESH = 5.0``, the reference's budget over its mesh
+  groups;
 * Update 1.13× a dense layer's FLOPs and 1.29× its bytes:
   ``KAPPA_UPDATE = 1.5``, ``KAPPA_UPDATE_BYTES = 2.0``; amortized over an
   interval of 4 at half density 0.65× (kernels) and 0.66× (twin):
@@ -62,14 +72,16 @@ import torch
 
 from repro_torch.analysis.cost_model import CostEstimate, cost_of_record, peak_bytes_of
 from repro_torch.analysis.op_walk import record_call
-from repro_torch.analysis.passes import (_DH, _DM, _H, _N, _engine_cfg, _params, _x,
-                                         serving_setup, trace_pair)
+from repro_torch.analysis.passes import (_B, _DH, _DM, _H, _N, MESH, _engine_cfg, _params,
+                                         _x, mesh_skip_reason, serving_setup, trace_pair)
 
 __all__ = ["DispatchCostScaling", "UpdateAmortization", "MemoryFootprint",
            "CollectiveBytesBudget", "COST_PASSES", "dispatch_groups",
            "token_scaling_findings", "amortization_findings", "footprint_findings",
+           "collective_findings", "expected_a2a_payload", "expected_gather_payload",
            "dense_reference_cost", "token_reference_slope", "KAPPA_TOKEN",
-           "KAPPA_TOKEN_BYTES", "KAPPA_UPDATE", "KAPPA_UPDATE_BYTES", "THETA_AMORTIZED",
+           "KAPPA_TOKEN_BYTES", "KAPPA_TOKEN_BYTES_MESH", "KAPPA_UPDATE",
+           "KAPPA_UPDATE_BYTES", "THETA_AMORTIZED",
            "PEAK_BUDGETS"]
 
 # Matched-capacity sequence lengths of the T_kv-independence scan.
@@ -77,6 +89,10 @@ _NS = (128, 256, 384)
 
 KAPPA_TOKEN = 1.5
 KAPPA_TOKEN_BYTES = 3.5
+# The mesh groups pay per token besides: the local K/V slice staged into
+# the exchange buffer and the output all-gather (measured 2.05x kernels,
+# 3.57x twin); the reference's own byte budget, set over its mesh groups.
+KAPPA_TOKEN_BYTES_MESH = 5.0
 KAPPA_UPDATE = 1.5
 KAPPA_UPDATE_BYTES = 2.0
 THETA_AMORTIZED = 0.95
@@ -102,13 +118,17 @@ def matched(cfg, capq_cmp: int, capkv_cmp: int, n: int):
     return out
 
 
-def dispatch_groups(kv_buckets=(1, 3)):
+def dispatch_groups(kv_buckets=(1, 3), meshes=(False, True)):
     """The strategy-independent Dispatch grid: ``dispatch_layer`` never
-    consults ``cfg.strategy``, so one ``(backend, kv_buckets)`` cell covers
-    every strategy."""
+    consults ``cfg.strategy``, so one ``(backend, kv_buckets, mesh)`` cell
+    covers every strategy; the mesh cells only where
+    :func:`~repro_torch.analysis.passes.mesh_skip_reason` allows them."""
     from repro_torch.core.backend import available_backends
-    for backend, kvb in itertools.product(available_backends(), kv_buckets):
-        yield f"{backend}/kv_buckets={kvb}", _engine_cfg(backend=backend, kv_buckets=kvb)
+    meshes = [m for m in meshes if not m or mesh_skip_reason() is None]
+    for backend, kvb, mesh in itertools.product(available_backends(), kv_buckets, meshes):
+        kw = dict(mesh_dp=MESH[0], mesh_sp=MESH[1]) if mesh else {}
+        yield (f"{backend}/kv_buckets={kvb}/{'mesh' if mesh else 'single'}",
+               _engine_cfg(backend=backend, kv_buckets=kvb, **kw))
 
 
 @functools.lru_cache(maxsize=128)
@@ -188,6 +208,64 @@ def token_scaling_findings(pass_name: str, where: str, costs: Sequence[CostEstim
     return findings
 
 
+def expected_a2a_payload(cfg, n: int) -> float:
+    """The ``pair_cap`` formula: two exchanges (K and V) of
+    ``(P, B/dp, H, pair_cap, block_kv, dh)`` f32 blocks per rank."""
+    from repro_torch.distributed.plan_shard import shard_geometry
+    m = cfg.mask
+    t_kv = m.n_blocks(n) * (m.pool // m.block_kv)
+    geom = shard_geometry(cfg.caps(n), t_kv, t_kv, cfg.mesh_sp, cfg.mesh_pair_slack)
+    return 2.0 * (_B // cfg.mesh_dp * _H * cfg.mesh_sp * geom.pair_cap
+                  * m.block_kv * _DH) * 4
+
+
+def expected_gather_payload(n: int) -> float:
+    """The output all-gather: the whole (B, H, N, dh) f32 attention output."""
+    return float(_B * _H * n * _DH * 4)
+
+
+def collective_findings(pass_name: str, where: str, cost: CostEstimate,
+                        expected_payload: float, dense_payload: float,
+                        gather_payload: float) -> List:
+    """Certify a seq-mesh Dispatch cost: exactly two all-to-alls whose
+    payload is the ``pair_cap`` formula, under half the dense all-gather,
+    and on the wire besides them only the one output all-gather of
+    ``gather_payload`` bytes."""
+    from repro_torch.analysis import Finding
+    findings = []
+    a2a = cost.coll_payload.get("all_to_all", 0.0)
+    if cost.coll_count.get("all_to_all", 0) != 2:
+        findings.append(Finding(
+            pass_name, "a2a-count", where,
+            f"expected exactly 2 all_to_all (one per K and V), found "
+            f"{cost.coll_count.get('all_to_all', 0)}"))
+    if a2a != expected_payload:
+        findings.append(Finding(
+            pass_name, "pair-cap-formula", where,
+            f"all_to_all payload {a2a:.0f}B != pair_cap formula {expected_payload:.0f}B "
+            f"— the exchange is not shipping exactly the plan-live KV blocks"))
+    if (cost.coll_count.get("all_gather", 0),
+            cost.coll_payload.get("all_gather", 0.0)) != (1, gather_payload):
+        findings.append(Finding(
+            pass_name, "output-gather", where,
+            f"all_gather {cost.coll_count.get('all_gather', 0)}x, "
+            f"{cost.coll_payload.get('all_gather', 0.0):.0f}B != the one output gather "
+            f"of {gather_payload:.0f}B — something else is gathered"))
+    extra = {k: v for k, v in cost.coll_payload.items()
+             if k not in ("all_to_all", "all_gather") and v}
+    if extra:
+        findings.append(Finding(
+            pass_name, "no-extra-collectives", where,
+            f"unexpected collective bytes {extra} — mesh dispatch must ship only the "
+            f"plan-aware a2a payload and the output"))
+    if dense_payload and a2a >= 0.5 * dense_payload:
+        findings.append(Finding(
+            pass_name, "dense-ratio", where,
+            f"plan-aware payload {a2a:.0f}B >= 0.5x the dense KV all-gather "
+            f"{dense_payload:.0f}B — O(T_kv) communication"))
+    return findings
+
+
 def amortization_findings(pass_name: str, where: str, update_cost: CostEstimate,
                           dispatch_cost: CostEstimate, dense_cost: CostEstimate,
                           interval: int) -> List:
@@ -242,9 +320,10 @@ class DispatchCostScaling:
         for label, cfg0 in dispatch_groups():
             # 1. T_kv-independence: matched caps, three lengths.
             costs = [_costs(matched(cfg0, 2, 2, n), n, dev)[1] for n in _NS]
+            kappa_bytes = KAPPA_TOKEN_BYTES_MESH if cfg0.mesh_sp > 1 else KAPPA_TOKEN_BYTES
             findings += token_scaling_findings(
                 self.name, f"dispatch_layer[{label}]", costs, _NS,
-                budget_flops=KAPPA_TOKEN * ref_f, budget_bytes=KAPPA_TOKEN_BYTES * ref_b)
+                budget_flops=KAPPA_TOKEN * ref_f, budget_bytes=kappa_bytes * ref_b)
             # 2. Live-slot slope: density scan at fixed n.
             n0 = _NS[0]
             dens = [(1, 1), (2, 2), (3, 4)]
@@ -277,13 +356,38 @@ class DispatchCostScaling:
 
 
 class CollectiveBytesBudget:
-    """Mesh all-to-all bytes: a noted skip until mesh dispatch is ported."""
+    """Mesh all-to-all bytes ≡ the ``pair_cap`` formula, never O(T_kv)."""
 
     name = "cost-collective-bytes"
+    DENSITY_CMP = 2            # compressed-granularity caps: 25 % at n = 256
+    N = 256
 
     def run(self, ctx) -> List:
-        ctx.note(f"{self.name}: skipped (mesh dispatch is not ported: ROADMAP A.8)")
-        return []
+        from repro_torch.analysis import Finding
+        if mesh_skip_reason() is not None:
+            ctx.note(f"{self.name}: skipped ({mesh_skip_reason()})")
+            return []
+        dev = str(ctx.device)
+        cfg = matched(_engine_cfg(mesh_dp=MESH[0], mesh_sp=MESH[1]), self.DENSITY_CMP,
+                      self.DENSITY_CMP, self.N)
+        cost = _costs(cfg, self.N, dev)[1]
+        dense_payload = 2.0 * (_B * _H * self.N * _DH) * 4   # all-gather of K and V
+        findings = collective_findings(
+            self.name, f"dispatch_layer[mesh seq, n={self.N}, cap_cmp={self.DENSITY_CMP}]",
+            cost, expected_a2a_payload(cfg, self.N), dense_payload,
+            expected_gather_payload(self.N))
+        a2a = cost.coll_payload.get("all_to_all", 0.0)
+        ctx.note(f"{self.name}: a2a payload {a2a:.0f}B = pair_cap formula, "
+                 f"{a2a / dense_payload:.3f}x the dense K/V all-gather")
+        # head mode: the output all-gather and nothing else.
+        cost_h = _costs(_engine_cfg(mesh_dp=MESH[0], mesh_sp=MESH[1], mesh_axis="head"),
+                        _N, dev)[1]
+        if cost_h.coll_payload != {"all_gather": expected_gather_payload(_N)}:
+            findings.append(Finding(
+                self.name, "head-mode-collectives", "dispatch_layer[mesh head]",
+                f"head-mode dispatch spends collectives {cost_h.coll_payload} — it must "
+                f"spend only the output all-gather"))
+        return findings
 
 
 class UpdateAmortization:

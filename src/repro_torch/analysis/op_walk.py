@@ -25,7 +25,7 @@ a view shares its base's key.  Records are for small analysis shapes.
 Entry points: :func:`record_call`, :func:`iter_nodes`,
 :func:`primitive_counts`, :func:`find_ops`, :func:`eqn_count`,
 :func:`index_decode_ops`, :func:`kernel_regions`,
-:func:`collective_counts`.
+:func:`collective_kind`, :func:`collective_counts`.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from repro_torch.kernels._region import listening
 __all__ = ["TensorMeta", "OpNode", "OpRecord", "record_call", "iter_nodes",
            "primitive_counts", "find_ops", "eqn_count", "INDEX_DECODE_OPS",
            "index_decode_ops", "kernel_regions", "COLLECTIVE_NAMESPACES",
-           "collective_counts"]
+           "collective_kind", "collective_counts"]
 
 # Index-decode work (mask -> plan extraction): any of these inside a
 # Dispatch record means the engine is rebuilding the plan instead of reading
@@ -59,9 +59,14 @@ _CARRY_U8 = frozenset({"aten._to_copy", "aten.clone", "aten.index_select", "aten
                        "aten.index", "aten.slice", "aten.select", "aten.view",
                        "aten._unsafe_view", "aten.unsqueeze", "aten.expand",
                        "aten.reshape", "aten.permute", "aten.squeeze", "aten.alias"})
-# Cross-device collectives (torch.distributed's ops): none until mesh
-# dispatch is ported (ROADMAP A.8).
+# Cross-device collectives: torch.distributed's ops reach the dispatcher in
+# these namespaces (``dist.all_to_all_single`` as ``c10d.alltoall_base_``,
+# ``dist.all_gather_single`` as ``c10d._allgather_base_``).
 COLLECTIVE_NAMESPACES = frozenset({"c10d", "_c10d_functional", "_c10d_functional_autograd"})
+# Op-name stems of the collective kinds mesh dispatch runs, named as the
+# reference's jaxpr primitives; any other collective keeps its op name.
+_COLLECTIVE_KINDS = (("alltoall", "all_to_all"), ("all_to_all", "all_to_all"),
+                     ("allgather", "all_gather"), ("all_gather", "all_gather"))
 
 
 class TensorMeta(NamedTuple):
@@ -209,7 +214,18 @@ def kernel_regions(record: OpRecord) -> list:
     return [n.name for n in record.nodes if n.kind == "kernel" and not n.path]
 
 
+def collective_kind(name: str):
+    """``"all_to_all"``, ``"all_gather"``, … for a collective op name
+    (``c10d.alltoall_base_``), the op name itself for an unknown collective,
+    None for any other op."""
+    ns, _, op = name.partition(".")
+    if ns not in COLLECTIVE_NAMESPACES:
+        return None
+    stem = op.strip("_")
+    return next((kind for key, kind in _COLLECTIVE_KINDS if stem.startswith(key)), name)
+
+
 def collective_counts(record: OpRecord) -> Counter:
-    """Histogram of the collective ops (``c10d`` namespaces)."""
-    return Counter(n.name for _, n in iter_nodes(record)
-                   if n.name.split(".")[0] in COLLECTIVE_NAMESPACES)
+    """Histogram of the collective ops by kind (:func:`collective_kind`)."""
+    return Counter(k for _, n in iter_nodes(record)
+                   if (k := collective_kind(n.name)) is not None)

@@ -6,7 +6,8 @@ analyzer geometry on ``ctx.device`` and walks their op streams with
 :mod:`repro_torch.analysis.op_walk`:
 
 * :class:`DispatchPurity` — every registered strategy × backend
-  (``kernels``, ``torch``) × ``kv_buckets ∈ {1, 3}``: the
+  (``kernels``, ``torch``) × ``kv_buckets ∈ {1, 3}`` × {single device,
+  seq mesh ``(1, 2)``}: the
   ``dispatch_layer`` record holds no index-decode work (sort / top-k
   family, uint8 symbol unpack), kernel regions included.  The matching
   ``update_layer`` record is the positive control: it MUST show the decode
@@ -18,7 +19,16 @@ analyzer geometry on ``ctx.device`` and walks their op streams with
   tensor's dtype (a promotion would change the next tick's inputs).
 * :class:`ExecutableBudget` — N/A, recorded as a note: the port compiles
   nothing per configuration (ROADMAP A.4).
-* :class:`CollectiveBudget` — a noted skip until mesh dispatch (A.8).
+* :class:`CollectiveBudget` — a mesh Dispatch layer spends exactly two
+  all-to-alls (K and V) and the one output all-gather in seq mode, and the
+  all-gather alone in head mode.
+
+The mesh combos run ``mesh_dp=1, mesh_sp=2`` and need a
+``torch.distributed`` world of exactly two ranks (``torchrun
+--nproc-per-node 2 -m repro_torch.analysis``, or
+:func:`repro_torch.launch.mesh.run_local_mesh`); every rank runs the same
+passes in the same order.  Without such a world they are noted skips, as
+the reference's are on a one-device host.
 
 Unlike the reference's abstract traces, a record runs the call, so the
 analyzer geometry must be one the built kernels accept (head_dim
@@ -39,7 +49,7 @@ from repro_torch.analysis.op_walk import index_decode_ops, kernel_regions, recor
 
 __all__ = ["DispatchPurity", "PromotionCheck", "ExecutableBudget", "CollectiveBudget",
            "OP_PASSES", "trace_pair", "sweep_configs", "promotion_findings",
-           "expected_regions"]
+           "expected_regions", "mesh_capacity", "mesh_skip_reason", "MESH"]
 
 # The analyzer geometry: batch, heads, tokens, d_model, head_dim.
 _B, _H, _N, _DM, _DH = 1, 2, 128, 64, 32
@@ -78,24 +88,50 @@ def _x(device, n: int = _N, seed: int = 3) -> torch.Tensor:
     return torch.randn((_B, n, _DM), generator=_gen(seed, device), device=device) * 0.3
 
 
-def sweep_configs(kv_buckets=(1, 3)):
-    """``(label, cfg)`` over every strategy × backend × ``kv_buckets``."""
+# The mesh of the analyzer's mesh combos: (mesh_dp, mesh_sp).
+MESH = (1, 2)
+
+
+def mesh_capacity() -> int:
+    """Ranks of the initialised ``torch.distributed`` world (1 without one)."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def mesh_skip_reason():
+    """Why the mesh combos cannot run here, or None when they can."""
+    if mesh_capacity() != MESH[0] * MESH[1]:
+        return (f"needs a torch.distributed world of {MESH[0] * MESH[1]} ranks, have "
+                f"{mesh_capacity()} (torchrun --nproc-per-node 2 -m repro_torch.analysis)")
+    return None
+
+
+def sweep_configs(kv_buckets=(1, 3), meshes=(False, True)):
+    """``(label, cfg)`` over every strategy × backend × ``kv_buckets`` ×
+    {single device, seq mesh}; the mesh combos only where
+    :func:`mesh_skip_reason` allows them."""
     from repro_torch.core.backend import available_backends
     from repro_torch.core.strategy import available_strategies
-    for strat, backend, kvb in itertools.product(available_strategies(), available_backends(),
-                                                 kv_buckets):
-        yield (f"{strat}/{backend}/kv_buckets={kvb}",
-               _engine_cfg(strategy=strat, backend=backend, kv_buckets=kvb))
+    meshes = [m for m in meshes if not m or mesh_skip_reason() is None]
+    for strat, backend, kvb, mesh in itertools.product(
+            available_strategies(), available_backends(), kv_buckets, meshes):
+        kw = dict(mesh_dp=MESH[0], mesh_sp=MESH[1]) if mesh else {}
+        yield (f"{strat}/{backend}/kv_buckets={kvb}/{'mesh' if mesh else 'single'}",
+               _engine_cfg(strategy=strat, backend=backend, kv_buckets=kvb, **kw))
 
 
 def expected_regions(cfg) -> tuple:
-    """The kernel regions a Dispatch step of ``cfg`` runs, in order."""
+    """The kernel regions a Dispatch step of ``cfg`` runs, in order.  A seq
+    mesh runs the uniform attention on each shard (its inner spec has one
+    bucket) beside the bucketed GEMM-O."""
     if cfg.backend != "kernels":
         return ()
-    if cfg.resolved_kv_buckets() > 1:
-        return ("gemm_q_sparse_kernel", "flashomni_attention_csr_bucketed",
-                "gemm_o_sparse_bucketed_kernel")
-    return ("gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel")
+    buckets = cfg.resolved_kv_buckets() > 1
+    mesh = cfg.mesh_sp > 1
+    return ("gemm_q_sparse_kernel",
+            "flashomni_attention_csr_bucketed" if buckets and not mesh
+            else "flashomni_attention_csr",
+            "gemm_o_sparse_bucketed_kernel" if buckets else "gemm_o_sparse_kernel")
 
 
 @functools.lru_cache(maxsize=64)
@@ -123,6 +159,8 @@ class DispatchPurity:
         findings = []
         for label, cfg in sweep_configs():
             findings += self.check(label, cfg, ctx.device)
+        if mesh_skip_reason() is not None:
+            ctx.note(f"{self.name}: mesh combos skipped ({mesh_skip_reason()})")
         return findings
 
     def check(self, label: str, cfg, device) -> List:
@@ -156,13 +194,39 @@ class DispatchPurity:
 
 
 class CollectiveBudget:
-    """Mesh dispatch's collectives: a noted skip until it is ported."""
+    """Mesh Dispatch's collectives: two all-to-alls (K and V) in seq mode,
+    none in head mode, and in both the one all-gather of the attention
+    output (GEMM-O runs replicated)."""
 
     name = "collective-budget"
 
     def run(self, ctx) -> List:
-        ctx.note(f"{self.name}: skipped (mesh dispatch is not ported: ROADMAP A.8)")
-        return []
+        from repro_torch.analysis import Finding
+        from repro_torch.analysis.op_walk import collective_counts
+        if mesh_skip_reason() is not None:
+            ctx.note(f"{self.name}: skipped ({mesh_skip_reason()})")
+            return []
+        findings = []
+        for mode, want_a2a in (("seq", 2), ("head", 0)):
+            cfg = _engine_cfg(mesh_dp=MESH[0], mesh_sp=MESH[1], mesh_axis=mode)
+            where = f"dispatch_layer[mesh_axis={mode}]"
+            cc = collective_counts(trace_pair(cfg, _N, str(ctx.device))[1])
+            a2a, gather = cc.pop("all_to_all", 0), cc.pop("all_gather", 0)
+            if a2a != want_a2a:
+                findings.append(Finding(
+                    self.name, "all-to-all-budget", where,
+                    f"expected exactly {want_a2a} all_to_all (one per K and V in seq "
+                    f"mode), found {a2a}"))
+            if gather != 1:
+                findings.append(Finding(
+                    self.name, "output-gather", where,
+                    f"expected exactly 1 all_gather (the attention output), found {gather}"))
+            if cc:
+                findings.append(Finding(
+                    self.name, "no-extra-collectives", where,
+                    f"unexpected collectives {dict(cc)} — mesh dispatch must ship only "
+                    f"the plan-live KV blocks and the output"))
+        return findings
 
 
 class ExecutableBudget:

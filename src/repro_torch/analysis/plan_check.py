@@ -33,8 +33,8 @@ Checked invariant families:
 
 Plans may carry extra leading axes (layer stacking ``(L, ...)``, serving
 lanes ``(W, L, ...)``): every check flattens them into the batch axis.
-The ``shd_*`` block runs only when a plan has those fields; the port's plan
-gets them with mesh dispatch (ROADMAP A.8).
+The ``shd_*`` block runs only when a plan has those fields (a plan built
+under a seq mesh, ``EngineConfig.mesh_sp > 1``).
 
 Live hook: ``EngineConfig.validate_plans=True`` or ``REPRO_VALIDATE_PLANS=1``
 makes ``build_dispatch_plan`` call :func:`hook_validate` on the host after
@@ -44,7 +44,6 @@ waits for the card).  Off, it costs nothing.
 
 from __future__ import annotations
 
-import math
 import os
 from typing import List
 
@@ -67,8 +66,7 @@ def validation_enabled(cfg) -> bool:
 
 
 # Trailing (core) rank of every DispatchPlan field; leading axes beyond
-# it are lane/layer stacking and get flattened into batch.  The shd_*
-# entries wait for the mesh partition (ROADMAP A.8).
+# it are lane/layer stacking and get flattened into batch.
 _CORE_RANK = {
     "q_ids": 3, "q_cnt": 2, "q_slots": 3, "kv_ids": 3, "kv_cnt": 2,
     "pair_live": 4, "kv_row_ids": 4, "kv_row_cnt": 3,
@@ -163,16 +161,6 @@ def _occ_hist_np(kv_row_cnt, q_cnt, cap_kv: int) -> np.ndarray:
     onehot = (cls[..., None] == np.arange(OCC_BINS, dtype=cls.dtype)) \
         & live[..., None]
     return np.sum(onehot, axis=(1, 2)).astype(np.int32)
-
-
-def _shard_caps(spec, t_q: int, t_kv: int, mesh_sp: int, slack: float):
-    """``(cap_q, cap_kv, pair_cap, buf_blocks)`` of the seq-mesh partition
-    (the reference's ``distributed.plan_shard.shard_geometry``)."""
-    kv_bps = t_kv // mesh_sp
-    pair_cap = min(kv_bps, max(1, math.ceil(slack * spec.cap_kv / mesh_sp)))
-    cap_kv = min(t_kv, kv_bps + (mesh_sp - 1) * pair_cap)
-    return (min(spec.cap_q, t_q // mesh_sp), cap_kv, pair_cap,
-            kv_bps + mesh_sp * pair_cap)
 
 
 def _host(plan):
@@ -334,9 +322,10 @@ def check_plan(plan, cfg, n_tokens: int) -> List[str]:
 
     # --- shd_* partition (mesh dispatch, when the plan has it) -----------
     if p.shd_q_ids is not None:
-        g_cap_q, g_cap_kv, pair_cap, buf_blocks = _shard_caps(
-            spec, t_q, t_kv, getattr(cfg, "mesh_sp", 1),
-            getattr(cfg, "mesh_pair_slack", 1.5))
+        from repro_torch.distributed.plan_shard import shard_geometry
+        g = shard_geometry(spec, t_q, t_kv, getattr(cfg, "mesh_sp", 1),
+                           getattr(cfg, "mesh_pair_slack", 1.5))
+        g_cap_q, g_cap_kv, pair_cap, buf_blocks = g.cap_q, g.cap_kv, g.pair_cap, g.buf_blocks
         if (p.shd_q_cnt > g_cap_q).any():
             out.append("shd_q_cnt exceeds the per-shard row capacity")
         if (p.shd_kv_cnt > g_cap_kv).any():

@@ -8,8 +8,8 @@
   it reads (``_ID_FIELDS`` and the tuples spliced into it).
 * ``plan-rebuild-coverage`` — every field must be produced on the build
   path: a keyword of a ``DispatchPlan(...)`` call or a key of a dict the
-  layout helpers emit in ``core/plan.py`` (the path ``plan_from_state``
-  replays).
+  layout helpers emit in ``core/plan.py`` or the mesh partition emits in
+  ``distributed/plan_shard.py`` (the path ``plan_from_state`` replays).
 * ``module-dict-cache`` — a module-level ``NAME = {}``/``dict()`` whose
   name contains ``CACHE`` or ``MEMO`` is an unbounded cache; bound it
   (``functools.lru_cache``).
@@ -165,6 +165,9 @@ def _lint_plan_coverage(pkg_root: Path) -> List[LintHit]:
                          f"kernels as int16"))
 
     build_kw = _call_keywords(plan_tree, {"DispatchPlan"}) | _dict_keys_in(plan_tree)
+    shard_path = pkg_root / "distributed" / "plan_shard.py"
+    if shard_path.exists():
+        build_kw |= _dict_keys_in(ast.parse(shard_path.read_text()))
     for f in fields:
         if f not in build_kw:
             hits.append((str(plan_path), cls.lineno, "plan-rebuild-coverage",

@@ -26,7 +26,11 @@ Two implementations sit behind one interface, picked by
     (the reference holds it to allclose as well).
 
 There is no ``"auto"``: the kernel wrappers already route by the tensor's
-device.  ``MeshBackend`` is not ported (one card).
+device.  With ``EngineConfig.mesh_sp > 1``, :func:`get_backend` wraps the
+backend in :class:`MeshBackend` (``mesh-kernels``, ``mesh-torch``):
+attention runs sharded across the ``(data, seq)`` mesh of
+``torch.distributed`` ranks (:mod:`repro_torch.distributed.plan_shard`);
+GEMM-Q, GEMM-O and the K/V projections run replicated on every rank.
 
 Batched serving (:mod:`repro_torch.launch.batching`) folds lanes into the
 batch axis of these backends.  Both keep batch as a leading axis of every
@@ -54,7 +58,8 @@ from repro_torch.kernels import (flashomni_attention_csr, flashomni_attention_cs
                                  gemm_o_sparse_bucketed_kernel, gemm_o_sparse_kernel,
                                  gemm_q_sparse_kernel)
 
-__all__ = ["TorchBackend", "KernelBackend", "get_backend", "available_backends"]
+__all__ = ["TorchBackend", "KernelBackend", "MeshBackend", "get_backend",
+           "available_backends"]
 
 
 class TorchBackend:
@@ -74,16 +79,17 @@ class TorchBackend:
                   compact_q: bool = False) -> torch.Tensor:
         """q (B, H, N_q, dh) [compact when ``compact_q``]; k/v/o_reuse full.
         The per-row lists go along with the union layout and are read
-        whenever ``cap_kv`` can truncate.  A mesh-folded plan carries its pair
-        clamp in ``kv_row_cnt`` only, so it forces the per-row layout; the
-        ``shd_*`` fields are not ported yet, so that branch is never taken."""
+        whenever ``cap_kv`` can truncate.  A seq-mesh plan (one with
+        ``shd_*`` fields) carries its pair clamp in ``kv_row_cnt`` only, so it
+        forces the per-row layout even where ``cap_kv`` admits the union:
+        that is how one device reads a mesh plan as the shards do."""
         plan = plan.widen()
         return sparse_attention_from_plan(
             q, k, v, o_reuse, plan.q_ids, plan.q_cnt, plan.kv_ids, plan.kv_cnt,
             plan.pair_live, spec, scale=scale,
             q_src_ids=plan.q_slots if compact_q else None,
             kv_row_ids=plan.kv_row_ids, kv_row_cnt=plan.kv_row_cnt,
-            force_per_row=getattr(plan, "shd_q_ids", None) is not None)
+            force_per_row=plan.shd_q_ids is not None)
 
     def gemm_o(self, o_tok, w, plan: DispatchPlan, bias: torch.Tensor, *, block: int,
                spec: Optional[SparseAttentionSpec] = None) -> torch.Tensor:
@@ -153,6 +159,32 @@ class KernelBackend:
                                     plan.head_cnt, block_rows=block)
 
 
+class MeshBackend:
+    """Mesh-sharded Dispatch: attention runs per shard across the
+    ``(data, seq)`` mesh, exchanging only the plan-live KV blocks
+    (:func:`~repro_torch.distributed.plan_shard.mesh_attention`), and every
+    rank gets the whole output; GEMM-Q and GEMM-O delegate to ``inner``
+    unchanged, replicated on every rank."""
+
+    def __init__(self, inner, cfg):
+        self.inner = inner
+        self.cfg = cfg
+        self.name = f"mesh-{inner.name}"
+        self.compact_q = inner.compact_q
+
+    def gemm_q(self, x, w, plan, *, block):
+        return self.inner.gemm_q(x, w, plan, block=block)
+
+    def attention(self, q, k, v, o_reuse, plan: DispatchPlan, spec: SparseAttentionSpec, *,
+                  scale: Optional[float] = None, compact_q: bool = False) -> torch.Tensor:
+        from repro_torch.distributed.plan_shard import mesh_attention
+        return mesh_attention(self.inner, self.cfg, q, k, v, o_reuse, plan, spec,
+                              scale=scale, compact_q=compact_q)
+
+    def gemm_o(self, o_tok, w, plan, bias, *, block, spec=None):
+        return self.inner.gemm_o(o_tok, w, plan, bias, block=block, spec=spec)
+
+
 _BACKENDS = {"torch": TorchBackend(), "kernels": KernelBackend()}
 
 
@@ -161,9 +193,11 @@ def available_backends() -> tuple[str, ...]:
 
 
 def get_backend(cfg):
-    """Resolve ``EngineConfig.backend`` to a backend instance."""
+    """Resolve ``EngineConfig.backend`` to a backend instance, wrapped in
+    :class:`MeshBackend` when ``cfg.mesh_sp > 1``."""
     try:
-        return _BACKENDS[cfg.backend]
+        inner = _BACKENDS[cfg.backend]
     except KeyError:
         raise ValueError(f"unknown engine backend {cfg.backend!r}; expected one of "
                          f"{available_backends()}") from None
+    return MeshBackend(inner, cfg) if cfg.mesh_sp > 1 else inner

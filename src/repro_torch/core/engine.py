@@ -30,8 +30,12 @@ the result back into lanes of their own tensors; :func:`stack_lane_states`,
 :func:`merge_lane_states` and :func:`set_lane_state` are the reference's
 host-side lane operations.  The reference's ``schedule_cache_stats`` has no
 counterpart: :func:`resolve_schedule` keeps no memo, since the port compiles
-nothing per schedule.  RoPE and mesh dispatch are not ported (the DiT
-serving path runs neither).
+nothing per schedule.  RoPE is not ported (the DiT serving path runs
+none).  ``mesh_dp``/``mesh_sp`` > 1 runs Dispatch attention across a
+``(data, seq)`` mesh of ``torch.distributed`` ranks
+(:mod:`repro_torch.distributed.plan_shard`): with ``mesh_axis="seq"`` the
+plan carries the per-shard partition (``shd_*``) and only plan-live K/V
+blocks are exchanged, with ``"head"`` heads shard and nothing is exchanged.
 """
 
 from __future__ import annotations
@@ -92,11 +96,27 @@ class EngineConfig:
     validate_plans: bool = False        # check every built plan on the host
                                         # (analysis/plan_check.py); or set
                                         # REPRO_VALIDATE_PLANS=1
+    # Plan-sharded mesh dispatch (distributed/plan_shard.py); mesh_sp > 1
+    # routes attention across the (data, seq) mesh of torch.distributed ranks.
+    mesh_dp: int = 1                    # data-parallel shards (batch axis)
+    mesh_sp: int = 1                    # sequence- or head-parallel shards
+    mesh_axis: str = "seq"              # "seq" (token shards, live-block
+                                        # exchange) | "head" (no exchange)
+    mesh_pair_slack: float = 1.5        # per-(src, dst) shipped-block capacity
+                                        # over cap_kv / mesh_sp (>= 1 keeps the
+                                        # per-shard union clamp a no-op)
 
     def __post_init__(self):
         if self.kv_buckets not in (0, 1, 2, 3):
             raise ValueError(f"kv_buckets must be 0 (auto), 1, 2 or 3, "
                              f"not {self.kv_buckets!r}")
+        if self.mesh_dp < 1 or self.mesh_sp < 1:
+            raise ValueError(f"mesh ({self.mesh_dp}, {self.mesh_sp}) needs both "
+                             "axes >= 1")
+        if self.mesh_axis not in ("seq", "head"):
+            raise ValueError(f"mesh_axis must be 'seq' or 'head', not {self.mesh_axis!r}")
+        if not self.mesh_pair_slack > 0:
+            raise ValueError(f"mesh_pair_slack must be > 0, not {self.mesh_pair_slack!r}")
 
     def cap_q_cmp(self, n_tokens: int) -> int:
         return capacity_for(self.mask.n_blocks(n_tokens), self.cap_q_frac, quantum=1)
@@ -107,9 +127,13 @@ class EngineConfig:
     def resolved_kv_buckets(self) -> int:
         """``kv_buckets`` with 0 ("auto") resolved from the calibration table's
         occupancy histogram for ``strategy``: a function of the static config
-        alone, fixed before any plan is built."""
+        alone, fixed before any plan is built.  Under a mesh auto is 1: the
+        seq-sharded inner spec runs uniform per shard and the head mesh
+        rejects buckets."""
         if self.kv_buckets != 0:
             return self.kv_buckets
+        if self.mesh_sp > 1:
+            return 1
         return select_kv_buckets(self.strategy)
 
     def caps(self, n_tokens: int, n_kv: Optional[int] = None) -> SparseAttentionSpec:

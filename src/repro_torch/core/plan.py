@@ -20,11 +20,14 @@ top-k, sort or index work.  Fields (kernel-block granularity unless noted):
     is folded back into ``kv_row_cnt`` / ``head_cnt`` / ``head_mask``, so
     the uniform and the bucketed kernels consume the same truncated lists.
 
-The mesh partition (``shd_*``) is not ported (ROADMAP A.8).  Id fields are
-stored int16 when block ids fit in 15 bits and :meth:`DispatchPlan.widen`
-restores int32 before launch.  With ``EngineConfig.validate_plans`` (or
-``REPRO_VALIDATE_PLANS=1``) every build ends in the structural validator
-(:mod:`repro_torch.analysis.plan_check`).
+Under a seq mesh (``EngineConfig.mesh_sp > 1``, ``mesh_axis="seq"``) the
+per-(src, dst) pair clamp is folded into the row masks before the lists are
+extracted, and ``shd_*`` carries the per-shard partition and exchange
+tables (:mod:`repro_torch.distributed.plan_shard`).  Id fields are stored
+int16 when block ids fit in 15 bits (the ``shd_*`` ids when the exchange
+buffer does) and :meth:`DispatchPlan.widen` restores int32 before launch.
+With ``EngineConfig.validate_plans`` (or ``REPRO_VALIDATE_PLANS=1``) every
+build ends in the structural validator (:mod:`repro_torch.analysis.plan_check`).
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ OCC_BINS = 8
 
 _BKT_IDS = ("bkt_head", "bkt_q_ids", "bkt_q_src", "bkt_q_slots", "bkt_kv_ids")
 _GMO_IDS = ("gmo_rows", "gmo_src", "gmo_head_ids")
+_SHD_IDS = ("shd_q_ids", "shd_q_src", "shd_q_slots", "shd_kv_ids", "shd_kv_row_ids",
+            "shd_gather_idx", "shd_send_ids")
 _ID_FIELDS = ("q_ids", "q_slots", "kv_ids", "kv_row_ids", "row_ids", "head_ids",
               *_BKT_IDS, *_GMO_IDS)
 
@@ -259,11 +264,25 @@ class DispatchPlan(NamedTuple):
     gmo_src: Optional[torch.Tensor] = None       # (B, Cr) read row id (dead -> 0)
     gmo_head_ids: Optional[torch.Tensor] = None  # (B, S_o) per-slot head id
     gmo_head_cnt: Optional[torch.Tensor] = None  # (B, Cr) clamped live-head count
+    # Seq-mesh partition (None unless mesh_sp > 1 with mesh_axis "seq"): P
+    # indexes the destination shard; Cqs / Cks / pc are ShardGeometry's
+    # per-shard row, union and per-pair capacities.
+    shd_q_ids: Optional[torch.Tensor] = None       # (B,H,P,Cqs) shard-local q blocks
+    shd_q_src: Optional[torch.Tensor] = None       # (B,H,P,Cqs) same, full layout
+    shd_q_slots: Optional[torch.Tensor] = None     # (B,H,P,Cqs) same, compact layout
+    shd_q_cnt: Optional[torch.Tensor] = None       # (B,H,P)
+    shd_kv_ids: Optional[torch.Tensor] = None      # (B,H,P,Cks) union, global ids
+    shd_kv_cnt: Optional[torch.Tensor] = None      # (B,H,P)
+    shd_kv_row_ids: Optional[torch.Tensor] = None  # (B,H,P,Cqs,Ck) union-slot lists
+    shd_kv_row_cnt: Optional[torch.Tensor] = None  # (B,H,P,Cqs)
+    shd_gather_idx: Optional[torch.Tensor] = None  # (B,H,P,Cks) buffer placement
+    shd_send_ids: Optional[torch.Tensor] = None    # (B,H,Psrc,Pdst,pc) local ids
+    shd_send_cnt: Optional[torch.Tensor] = None    # (B,H,Psrc,Pdst)
 
     def widen(self) -> "DispatchPlan":
         """The plan with every int16 id field widened to contiguous int32;
         the plan itself when every id field is int32 already."""
-        narrow = {f: t for f in _ID_FIELDS
+        narrow = {f: t for f in (*_ID_FIELDS, *_SHD_IDS)
                   if (t := getattr(self, f)) is not None and t.dtype != torch.int32}
         if not narrow:
             return self
@@ -314,6 +333,14 @@ def build_dispatch_plan(m_c: torch.Tensor, m_s: torch.Tensor, cfg, n_tokens: int
     # Kernel reduction layout: per-live-row CSR column lists.
     rows = torch.gather(m_s_blk, -2, q_ids.to(torch.int64)[..., :, None].expand(
         *q_ids.shape, t_kv))
+    # Seq-mesh fold: the per-(src, dst) shipped-block clamp applies to the
+    # row masks before the lists are extracted, so every backend, sharded or
+    # not, reads the same lists (the identity at pair_cap == kv_bps).
+    geom = None
+    if cfg.mesh_sp > 1 and cfg.mesh_axis == "seq":
+        from repro_torch.distributed.plan_shard import mesh_keep_rows, shard_geometry
+        geom = shard_geometry(spec, t_q, t_kv, cfg.mesh_sp, cfg.mesh_pair_slack)
+        rows = mesh_keep_rows(rows, q_ids, q_cnt, geom)
     kv_row_ids, kv_row_cnt = active_indices(rows, spec.cap_kv)
 
     # Compact-layout remap: live q block i sits at block
@@ -332,6 +359,13 @@ def build_dispatch_plan(m_c: torch.Tensor, m_s: torch.Tensor, cfg, n_tokens: int
                              (q_ids // factor).to(torch.int64))
         bkt, kv_row_cnt = bucket_layout(q_ids, q_cnt, q_slots, kv_row_ids,
                                         kv_row_cnt, score, geometry, t_q)
+
+    # The per-shard partition reads the final lists: every truncation (the
+    # pair clamp, the bucket clamp) is in kv_row_cnt by now.
+    shd = {}
+    if geom is not None:
+        from repro_torch.distributed.plan_shard import partition_plan
+        shd = partition_plan(q_ids, q_cnt, q_slots, kv_row_ids, kv_row_cnt, t_kv, geom)
 
     # GEMM-O reduction sparsity over the kept rows; padding slots get empty
     # head lists (the kernel's output aliases the bias, so a padded
@@ -359,6 +393,10 @@ def build_dispatch_plan(m_c: torch.Tensor, m_s: torch.Tensor, cfg, n_tokens: int
             (kv_row_ids, row_ids, q_ids, q_slots, kv_ids, head_ids))
         bkt = {k: v.to(torch.int16) if k in _BKT_IDS else v for k, v in bkt.items()}
         gmo = {k: v.to(torch.int16) if k in _GMO_IDS else v for k, v in gmo.items()}
+        # shd_gather_idx indexes the exchange buffer (buf_blocks > T_kv
+        # entries), so the shd_* ids narrow under a gate of their own.
+        if shd and geom.buf_blocks < 2 ** 15:
+            shd = {k: v.to(torch.int16) if k in _SHD_IDS else v for k, v in shd.items()}
 
     plan = DispatchPlan(
         q_ids=q_ids, q_cnt=q_cnt, q_slots=q_slots,
@@ -366,7 +404,7 @@ def build_dispatch_plan(m_c: torch.Tensor, m_s: torch.Tensor, cfg, n_tokens: int
         kv_row_ids=kv_row_ids, kv_row_cnt=kv_row_cnt,
         row_ids=row_ids, row_cnt=row_cnt,
         head_ids=head_ids, head_cnt=head_cnt, head_mask=head_mask,
-        m_ch=m_ch, row_score=row_score, occ_hist=occ_hist, **bkt, **gmo)
+        m_ch=m_ch, row_score=row_score, occ_hist=occ_hist, **bkt, **gmo, **shd)
     # Opt-in check (EngineConfig.validate_plans / REPRO_VALIDATE_PLANS=1):
     # the structural validator on the host, synchronously; raises
     # PlanInvariantError.  Off, nothing is copied and nothing waits.

@@ -29,8 +29,8 @@ __all__ = ["gemm_q_ref", "attention_csr_ref", "gemm_o_ref",
 
 _NEG_INF = -1e30
 
-# Elements of the (BH chunk, Cq·block_q, N_kv) score tensor the attention
-# oracle materialises at once; bounds its memory at full model width.
+# Elements the attention oracles materialise at once (scores, or gathered
+# K/V per chunk of slots); bounds their memory at full model width.
 _SCORE_ELEMS = 1 << 28
 
 
@@ -63,39 +63,37 @@ def attention_csr_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o_reuse (BH, N, d); q_ids/q_src (BH, Cq); q_cnt (BH,); kv_ids
     (BH, Cq, Ckv); kv_cnt (BH, Cq).  For slots ``c < q_cnt[bh]`` the rows of
     block ``q_ids[bh, c]`` attend to the KV blocks ``kv_ids[bh, c, :kv_cnt]``
-    (zeros when the list is empty); every other row keeps ``o_reuse``."""
+    (zeros when the list is empty); every other row keeps ``o_reuse``.
+
+    Each live slot gathers its own list's K/V blocks in list order and
+    reduces over them alone (``Ckv · block_kv`` keys), so a row's result
+    depends on its Q block and the blocks it lists, not on where they lie in
+    K/V: a shard that holds a row's blocks in a smaller buffer computes the
+    same bits (mesh dispatch).  Slots run in chunks that bound the gathered
+    K/V and the scores."""
     bh, n_kv, d = k.shape
     cq, ckv = kv_ids.shape[-2:]
-    t_kv = n_kv // block_kv
-    scale = (d ** -0.5) if scale is None else scale
-    # Block mask of each slot's KV list -> token mask over N_kv.
-    j_live = torch.arange(ckv, device=k.device) < kv_cnt[..., None]
-    sid = torch.where(j_live, kv_ids.long(), t_kv)
-    blk = torch.zeros((bh, cq, t_kv + 1), dtype=torch.bool, device=k.device)
-    blk.scatter_(-1, sid, True)
-    tok = torch.repeat_interleave(blk[..., :t_kv], block_kv, dim=-1)  # (BH, Cq, N_kv)
-
+    kb = k.reshape(bh, n_kv // block_kv, block_kv, d)
+    vb = v.reshape(bh, n_kv // block_kv, block_kv, d)
     qb = q.reshape(bh, -1, block_q, d)
-    qg = torch.gather(qb, 1, q_src.long()[..., None, None].expand(bh, cq, block_q, d))
-    qg = qg.reshape(bh, cq * block_q, d).to(torch.float32)
-    out_rows = torch.empty((bh, cq * block_q, d), dtype=torch.float32, device=k.device)
-    chunk = max(1, _SCORE_ELEMS // max(1, cq * block_q * n_kv))
-    for s0 in range(0, bh, chunk):
-        sl = slice(s0, s0 + chunk)
-        s = (qg[sl] @ k[sl].to(torch.float32).transpose(-1, -2)) * scale
-        mask = torch.repeat_interleave(tok[sl], block_q, dim=1)
-        s = torch.where(mask, s, _NEG_INF)
+    scale = (d ** -0.5) if scale is None else scale
+    out = o_reuse.clone()
+    b_idx, c_idx = (torch.arange(cq, device=k.device) < q_cnt[:, None]).nonzero(as_tuple=True)
+    j_live = torch.arange(ckv, device=k.device)
+    chunk = max(1, _SCORE_ELEMS // (ckv * block_kv * max(d, block_q)))
+    for s0 in range(0, b_idx.numel(), chunk):
+        bi, ci = b_idx[s0:s0 + chunk], c_idx[s0:s0 + chunk]
+        ids = kv_ids[bi, ci].long()                                      # (L, Ckv)
+        kg = kb[bi[:, None], ids].reshape(-1, ckv * block_kv, d).to(torch.float32)
+        vg = vb[bi[:, None], ids].reshape(-1, ckv * block_kv, d).to(torch.float32)
+        qg = qb[bi, q_src[bi, ci].long()].to(torch.float32)              # (L, bq, d)
+        mask = torch.repeat_interleave(j_live < kv_cnt[bi, ci][:, None], block_kv,
+                                       dim=-1)[:, None, :]               # (L, 1, Ckv·bk)
+        s = torch.where(mask, (qg @ kg.transpose(-1, -2)) * scale, _NEG_INF)
         p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
         l = p.sum(dim=-1, keepdim=True)
-        out_rows[sl] = (p @ v[sl].to(torch.float32)) / torch.where(l == 0, 1.0, l)
-
-    out = o_reuse.clone()
-    live = torch.arange(cq, device=k.device) < q_cnt[:, None]        # (BH, Cq)
-    b_idx, c_idx = live.nonzero(as_tuple=True)
-    rows = (q_ids[b_idx, c_idx].long()[:, None] * block_q
-            + torch.arange(block_q, device=k.device))                # (L, bq)
-    src = out_rows.reshape(bh, cq, block_q, d)[b_idx, c_idx]          # (L, bq, d)
-    out[b_idx[:, None], rows] = src.to(out.dtype)
+        rows = q_ids[bi, ci].long()[:, None] * block_q + torch.arange(block_q, device=k.device)
+        out[bi[:, None], rows] = ((p @ vg) / torch.where(l == 0, 1.0, l)).to(out.dtype)
     return out
 
 

@@ -20,6 +20,14 @@ arrival), ``--mixed-steps`` alternates step counts (``steps`` and
 ``3·steps//4``), ``--mixed-shapes`` vision lengths (``n_vision`` and
 ``n_vision − pool``).
 
+``--mesh DP,SP`` serves across a ``(data, seq)`` mesh of
+``torch.distributed`` ranks (plan-sharded Dispatch,
+:mod:`repro_torch.distributed.plan_shard`) and runs under ``torchrun`` with
+``DP·SP`` processes; ``--transport`` picks the process groups' backend:
+``nccl`` with one card per rank, ``gloo`` where ranks share a card or run
+on the CPU.  Every rank serves the same requests and holds the same
+latents; rank 0 prints.
+
     python -m repro_torch.launch.serve --arch flux-mmdit --full --steps 8
     python -m repro_torch.launch.serve --full --batch 1 --requests 6 --steps 8 \
         --serving continuous --lanes 4 --mixed-steps
@@ -28,14 +36,18 @@ arrival), ``--mixed-steps`` alternates step counts (``steps`` and
     python -m repro_torch.launch.serve --schedule hunyuan-1.5x --kv-buckets 3
     python -m repro_torch.launch.serve --arch hunyuan-video-dit --full \
         --n-vision 32768 --batch 1 --requests 1 --steps 8 --schedule hunyuan-1.5x
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1,2 \
+        --transport gloo --full --requests 1 --steps 8
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.core.engine import EngineConfig
@@ -52,13 +64,15 @@ __all__ = ["serve_diffusion", "serving_engine_config", "serving_inputs", "resolv
 SERVING_MODES = ("sequential", "stacked", "continuous")
 
 
-def serving_engine_config(strategy: str = "flashomni", kv_buckets: int = 1) -> EngineConfig:
+def serving_engine_config(strategy: str = "flashomni", kv_buckets: int = 1,
+                          mesh: tuple = (1, 1)) -> EngineConfig:
     """The serving engine config of the reference launcher (serve.py:76-78);
-    ``kv_buckets`` 0 (auto), 2 or 3 selects the bucketed Dispatch layout."""
+    ``kv_buckets`` 0 (auto), 2 or 3 selects the bucketed Dispatch layout,
+    ``mesh`` ``(dp, sp)`` the plan-sharded Dispatch's mesh."""
     return EngineConfig(mask=MaskConfig(
         tau_q=0.5, tau_kv=0.15, interval=4, order=1, degrade=0.3,
         block_q=16, block_kv=16, pool=32, warmup_steps=2),
-        strategy=strategy, kv_buckets=kv_buckets)
+        strategy=strategy, kv_buckets=kv_buckets, mesh_dp=mesh[0], mesh_sp=mesh[1])
 
 
 def resolve_device(device) -> torch.device:
@@ -110,7 +124,7 @@ def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
                     arrival_interval: float = 0.0, mixed_steps: bool = False,
                     mixed_shapes: bool = False, shape_buckets=None,
                     mesh: tuple = (1, 1), seed: int = 0, device="cuda",
-                    verbose: bool = True) -> dict:
+                    verbose: bool = True, keep_plans: bool = False) -> dict:
     """Queue-driven diffusion serving in one of :data:`SERVING_MODES` (see
     the module docstring).  ``schedule`` names a SparsitySchedule preset
     (e.g. ``hunyuan-1.5x``) that overrides the per-step mapping of
@@ -119,17 +133,22 @@ def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
     ``mixed_shapes`` shape the requests (:func:`serving_inputs`);
     ``lanes`` and ``shape_buckets`` (default with ``mixed_shapes``:
     ``(n_vision,)``, so the near-miss shape folds in) go to the continuous
-    batcher.  Returns the per-request result dict of
-    :mod:`repro_torch.launch.batching`."""
+    batcher.  ``mesh`` ``(dp, sp)`` other than ``(1, 1)`` serves across the
+    already initialised ``torch.distributed`` world of ``dp·sp`` ranks
+    (raises without one); every rank serves the same requests, and only
+    rank 0 prints.  Returns the per-request result dict of
+    :mod:`repro_torch.launch.batching` (with ``keep_plans``, each request's
+    last DispatchPlan of every layer too)."""
     if serving not in SERVING_MODES:
         raise ValueError(f"unknown serving mode {serving!r}; expected one of "
                          f"{SERVING_MODES}")
     if tuple(mesh) != (1, 1):
-        raise NotImplementedError(f"mesh {mesh} is not ported yet; the port runs on "
-                                  "one device")
+        from repro_torch.launch.mesh import make_engine_mesh
+        make_engine_mesh(*mesh)                       # the world must be there
+        verbose = verbose and dist.get_rank() == 0
     device = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
-    ecfg = serving_engine_config(strategy, kv_buckets)
+    ecfg = serving_engine_config(strategy, kv_buckets, mesh=tuple(mesh))
     params, patch_embed, requests = serving_inputs(
         cfg, n_vision=n_vision, batch=batch, num_requests=num_requests,
         num_steps=num_steps, schedule=schedule, seed=seed, device=device,
@@ -141,16 +160,18 @@ def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
         if shape_buckets is None and mixed_shapes:
             shape_buckets = (n_vision,)
         batcher = ContinuousBatcher(params, cfg, ecfg, patch_embed=patch_embed, lanes=lanes,
-                                    shape_buckets=shape_buckets)
+                                    shape_buckets=shape_buckets, keep_plans=keep_plans)
         batcher.submit_all(requests)
         results = batcher.run()
         st = batcher.stats
         extra = (f"  ticks {st['ticks']} ({st['grouped_ticks']} grouped/"
                  f"{st['scan_ticks']} scan)")
     elif serving == "stacked":
-        results = run_stacked(params, cfg, ecfg, requests, patch_embed=patch_embed)
+        results = run_stacked(params, cfg, ecfg, requests, patch_embed=patch_embed,
+                              keep_plans=keep_plans)
     else:
-        results = run_sequential(params, cfg, ecfg, requests, patch_embed=patch_embed)
+        results = run_sequential(params, cfg, ecfg, requests, patch_embed=patch_embed,
+                                 keep_plans=keep_plans)
     wall = time.perf_counter() - t0
     if verbose:
         if serving == "continuous":
@@ -202,17 +223,34 @@ def main():
     ap.add_argument("--shape-buckets", type=int, nargs="*", default=None,
                     help="continuous batcher: canonical N_v lane sizes (near-miss "
                          "shapes round up)")
+    ap.add_argument("--mesh", default="1,1",
+                    help="DP,SP: plan-sharded Dispatch across DP*SP torchrun ranks")
+    ap.add_argument("--transport", default=None, choices=("nccl", "gloo"),
+                    help="the mesh's process-group backend (default: nccl on the "
+                         "card, gloo on the CPU); ranks sharing a card need gloo")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     n_vision = args.n_vision or (4096 if args.full else 96)
-    serve_diffusion(args.arch, smoke=not args.full, num_requests=args.requests,
-                    batch=args.batch, n_vision=n_vision, num_steps=args.steps,
-                    strategy=args.strategy, schedule=args.schedule,
-                    kv_buckets=args.kv_buckets, serving=args.serving, lanes=args.lanes,
-                    arrival_interval=args.arrival_interval, mixed_steps=args.mixed_steps,
-                    mixed_shapes=args.mixed_shapes,
-                    shape_buckets=tuple(args.shape_buckets) if args.shape_buckets else None,
-                    device=args.device)
+    mesh = tuple(int(a) for a in args.mesh.split(","))
+    device = args.device
+    if mesh != (1, 1):
+        transport = args.transport or ("nccl" if device == "cuda" else "gloo")
+        if transport == "nccl" and device == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+            torch.cuda.set_device(device)
+        dist.init_process_group(transport)           # torchrun's env:// variables
+    try:
+        serve_diffusion(args.arch, smoke=not args.full, num_requests=args.requests,
+                        batch=args.batch, n_vision=n_vision, num_steps=args.steps,
+                        strategy=args.strategy, schedule=args.schedule,
+                        kv_buckets=args.kv_buckets, serving=args.serving, lanes=args.lanes,
+                        arrival_interval=args.arrival_interval, mixed_steps=args.mixed_steps,
+                        mixed_shapes=args.mixed_shapes,
+                        shape_buckets=tuple(args.shape_buckets) if args.shape_buckets else None,
+                        mesh=mesh, device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

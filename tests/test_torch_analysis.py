@@ -6,7 +6,8 @@
   hand-mutated plans the port's findings equal the reference's
   ``check_plan`` findings string for string; stacked axes are tolerated;
   an int16 field ``widen()`` leaves is flagged; the mesh block (``shd_*``)
-  gives the reference's findings on the reference's mesh plan.
+  gives the reference's findings on the reference's mesh plan, moved into
+  the port's DispatchPlan.
 * The ``validate_plans`` hook: once per build under the flag and under
   ``REPRO_VALIDATE_PLANS=1``, raising on a corrupted plan, never when off.
 * The op walk and the passes: kernel regions with their plain ops nested,
@@ -228,29 +229,6 @@ def test_int16_field_left_by_widen_is_flagged_on_a_torch_plan():
                    "DispatchPlan.widen()'s _replace call"]
 
 
-_SHD = ("shd_q_ids", "shd_q_src", "shd_q_slots", "shd_q_cnt", "shd_kv_ids", "shd_kv_cnt",
-        "shd_kv_row_ids", "shd_kv_row_cnt", "shd_gather_idx", "shd_send_ids", "shd_send_cnt")
-
-
-class _MeshPlan(types.SimpleNamespace):
-    """A plan with the reference's mesh fields (the port gets them with
-    mesh dispatch): the port's fields and ``widen`` plus ``shd_*``."""
-
-    _fields = TP.DispatchPlan._fields + _SHD
-
-    def _replace(self, **kw):
-        return _MeshPlan(**{**vars(self), **kw})
-
-    def __iter__(self):
-        return iter(getattr(self, f) for f in self._fields)
-
-    def widen(self):
-        w = lambda a: a if a is None or a.dtype == torch.int32 else a.to(torch.int32)
-        ids = [f for f in self._fields if f in TP._ID_FIELDS or
-               (f.startswith("shd_") and not f.endswith("_cnt"))]
-        return self._replace(**{f: w(getattr(self, f)) for f in ids})
-
-
 @pytest.mark.parametrize("mutate", [False, True])
 def test_mesh_block_matches_reference(mutate):
     jcfg, tcfg = _cfgs(kv_buckets=1)
@@ -270,8 +248,8 @@ def test_mesh_block_matches_reference(mutate):
         leaves["shd_gather_idx"] = leaves["shd_gather_idx"] - 1000
     mesh_cfg = types.SimpleNamespace(mask=tcfg.mask, caps=tcfg.caps, mesh_sp=2,
                                      mesh_pair_slack=1.5)
-    plan = _MeshPlan(**{f: None if leaves.get(f) is None else torch.from_numpy(leaves[f])
-                        for f in _MeshPlan._fields})
+    plan = TP.DispatchPlan(**{f: None if leaves.get(f) is None else torch.from_numpy(leaves[f])
+                              for f in TP.DispatchPlan._fields})
     want = ref_check_plan(_ref_plan(leaves), jcfg, n)
     assert (want != []) == mutate
     assert check_plan(plan, mesh_cfg, n) == want
@@ -637,9 +615,10 @@ def test_cli_pass_globs(capsys):
     assert "across 4 pass(es)" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="match no pass"):
         cli.main(["--device", "cpu", "--passes", "no-such-*"])
-    with pytest.raises(SystemExit) as e:
+    # The mesh fixture needs the two-rank world: in one process it exits
+    # with the reason (tests/test_torch_mesh.py runs it in the world).
+    with pytest.raises(SystemExit, match="world of 2 ranks"):
         cli.main(["--device", "cpu", "--fixture", "mesh-allgather"])
-    assert e.value.code == 2
 
 
 def test_cli_defaults_to_the_card_and_raises_without_it():

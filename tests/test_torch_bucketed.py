@@ -322,6 +322,9 @@ def test_strategy_emissions_bucketed_roundtrip(strategy):
     rebuilt = TE.plan_from_state(tst2, tcfg, n)
     for f in TP.DispatchPlan._fields:
         a, c = getattr(rebuilt, f), getattr(tst2.plan, f)
+        if a is None:                               # a mesh field of a one-device plan
+            assert c is None, f
+            continue
         assert a.dtype == c.dtype and torch.equal(a, c), f
     _same_plan(JE.plan_from_state(jst2, jcfg, n), rebuilt)
 

@@ -725,3 +725,61 @@ def test_plan_validator_on_a_card_plan(dev):
     bad = plan._replace(bkt_kv_cnt=plan.bkt_kv_cnt + 7)
     cpu = bad._replace(**{f: None if v is None else v.cpu() for f, v in zip(bad._fields, bad)})
     assert check_plan(bad, cfg, _N) == check_plan(cpu, cfg, _N) != []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_at_mesh_shard_shapes(dev, dtype):
+    """B2 as a seq-mesh shard calls it: Q the replicated compact projection
+    (N_q), K/V the shard's exchange buffer (N_kv), the output its token
+    shard (N), all three different; against the plain version."""
+    g = _gen(4242)
+    bh, d, bq, bkv = 6, 128, 16, 16
+    n_q, n_kv, n = 27 * bq, 19 * bkv, 9 * bq                 # compact Q, buffer, shard
+    tq, tkv, cq = n // bq, n_kv // bkv, 7
+    q_ids, q_cnt = active_indices(torch.rand((bh, tq), generator=g) < 0.7, cq)
+    q_cnt[2] = 0                                             # a (b, h) with no row here
+    q_src = torch.randint(0, n_q // bq, (bh, cq), generator=g).int()
+    kv_ids, kv_cnt = active_indices(torch.rand((bh, cq, tkv), generator=g) < 0.5, 12)
+    q, k, v = (torch.randn((bh, m, d), generator=g).to(dtype) for m in (n_q, n_kv, n_kv))
+    o = torch.randn((bh, n, d), generator=g).to(dtype)
+    args = [t.to(dev) for t in (q, k, v, o, q_ids, q_src, q_cnt, kv_ids, kv_cnt)]
+    got = TK.flashomni_attention_csr(*args, block_q=bq, block_kv=bkv)
+    _close(got, attention_csr_ref(*args, block_q=bq, block_kv=bkv), dtype)
+    assert torch.equal(got[2], args[3][2])                   # o_reuse kept
+
+
+def _card_mesh_rank(rank):
+    """One Dispatch layer on the card across mesh (1, 2) over gloo against
+    one device on the same state: (torch.equal, B2 launches of the mesh run)."""
+    from repro_torch.core.engine import (AttnParams, dispatch_layer, init_layer_state,
+                                         update_layer)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    b, h, n, dm, dh = 2, 4, 512, 128, 64
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev) * 0.05
+    p = AttnParams(wq=rnd(dm, h * dh), wk=rnd(dm, h * dh), wv=rnd(dm, h * dh),
+                   wo=rnd(h * dh, dm), q_scale=torch.ones(dh, device=dev),
+                   k_scale=torch.ones(dh, device=dev))
+    x = torch.randn((b, n, dm), generator=g, device=dev)
+    out = []
+    for kvb, slack in ((1, 1.5), (3, 0.5)):
+        cfg = EngineConfig(mask=MaskConfig(tau_q=0.5, tau_kv=0.15, interval=4, order=1,
+                                           degrade=0.3, block_q=16, block_kv=16, pool=32),
+                           kv_buckets=kvb, mesh_dp=1, mesh_sp=2, mesh_pair_slack=slack)
+        _, st = update_layer(p, x, init_layer_state(b, h, n, dm, dh, cfg, dev), cfg, heads=h)
+        TK.reset_launches()
+        om, _ = dispatch_layer(p, x, st, cfg, heads=h)
+        launches = TK.flashomni_attention_csr.launches
+        o1, _ = dispatch_layer(p, x, st, dataclasses.replace(cfg, mesh_sp=1), heads=h)
+        out.append((bool(torch.equal(om, o1)), launches))
+    return out
+
+
+def test_mesh_dispatch_layer_on_the_card(dev):
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import run_local_mesh
+    _build.load()                         # build once here: the ranks only load it
+    for rank in run_local_mesh(_card_mesh_rank, 1, 2, timeout=120):
+        assert rank == [(True, 1), (True, 1)], rank
