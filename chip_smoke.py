@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Six paths run, each with the launch counts set to 0 just before it and
-read just after: P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
+Seven paths run, each with the launch counts set to 0 just before it and
+read just after: T1 (training flux-mmdit at full width and 2 blocks, the
+engine off: no kernel may launch), P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
 GEMM-O), P2 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2
 buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
 unified kernel entry on one full-width layer: the symbols attention and the
@@ -52,29 +53,44 @@ final line):
                 38 plans of one full-width flux-mmdit Update step built with
                 ``validate_plans=True``, and the six smoke samplers again with
                 the hook on; the findings (any fails) and the seconds;
-  5. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
+  5. train    — the training path (``repro_torch.launch.train``): the
+                dense attention's grad branch at one full-width layer (B 1,
+                24 heads, 4608 tokens, f32) against autograd of the
+                unchunked attention (dq, dk, dv within 1e-4; its forward
+                within rel-L2 1e-6 of the no-grad body); flux-smoke trained
+                6 steps on the card and on the CPU from the same weights,
+                with no compression, int8 and top-k (loss and gradient norm
+                within 1e-4 relative at every step); then T1: flux-mmdit at
+                every published width and 2 of 38 blocks, batch 1, 4096 +
+                512 tokens, AdamW, 6 steps, a checkpoint every 3 (keep 1) and
+                a node failure injected at step 4: finite losses, one
+                restart, step 3 bit-equal before and after it, no kernel
+                launched; parameters, step seconds (loss and gradients,
+                update), checkpoint bytes and seconds, restore seconds, peak
+                memory;
+  6. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
                 request of 8 steps (steps 3, 4, 5 and 7 are Dispatch
                 steps): finite outputs, and GEMM-Q, CSR attention and GEMM-O
                 each launched 38 layers x 4 steps = 152 times;
-  6. serve_bucketed — P2 at full width, 1 request of 8 steps: GEMM-Q and the
+  7. serve_bucketed — P2 at full width, 1 request of 8 steps: GEMM-Q and the
                 two bucketed kernels each launched 38 x 4 = 152 times, the
                 uniform attention and GEMM-O never; latency, density, peak
                 memory, and the share of live KV blocks and live (row, head)
                 pairs the buckets dropped at one interior layer's last plan;
-  7. ops      — ``python -m repro_torch.quickstart --full`` on the card: one
+  8. ops      — ``python -m repro_torch.quickstart --full`` on the card: one
                 Update and one Dispatch of a flux-mmdit-width attention
                 layer, then every ``repro_torch.kernels.ops`` entry on the
                 layer's own symbols (symbols attention bit-equal to CSR, both
                 against the mask oracle, 2-bucket attention against its plain
                 version, Taylor reuse against the layer's forecast); the
                 symbols attention and the Taylor reuse must launch;
-  8. twin     — one flux-width Dispatch layer under the kernels and under
+  9. twin     — one flux-width Dispatch layer under the kernels and under
                 the structural twin (``backend="torch"``, no kernel) on three
                 plans (union layout at ``cap_kv = T_kv``, sliding-window at 2
                 buckets, per-row layout at ``cap_kv < T_kv``): the largest
                 difference and its share of the float32 tolerance, with the
                 rows of empty KV lists zeroed, and both times;
-  9. mesh     — plan-sharded Dispatch, every rank a process of its own on
+ 10. mesh     — plan-sharded Dispatch, every rank a process of its own on
                 the card over ``gloo`` (the kernels built before any rank
                 starts).  The layer cell: one flux-width Dispatch layer (B 2)
                 on mesh (2, 4), seq mode with flashomni at 1 and 3 buckets
@@ -91,11 +107,11 @@ final line):
                 latents within rel-L2 1e-6 of P1's, B1-B3 launched 152 times
                 on each rank, B2's first call on each rank against its plain
                 version, latency beside P1's (not a speed number);
- 10. dense    — P1's request under ``force_dense`` on the same weights and
+ 11. dense    — P1's request under ``force_dense`` on the same weights and
                 noise (no kernel launches): P1's and P2's speedup over it and
                 their relative L2 / PSNR against its latents; then P1, P2
                 and the dense run in bfloat16;
- 11. serve_batched — C1: flux-mmdit at full width, 4 requests of batch 1 at
+ 12. serve_batched — C1: flux-mmdit at full width, 4 requests of batch 1 at
                 t = 0 with 8 and 6 steps in turn, served sequentially,
                 stacked and by the continuous batcher (3 lanes,
                 ``grouped="auto"``: grouped and scan ticks both run):
@@ -106,17 +122,17 @@ final line):
                 stacked 8-step group and its requests alone in lockstep up
                 to the first step whose plans differ, with the Q/K and
                 library-GEMM differences there;
- 12. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
+ 13. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
                 (48 blocks, B=1, 256 + 32 768 tokens), ``hunyuan-1.5x``,
                 uniform layout, float32, 8 steps (3-5 and 7 Dispatch):
                 GEMM-Q, CSR attention and GEMM-O each launched 48 x 4 = 192
                 times, the others never; then its dense run on the same
                 inputs: latency, step seconds, peak memory, speedup, rel-L2
                 / PSNR against dense, and the 50-step projection;
- 13. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
+ 14. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
                 and the bucketed pair on the ``hunyuan-1.5x`` interior plan
                 at 3 buckets, at H1's shapes (B=1, N=33 024) in float32;
- 14. profile  — device time by kernel group within one Update and one
+ 15. profile  — device time by kernel group within one Update and one
                 Dispatch step of P1, P2 and H1 (at 12 of its 48 blocks) at
                 full width (torch.profiler; the chunked dense attention as its
                 own group), and the device's idle share; dispatch purity on
@@ -846,6 +862,156 @@ def phase_analysis():
     emit({"phase": "analysis", **res})
     if findings:
         raise AssertionError(f"the analyzer reported {len(findings)} finding(s): {findings}")
+
+
+# T1, the training cell: flux-mmdit at every published width cut to 2 of
+# its 38 blocks (f32 AdamW state for all 38 takes 16 B x 6.46 B parameters,
+# 103 GB, more than the card), batch 1, 4096 vision + 512 text tokens, the
+# reference launcher's AdamW (lr 1e-3, warm-up 10), 6 steps, a checkpoint
+# every 3 (keep 1) and one injected node failure at step 4: steps 3-5 run
+# again from the step-3 checkpoint.
+T1 = dict(n_layers=2, steps=6, batch=1, seq_len=4096, ckpt_every=3, keep=1, fail_at=(4,))
+# The card-vs-CPU training runs at smoke width (flux-smoke, as the
+# reference's smoke launcher runs it), each with no compression, int8 and
+# top-k: loss and gradient norm within TRAIN_REL at every step.
+TRAIN_SMOKE = dict(steps=6, batch=2, seq_len=64)
+TRAIN_REL = 1e-4
+# The gradient check: one full-width attention layer in f32 (B 1, 24 heads,
+# 4608 tokens, head_dim 128), the grad branch of dense_attention against
+# autograd of an unchunked softmax(q k^T s) v at TOL["float32"]; its forward
+# against the no-grad (in-place) body within GRAD_FWD_REL_L2.
+GRAD_SHAPE = dict(b=1, h=24, n=4608, dh=128)
+GRAD_FWD_REL_L2 = 1e-6
+
+
+def train_grad_check(b, h, n, dh) -> dict:
+    """dq, dk, dv of ``dense_attention``'s grad branch against autograd of the
+    unchunked attention on the same card tensors, and its forward against
+    the in-place no-grad body; both passes' times (CUDA events)."""
+    import torch
+    from repro_torch.core.attention import dense_attention
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(20)
+    q, k, v, cot = (torch.randn((b, h, n, dh), generator=g, device=DEVICE) for _ in range(4))
+
+    def chunked():
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = dense_attention(qs, ks, vs)
+        return (out.detach(), *torch.autograd.grad(out, (qs, ks, vs), cot))
+
+    def whole():
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = torch.softmax((qs @ ks.transpose(-1, -2)) * dh ** -0.5, dim=-1) @ vs
+        return torch.autograd.grad(out, (qs, ks, vs), cot)
+
+    out, *got = chunked()
+    want = whole()
+    with torch.no_grad():
+        plain = dense_attention(q, k, v)
+    fwd_rel = float((out - plain).norm() / plain.norm())
+    res = {"shape": dict(b=b, h=h, n=n, dh=dh), "forward_rel_l2_vs_no_grad": fwd_rel,
+           "ms": {"grad_branch_fwd_bwd": time_ms(chunked, 3, 1),
+                  "unchunked_fwd_bwd": time_ms(whole, 3, 1),
+                  "no_grad_fwd": time_ms(lambda: dense_attention(q, k, v), 3, 1)}}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        res[name] = {"max_abs_err": float((a - w).abs().max()),
+                     "ok": bool(torch.allclose(a, w, rtol=TOL["float32"],
+                                               atol=TOL["float32"]))}
+    del q, k, v, cot, out, got, want, plain
+    torch.cuda.empty_cache()
+    res["ok"] = fwd_rel <= GRAD_FWD_REL_L2 and all(res[x]["ok"] for x in ("dq", "dk", "dv"))
+    return res
+
+
+def train_smoke_vs_cpu(compress) -> dict:
+    """flux-smoke trained on the card and on the CPU from the same seeded
+    weights: per-step loss and gradient norm, largest relative difference."""
+    import tempfile
+    import torch
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch.train import train
+    from repro_torch.models import dit
+    params = dit.init_params(get_smoke("flux-mmdit"), torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        with tempfile.TemporaryDirectory() as tmp:
+            _, runs[dev] = train("flux-mmdit", compress=compress, ckpt_dir=tmp, params=params,
+                                 ckpt_every=10 ** 6, device=dev, **TRAIN_SMOKE)
+    rel = max(abs(a[key] - c[key]) / abs(c[key])
+              for a, c in zip(runs[DEVICE].metrics, runs["cpu"].metrics)
+              for key in ("loss", "grad_norm"))
+    return {"compress": compress, "max_rel_diff": rel,
+            "losses": [m["loss"] for m in runs[DEVICE].metrics],
+            "ok": bool(rel <= TRAIN_REL and len(runs[DEVICE].metrics) == TRAIN_SMOKE["steps"])}
+
+
+def phase_train() -> dict:
+    """The training path (``repro_torch.launch.train``) on the card: the
+    gradient check of the dense attention at full width, flux-smoke trained on
+    the card against the CPU (no compression, int8, top-k), then T1: flux-mmdit
+    at full width and 2 blocks through the restartable loop with one injected
+    failure.  Launch counts set to 0 just before T1 and read just after: the
+    engine is off in training, so no kernel may launch."""
+    import math
+    import shutil
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+    t_all = time.perf_counter()
+    res = {"phase": "train", "grad_check": train_grad_check(**GRAD_SHAPE)}
+    res["smoke_vs_cpu"] = [train_smoke_vs_cpu(c) for c in (None, "int8", "topk")]
+    cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=T1["n_layers"])
+    run = {key: val for key, val in T1.items() if key != "n_layers"}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp_free_gb = shutil.disk_usage(tmp).free / 1e9
+        state, out = train(cfg, ckpt_dir=tmp, device=DEVICE, **run)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    n_params = sum(x.numel() for x in tree_leaves(state[0]))
+    del state
+    torch.cuda.empty_cache()
+    metrics = out.metrics
+    step3 = [(m["loss"], m["grad_norm"]) for m in metrics if m["step"] == 3]
+    saves = [h for h in out.checkpoints if h["kind"] == "save"]
+    restores = [h for h in out.checkpoints if h["kind"] == "restore"]
+    res["T1"] = {
+        "config": {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "heads": cfg.n_heads, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
+                   "n_text": cfg.n_text_tokens, **run},
+        "n_params": n_params, "n_params_formula": cfg.n_params(),
+        "wall_s": wall, "restarts": out.restarts, "final_step": out.final_step,
+        "steps": [{k: m[k] for k in ("step", "loss", "grad_norm", "grad_s", "update_s")}
+                  for m in metrics],
+        "median_s": {"grad": statistics.median(m["grad_s"] for m in metrics),
+                     "update": statistics.median(m["update_s"] for m in metrics)},
+        "checkpoints": saves, "restores": restores, "ckpt_dir_free_gb": tmp_free_gb,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "step3_before_after_restart": step3, "launches": launches}
+    res["seconds"] = time.perf_counter() - t_all
+    emit(res)
+    faults = []
+    if not res["grad_check"]["ok"]:
+        faults.append(f"gradient check: {res['grad_check']}")
+    faults += [f"card vs CPU: {r}" for r in res["smoke_vs_cpu"] if not r["ok"]]
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
+        faults.append("T1: a loss or gradient norm is not finite")
+    if out.restarts != 1 or out.final_step != run["steps"]:
+        faults.append(f"T1: {out.restarts} restarts, final step {out.final_step}")
+    if len(step3) != 2 or step3[0] != step3[1]:
+        faults.append(f"T1: step 3 before and after the restart differ: {step3}")
+    if any(launches.values()):
+        faults.append(f"T1 launched kernels: {launches}")
+    if faults:
+        raise AssertionError("train: " + "; ".join(faults))
+    return launches
 
 
 def dispatch_steps(sched, dense=False) -> int:
@@ -1876,6 +2042,7 @@ def main() -> int:
         timed(phase_small)
         timed(phase_analysis)
         served, by_path = {}, {}
+        by_path["T1"] = timed(phase_train)
         by_path["P1"], served["P1"], p1_plans = timed(phase_serve)
         by_path["P2"], served["P2"] = timed(phase_serve_bucketed)
         by_path["ops"] = timed(phase_ops)

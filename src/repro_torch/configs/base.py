@@ -51,3 +51,20 @@ class ArchConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks), the reference's
+        formula: for a DiT it counts the attention and a 3-matrix MLP per
+        block and nothing outside the blocks."""
+        d, hd = self.d_model, self.hd
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        if self.moe:
+            mlp = self.moe.num_experts * 3 * d * self.moe.d_ff + d * self.moe.num_experts
+        else:
+            mlp = 3 * d * self.d_ff
+        if self.family == "ssm":
+            # Mamba2: in_proj (d -> 2*d_inner + 2*groups*state + heads), out_proj
+            d_in = 2 * d
+            attn, mlp = 0, d * (2 * d_in + 2 * self.ssm_state) + d_in * d
+        return emb + self.n_layers * (attn + mlp)

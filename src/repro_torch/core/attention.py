@@ -57,9 +57,12 @@ def dense_attention(q, k, v, *, scale: Optional[float] = None, mask=None):
     q4, k4 = fold(q, n_q, q.shape[-1]), fold(k, n_kv, k.shape[-1])
     v4 = fold(v, n_kv, d_v).to(torch.float32)
     m4 = None if mask is None else fold(mask, n_q, n_kv)
-    out = torch.empty((*q4.shape[:2], n_q, d_v), dtype=q.dtype, device=q.device)
     rows = max(1, min(n_q, _SCORE_ELEMS // max(1, n_kv)))
     heads = max(1, _SCORE_ELEMS // max(1, rows * n_kv)) if rows == n_q else 1
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = _dense_attention_grad(q4, k4, v4, m4, scale, rows, heads, q.dtype)
+        return out.reshape(*lead, n_q, d_v)
+    out = torch.empty((*q4.shape[:2], n_q, d_v), dtype=q.dtype, device=q.device)
     for i in range(q4.shape[0]):
         for h0 in range(0, q4.shape[1], heads):
             hs = slice(h0, h0 + heads)
@@ -73,6 +76,32 @@ def dense_attention(q, k, v, *, scale: Optional[float] = None, mask=None):
                 s.div_(s.sum(dim=-1, keepdim=True))
                 out[i, hs, rs] = torch.einsum("...qk,...kd->...qd", s, v4[i, hs]).to(q.dtype)
     return out.reshape(*lead, n_q, d_v)
+
+
+def _dense_attention_grad(q4, k4, v4, m4, scale, rows, heads, dtype):
+    """The grad branch of :func:`dense_attention`, over the same (heads, rows)
+    chunks: each chunk's scores, softmax and weighted sum are formed out of
+    place and the chunks are joined with ``torch.cat``, so autograd can
+    differentiate it.  It keeps one f32 probability chunk per chunk for the
+    backward (``torch.softmax`` saves its output, which the second einsum
+    also reads): ≈ 2.04 GB a layer at flux-mmdit's width, batch 1."""
+    out = []
+    for i in range(q4.shape[0]):
+        by_head = []
+        for h0 in range(0, q4.shape[1], heads):
+            hs = slice(h0, h0 + heads)
+            by_row = []
+            for r0 in range(0, q4.shape[2], rows):
+                rs = slice(r0, r0 + rows)
+                s = torch.einsum("...qd,...kd->...qk", q4[i, hs, rs],
+                                 k4[i, hs]).to(torch.float32) * scale
+                if m4 is not None:
+                    s = s.masked_fill(~m4[i, hs, rs], _NEG_INF)
+                p = torch.softmax(s, dim=-1)
+                by_row.append(torch.einsum("...qk,...kd->...qd", p, v4[i, hs]).to(dtype))
+            by_head.append(torch.cat(by_row, dim=-2))
+        out.append(torch.cat(by_head, dim=0))
+    return torch.stack(out)
 
 
 def attention_plan_indices(m_c: torch.Tensor, m_s: torch.Tensor,

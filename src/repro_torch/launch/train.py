@@ -1,0 +1,167 @@
+"""Training launcher, port of ``repro.launch.train``:
+
+    python -m repro_torch.launch.train --arch flux-mmdit [--steps N] [--full]
+        [--batch B] [--seq-len N] [--compress int8|topk] [--device cpu]
+
+The loop: a train step (the loss and its gradients through autograd, the
+optional gradient compression round trip, AdamW), async checkpointing, a
+straggler watchdog and restart on failure.  The engine is off in training:
+``models.dit.train_loss`` runs the dense mode, so no Hopper kernel
+launches.  Without ``--full`` it trains the arch's smoke config; ``--full``
+takes the published one, and refuses before allocating when the f32
+training state (parameters, gradients and AdamW's two moments, 16 bytes a
+parameter) does not fit on the card: flux-mmdit's 38 blocks need ≈ 92 GB
+(``ArchConfig.n_params``), more than one H100 holds, and full depth waits
+for sharded training state (ROADMAP A.10).  :func:`train` also takes an
+``ArchConfig``, e.g. flux-mmdit cut to 2 blocks, and initial ``params``.
+
+Runs on the card unless ``device="cpu"`` is asked for; without a card it
+raises.  Not applicable, each with ROADMAP A.10: ``launch/steps.py``'s step
+builders and ``launch/specs.py`` (jit + ``NamedSharding`` step factories
+for the GSPMD dry-run), and ``runtime/elastic.py`` (resharding GSPMD state
+onto a new mesh).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.registry import get_config, get_smoke
+from repro_torch.data.synthetic import DataConfig, make_batch
+from repro_torch.distributed import compression
+from repro_torch.launch.serve import resolve_device
+from repro_torch.models.registry import get_model
+from repro_torch.optim.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.runtime.fault_tolerance import (FailureInjector, RestartableLoop,
+                                                 StepWatchdog)
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+__all__ = ["make_step_fn", "train", "check_state_fits", "STATE_BYTES_PER_PARAM"]
+
+# f32 parameters, gradients and AdamW's mu and nu.
+STATE_BYTES_PER_PARAM = 16
+
+
+def check_state_fits(cfg: ArchConfig, free_bytes: int) -> None:
+    """Raise ``ValueError`` when ``cfg``'s f32 training state does not fit in
+    ``free_bytes`` of device memory."""
+    need = cfg.n_params() * STATE_BYTES_PER_PARAM
+    if need > free_bytes:
+        raise ValueError(
+            f"{cfg.name} at {cfg.n_layers} blocks needs {need / 1e9:.1f} GB of f32 "
+            f"training state (parameters, gradients, AdamW mu and nu: "
+            f"{STATE_BYTES_PER_PARAM} B x {cfg.n_params()} parameters); the card has "
+            f"{free_bytes / 1e9:.1f} GB free.  Full depth needs the training state "
+            f"sharded across cards (distributed/sharding, not ported: ROADMAP A.10); "
+            f"pass a config with fewer blocks")
+
+
+def make_step_fn(model, opt_cfg: AdamWConfig, dcfg: DataConfig, cfg: ArchConfig, *,
+                 compress: Optional[str] = None, dtype: torch.dtype = torch.float32,
+                 device="cuda"):
+    """``step_fn(state, step) -> (state, metrics)`` for ``RestartableLoop``.
+
+    Each step takes fresh leaf tensors that require grad, so no gradient
+    outlives its step.  The metrics hold the loss, the gradient norm and the
+    seconds of the loss and its gradients (``grad_s``) and of the
+    compression and AdamW (``update_s``); each ends where a value is read
+    back, which waits for the device."""
+    err_state = {"e": None}
+
+    def step_fn(state, step):
+        params, opt_state = state
+        if compress and err_state["e"] is None:
+            err_state["e"] = compression.init_error_state(params)
+        batch = make_batch(cfg, dcfg, step, device=device)
+        t0 = time.perf_counter()
+        leaves, tdef = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        loss = model.train_loss(tree_unflatten(tdef, leaves), batch, dtype=dtype)
+        grads = tree_unflatten(tdef, torch.autograd.grad(loss, leaves))
+        loss = float(loss.detach())
+        t1 = time.perf_counter()
+        if compress:
+            comp, err_state["e"] = compression.compress_tree(grads, err_state["e"], compress)
+            grads = compression.decompress_tree(comp)
+        params, opt_state, gnorm = adamw_update(grads, opt_state, params, opt_cfg)
+        gnorm = float(gnorm)
+        return (params, opt_state), {"loss": loss, "grad_norm": gnorm,
+                                     "grad_s": t1 - t0, "update_s": time.perf_counter() - t1}
+
+    return step_fn
+
+
+def train(arch: str | ArchConfig, *, smoke: bool = True, steps: int = 50,
+          ckpt_dir: str = "artifacts/ckpt", batch: int = 4, seq_len: int = 128,
+          compress: Optional[str] = None, fail_at: tuple[int, ...] = (),
+          ckpt_every: int = 10, keep: int = 2, params: Optional[dict] = None,
+          device="cuda"):
+    """The reference's ``train`` (AdamW at lr 1e-3, warm-up 10, cosine over
+    ``steps``; weights from seed 0 unless ``params`` is given).  ``arch`` is
+    an arch id (its smoke config unless ``smoke=False``) or an ``ArchConfig``.
+    Returns ``(state, LoopResult)``."""
+    device = resolve_device(device)
+    if isinstance(arch, ArchConfig):
+        cfg = arch
+    else:
+        cfg = get_smoke(arch) if smoke else get_config(arch)
+    if device.type == "cuda":
+        check_state_fits(cfg, torch.cuda.mem_get_info(device)[0])
+    model = get_model(cfg)
+    dcfg = DataConfig(seed=0, batch=batch, seq_len=seq_len)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps)
+
+    step_fn = make_step_fn(model, opt_cfg, dcfg, cfg, compress=compress, device=device)
+    ckpt = Checkpointer(f"{ckpt_dir}/{cfg.name}", keep=keep)
+    loop = RestartableLoop(ckpt, ckpt_every=ckpt_every)
+    injector = FailureInjector(fail_at) if fail_at else None
+    t0 = time.time()
+    # The initial state is built in the call, so that no name here keeps it
+    # alive beside the loop's current state.
+    state, result = loop.run(_initial_state(model, params, device), step_fn, steps,
+                             injector=injector, watchdog=StepWatchdog())
+    dt = time.time() - t0
+    losses = [m["loss"] for m in result.metrics]
+    print(f"[train] {cfg.name}: {result.final_step} steps in {dt:.1f}s  "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}  "
+          f"restarts={result.restarts} stragglers={len(result.stragglers)}")
+    return state, result
+
+
+def _initial_state(model, params: Optional[dict], device) -> tuple:
+    """``(params, adamw_init(params))``: the weights from seed 0 unless given."""
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        params = model.init_params(gen, device)
+    else:
+        params = tree_map(lambda x: x.to(device), params)
+    return params, adamw_init(params)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--compress", default=None, choices=[None, "int8", "topk"])
+    ap.add_argument("--ckpt-dir", default="artifacts/ckpt")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    train(args.arch, smoke=not args.full, steps=args.steps, batch=args.batch,
+          seq_len=args.seq_len, compress=args.compress, ckpt_dir=args.ckpt_dir,
+          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

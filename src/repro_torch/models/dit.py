@@ -26,7 +26,8 @@ from repro_torch.core.attention import dense_attention
 from repro_torch.core.engine import AttnParams, EngineConfig, LayerState
 from repro_torch.models.layers import rms_norm
 
-__all__ = ["init_params", "init_engine_states", "denoise_step", "timestep_embedding"]
+__all__ = ["init_params", "init_engine_states", "denoise_step", "timestep_embedding",
+           "train_loss"]
 
 
 def _canonicalize_layer_strategies(layer_strategies, ecfg: EngineConfig, n_layers: int):
@@ -174,3 +175,24 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
     x = _modulate(rms_norm(x, params["final_norm"], cfg.norm_eps), sh, sc)
     v = x[:, n_text:] @ params["final_proj"].to(dtype)
     return v, states
+
+
+def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Flow-matching training loss (rectified flow): v_θ(x_t, t) ≈ x1 − x0.
+
+    batch: {"latents": (B,N_v,patch_dim) clean targets,
+            "patch_emb": (B,N_v,d_model) embedded noisy input,
+            "text_emb": (B,N_t,d_model), "t": (B,), "noise": like latents}.
+    The engine is off (``mode="dense"``), so the layers never read their
+    states and all share one initial state.  With parameters that require
+    grad the dense attention takes its differentiable branch.
+    """
+    ecfg = EngineConfig()
+    pe, text = batch["patch_emb"], batch["text_emb"]
+    states = init_engine_states(cfg, ecfg, pe.shape[0], text.shape[1] + pe.shape[1],
+                                pe.device)
+    v, _ = denoise_step(params, cfg, ecfg, states, pe, text, batch["t"], mode="dense",
+                        dtype=dtype)
+    target = batch["latents"] - batch["noise"]
+    return (v.to(torch.float32) - target.to(torch.float32)).square().mean()

@@ -36,7 +36,10 @@ The continuous batcher serves a mixed-step queue at smoke size on the card
 (grouped and scan ticks, lane refills) against the same run on the CPU.
 The invariant analyzer runs green with the engine on the card, its
 Dispatch records hold the kernels that launched, and the plan validator
-reads a plan on the card as it reads its copy on the CPU.
+reads a plan on the card as it reads its copy on the CPU.  The dense
+attention's grad branch (training) gives the gradients of the unchunked
+attention on the card, and one training step of flux-mmdit at full width and
+2 blocks runs with no kernel launched.
 """
 
 import dataclasses
@@ -783,3 +786,41 @@ def test_mesh_dispatch_layer_on_the_card(dev):
     _build.load()                         # build once here: the ranks only load it
     for rank in run_local_mesh(_card_mesh_rank, 1, 2, timeout=120):
         assert rank == [(True, 1), (True, 1)], rank
+
+
+@pytest.mark.parametrize("budget,n", [(None, 2048), (1 << 20, 1500)])
+def test_dense_attention_grads_on_the_card(dev, monkeypatch, budget, n):
+    """The grad branch of the dense attention on the card (at the real score
+    budget: one chunk; at 2^20 elements: chunks of one head and 699 rows)
+    against autograd of the unchunked softmax(q k^T s) v on the same card
+    tensors, f32 at 1e-4."""
+    from repro_torch.core import attention
+    if budget is not None:
+        monkeypatch.setattr(attention, "_SCORE_ELEMS", budget)
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    q, k, v, cot = (torch.randn((1, 4, n, 128), generator=g, device=dev) for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(attention.dense_attention(*leaves), leaves, cot)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = torch.softmax((qs @ ks.transpose(-1, -2)) * 128 ** -0.5, dim=-1) @ vs
+    want = torch.autograd.grad(out, (qs, ks, vs), cot)
+    for a, w in zip(got, want):
+        _close(a, w, torch.float32)
+
+
+def test_one_full_width_training_step_on_the_card(dev, tmp_path):
+    """flux-mmdit at every published width and 2 blocks, batch 1, 4096 + 512
+    tokens: one train step gives a finite loss and gradient norm and launches
+    no kernel (the engine is off in training); the full 38 blocks refuse
+    before allocating (their f32 training state does not fit one card)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import train
+    cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=2)
+    TK.reset_launches()
+    _, res = train(cfg, steps=1, batch=1, seq_len=4096, ckpt_dir=str(tmp_path), device=dev)
+    assert all(fn.launches == 0 for fn in TK.KERNELS)
+    m = res.metrics[0]
+    assert torch.isfinite(torch.tensor([m["loss"], m["grad_norm"]])).all(), m
+    with pytest.raises(ValueError, match="sharded"):
+        train("flux-mmdit", smoke=False, steps=1, ckpt_dir=str(tmp_path), device=dev)

@@ -4,7 +4,8 @@
     ``jax``, ``jaxlib`` or the JAX package ``repro``.
 (b) Importing the port's entry points loads neither ``jax`` nor ``repro``.
 (c) The serving entry point and the quickstart default to the card and
-    raise without one.
+    raise without one (the training launcher's case is in
+    ``tests/test_torch_train.py``).
 (d) A kernel call on a tensor that is not on the CPU builds or raises: with
     no ``nvcc`` it raises and never falls back to the plain version.  (A
     CPU-only PyTorch cannot make a CUDA tensor, so a ``meta`` tensor stands
@@ -64,6 +65,7 @@ def test_entry_points_load_no_jax():
             "import repro_torch.convert, repro_torch.kernels, repro_torch.kernels.ops\n"
             "import repro_torch.quickstart\n"
             "import repro_torch.analysis.__main__, repro_torch.analysis.cost_passes\n"
+            "import repro_torch.launch.train\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "PYTHONPATH": str(ROOT / "src"),
