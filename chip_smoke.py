@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Seven paths run, each with the launch counts set to 0 just before it and
+Nine paths run, each with the launch counts set to 0 just before it and
 read just after: T1 (training flux-mmdit at full width and 2 blocks, the
-engine off: no kernel may launch), P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
+engine off: no kernel may launch), L1 and L2 (the decoder-only LMs
+gemma3-1b and granite-moe-3b-a800m served at full width: they reach no
+kernel, so none may launch), P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
 GEMM-O), P2 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2
 buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
 unified kernel entry on one full-width layer: the symbols attention and the
@@ -68,29 +70,42 @@ final line):
                 launched; parameters, step seconds (loss and gradients,
                 update), checkpoint bytes and seconds, restore seconds, peak
                 memory;
-  6. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
+  6. lm       — the decoder-only LM family (``models/transformer``,
+                ``launch/serve.serve_lm``): its six smoke configs on the card
+                and on the CPU from the same weights (forward logits on 80
+                tokens, 40 decode steps that wrap the 32-slot rings, prefill;
+                each within 1e-4 of the CPU relative to the largest
+                magnitude); then L1, gemma3-1b (26 layers, d_model 1152,
+                vocab 262 144, window 512), and L2, granite-moe-3b-a800m (32
+                layers, 40 experts top-8), at full width in f32:
+                ``serve_lm`` at the reference's defaults (greedy tokens),
+                ms a decode token (median of 20), a 4096-token prefill
+                (seconds, tokens/s, finite logits), peak memory, and for L1
+                decode's logits at positions 0-39 against ``forward``'s
+                within 1e-4; B1-B7 launched 0 times on both;
+  7. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
                 request of 8 steps (steps 3, 4, 5 and 7 are Dispatch
                 steps): finite outputs, and GEMM-Q, CSR attention and GEMM-O
                 each launched 38 layers x 4 steps = 152 times;
-  7. serve_bucketed — P2 at full width, 1 request of 8 steps: GEMM-Q and the
+  8. serve_bucketed — P2 at full width, 1 request of 8 steps: GEMM-Q and the
                 two bucketed kernels each launched 38 x 4 = 152 times, the
                 uniform attention and GEMM-O never; latency, density, peak
                 memory, and the share of live KV blocks and live (row, head)
                 pairs the buckets dropped at one interior layer's last plan;
-  8. ops      — ``python -m repro_torch.quickstart --full`` on the card: one
+  9. ops      — ``python -m repro_torch.quickstart --full`` on the card: one
                 Update and one Dispatch of a flux-mmdit-width attention
                 layer, then every ``repro_torch.kernels.ops`` entry on the
                 layer's own symbols (symbols attention bit-equal to CSR, both
                 against the mask oracle, 2-bucket attention against its plain
                 version, Taylor reuse against the layer's forecast); the
                 symbols attention and the Taylor reuse must launch;
-  9. twin     — one flux-width Dispatch layer under the kernels and under
+ 10. twin     — one flux-width Dispatch layer under the kernels and under
                 the structural twin (``backend="torch"``, no kernel) on three
                 plans (union layout at ``cap_kv = T_kv``, sliding-window at 2
                 buckets, per-row layout at ``cap_kv < T_kv``): the largest
                 difference and its share of the float32 tolerance, with the
                 rows of empty KV lists zeroed, and both times;
- 10. mesh     — plan-sharded Dispatch, every rank a process of its own on
+ 11. mesh     — plan-sharded Dispatch, every rank a process of its own on
                 the card over ``gloo`` (the kernels built before any rank
                 starts).  The layer cell: one flux-width Dispatch layer (B 2)
                 on mesh (2, 4), seq mode with flashomni at 1 and 3 buckets
@@ -107,11 +122,11 @@ final line):
                 latents within rel-L2 1e-6 of P1's, B1-B3 launched 152 times
                 on each rank, B2's first call on each rank against its plain
                 version, latency beside P1's (not a speed number);
- 11. dense    — P1's request under ``force_dense`` on the same weights and
+ 12. dense    — P1's request under ``force_dense`` on the same weights and
                 noise (no kernel launches): P1's and P2's speedup over it and
                 their relative L2 / PSNR against its latents; then P1, P2
                 and the dense run in bfloat16;
- 12. serve_batched — C1: flux-mmdit at full width, 4 requests of batch 1 at
+ 13. serve_batched — C1: flux-mmdit at full width, 4 requests of batch 1 at
                 t = 0 with 8 and 6 steps in turn, served sequentially,
                 stacked and by the continuous batcher (3 lanes,
                 ``grouped="auto"``: grouped and scan ticks both run):
@@ -122,17 +137,17 @@ final line):
                 stacked 8-step group and its requests alone in lockstep up
                 to the first step whose plans differ, with the Q/K and
                 library-GEMM differences there;
- 13. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
+ 14. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
                 (48 blocks, B=1, 256 + 32 768 tokens), ``hunyuan-1.5x``,
                 uniform layout, float32, 8 steps (3-5 and 7 Dispatch):
                 GEMM-Q, CSR attention and GEMM-O each launched 48 x 4 = 192
                 times, the others never; then its dense run on the same
                 inputs: latency, step seconds, peak memory, speedup, rel-L2
                 / PSNR against dense, and the 50-step projection;
- 14. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
+ 15. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
                 and the bucketed pair on the ``hunyuan-1.5x`` interior plan
                 at 3 buckets, at H1's shapes (B=1, N=33 024) in float32;
- 15. profile  — device time by kernel group within one Update and one
+ 16. profile  — device time by kernel group within one Update and one
                 Dispatch step of P1, P2 and H1 (at 12 of its 48 blocks) at
                 full width (torch.profiler; the chunked dense attention as its
                 own group), and the device's idle share; dispatch purity on
@@ -1012,6 +1027,196 @@ def phase_train() -> dict:
     if faults:
         raise AssertionError("train: " + "; ".join(faults))
     return launches
+
+
+# The decoder-only LM family (models/transformer, launch/serve.serve_lm).
+# Its six smoke configs run on the card and on the CPU from the same
+# weights (forward logits on LM_SMOKE_TOKENS tokens, which put the windowed
+# configs' local layers on the banded path; LM_SMOKE_STEPS decode steps,
+# which wrap their 32-slot rings; prefill), each within LM_REL of the CPU:
+# the largest difference over the largest magnitude.  Then L1 (gemma3-1b)
+# and L2 (granite-moe-3b-a800m) at full width in f32: serve_lm at the
+# reference's defaults (batch 2, prompt 32, 16 tokens, 64 slots), ms a
+# decode token (median of LM_TIMED_STEPS, CUDA events), a LM_PREFILL_TOKENS-
+# token prefill of batch 1 (at 4096 > 2 x 512 gemma's local layers take the
+# banded path), and for L1 decode's logits at positions 0 to LM_CHECK_STEPS
+# - 1 against forward's within LM_REL.  No kernel of B1-B7 may launch.
+LM_SMOKE_ARCHS = ("gemma3-1b", "gemma3-12b", "granite-8b", "llama3-405b", "mixtral-8x22b",
+                  "granite-moe-3b-a800m")
+LM_REL = 1e-4
+LM_SMOKE_TOKENS, LM_SMOKE_STEPS = 80, 40
+LM_PATHS = (("L1", "gemma3-1b"), ("L2", "granite-moe-3b-a800m"))
+LM_PREFILL_TOKENS = 4096
+LM_TIMED_STEPS = 20
+LM_CHECK_STEPS = 40
+
+
+def rel_err(got, want) -> float:
+    """Largest absolute difference over the largest magnitude of ``want``."""
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30).cpu())
+
+
+def lm_runs(params, cfg, tokens, steps, max_len=64) -> dict:
+    """``forward``'s logits, the logits of ``steps`` teacher-forced decode
+    steps from an empty cache and ``prefill``'s last row, in f32."""
+    import torch
+    from repro_torch.models import transformer
+    f32 = torch.float32
+    with torch.no_grad():
+        logits, aux = transformer.forward(params, cfg, tokens, dtype=f32)
+        cache = transformer.init_cache(cfg, tokens.shape[0], max_len, f32,
+                                       device=tokens.device)
+        dec = []
+        for i in range(steps):
+            lg, cache = transformer.decode_step(params, cfg, cache, tokens[:, i], i, dtype=f32)
+            dec.append(lg)
+        last = transformer.prefill(params, cfg, tokens, dtype=f32)
+    return {"forward": logits, "aux": aux, "decode": torch.stack(dec, dim=1), "prefill": last}
+
+
+def lm_smoke_vs_cpu(arch) -> dict:
+    import torch
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+    cfg = get_smoke(arch)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, LM_SMOKE_TOKENS),
+                           generator=torch.Generator().manual_seed(1))
+    cpu = lm_runs(params, cfg, tokens, LM_SMOKE_STEPS)
+    card = lm_runs(tree_map(lambda t: t.to(DEVICE), params), cfg, tokens.to(DEVICE),
+                   LM_SMOKE_STEPS)
+    errs = {key: rel_err(card[key], cpu[key]) for key in cpu}
+    finite = all(bool(torch.isfinite(v).all()) for v in card.values())
+    return {"arch": cfg.name, "rel_err": errs,
+            "ok": finite and all(e <= LM_REL for e in errs.values())}
+
+
+def decode_ms(model, params, cfg, steps) -> list:
+    """CUDA-event ms of each of ``steps`` decode steps (batch 2, f32) from an
+    empty cache of 64 slots."""
+    import torch
+    cache = model.init_cache(2, 64, torch.float32, device=DEVICE)
+    tok = torch.zeros((2,), dtype=torch.int32, device=DEVICE)
+    events = []
+    with torch.no_grad():
+        for i in range(steps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            logits, cache = model.decode_step(params, cache, tok, i, dtype=torch.float32)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            end.record()
+            events.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def decode_work(model, params, cfg, median_ms) -> dict:
+    """One decode step (batch 2, f32, after a warm-up step) under the
+    profiler: its device-busy ms and kernel launches, the device's idle
+    share against the unprofiled median step ``median_ms``; and the aten ops
+    the step dispatches (``analysis.op_walk``, views included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.op_walk import eqn_count, record_call
+    cache = model.init_cache(2, 64, torch.float32, device=DEVICE)
+    tok = torch.zeros((2,), dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        _, cache = model.decode_step(params, cache, tok, 0, dtype=torch.float32)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, cache = model.decode_step(params, cache, tok, 1, dtype=torch.float32)
+            torch.cuda.synchronize()
+        _, rec = record_call(model.decode_step, params, cache, tok, 2, dtype=torch.float32)
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation]
+    busy = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    return {"device_busy_ms": busy or None,
+            "idle_share": (1 - busy / median_ms) if busy else None,
+            "kernel_launches": sum(ev.count for ev in kernels), "aten_ops": eqn_count(rec)}
+
+
+def lm_path(label, arch) -> tuple[dict, dict, list]:
+    """L1 or L2: ``serve_lm`` at full width, then the decode timing, the
+    prefill and (L1) decode against forward on the same seeded weights; the
+    launch counts are set to 0 just before and read just after."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = serve_lm(arch, smoke=False, seed=0, device=DEVICE)
+    serve_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)                                # serve_lm's weights again
+    params = model.init_params(gen, DEVICE)
+    ms = decode_ms(model, params, cfg, LM_TIMED_STEPS)
+    work = decode_work(model, params, cfg, statistics.median(ms))
+    prompt = torch.randint(0, cfg.vocab, (1, LM_PREFILL_TOKENS), generator=gen, device=DEVICE)
+    prefill_s = []
+    for _ in range(2):                                # the first includes warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            last = model.prefill(params, {"tokens": prompt}, dtype=torch.float32)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    res = {"path": label, "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_params": sum(t.numel() for t in tree_leaves(params)),
+           "serve_lm_s": serve_s, "tokens_first8": tokens[0, :8].tolist(),
+           "tokens_shape": list(tokens.shape),
+           "decode_ms": {"median": statistics.median(ms), "min": min(ms), "max": max(ms),
+                         "first": ms[0], **work},
+           "prefill": {"tokens": LM_PREFILL_TOKENS, "s": prefill_s,
+                       "tokens_per_s": LM_PREFILL_TOKENS / prefill_s[-1],
+                       "finite": bool(torch.isfinite(last).all())}}
+    if label == "L1":
+        check = torch.randint(0, cfg.vocab, (2, LM_CHECK_STEPS), generator=gen, device=DEVICE)
+        runs = lm_runs(params, cfg, check, LM_CHECK_STEPS)
+        res["decode_vs_forward_rel_err"] = rel_err(runs["decode"], runs["forward"])
+        del runs
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    res["launches"] = launches
+    del params, last
+    torch.cuda.empty_cache()
+    faults = []
+    if tokens.shape != (2, 16) or not all(0 <= t < cfg.vocab for t in tokens.flatten().tolist()):
+        faults.append(f"{label}: greedy tokens {tokens.shape}")
+    if not (res["prefill"]["finite"] and all(math.isfinite(x) for x in ms)):
+        faults.append(f"{label}: prefill logits or decode times not finite")
+    if res.get("decode_vs_forward_rel_err", 0.0) > LM_REL:
+        faults.append(f"{label}: decode against forward {res['decode_vs_forward_rel_err']}")
+    if any(launches.values()):
+        faults.append(f"{label} launched kernels: {launches}")
+    return res, launches, faults
+
+
+def phase_lm() -> dict:
+    """The LM family on the card: the six smoke configs against the CPU, then
+    L1 and L2 at full width.  Returns each path's launch counts."""
+    t0 = time.perf_counter()
+    res = {"phase": "lm", "smoke_vs_cpu": [lm_smoke_vs_cpu(a) for a in LM_SMOKE_ARCHS]}
+    faults = [f"card vs CPU: {r}" for r in res["smoke_vs_cpu"] if not r["ok"]]
+    by_path = {}
+    for label, arch in LM_PATHS:
+        res[label], by_path[label], path_faults = lm_path(label, arch)
+        faults += path_faults
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    if faults:
+        raise AssertionError("lm: " + "; ".join(faults))
+    return by_path
 
 
 def dispatch_steps(sched, dense=False) -> int:
@@ -2043,6 +2248,7 @@ def main() -> int:
         timed(phase_analysis)
         served, by_path = {}, {}
         by_path["T1"] = timed(phase_train)
+        by_path.update(timed(phase_lm))
         by_path["P1"], served["P1"], p1_plans = timed(phase_serve)
         by_path["P2"], served["P2"] = timed(phase_serve_bucketed)
         by_path["ops"] = timed(phase_ops)

@@ -52,6 +52,12 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab padded to a multiple of 256 (the reference pads so the
+        embedding shards evenly); logits are sliced back to ``vocab``."""
+        return -(-self.vocab // 256) * 256 if self.vocab else 0
+
     def n_params(self) -> int:
         """Approximate parameter count (embeddings + blocks), the reference's
         formula: for a DiT it counts the attention and a 3-matrix MLP per

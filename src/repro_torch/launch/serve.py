@@ -38,6 +38,16 @@ latents; rank 0 prints.
         --n-vision 32768 --batch 1 --requests 1 --steps 8 --schedule hunyuan-1.5x
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1,2 \
         --transport gloo --full --requests 1 --steps 8
+
+``--kind lm`` (the default for a dense or MoE arch) runs
+:func:`serve_lm`, the reference's LM loop: a teacher-forced prefill
+through ``decode_step``, then greedy decode, with KV caches and compute in
+float32.  ``--full`` takes the published config and refuses, before
+allocating, an arch whose f32 parameters do not fit the card's free
+memory (llama3-405b, mixtral-8x22b on one H100):
+
+    python -m repro_torch.launch.serve --kind lm --arch gemma3-1b --device cpu
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full
 """
 
 from __future__ import annotations
@@ -57,9 +67,10 @@ from repro_torch.core.strategy import available_strategies
 from repro_torch.launch.batching import (ContinuousBatcher, Request, run_sequential,
                                          run_stacked)
 from repro_torch.models import dit
+from repro_torch.models.registry import LM_FAMILIES, get_model, param_count
 
-__all__ = ["serve_diffusion", "serving_engine_config", "serving_inputs", "resolve_device",
-           "SERVING_MODES"]
+__all__ = ["serve_diffusion", "serve_lm", "serving_engine_config", "serving_inputs",
+           "resolve_device", "check_params_fit", "SERVING_MODES"]
 
 SERVING_MODES = ("sequential", "stacked", "continuous")
 
@@ -192,9 +203,69 @@ def serve_diffusion(arch: str, *, smoke: bool = True, num_requests: int = 2,
     return results
 
 
+def check_params_fit(cfg, free_bytes: int) -> None:
+    """Raise ``ValueError`` when ``cfg``'s f32 parameters, reckoned from
+    their shapes, do not fit in ``free_bytes`` of device memory."""
+    need = param_count(cfg) * 4
+    if need > free_bytes:
+        raise ValueError(
+            f"{cfg.name} needs {need} bytes ({need / 1e9:.1f} GB) of f32 parameters "
+            f"(4 B x {need // 4} parameters, reckoned from their shapes); the card has "
+            f"{free_bytes / 1e9:.1f} GB free")
+
+
+def serve_lm(arch: str, *, smoke: bool = True, batch: int = 2, prompt_len: int = 32,
+             gen_len: int = 16, max_len: int = 64, seed: int = 0, device="cuda",
+             params: dict = None, prompt: torch.Tensor = None) -> torch.Tensor:
+    """The reference's LM serving loop (serve.py:147-173): the prompt goes
+    through ``decode_step`` token by token (a teacher-forced prefill), then
+    ``gen_len`` tokens are decoded greedily (``argmax``, the first maximum on
+    a tie), with an f32 cache of ``max_len`` slots and f32 compute.  The
+    weights come from a ``torch.Generator`` seeded ``seed`` and the prompt
+    from one seeded ``seed + 1`` unless ``params`` or ``prompt`` (B, S) is
+    given.  With ``smoke=False`` on the card, an arch whose f32 parameters do
+    not fit the free memory is refused before anything is allocated.
+    Returns the generated tokens (B, gen_len) int32 and prints one line."""
+    device = resolve_device(device)
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    if cfg.family not in LM_FAMILIES:
+        raise ValueError(f"{cfg.name} is a {cfg.family!r} model; serve_lm runs {LM_FAMILIES}")
+    if device.type == "cuda" and params is None:
+        check_params_fit(cfg, torch.cuda.mem_get_info(device)[0])
+    model = get_model(cfg)
+    gen = torch.Generator(device=device)
+    if params is None:
+        gen.manual_seed(seed)
+        params = model.init_params(gen, device)
+    if prompt is None:
+        gen.manual_seed(seed + 1)
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                               device=device, dtype=torch.int32)
+    batch, prompt_len = prompt.shape
+    cache = model.init_cache(batch, max_len, torch.float32, device=device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(prompt_len - 1):
+            _, cache = model.decode_step(params, cache, prompt[:, i], i, dtype=torch.float32)
+        tok, generated = prompt[:, -1], []
+        for i in range(gen_len):
+            logits, cache = model.decode_step(params, cache, tok, prompt_len - 1 + i,
+                                              dtype=torch.float32)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            generated.append(tok)
+        out = torch.stack(generated, dim=1)
+        first = out[0, :8].tolist()                  # waits for the device
+    print(f"[serve] {cfg.name}: prefill {prompt_len} + decode {gen_len} in "
+          f"{time.perf_counter() - t0:.2f}s on {device} -> tokens {first}...")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="flux-mmdit")
+    ap.add_argument("--kind", default=None, choices=("lm", "diffusion"),
+                    help="lm: serve_lm; diffusion: serve_diffusion (default: the "
+                         "kind of --arch's family)")
     ap.add_argument("--full", action="store_true", help="full model width")
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--batch", type=int, default=2)
@@ -230,6 +301,12 @@ def main():
                          "card, gloo on the CPU); ranks sharing a card need gloo")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
+    kind = args.kind or ("lm" if get_config(args.arch).family in LM_FAMILIES else "diffusion")
+    if kind == "lm":
+        if args.mesh != "1,1":
+            ap.error("--mesh serves --kind diffusion only")
+        serve_lm(args.arch, smoke=not args.full, batch=args.batch, device=args.device)
+        return
     n_vision = args.n_vision or (4096 if args.full else 96)
     mesh = tuple(int(a) for a in args.mesh.split(","))
     device = args.device

@@ -10,10 +10,13 @@ straggler watchdog and restart on failure.  The engine is off in training:
 launches.  Without ``--full`` it trains the arch's smoke config; ``--full``
 takes the published one, and refuses before allocating when the f32
 training state (parameters, gradients and AdamW's two moments, 16 bytes a
-parameter) does not fit on the card: flux-mmdit's 38 blocks need ≈ 92 GB
-(``ArchConfig.n_params``), more than one H100 holds, and full depth waits
-for sharded training state (ROADMAP A.10).  :func:`train` also takes an
-``ArchConfig``, e.g. flux-mmdit cut to 2 blocks, and initial ``params``.
+parameter, counted from the parameter tensors' shapes) and the blocks'
+activations do not fit on the card: flux-mmdit's 38 blocks hold
+6 485 041 664 parameters, ≈ 103.8 GB of state before any activation, more
+than one H100 holds, and full depth waits for sharded training state
+(ROADMAP A.10).  :func:`train` also takes an ``ArchConfig``, e.g.
+flux-mmdit cut to 2 blocks, and initial ``params``.  It trains the dense
+and MoE LMs too (``models/transformer``), at smoke width.
 
 Runs on the card unless ``device="cpu"`` is asked for; without a card it
 raises.  Not applicable, each with ROADMAP A.10: ``launch/steps.py``'s step
@@ -37,27 +40,40 @@ from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.data.synthetic import DataConfig, make_batch
 from repro_torch.distributed import compression
 from repro_torch.launch.serve import resolve_device
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import get_model, param_count
 from repro_torch.optim.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime.fault_tolerance import (FailureInjector, RestartableLoop,
                                                  StepWatchdog)
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
-__all__ = ["make_step_fn", "train", "check_state_fits", "STATE_BYTES_PER_PARAM"]
+__all__ = ["make_step_fn", "train", "check_state_fits", "STATE_BYTES_PER_PARAM",
+           "ACT_BYTES_PER_BLOCK_ELEM"]
 
 # f32 parameters, gradients and AdamW's mu and nu.
 STATE_BYTES_PER_PARAM = 16
+# Activation bytes a block holds per element of its (batch, tokens,
+# d_model) input during a step, from T1's measured peak on the H100
+# (flux-mmdit, 2 blocks, batch 1, 4608 tokens: 14.51 GB, of which
+# 16 B x 369 073 664 is state): (14.51e9 - 5.905e9) / (2 x 4608 x 3072).
+ACT_BYTES_PER_BLOCK_ELEM = (14.51e9 - STATE_BYTES_PER_PARAM * 369_073_664) / (2 * 4608 * 3072)
 
 
-def check_state_fits(cfg: ArchConfig, free_bytes: int) -> None:
-    """Raise ``ValueError`` when ``cfg``'s f32 training state does not fit in
-    ``free_bytes`` of device memory."""
-    need = cfg.n_params() * STATE_BYTES_PER_PARAM
-    if need > free_bytes:
+def check_state_fits(cfg: ArchConfig, free_bytes: int, *, batch: int = 1,
+                     tokens: int = 4608) -> None:
+    """Raise ``ValueError`` when ``cfg``'s training step does not fit in
+    ``free_bytes`` of device memory: its f32 state (16 B a parameter, the
+    parameters counted from their shapes) and, for each block,
+    ``ACT_BYTES_PER_BLOCK_ELEM`` per element of a ``(batch, tokens,
+    d_model)`` activation."""
+    n = param_count(cfg)
+    state = n * STATE_BYTES_PER_PARAM
+    act = int(cfg.n_layers * ACT_BYTES_PER_BLOCK_ELEM * batch * tokens * cfg.d_model)
+    if state + act > free_bytes:
         raise ValueError(
-            f"{cfg.name} at {cfg.n_layers} blocks needs {need / 1e9:.1f} GB of f32 "
-            f"training state (parameters, gradients, AdamW mu and nu: "
-            f"{STATE_BYTES_PER_PARAM} B x {cfg.n_params()} parameters); the card has "
+            f"{cfg.name} at {cfg.n_layers} blocks needs {(state + act) / 1e9:.1f} GB: "
+            f"{state / 1e9:.1f} GB of f32 training state (parameters, gradients, AdamW mu "
+            f"and nu: {STATE_BYTES_PER_PARAM} B x {n} parameters) and {act / 1e9:.1f} GB "
+            f"of activations (batch {batch}, {tokens} tokens); the card has "
             f"{free_bytes / 1e9:.1f} GB free.  Full depth needs the training state "
             f"sharded across cards (distributed/sharding, not ported: ROADMAP A.10); "
             f"pass a config with fewer blocks")
@@ -113,7 +129,8 @@ def train(arch: str | ArchConfig, *, smoke: bool = True, steps: int = 50,
     else:
         cfg = get_smoke(arch) if smoke else get_config(arch)
     if device.type == "cuda":
-        check_state_fits(cfg, torch.cuda.mem_get_info(device)[0])
+        check_state_fits(cfg, torch.cuda.mem_get_info(device)[0], batch=batch,
+                         tokens=seq_len + cfg.n_text_tokens)
     model = get_model(cfg)
     dcfg = DataConfig(seed=0, batch=batch, seq_len=seq_len)
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps)

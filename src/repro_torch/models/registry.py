@@ -1,37 +1,64 @@
-"""Model registry, port of ``repro.models.registry`` for the family the port
-runs: ``dit``, the paper's own.  The LM families (``dense``, ``moe``,
-``ssm``, ``hybrid``, ``encdec``, ``vlm``) and their prefill and decode entry
-points are not ported yet (ROADMAP A.10); ``param_specs`` is a GSPMD
-sharding spec and has no counterpart here."""
+"""Model registry, port of ``repro.models.registry`` for the families the port
+runs: ``dit`` (the paper's own) and the decoder-only LMs ``dense`` and
+``moe`` (``models/transformer``).  The ``ssm``, ``hybrid``, ``encdec`` and
+``vlm`` families are not ported yet (ROADMAP A.10.2); ``param_specs`` and
+``cache_specs`` are GSPMD sharding specs and have no counterpart here."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import dit
+from repro_torch.models import dit, transformer
+from repro_torch.tree import tree_leaves
 
-__all__ = ["get_model", "Model"]
+__all__ = ["get_model", "Model", "param_count", "LM_FAMILIES"]
+
+_FAMILIES = {"dense": transformer, "moe": transformer, "dit": dit}
+# The decoder-only LM families (models/transformer): their batches are tokens.
+LM_FAMILIES = ("dense", "moe")
 
 
 class Model:
-    """The reference's adapter: ``init_params`` and ``train_loss(params, batch)``."""
+    """The reference's adapter: ``init_params``, ``train_loss(params, batch)``,
+    ``prefill(params, batch)``, ``init_cache`` and
+    ``decode_step(params, cache, token, pos)``."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.family != "dit":
+        if cfg.family not in _FAMILIES:
             raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet (ROADMAP A.10); "
-                "the port runs 'dit'")
+                f"model family {cfg.family!r} is not ported yet (ROADMAP A.10.2); "
+                f"the port runs {sorted(_FAMILIES)}")
         self.cfg = cfg
-        self.mod = dit
+        self.mod = _FAMILIES[cfg.family]
 
-    def init_params(self, generator: torch.Generator, device) -> dict:
+    def init_params(self, generator, device) -> dict:
         return self.mod.init_params(self.cfg, generator, device)
 
     def train_loss(self, params: dict, batch: dict, *,
                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         return self.mod.train_loss(params, self.cfg, batch, dtype=dtype)
 
+    def prefill(self, params: dict, batch: dict, *, dtype: torch.dtype = torch.bfloat16):
+        if self.cfg.family in LM_FAMILIES:
+            return self.mod.prefill(params, self.cfg, batch["tokens"], dtype=dtype)
+        return self.mod.prefill(params, self.cfg, batch, dtype=dtype)
+
+    def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                   *, device) -> dict:
+        return self.mod.init_cache(self.cfg, batch_size, max_len, dtype, device=device)
+
+    def decode_step(self, params: dict, cache: dict, token: torch.Tensor, pos, *,
+                    dtype: torch.dtype = torch.bfloat16):
+        return self.mod.decode_step(params, self.cfg, cache, token, pos, dtype=dtype)
+
 
 def get_model(cfg: ArchConfig) -> Model:
     return Model(cfg)
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Parameters of ``cfg``'s model, reckoned from the shapes its
+    ``init_params`` builds on the ``meta`` device (nothing is allocated).
+    ``ArchConfig.n_params`` is the reference's approximate formula."""
+    return sum(t.numel() for t in tree_leaves(get_model(cfg).init_params(None, "meta")))

@@ -1,0 +1,248 @@
+"""Decoder-only transformer LM (dense / MoE / local:global patterns), port of
+``repro.models.transformer``.
+
+Covers gemma3-1b/12b (5:1 local:global GQA), granite-8b, llama3-405b,
+mixtral-8x22b (MoE + SWA) and granite-moe-3b-a800m (MoE top-8).  Mixed
+local/global patterns are cycle-grouped as in the reference: ``locals``
+stacked ``(n_cyc, n_loc, ...)``, ``globals`` ``(n_cyc, ...)`` and ``tail``
+``(n_tail, ...)``; the reference's ``lax.scan`` over them is a Python loop
+over the stacked leading dims here, in the same layer order.  Local layers
+take the banded :func:`layers.local_attention` when the sequence is longer
+than twice the window, and ring-buffer KV caches of length ``window`` at
+decode.
+
+Not ported, with their reasons: ``param_specs`` and ``cache_specs`` are
+GSPMD sharding specs (N/A); the reference's ``constrain(...)`` calls are
+GSPMD layout hints that compute nothing, and are dropped; ``cfg.remat``
+(``jax.checkpoint`` of the block body) is not honoured yet: values do not
+depend on it, and LM training at full width with recompute is queued in
+ROADMAP A.10.4.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
+
+__all__ = ["layer_groups", "init_params", "forward", "train_loss", "init_cache",
+           "decode_step", "prefill"]
+
+
+# ---------------------------------------------------------------------------
+# Layer grouping (cycles of local layers + one global layer)
+# ---------------------------------------------------------------------------
+
+def layer_groups(cfg: ArchConfig) -> tuple[int, int, int]:
+    """Returns (n_cycles, locals_per_cycle, n_tail_local)."""
+    if cfg.global_every <= 1:
+        if cfg.global_every == 0:      # all-local (pure SWA, e.g. mixtral)
+            return 0, 0, cfg.n_layers
+        return cfg.n_layers, 0, 0     # all-global
+    p = cfg.global_every
+    return cfg.n_layers // p, p - 1, cfg.n_layers % p
+
+
+def _layers(cfg: ArchConfig) -> Iterator[tuple[str, tuple, Optional[int]]]:
+    """``(group, index, window)`` of every layer, in the reference's order:
+    each cycle's locals then its global, then the tail."""
+    n_cyc, n_loc, n_tail = layer_groups(cfg)
+    for c in range(n_cyc):
+        for j in range(n_loc):
+            yield "locals", (c, j), cfg.window
+        yield "globals", (c,), None
+    for t in range(n_tail):
+        yield "tail", (t,), cfg.window
+
+
+def _block_init(generator, cfg: ArchConfig, stack: tuple, device) -> dict:
+    attn = L.init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                            stack=stack, qk_norm=True, device=device)
+    if cfg.moe:
+        mlp = L.init_moe(generator, cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts,
+                         stack=stack, device=device)
+    else:
+        mlp = L.init_mlp(generator, cfg.d_model, cfg.d_ff, stack=stack, device=device)
+    return {"attn": attn, "mlp": mlp,
+            "ln1": L.init_rmsnorm(cfg.d_model, stack=stack, device=device),
+            "ln2": L.init_rmsnorm(cfg.d_model, stack=stack, device=device)}
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], device) -> dict:
+    """Random weights with the reference's nesting, stacked shapes and scales
+    (transformer.py:88-103): ``embed`` at ``vocab_padded``, ``lm_head``
+    unless the embeddings are tied.  ``generator`` lives on ``device``
+    (``None`` on ``meta``, which allocates nothing)."""
+    n_cyc, n_loc, n_tail = layer_groups(cfg)
+    params: dict = {"embed": L._normal(generator, (cfg.vocab_padded, cfg.d_model), 0.02,
+                                       device)}
+    if n_cyc and n_loc:
+        params["locals"] = _block_init(generator, cfg, (n_cyc, n_loc), device)
+    if n_cyc:
+        params["globals"] = _block_init(generator, cfg, (n_cyc,), device)
+    if n_tail:
+        params["tail"] = _block_init(generator, cfg, (n_tail,), device)
+    params["final_norm"] = L.init_rmsnorm(cfg.d_model, device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_dense(generator, cfg.d_model, cfg.vocab_padded,
+                                         device=device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill shared body)
+# ---------------------------------------------------------------------------
+
+def _attn_apply(p, x, cfg: ArchConfig, *, window, cos, sin, dtype):
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(dtype)).reshape(b, s, h, hd)
+    k = (x @ p["wk"].to(dtype)).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"].to(dtype)).reshape(b, s, hkv, hd)
+    q = L.apply_rope(L.rms_norm(q, p["q_norm"], cfg.norm_eps), cos, sin)
+    k = L.apply_rope(L.rms_norm(k, p["k_norm"], cfg.norm_eps), cos, sin)
+    if window is not None and s > 2 * window:
+        o = L.local_attention(q, k, v, window=window)
+    else:
+        o = L.gqa_attention(q, k, v, causal=True, window=window)
+    return o.reshape(b, s, h * hd) @ p["wo"].to(dtype)
+
+
+def _mlp_apply(p, h, cfg: ArchConfig):
+    """``(y, aux)`` of the block's MLP: the MoE in its own dtypes, the dense
+    MLP with its weights cast to the activations' dtype (aux ``None``: the
+    reference's zero, which adds nothing)."""
+    if cfg.moe:
+        return L.moe_mlp(p, h, top_k=cfg.moe.top_k)
+    return L.mlp(tree_map(lambda w: w.to(h.dtype), p), h), None
+
+
+def _block_apply(p, x, cfg: ArchConfig, *, window, cos, sin):
+    x = x + _attn_apply(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                        window=window, cos=cos, sin=sin, dtype=x.dtype)
+    y, aux = _mlp_apply(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, aux
+
+
+def _embed(params, cfg: ArchConfig, tokens, dtype):
+    """The token embedding cast to ``dtype``, then scaled by sqrt(d_model)."""
+    return params["embed"][tokens].to(dtype) * (cfg.d_model ** 0.5)
+
+
+def _head(params, cfg: ArchConfig, x):
+    """Final norm and the LM head (``embed.T`` when tied), logits sliced from
+    ``vocab_padded`` to ``vocab``."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head.to(x.dtype)
+    return logits[..., :cfg.vocab] if cfg.vocab_padded != cfg.vocab else logits
+
+
+def _hidden(params, cfg: ArchConfig, tokens, dtype):
+    """The blocks' output (B, S, d) before the final norm, and the summed aux."""
+    x = _embed(params, cfg, tokens, dtype)
+    cos, sin = L.rope_table(torch.arange(tokens.shape[1], device=tokens.device), cfg.hd,
+                            cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for group, idx, window in _layers(cfg):
+        p = tree_map(lambda a: a[idx], params[group])
+        x, a = _block_apply(p, x, cfg, window=window, cos=cos, sin=sin)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full causal forward -> (logits, aux_loss).  tokens (B, S) int."""
+    x, aux = _hidden(params, cfg, tokens, dtype)
+    return _head(params, cfg, x), aux
+
+
+def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    logits, aux = forward(params, cfg, batch["tokens"], dtype=dtype)
+    return L.softmax_xent(logits, batch["labels"]) + 1e-2 * aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode with ring-buffer local caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+               *, device) -> dict:
+    """Zero K/V caches ``(*stack, B, length, Hkv, hd)``: local layers hold
+    ``min(window, max_len)`` slots (a ring buffer), global ones ``max_len``."""
+    n_cyc, n_loc, n_tail = layer_groups(cfg)
+    w = min(cfg.window or max_len, max_len)
+
+    def entry(length, stack):
+        shape = (*stack, batch, length, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    cache: dict = {"len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if n_cyc and n_loc:
+        cache["locals"] = entry(w, (n_cyc, n_loc))
+    if n_cyc:
+        cache["globals"] = entry(max_len, (n_cyc,))
+    if n_tail:
+        cache["tail"] = entry(w, (n_tail,))
+    return cache
+
+
+def _decode_block(p, x, kv, cfg: ArchConfig, *, window, pos: int, cos, sin):
+    """One-token decode through one block, writing its K/V into ``kv``."""
+    b, dtype = x.shape[0], x.dtype
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xa = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = (xa @ p["attn"]["wq"].to(dtype)).reshape(b, 1, h, hd)
+    k = (xa @ p["attn"]["wk"].to(dtype)).reshape(b, 1, hkv, hd)
+    v = (xa @ p["attn"]["wv"].to(dtype)).reshape(b, 1, hkv, hd)
+    q = L.apply_rope(L.rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps), cos, sin)
+    k = L.apply_rope(L.rms_norm(k, p["attn"]["k_norm"], cfg.norm_eps), cos, sin)
+    length = kv["k"].shape[1]
+    # Local layers: a ring buffer.  Global layers: past max_len the last
+    # slot is overwritten (the reference's behaviour).
+    slot = pos % length if window is not None else min(pos, length - 1)
+    kv["k"][:, slot] = k[:, 0].to(kv["k"].dtype)
+    kv["v"][:, slot] = v[:, 0].to(kv["v"].dtype)
+    cache_len = torch.full((b,), min(pos + 1, length), dtype=torch.int32, device=x.device)
+    # Ring-buffer slots are within-window by construction; keys carry their
+    # absolute-position RoPE so scores stay relative-correct across wraps.
+    o = L.decode_attention(q, kv["k"], kv["v"], cache_len)
+    x = x + o.reshape(b, 1, h * hd) @ p["attn"]["wo"].to(dtype)
+    y, _ = _mlp_apply(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos, *,
+                dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict]:
+    """One new token for the whole batch at the (uniform) write position
+    ``pos`` (an int).  Returns ``(logits (B, vocab), cache)``: the cache's
+    K/V tensors are written in place, as a donated buffer would be, and the
+    returned dict holds them with ``len`` advanced by one."""
+    pos = int(pos)
+    x = _embed(params, cfg, token[:, None], dtype)
+    cos, sin = L.rope_table(torch.tensor([pos], device=x.device), cfg.hd, cfg.rope_theta)
+    for group, idx, window in _layers(cfg):
+        p = tree_map(lambda a: a[idx], params[group])
+        kv = {"k": cache[group]["k"][idx], "v": cache[group]["v"][idx]}
+        x = _decode_block(p, x, kv, cfg, window=window, pos=pos, cos=cos, sin=sin)
+    new_cache = dict(cache)
+    new_cache["len"] = cache["len"] + 1
+    return _head(params, cfg, x)[:, 0], new_cache
+
+
+def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Last-token logits (B, vocab) of the full forward.  The reference
+    forms every row's logits and keeps the last; only the last row goes
+    through the head here (the same function; a GEMM of another row count
+    rounds differently on the card, so it agrees to the float tolerance)."""
+    x, _ = _hidden(params, cfg, tokens, dtype)
+    return _head(params, cfg, x[:, -1])

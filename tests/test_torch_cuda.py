@@ -39,7 +39,9 @@ Dispatch records hold the kernels that launched, and the plan validator
 reads a plan on the card as it reads its copy on the CPU.  The dense
 attention's grad branch (training) gives the gradients of the unchunked
 attention on the card, and one training step of flux-mmdit at full width and
-2 blocks runs with no kernel launched.
+2 blocks runs with no kernel launched.  The decoder-only LMs (gemma3-1b
+and granite-moe-3b-a800m smoke) run on the card against the CPU, and one
+MoE layer at granite-moe's full width routes as on the CPU.
 """
 
 import dataclasses
@@ -824,3 +826,60 @@ def test_one_full_width_training_step_on_the_card(dev, tmp_path):
     assert torch.isfinite(torch.tensor([m["loss"], m["grad_norm"]])).all(), m
     with pytest.raises(ValueError, match="sharded"):
         train("flux-mmdit", smoke=False, steps=1, ckpt_dir=str(tmp_path), device=dev)
+
+
+def _lm_logits(params, cfg, tokens, steps):
+    """forward's logits, ``steps`` teacher-forced decode logits and prefill's
+    last row, in f32."""
+    from repro_torch.models import transformer
+    f32 = torch.float32
+    logits, _ = transformer.forward(params, cfg, tokens, dtype=f32)
+    cache = transformer.init_cache(cfg, tokens.shape[0], 64, f32, device=tokens.device)
+    dec = []
+    for i in range(steps):
+        lg, cache = transformer.decode_step(params, cfg, cache, tokens[:, i], i, dtype=f32)
+        dec.append(lg)
+    return logits, torch.stack(dec, dim=1), transformer.prefill(params, cfg, tokens, dtype=f32)
+
+
+def _rel(got, want):
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m"])
+def test_lm_smoke_on_the_card_matches_the_cpu(dev, arch):
+    """The LM smoke config on the card against the CPU from the same weights:
+    forward on 80 tokens (gemma's local layers on the banded path), 40
+    decode steps that wrap the 32-slot rings, prefill; within 1e-4 of the
+    largest magnitude."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+    cfg = get_smoke(arch)
+    params = transformer.init_params(cfg, _gen(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 80), generator=_gen(1))
+    with torch.no_grad():
+        want = _lm_logits(params, cfg, tokens, 40)
+        got = _lm_logits(tree_map(lambda t: t.to(dev), params), cfg, tokens.to(dev), 40)
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= 1e-4
+
+
+def test_moe_mlp_at_granite_moe_width_on_the_card(dev):
+    """One ``moe_mlp`` at granite-moe-3b-a800m's width (d_model 1536, 40
+    experts of d_ff 512, top-8) on 256 tokens: the card's routing (expert
+    ids, positions, keep mask) equals the CPU's and its output is within
+    1e-4 of the largest magnitude."""
+    from repro_torch.models import layers
+    p = layers.init_moe(_gen(2), 1536, 512, 40, device="cpu")
+    x = torch.randn((1, 256, 1536), generator=_gen(3))
+    cap = int(1.25 * 256 * 8 / 40) + 1
+    pd, xd = {k: v.to(dev) for k, v in p.items()}, x.to(dev)
+    with torch.no_grad():
+        y, aux = layers.moe_mlp(p, x, top_k=8)
+        yd, auxd = layers.moe_mlp(pd, xd, top_k=8)
+        route = layers.moe_route(torch.softmax(x[0] @ p["router"], dim=-1), 8, cap)
+        route_d = layers.moe_route(torch.softmax(xd[0] @ pd["router"], dim=-1), 8, cap)
+    for a, w in zip(route_d[1:], route[1:]):
+        assert torch.equal(a.cpu(), w)
+    assert _rel(yd, y) <= 1e-4 and _rel(auxd, aux) <= 1e-4

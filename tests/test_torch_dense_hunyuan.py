@@ -133,7 +133,7 @@ def test_hunyuan_config_matches_field_for_field(which):
 
 def test_registry_refuses_an_unported_arch():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("gemma3-1b")
+        get_config("mamba2-370m")
 
 
 # --- (c), (e) samplers ------------------------------------------------------------

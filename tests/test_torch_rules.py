@@ -3,8 +3,8 @@
 (a) No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
     ``jax``, ``jaxlib`` or the JAX package ``repro``.
 (b) Importing the port's entry points loads neither ``jax`` nor ``repro``.
-(c) The serving entry point and the quickstart default to the card and
-    raise without one (the training launcher's case is in
+(c) The serving entry points (diffusion and LM) and the quickstart
+    default to the card and raise without one (the training launcher's case is in
     ``tests/test_torch_train.py``).
 (d) A kernel call on a tensor that is not on the CPU builds or raises: with
     no ``nvcc`` it raises and never falls back to the plain version.  (A
@@ -66,6 +66,8 @@ def test_entry_points_load_no_jax():
             "import repro_torch.quickstart\n"
             "import repro_torch.analysis.__main__, repro_torch.analysis.cost_passes\n"
             "import repro_torch.launch.train\n"
+            "from repro_torch.launch.serve import serve_lm\n"
+            "import repro_torch.models.transformer, repro_torch.models.registry\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "PYTHONPATH": str(ROOT / "src"),
@@ -82,6 +84,14 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
     from repro_torch.launch.serve import serve_diffusion
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_diffusion("flux-mmdit", num_requests=1, num_steps=1)
+
+
+def test_serve_lm_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.launch.serve import serve_lm
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_lm("gemma3-1b")
 
 
 def test_quickstart_defaults_to_cuda_and_raises_without_it():

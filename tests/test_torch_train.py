@@ -41,7 +41,7 @@ from repro_torch.data import synthetic as TD
 from repro_torch.distributed import compression as TC
 from repro_torch.launch import train as TT
 from repro_torch.models import dit
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import get_model, param_count
 from repro_torch.optim import optimizer as TO
 from repro_torch.runtime.fault_tolerance import (FailureInjector, NodeFailure,
                                                  RestartableLoop, StepWatchdog)
@@ -164,9 +164,9 @@ def test_model_registry_runs_dit_only():
     g = torch.Generator().manual_seed(0)
     params = model.init_params(g, "cpu")
     assert params["blocks"]["wq"].shape[0] == get_smoke(SMOKE).n_layers
-    lm = _port_cfg(j_get_smoke("gemma3-1b"))
+    unported = _port_cfg(j_get_smoke("mamba2-370m"))
     with pytest.raises(NotImplementedError, match="A.10"):
-        get_model(lm)
+        get_model(unported)
 
 
 def test_n_params_matches_reference():
@@ -441,12 +441,39 @@ def test_train_defaults_to_cuda_and_raises_without_it():
 
 
 def test_full_depth_state_does_not_fit_one_card():
-    """flux-mmdit's 38 blocks need ≈ 92 GB of f32 training state: more than
-    an 80 GB card holds; 2 blocks fit."""
+    """flux-mmdit's 38 blocks need ≈ 103.8 GB of f32 training state before
+    any activation: more than an 80 GB card holds; 2 blocks fit."""
     full = get_config("flux-mmdit")
     with pytest.raises(ValueError, match="sharded"):
         TT.check_state_fits(full, 80 * 10 ** 9)
     TT.check_state_fits(dataclasses.replace(full, n_layers=2), 80 * 10 ** 9)
+
+
+@pytest.mark.parametrize("blocks", [30, 31, 32])
+def test_state_check_refuses_what_the_formula_admitted(blocks):
+    """At 30-32 blocks the reference's ``n_params`` formula bills flux-mmdit
+    72.5-77.3 GB, under an 80 GB card's free memory, while its f32 state
+    counted from the parameter shapes is 82.0-87.5 GB: the check refuses."""
+    cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=blocks)
+    assert cfg.n_params() * TT.STATE_BYTES_PER_PARAM < 80 * 10 ** 9
+    assert param_count(cfg) * TT.STATE_BYTES_PER_PARAM > 80 * 10 ** 9
+    with pytest.raises(ValueError, match="sharded"):
+        TT.check_state_fits(cfg, 80 * 10 ** 9)
+
+
+def test_state_count_is_the_parameters_numel():
+    """The check counts T1's parameters from their shapes: 369 073 664 at 2
+    blocks, what ``init_params`` allocates (the formula says 301 989 888);
+    the activations it adds come from T1's measured peak (14.51 GB)."""
+    cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=2)
+    params = dit.init_params(cfg, torch.Generator().manual_seed(0), "meta")
+    assert param_count(cfg) == sum(p.numel() for p in tree_leaves(params)) == 369_073_664
+    assert cfg.n_params() == 301_989_888
+    act = 2 * TT.ACT_BYTES_PER_BLOCK_ELEM * 4608 * cfg.d_model
+    assert abs(369_073_664 * TT.STATE_BYTES_PER_PARAM + act - 14.51e9) < 1e3
+    TT.check_state_fits(cfg, int(14.52e9))
+    with pytest.raises(ValueError, match="activations"):
+        TT.check_state_fits(cfg, int(14.50e9))
 
 
 def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
