@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Nine paths run, each with the launch counts set to 0 just before it and
-read just after: T1 (training flux-mmdit at full width and 2 blocks, the
-engine off: no kernel may launch), L1 and L2 (the decoder-only LMs
-gemma3-1b and granite-moe-3b-a800m served at full width: they reach no
-kernel, so none may launch), P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
+Thirteen paths run, each with the launch counts set to 0 just before it
+and read just after: T1 (training flux-mmdit at full width and 2 blocks,
+the engine off: no kernel may launch), L1-L6 (the LMs gemma3-1b,
+granite-moe-3b-a800m, mamba2-370m, recurrentgemma-2b, whisper-large-v3 and
+llama-3.2-vision-11b served at full width: they reach no kernel, so none
+may launch), P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
 GEMM-O), P2 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2
 buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
 unified kernel entry on one full-width layer: the symbols attention and the
@@ -70,19 +71,27 @@ final line):
                 launched; parameters, step seconds (loss and gradients,
                 update), checkpoint bytes and seconds, restore seconds, peak
                 memory;
-  6. lm       — the decoder-only LM family (``models/transformer``,
-                ``launch/serve.serve_lm``): its six smoke configs on the card
-                and on the CPU from the same weights (forward logits on 80
-                tokens, 40 decode steps that wrap the 32-slot rings, prefill;
-                each within 1e-4 of the CPU relative to the largest
-                magnitude); then L1, gemma3-1b (26 layers, d_model 1152,
-                vocab 262 144, window 512), and L2, granite-moe-3b-a800m (32
-                layers, 40 experts top-8), at full width in f32:
-                ``serve_lm`` at the reference's defaults (greedy tokens),
-                ms a decode token (median of 20), a 4096-token prefill
-                (seconds, tokens/s, finite logits), peak memory, and for L1
-                decode's logits at positions 0-39 against ``forward``'s
-                within 1e-4; B1-B7 launched 0 times on both;
+  6. lm       — the LM families (``models/transformer``, ``ssm``,
+                ``rglru``, ``encdec``, ``vision``; ``launch/serve.serve_lm``):
+                their ten smoke configs on the card and on the CPU from the
+                same weights (forward logits on 80 tokens, 40 decode steps
+                that wrap the 32-slot rings, prefill, with the stub frames
+                or patches where the family takes them; each within 1e-4 of
+                the CPU relative to the largest magnitude); then six
+                published configs at full width in f32: L1 gemma3-1b (26
+                layers, d_model 1152, vocab 262 144, window 512), L2
+                granite-moe-3b-a800m (32 layers, 40 experts top-8), L3
+                mamba2-370m (48 SSD layers), L4 recurrentgemma-2b (26
+                layers, window 2048), L5 whisper-large-v3 (32 + 32 layers,
+                1500 frames) and L6 llama-3.2-vision-11b (40 layers, 8 gated
+                cross-attention, 1600 patches): ``serve_lm`` at the
+                reference's defaults (greedy tokens), ms a decode token
+                (median of 20), device-busy ms, idle share and aten ops a
+                step, one prefill (4096 tokens; L5 1500 frames + 448
+                tokens; L6 2048 tokens + 1600 patches: seconds, tokens/s,
+                finite logits), peak memory, and for L1, L3 and L4 decode's
+                logits at positions 0-39 against ``forward``'s within 1e-4;
+                B1-B7 launched 0 times on all six;
   7. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
                 request of 8 steps (steps 3, 4, 5 and 7 are Dispatch
                 steps): finite outputs, and GEMM-Q, CSR attention and GEMM-O
@@ -126,9 +135,9 @@ final line):
                 noise (no kernel launches): P1's and P2's speedup over it and
                 their relative L2 / PSNR against its latents; then P1, P2
                 and the dense run in bfloat16;
- 13. serve_batched — C1: flux-mmdit at full width, 4 requests of batch 1 at
+ 13. serve_batched — C1: flux-mmdit at full width, 3 requests of batch 1 at
                 t = 0 with 8 and 6 steps in turn, served sequentially,
-                stacked and by the continuous batcher (3 lanes,
+                stacked and by the continuous batcher (2 lanes,
                 ``grouped="auto"``: grouped and scan ticks both run):
                 requests per second, p50 / p95 latency, peak memory, each
                 request's rel-L2 / PSNR and differing plan fields against
@@ -195,10 +204,11 @@ H1_PROFILE_LAYERS = 12
 # sequential run within C1_REL_L2: 2.5x the largest reading on one H100 at
 # 700 W (stacked, 1.19e-4, the same in three runs; PERF.md section 5), 22x
 # under what sparsity itself costs against dense (6.5e-3).  Cut from 6
-# requests on 4 lanes to 4 on 3 lanes (the fourth request refills a lane,
-# so grouped and scan ticks both still run) to make room for the mesh phase
-# within the script's time limit.
-C1 = dict(arch="flux-mmdit", batch=1, n_vision=4096, requests=4, lanes=3)
+# requests on 4 lanes to 4 on 3 lanes to make room for the mesh phase, and
+# to 3 on 2 lanes to make room for the LM paths L3-L6, within the script's
+# time limit (the last request refills a lane, so grouped and scan ticks
+# both still run, and the 8-step stacked group still holds two requests).
+C1 = dict(arch="flux-mmdit", batch=1, n_vision=4096, requests=3, lanes=2)
 C1_REL_L2 = 3e-4
 # The stacking witness steps C1's 8-step stacked group (batch 2) and each
 # of its requests alone (batch 1) in lockstep through at most this many
@@ -1029,24 +1039,33 @@ def phase_train() -> dict:
     return launches
 
 
-# The decoder-only LM family (models/transformer, launch/serve.serve_lm).
-# Its six smoke configs run on the card and on the CPU from the same
-# weights (forward logits on LM_SMOKE_TOKENS tokens, which put the windowed
-# configs' local layers on the banded path; LM_SMOKE_STEPS decode steps,
-# which wrap their 32-slot rings; prefill), each within LM_REL of the CPU:
-# the largest difference over the largest magnitude.  Then L1 (gemma3-1b)
-# and L2 (granite-moe-3b-a800m) at full width in f32: serve_lm at the
+# The LM families (models/transformer, ssm, rglru, encdec and vision;
+# launch/serve.serve_lm).  Their ten smoke configs run on the card and on
+# the CPU from the same weights (forward logits on LM_SMOKE_TOKENS tokens,
+# which put the windowed configs' local layers on the banded path;
+# LM_SMOKE_STEPS decode steps, which wrap their 32-slot rings; prefill; the
+# stub frames or patches where the family takes them), each within LM_REL
+# of the CPU: the largest difference over the largest magnitude.  Then six
+# published configs at full width in f32 (LM_PATHS): serve_lm at the
 # reference's defaults (batch 2, prompt 32, 16 tokens, 64 slots), ms a
-# decode token (median of LM_TIMED_STEPS, CUDA events), a LM_PREFILL_TOKENS-
-# token prefill of batch 1 (at 4096 > 2 x 512 gemma's local layers take the
-# banded path), and for L1 decode's logits at positions 0 to LM_CHECK_STEPS
-# - 1 against forward's within LM_REL.  No kernel of B1-B7 may launch.
+# decode token (median of LM_TIMED_STEPS, CUDA events), one prefill of
+# batch 1 (LM_PREFILL_TOKENS, where gemma's local layers and
+# recurrentgemma's attention (4096 > 2 x 2048) take the banded path;
+# LM_PREFILL for whisper, its 1500 frames and its published 448-token
+# target, and for llama-vision, 2048 tokens and its 1600 patches), and for
+# LM_DECODE_CHECK decode's logits at positions 0 to LM_CHECK_STEPS - 1
+# against forward's within LM_REL.  No kernel of B1-B7 may launch.
 LM_SMOKE_ARCHS = ("gemma3-1b", "gemma3-12b", "granite-8b", "llama3-405b", "mixtral-8x22b",
-                  "granite-moe-3b-a800m")
+                  "granite-moe-3b-a800m", "mamba2-370m", "recurrentgemma-2b",
+                  "whisper-large-v3", "llama-3.2-vision-11b")
 LM_REL = 1e-4
 LM_SMOKE_TOKENS, LM_SMOKE_STEPS = 80, 40
-LM_PATHS = (("L1", "gemma3-1b"), ("L2", "granite-moe-3b-a800m"))
+LM_PATHS = (("L1", "gemma3-1b"), ("L2", "granite-moe-3b-a800m"), ("L3", "mamba2-370m"),
+            ("L4", "recurrentgemma-2b"), ("L5", "whisper-large-v3"),
+            ("L6", "llama-3.2-vision-11b"))
 LM_PREFILL_TOKENS = 4096
+LM_PREFILL = {"L5": 448, "L6": 2048}
+LM_DECODE_CHECK = ("L1", "L3", "L4")
 LM_TIMED_STEPS = 20
 LM_CHECK_STEPS = 40
 
@@ -1057,36 +1076,51 @@ def rel_err(got, want) -> float:
                  / want.float().abs().max().clamp_min(1e-30).cpu())
 
 
-def lm_runs(params, cfg, tokens, steps, max_len=64) -> dict:
+def lm_batch(cfg, tokens, gen) -> dict:
+    """``tokens`` and, for encdec and vlm, the stub ``frames`` (encoder_len
+    rows) or ``patches`` (num_image_tokens rows) of width d_model, drawn
+    from ``gen`` on the tokens' device."""
+    import torch
+    batch = {"tokens": tokens}
+    extra = {"encdec": ("frames", cfg.encoder_len),
+             "vlm": ("patches", cfg.num_image_tokens)}.get(cfg.family)
+    if extra:
+        batch[extra[0]] = torch.randn((tokens.shape[0], extra[1], cfg.d_model), generator=gen,
+                                      device=tokens.device)
+    return batch
+
+
+def lm_runs(params, cfg, batch, steps, max_len=64) -> dict:
     """``forward``'s logits, the logits of ``steps`` teacher-forced decode
     steps from an empty cache and ``prefill``'s last row, in f32."""
     import torch
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
     f32 = torch.float32
+    model = get_model(cfg)
+    tokens = batch["tokens"]
     with torch.no_grad():
-        logits, aux = transformer.forward(params, cfg, tokens, dtype=f32)
-        cache = transformer.init_cache(cfg, tokens.shape[0], max_len, f32,
-                                       device=tokens.device)
+        logits, aux = model.forward(params, batch, dtype=f32)
+        cache = model.init_cache(tokens.shape[0], max_len, f32, device=tokens.device)
         dec = []
         for i in range(steps):
-            lg, cache = transformer.decode_step(params, cfg, cache, tokens[:, i], i, dtype=f32)
+            lg, cache = model.decode_step(params, cache, tokens[:, i], i, dtype=f32)
             dec.append(lg)
-        last = transformer.prefill(params, cfg, tokens, dtype=f32)
+        last = model.prefill(params, batch, dtype=f32)
     return {"forward": logits, "aux": aux, "decode": torch.stack(dec, dim=1), "prefill": last}
 
 
 def lm_smoke_vs_cpu(arch) -> dict:
     import torch
     from repro_torch.configs.registry import get_smoke
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
     from repro_torch.tree import tree_map
     cfg = get_smoke(arch)
-    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.randint(0, cfg.vocab, (2, LM_SMOKE_TOKENS),
-                           generator=torch.Generator().manual_seed(1))
-    cpu = lm_runs(params, cfg, tokens, LM_SMOKE_STEPS)
-    card = lm_runs(tree_map(lambda t: t.to(DEVICE), params), cfg, tokens.to(DEVICE),
-                   LM_SMOKE_STEPS)
+    params = get_model(cfg).init_params(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = lm_batch(cfg, torch.randint(0, cfg.vocab, (2, LM_SMOKE_TOKENS), generator=gen), gen)
+    cpu = lm_runs(params, cfg, batch, LM_SMOKE_STEPS)
+    card = lm_runs(tree_map(lambda t: t.to(DEVICE), params), cfg,
+                   {k: v.to(DEVICE) for k, v in batch.items()}, LM_SMOKE_STEPS)
     errs = {key: rel_err(card[key], cpu[key]) for key in cpu}
     finite = all(bool(torch.isfinite(v).all()) for v in card.values())
     return {"arch": cfg.name, "rel_err": errs,
@@ -1138,9 +1172,10 @@ def decode_work(model, params, cfg, median_ms) -> dict:
 
 
 def lm_path(label, arch) -> tuple[dict, dict, list]:
-    """L1 or L2: ``serve_lm`` at full width, then the decode timing, the
-    prefill and (L1) decode against forward on the same seeded weights; the
-    launch counts are set to 0 just before and read just after."""
+    """One of LM_PATHS: ``serve_lm`` at full width, then the decode timing,
+    the prefill and (LM_DECODE_CHECK) decode against forward on the same
+    seeded weights; the launch counts are set to 0 just before and read just
+    after."""
     import math
     import statistics
     import torch
@@ -1162,27 +1197,34 @@ def lm_path(label, arch) -> tuple[dict, dict, list]:
     params = model.init_params(gen, DEVICE)
     ms = decode_ms(model, params, cfg, LM_TIMED_STEPS)
     work = decode_work(model, params, cfg, statistics.median(ms))
-    prompt = torch.randint(0, cfg.vocab, (1, LM_PREFILL_TOKENS), generator=gen, device=DEVICE)
+    n_prefill = LM_PREFILL.get(label, LM_PREFILL_TOKENS)
+    batch = lm_batch(cfg, torch.randint(0, cfg.vocab, (1, n_prefill), generator=gen,
+                                        device=DEVICE), gen)
     prefill_s = []
     for _ in range(2):                                # the first includes warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            last = model.prefill(params, {"tokens": prompt}, dtype=torch.float32)
+            last = model.prefill(params, batch, dtype=torch.float32)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
-    res = {"path": label, "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "n_params": sum(t.numel() for t in tree_leaves(params)),
+    del batch
+    res = {"path": label, "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_params": sum(t.numel() for t in tree_leaves(params)),
            "serve_lm_s": serve_s, "tokens_first8": tokens[0, :8].tolist(),
            "tokens_shape": list(tokens.shape),
            "decode_ms": {"median": statistics.median(ms), "min": min(ms), "max": max(ms),
                          "first": ms[0], **work},
-           "prefill": {"tokens": LM_PREFILL_TOKENS, "s": prefill_s,
-                       "tokens_per_s": LM_PREFILL_TOKENS / prefill_s[-1],
+           "prefill": {"tokens": n_prefill, "s": prefill_s,
+                       "tokens_per_s": n_prefill / prefill_s[-1],
                        "finite": bool(torch.isfinite(last).all())}}
-    if label == "L1":
+    if cfg.family == "encdec":
+        res["prefill"]["frames"] = cfg.encoder_len
+    if cfg.family == "vlm":
+        res["prefill"]["patches"] = cfg.num_image_tokens
+    if label in LM_DECODE_CHECK:
         check = torch.randint(0, cfg.vocab, (2, LM_CHECK_STEPS), generator=gen, device=DEVICE)
-        runs = lm_runs(params, cfg, check, LM_CHECK_STEPS)
+        runs = lm_runs(params, cfg, {"tokens": check}, LM_CHECK_STEPS)
         res["decode_vs_forward_rel_err"] = rel_err(runs["decode"], runs["forward"])
         del runs
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1195,7 +1237,7 @@ def lm_path(label, arch) -> tuple[dict, dict, list]:
         faults.append(f"{label}: greedy tokens {tokens.shape}")
     if not (res["prefill"]["finite"] and all(math.isfinite(x) for x in ms)):
         faults.append(f"{label}: prefill logits or decode times not finite")
-    if res.get("decode_vs_forward_rel_err", 0.0) > LM_REL:
+    if not res.get("decode_vs_forward_rel_err", 0.0) <= LM_REL:
         faults.append(f"{label}: decode against forward {res['decode_vs_forward_rel_err']}")
     if any(launches.values()):
         faults.append(f"{label} launched kernels: {launches}")
@@ -1203,8 +1245,8 @@ def lm_path(label, arch) -> tuple[dict, dict, list]:
 
 
 def phase_lm() -> dict:
-    """The LM family on the card: the six smoke configs against the CPU, then
-    L1 and L2 at full width.  Returns each path's launch counts."""
+    """The LM families on the card: the ten smoke configs against the CPU,
+    then L1-L6 at full width.  Returns each path's launch counts."""
     t0 = time.perf_counter()
     res = {"phase": "lm", "smoke_vs_cpu": [lm_smoke_vs_cpu(a) for a in LM_SMOKE_ARCHS]}
     faults = [f"card vs CPU: {r}" for r in res["smoke_vs_cpu"] if not r["ok"]]

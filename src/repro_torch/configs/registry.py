@@ -1,13 +1,14 @@
-"""Config registry for the archs the port runs: the paper's two DiTs and the
-decoder-only LM family (dense and MoE).  ``ARCH_IDS`` keeps the reference's
-order.  The ssm, hybrid, encdec and vlm archs are not ported yet (ROADMAP
-A.10.2) and raise ``NotImplementedError``."""
+"""Config registry: ``--arch <id>`` resolution for the port's launchers and
+tests.  ``ARCH_IDS`` holds the reference's twelve archs in its order: the
+decoder-only LMs, the ssm, encdec, vlm and hybrid archs, and the paper's
+two DiTs."""
 
 from __future__ import annotations
 
 from repro_torch.configs import (flux_mmdit, gemma3_12b, gemma3_1b, granite_8b,
                                  granite_moe_3b_a800m, hunyuan_video, llama3_405b,
-                                 mixtral_8x22b)
+                                 llama_3_2_vision_11b, mamba2_370m, mixtral_8x22b,
+                                 recurrentgemma_2b, whisper_large_v3)
 from repro_torch.configs.base import ArchConfig
 
 __all__ = ["ARCH_IDS", "get_config", "get_smoke"]
@@ -16,21 +17,19 @@ _MODULES = {
     "gemma3-1b": gemma3_1b, "granite-8b": granite_8b, "llama3-405b": llama3_405b,
     "gemma3-12b": gemma3_12b, "mixtral-8x22b": mixtral_8x22b,
     "granite-moe-3b-a800m": granite_moe_3b_a800m,
+    "mamba2-370m": mamba2_370m, "whisper-large-v3": whisper_large_v3,
+    "llama-3.2-vision-11b": llama_3_2_vision_11b,
+    "recurrentgemma-2b": recurrentgemma_2b,
     "flux-mmdit": flux_mmdit, "hunyuan-video-dit": hunyuan_video,
 }
 ARCH_IDS = list(_MODULES)
-_UNPORTED = ("mamba2-370m", "whisper-large-v3", "llama-3.2-vision-11b", "recurrentgemma-2b")
 
 
 def _module(arch: str):
     key = arch if arch in _MODULES else arch.replace("_", "-")
-    if key in _MODULES:
-        return _MODULES[key]
-    if key in _UNPORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ssm, hybrid, encdec and vlm families: "
-            f"ROADMAP A.10.2); the port runs {ARCH_IDS}")
-    raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if key not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return _MODULES[key]
 
 
 def get_config(arch: str) -> ArchConfig:

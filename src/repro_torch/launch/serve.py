@@ -39,15 +39,16 @@ latents; rank 0 prints.
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1,2 \
         --transport gloo --full --requests 1 --steps 8
 
-``--kind lm`` (the default for a dense or MoE arch) runs
-:func:`serve_lm`, the reference's LM loop: a teacher-forced prefill
-through ``decode_step``, then greedy decode, with KV caches and compute in
-float32.  ``--full`` takes the published config and refuses, before
-allocating, an arch whose f32 parameters do not fit the card's free
-memory (llama3-405b, mixtral-8x22b on one H100):
+``--kind lm`` (the default for every family but ``dit``: dense, MoE, ssm,
+hybrid, encdec and vlm) runs :func:`serve_lm`, the reference's LM loop: a
+teacher-forced prefill through ``decode_step``, then greedy decode, with
+caches and compute in float32.  ``--full`` takes the published config and
+refuses, before allocating, an arch whose f32 parameters do not fit the
+card's free memory (llama3-405b, mixtral-8x22b on one H100):
 
     python -m repro_torch.launch.serve --kind lm --arch gemma3-1b --device cpu
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full
+    python -m repro_torch.launch.serve --kind lm --arch mamba2-370m --full
 """
 
 from __future__ import annotations
@@ -217,10 +218,12 @@ def check_params_fit(cfg, free_bytes: int) -> None:
 def serve_lm(arch: str, *, smoke: bool = True, batch: int = 2, prompt_len: int = 32,
              gen_len: int = 16, max_len: int = 64, seed: int = 0, device="cuda",
              params: dict = None, prompt: torch.Tensor = None) -> torch.Tensor:
-    """The reference's LM serving loop (serve.py:147-173): the prompt goes
-    through ``decode_step`` token by token (a teacher-forced prefill), then
-    ``gen_len`` tokens are decoded greedily (``argmax``, the first maximum on
-    a tie), with an f32 cache of ``max_len`` slots and f32 compute.  The
+    """The reference's LM serving loop (serve.py:147-173) for every family
+    but ``dit``: the prompt goes through ``decode_step`` token by token (a
+    teacher-forced prefill), then ``gen_len`` tokens are decoded greedily
+    (``argmax``, the first maximum on a tie), with an f32 cache of
+    ``max_len`` slots and f32 compute.  As in the reference, encdec and vlm
+    decode against cross K/V that nothing fills (zeros; ROADMAP C.11).  The
     weights come from a ``torch.Generator`` seeded ``seed`` and the prompt
     from one seeded ``seed + 1`` unless ``params`` or ``prompt`` (B, S) is
     given.  With ``smoke=False`` on the card, an arch whose f32 parameters do

@@ -15,8 +15,9 @@ activations do not fit on the card: flux-mmdit's 38 blocks hold
 6 485 041 664 parameters, ≈ 103.8 GB of state before any activation, more
 than one H100 holds, and full depth waits for sharded training state
 (ROADMAP A.10).  :func:`train` also takes an ``ArchConfig``, e.g.
-flux-mmdit cut to 2 blocks, and initial ``params``.  It trains the dense
-and MoE LMs too (``models/transformer``), at smoke width.
+flux-mmdit cut to 2 blocks, and initial ``params``.  It trains every LM
+family too (dense, MoE, ssm, hybrid, encdec and vlm; ``data/synthetic``
+adds the ``frames`` and ``patches`` stubs), at smoke width.
 
 Runs on the card unless ``device="cpu"`` is asked for; without a card it
 raises.  Not applicable, each with ROADMAP A.10: ``launch/steps.py``'s step

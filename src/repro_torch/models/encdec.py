@@ -1,0 +1,213 @@
+"""Whisper-large-v3 backbone (arXiv:2212.04356), port of
+``repro.models.encdec``: an encoder-decoder transformer.
+
+The conv audio frontend is a stub, as in the reference: the batch carries
+precomputed mel-frame embeddings ``frames`` (B, encoder_len, d_model).
+Both stacks are pre-LN transformers (LayerNorm in f32, eps 1e-5, and a
+GELU MLP with biases in its tanh form, ``jax.nn.gelu``'s default); the
+decoder adds cross-attention to the encoder's output.
+
+``decode_step`` reads the cross-attention K/V from the cache, and nothing
+in the reference (or here) writes them: ``init_cache`` leaves them zero,
+so served decoding attends to zeros (ROADMAP C.11).  The port reproduces
+this; it does not fix it.
+
+The reference's ``lax.scan`` over layers is a Python loop here.  Not
+ported: ``param_specs`` and ``cache_specs`` are GSPMD sharding specs
+(N/A); ``cfg.remat`` is not honoured, as in ``models/transformer``
+(ROADMAP A.10.4).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
+
+__all__ = ["layer_norm", "init_params", "forward", "train_loss", "encode", "decode_train",
+           "init_cache", "prefill", "decode_step"]
+
+POS_DEC_ROWS = 32768
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in f32, returned in ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def _ln(x, p):
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+def _init_ln(d: int, stack: tuple = (), *, device) -> dict:
+    return {"scale": torch.ones((*stack, d), device=device),
+            "bias": torch.zeros((*stack, d), device=device)}
+
+
+def _init_vanilla_mlp(generator, d: int, ff: int, stack: tuple = (), *, device) -> dict:
+    return {"wi": L.init_dense(generator, d, ff, stack=stack, device=device),
+            "bi": torch.zeros((*stack, ff), device=device),
+            "wo": L.init_dense(generator, ff, d, stack=stack, device=device),
+            "bo": torch.zeros((*stack, d), device=device)}
+
+
+def _vanilla_mlp(p, x):
+    dtype = x.dtype
+    h = F.gelu(x @ p["wi"].to(dtype) + p["bi"].to(dtype), approximate="tanh")
+    return h @ p["wo"].to(dtype) + p["bo"].to(dtype)
+
+
+def _init_block(cfg: ArchConfig, generator, stack: tuple, cross: bool, device) -> dict:
+    attn = lambda: L.init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.hd, stack=stack, device=device)
+    p = {"attn": attn(), "ln1": _init_ln(cfg.d_model, stack, device=device),
+         "mlp": _init_vanilla_mlp(generator, cfg.d_model, cfg.d_ff, stack, device=device),
+         "ln2": _init_ln(cfg.d_model, stack, device=device)}
+    if cross:
+        p["xattn"] = attn()
+        p["lnx"] = _init_ln(cfg.d_model, stack, device=device)
+    return p
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], device) -> dict:
+    """Random weights with the reference's nesting and scales
+    (encdec.py:84-98): ``n_layers`` encoder and ``n_layers`` decoder blocks,
+    each stack ``(n_layers, ...)``; ``pos_dec`` has 32 768 rows.
+    ``generator`` lives on ``device`` (``None`` on ``meta``)."""
+    n = (cfg.n_layers,)
+    emb = lambda rows: L._normal(generator, (rows, cfg.d_model), 0.02, device)
+    return {
+        "tok_embed": emb(cfg.vocab_padded),
+        "pos_enc": emb(cfg.encoder_len),
+        "pos_dec": emb(POS_DEC_ROWS),
+        "enc": _init_block(cfg, generator, n, False, device),
+        "dec": _init_block(cfg, generator, n, True, device),
+        "ln_enc": _init_ln(cfg.d_model, device=device),
+        "ln_dec": _init_ln(cfg.d_model, device=device),
+    }
+
+
+def _mha(p, x, kv_src, cfg: ArchConfig, *, causal: bool):
+    b, s, _ = x.shape
+    dtype = x.dtype
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(dtype)).reshape(b, s, h, hd)
+    k = (kv_src @ p["wk"].to(dtype)).reshape(b, kv_src.shape[1], hkv, hd)
+    v = (kv_src @ p["wv"].to(dtype)).reshape(b, kv_src.shape[1], hkv, hd)
+    o = L.gqa_attention(q, k, v, causal=causal)
+    return o.reshape(b, s, h * hd) @ p["wo"].to(dtype)
+
+
+def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, *,
+           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """frames: (B, encoder_len, d_model), the precomputed frontend output."""
+    x = frames.to(dtype) + params["pos_enc"].to(dtype)
+    for i in range(cfg.n_layers):
+        p = tree_map(lambda a: a[i], params["enc"])
+        xa = _ln(x, p["ln1"])
+        x = x + _mha(p["attn"], xa, xa, cfg, causal=False)
+        x = x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
+    return _ln(x, params["ln_enc"])
+
+
+def _decoder_hidden(params, cfg: ArchConfig, tokens, enc_out, dtype):
+    x = params["tok_embed"][tokens].to(dtype) + params["pos_dec"][:tokens.shape[1]].to(dtype)
+    for i in range(cfg.n_layers):
+        p = tree_map(lambda a: a[i], params["dec"])
+        xa = _ln(x, p["ln1"])
+        x = x + _mha(p["attn"], xa, xa, cfg, causal=True)
+        x = x + _mha(p["xattn"], _ln(x, p["lnx"]), enc_out, cfg, causal=False)
+        x = x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
+    return x
+
+
+def _head(params, cfg: ArchConfig, x):
+    x = _ln(x, params["ln_dec"])
+    logits = x @ params["tok_embed"].T.to(x.dtype)
+    return logits[..., :cfg.vocab] if cfg.vocab_padded != cfg.vocab else logits
+
+
+def decode_train(params: dict, cfg: ArchConfig, tokens: torch.Tensor, enc_out: torch.Tensor,
+                 *, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The decoder's logits (B, S, vocab) over ``tokens`` against ``enc_out``."""
+    return _head(params, cfg, _decoder_hidden(params, cfg, tokens, enc_out, dtype))
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict, *,
+            dtype: torch.dtype = torch.bfloat16):
+    """``batch`` holds ``frames`` and ``tokens`` -> (logits, aux 0)."""
+    enc_out = encode(params, cfg, batch["frames"], dtype=dtype)
+    logits = decode_train(params, cfg, batch["tokens"], enc_out, dtype=dtype)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    logits, _ = forward(params, cfg, batch, dtype=dtype)
+    return L.softmax_xent(logits, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+               *, device) -> dict:
+    """Zero caches ``(n_layers, B, length, Hkv, hd)``: the decoder's
+    self-attention K/V of ``max_len`` slots and the cross-attention K/V of
+    ``encoder_len`` (left zero: ROADMAP C.11)."""
+    kv = lambda length: {
+        k: torch.zeros((cfg.n_layers, batch, length, cfg.n_kv_heads, cfg.hd), dtype=dtype,
+                       device=device) for k in ("k", "v")}
+    return {"self": kv(max_len), "cross": kv(cfg.encoder_len),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos, *,
+                dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict]:
+    """One decoder token at position ``pos`` (an int) against the cached
+    cross K/V.  The self K/V go to slot ``min(pos, max_len - 1)`` (past
+    ``max_len`` the last slot is overwritten, as in the reference) and are
+    written in place; returns ``(logits (B, vocab), cache)`` with ``len``
+    advanced by one."""
+    pos = int(pos)
+    b = token.shape[0]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    row = min(pos, params["pos_dec"].shape[0] - 1)         # dynamic_index_in_dim clamps
+    x = params["tok_embed"][token[:, None]].to(dtype) + params["pos_dec"][row:row + 1].to(dtype)
+    length = cache["self"]["k"].shape[2]
+    slot = min(pos, length - 1)
+    self_len = torch.full((b,), min(pos + 1, length), dtype=torch.int32, device=x.device)
+    cross_len = torch.full((b,), cache["cross"]["k"].shape[2], dtype=torch.int32,
+                           device=x.device)
+    for i in range(cfg.n_layers):
+        p = tree_map(lambda a: a[i], params["dec"])
+        kc, vc = cache["self"]["k"][i], cache["self"]["v"][i]
+        xa = _ln(x, p["ln1"])
+        q = (xa @ p["attn"]["wq"].to(dtype)).reshape(b, 1, h, hd)
+        kc[:, slot] = (xa @ p["attn"]["wk"].to(dtype)).reshape(b, hkv, hd).to(kc.dtype)
+        vc[:, slot] = (xa @ p["attn"]["wv"].to(dtype)).reshape(b, hkv, hd).to(vc.dtype)
+        o = L.decode_attention(q, kc, vc, self_len)
+        x = x + o.reshape(b, 1, h * hd) @ p["attn"]["wo"].to(dtype)
+        qx = (_ln(x, p["lnx"]) @ p["xattn"]["wq"].to(dtype)).reshape(b, 1, h, hd)
+        ox = L.decode_attention(qx, cache["cross"]["k"][i], cache["cross"]["v"][i], cross_len)
+        x = x + ox.reshape(b, 1, h * hd) @ p["xattn"]["wo"].to(dtype)
+        x = x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
+    return _head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
+
+
+def prefill(params: dict, cfg: ArchConfig, batch: dict, *,
+            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Last-token logits (B, vocab) of the full forward (only the last row
+    goes through the head)."""
+    enc_out = encode(params, cfg, batch["frames"], dtype=dtype)
+    x = _decoder_hidden(params, cfg, batch["tokens"], enc_out, dtype)
+    return _head(params, cfg, x[:, -1])

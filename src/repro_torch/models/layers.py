@@ -27,7 +27,7 @@ import torch.nn.functional as F
 __all__ = [
     "init_dense", "init_rmsnorm", "rms_norm", "rope_table", "apply_rope",
     "gqa_attention", "local_attention", "decode_attention", "init_attention",
-    "init_mlp", "mlp", "init_moe", "moe_route", "moe_mlp", "softmax_xent",
+    "init_mlp", "mlp", "init_moe", "moe_route", "moe_mlp", "softmax_xent", "causal_conv",
 ]
 
 _NEG_INF = -1e30
@@ -196,6 +196,14 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: Optional[int] = 
     p = torch.softmax(torch.where(mask[:, None, None, :], sc, _NEG_INF), dim=-1)
     out = torch.matmul(p, v_cache.transpose(1, 2).to(torch.float32))
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: x (B,S,C), w (K,C); the ssm and hybrid
+    families' ``_causal_conv``."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    return sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
 
 
 # ---------------------------------------------------------------------------

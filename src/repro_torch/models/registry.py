@@ -1,34 +1,38 @@
-"""Model registry, port of ``repro.models.registry`` for the families the port
-runs: ``dit`` (the paper's own) and the decoder-only LMs ``dense`` and
-``moe`` (``models/transformer``).  The ``ssm``, ``hybrid``, ``encdec`` and
-``vlm`` families are not ported yet (ROADMAP A.10.2); ``param_specs`` and
-``cache_specs`` are GSPMD sharding specs and have no counterpart here."""
+"""Model registry, port of ``repro.models.registry``: every family of the
+reference, ``dit`` (the paper's own), the decoder-only LMs ``dense`` and
+``moe`` (``models/transformer``), ``ssm`` (``models/ssm``), ``hybrid``
+(``models/rglru``), ``encdec`` (``models/encdec``) and ``vlm``
+(``models/vision``).  ``param_specs`` and ``cache_specs`` are GSPMD
+sharding specs and have no counterpart here."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import dit, transformer
+from repro_torch.models import dit, encdec, rglru, ssm, transformer, vision
 from repro_torch.tree import tree_leaves
 
 __all__ = ["get_model", "Model", "param_count", "LM_FAMILIES"]
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "dit": dit}
-# The decoder-only LM families (models/transformer): their batches are tokens.
-LM_FAMILIES = ("dense", "moe")
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": vision, "ssm": ssm,
+             "hybrid": rglru, "encdec": encdec, "dit": dit}
+# The families that decode tokens (every one but dit): launch/serve.serve_lm.
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# The LM families whose prefill takes the tokens alone; encdec and vlm take
+# the batch dict (with ``frames`` or ``patches``).
+_TOKEN_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class Model:
     """The reference's adapter: ``init_params``, ``train_loss(params, batch)``,
     ``prefill(params, batch)``, ``init_cache`` and
-    ``decode_step(params, cache, token, pos)``."""
+    ``decode_step(params, cache, token, pos)``; and ``forward(params,
+    batch)`` for the LM families."""
 
     def __init__(self, cfg: ArchConfig):
         if cfg.family not in _FAMILIES:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet (ROADMAP A.10.2); "
-                f"the port runs {sorted(_FAMILIES)}")
+            raise KeyError(f"unknown model family {cfg.family!r}; known: {sorted(_FAMILIES)}")
         self.cfg = cfg
         self.mod = _FAMILIES[cfg.family]
 
@@ -39,10 +43,16 @@ class Model:
                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         return self.mod.train_loss(params, self.cfg, batch, dtype=dtype)
 
+    def _inputs(self, batch: dict):
+        return batch["tokens"] if self.cfg.family in _TOKEN_FAMILIES else batch
+
+    def forward(self, params: dict, batch: dict, *, dtype: torch.dtype = torch.bfloat16):
+        """``(logits, aux)`` of the family's ``forward`` on ``batch`` (an LM
+        family's; the reference's adapter has no such entry)."""
+        return self.mod.forward(params, self.cfg, self._inputs(batch), dtype=dtype)
+
     def prefill(self, params: dict, batch: dict, *, dtype: torch.dtype = torch.bfloat16):
-        if self.cfg.family in LM_FAMILIES:
-            return self.mod.prefill(params, self.cfg, batch["tokens"], dtype=dtype)
-        return self.mod.prefill(params, self.cfg, batch, dtype=dtype)
+        return self.mod.prefill(params, self.cfg, self._inputs(batch), dtype=dtype)
 
     def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
                    *, device) -> dict:

@@ -1,0 +1,264 @@
+"""RecurrentGemma / Griffin (arXiv:2402.19427), port of ``repro.models.rglru``:
+RG-LRU recurrent blocks and local attention, pattern [recurrent, recurrent,
+local attention] (period 3), and a tail of recurrent blocks.
+
+The RG-LRU gate:  r_t = σ(W_a x + b_a),  i_t = σ(W_x x + b_x)
+                  log a_t = -c · softplus(Λ) · r_t          (c = 8)
+                  h_t = a_t ⊙ h_{t-1} + √(1 − a_t²) ⊙ (i_t ⊙ x_t)
+
+A sequence runs the reference's ``jax.lax.associative_scan`` as a
+Hillis–Steele scan with the same ``combine``: log2(S) rounds of whole-tensor
+ops, never a loop over the sequence.  Embeddings are scaled by √d_model
+and the head is the tied ``embed.T``.  The attention layers take the banded
+:func:`layers.local_attention` when the sequence is longer than twice the
+window; decode keeps a ring of ``min(window, max_len)`` K/V slots.
+
+The reference's ``lax.scan`` over cycles and blocks is a Python loop here.
+Not ported: ``param_specs`` and ``cache_specs`` are GSPMD sharding specs
+(N/A); ``cfg.remat`` is not honoured, as in ``models/transformer``
+(ROADMAP A.10.4).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.tree import tree_map
+
+__all__ = ["init_params", "forward", "train_loss", "init_cache", "prefill", "decode_step",
+           "rg_lru", "rg_lru_step", "n_cycles"]
+
+_C = 8.0
+CONV_K = 4
+
+
+def _gates(x, gate_x, gate_a, lam):
+    """``(a, b)`` of the recurrence ``h_t = a_t h_{t-1} + b_t``, in f32."""
+    r = torch.sigmoid(gate_a.to(torch.float32))
+    i = torch.sigmoid(gate_x.to(torch.float32))
+    log_a = -_C * F.softplus(lam) * r
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    return torch.exp(log_a), mult * (i * x.to(torch.float32))
+
+
+def rg_lru(x, gate_x, gate_a, lam) -> torch.Tensor:
+    """x, gates (B,S,D); lam (D,).  An inclusive scan of ``a_t h + b_t`` over
+    the sequence: each round ``d`` combines element ``t`` with ``t - d``
+    (``(a1, b1), (a2, b2) -> (a1 a2, b1 a2 + b2)``), the identity ``(1, 0)``
+    standing in before the start."""
+    a, b = _gates(x, gate_x, gate_a, lam)
+    s, d = a.shape[1], 1
+    while d < s:
+        a_prev = F.pad(a[:, :-d], (0, 0, d, 0), value=1.0)
+        b_prev = F.pad(b[:, :-d], (0, 0, d, 0))
+        a, b = a_prev * a, b_prev * a + b
+        d *= 2
+    return b.to(x.dtype)
+
+
+def rg_lru_step(state, x, gate_x, gate_a, lam):
+    """One step from ``state`` (f32); returns ``(h in x's dtype, h f32)``."""
+    a, b = _gates(x, gate_x, gate_a, lam)
+    h = a * state + b
+    return h.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _init_rec_block(cfg: ArchConfig, generator, stack: tuple, device) -> dict:
+    d = cfg.d_model
+    s = d ** -0.5
+    w = lambda: L._normal(generator, (*stack, d, d), s, device)
+    return {
+        "ln": L.init_rmsnorm(d, stack=stack, device=device),
+        "w_in_x": w(),                                      # recurrent branch
+        "w_in_y": w(),                                      # gelu gate branch
+        "conv": L._normal(generator, (*stack, CONV_K, d), 0.2, device),
+        "w_gate_x": w(),
+        "w_gate_a": w(),
+        "lam": torch.full((*stack, d), 0.65, device=device),
+        "w_out": w(),
+    }
+
+
+def _init_attn_block(cfg: ArchConfig, generator, stack: tuple, device) -> dict:
+    return {"attn": L.init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.hd, stack=stack, qk_norm=False, device=device),
+            "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, stack=stack, device=device),
+            "ln1": L.init_rmsnorm(cfg.d_model, stack=stack, device=device),
+            "ln2": L.init_rmsnorm(cfg.d_model, stack=stack, device=device)}
+
+
+def n_cycles(cfg: ArchConfig) -> int:
+    # Pattern period 3: [recurrent, recurrent, local-attn]
+    assert cfg.n_layers % 3 == 2 or cfg.n_layers % 3 == 0, cfg.n_layers
+    return cfg.n_layers // 3
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], device) -> dict:
+    """Random weights with the reference's nesting and scales
+    (rglru.py:121-138): ``rec`` stacked ``(n_cycles, 2, ...)``, ``attn``
+    ``(n_cycles, ...)`` and, for ``n_layers % 3 == 2``, ``tail`` ``(2, ...)``.
+    ``generator`` lives on ``device`` (``None`` on ``meta``)."""
+    nc = n_cycles(cfg)
+    params = {
+        "embed": L._normal(generator, (cfg.vocab_padded, cfg.d_model), 0.02, device),
+        "rec": _init_rec_block(cfg, generator, (nc, 2), device),
+        "attn": _init_attn_block(cfg, generator, (nc,), device),
+        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
+    }
+    tail = cfg.n_layers - nc * 3
+    if tail:
+        params["tail"] = _init_rec_block(cfg, generator, (tail,), device)
+    return params
+
+
+def _rec_apply(cfg: ArchConfig, p, x):
+    dtype = x.dtype
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    y = F.gelu(xn @ p["w_in_y"].to(dtype), approximate="tanh")
+    xr = L.causal_conv(xn @ p["w_in_x"].to(dtype), p["conv"].to(dtype))
+    h = rg_lru(xr, xn @ p["w_gate_x"].to(dtype), xn @ p["w_gate_a"].to(dtype), p["lam"])
+    return x + (h * y) @ p["w_out"].to(dtype)
+
+
+def _qkv(cfg: ArchConfig, p, xa, cos, sin):
+    b, s, _ = xa.shape
+    dtype = xa.dtype
+    q = (xa @ p["wq"].to(dtype)).reshape(b, s, cfg.n_heads, cfg.hd)
+    k = (xa @ p["wk"].to(dtype)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = (xa @ p["wv"].to(dtype)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
+
+
+def _mlp_out(cfg: ArchConfig, p, x):
+    xm = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp(tree_map(lambda w: w.to(x.dtype), p["mlp"]), xm)
+
+
+def _attn_apply_blk(cfg: ArchConfig, p, x, cos, sin):
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin)
+    if cfg.window and s > 2 * cfg.window:
+        o = L.local_attention(q, k, v, window=cfg.window)
+    else:
+        o = L.gqa_attention(q, k, v, causal=True, window=cfg.window)
+    x = x + o.reshape(b, s, -1) @ p["attn"]["wo"].to(x.dtype)
+    return _mlp_out(cfg, p, x)
+
+
+def _hidden(params, cfg: ArchConfig, tokens, dtype):
+    x = T._embed(params, cfg, tokens, dtype)
+    cos, sin = L.rope_table(torch.arange(tokens.shape[1], device=tokens.device), cfg.hd,
+                            cfg.rope_theta)
+    for c in range(n_cycles(cfg)):
+        for j in range(2):
+            x = _rec_apply(cfg, tree_map(lambda a: a[c, j], params["rec"]), x)
+        x = _attn_apply_blk(cfg, tree_map(lambda a: a[c], params["attn"]), x, cos, sin)
+    for t in range(params["tail"]["ln"].shape[0] if "tail" in params else 0):
+        x = _rec_apply(cfg, tree_map(lambda a: a[t], params["tail"]), x)
+    return x
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            dtype: torch.dtype = torch.bfloat16):
+    """Full causal forward -> (logits, aux 0).  tokens (B, S) int."""
+    x = _hidden(params, cfg, tokens, dtype)
+    return T._head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    logits, _ = forward(params, cfg, batch["tokens"], dtype=dtype)
+    return L.softmax_xent(logits, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# Serving: recurrent state and a ring of local K/V
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+               *, device) -> dict:
+    """Zero decode state: each recurrent block's ``h`` (f32) and last
+    ``CONV_K - 1`` conv inputs, and each attention layer's ring of
+    ``min(window, max_len)`` K/V slots."""
+    nc = n_cycles(cfg)
+    d = cfg.d_model
+    w = min(cfg.window or max_len, max_len)
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    cache = {
+        "rec_h": zeros(nc, 2, batch, d, dt=torch.float32),
+        "rec_conv": zeros(nc, 2, batch, CONV_K - 1, d),
+        "attn": {"k": zeros(nc, batch, w, cfg.n_kv_heads, cfg.hd),
+                 "v": zeros(nc, batch, w, cfg.n_kv_heads, cfg.hd)},
+        "len": zeros(batch, dt=torch.int32),
+    }
+    tail = cfg.n_layers - nc * 3
+    if tail:
+        cache["tail_h"] = zeros(tail, batch, d, dt=torch.float32)
+        cache["tail_conv"] = zeros(tail, batch, CONV_K - 1, d)
+    return cache
+
+
+def _rec_step(cfg: ArchConfig, p, x, h_state, conv_state):
+    """One token through a recurrent block; returns (x, new h, new conv window)."""
+    dtype = x.dtype
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    y = F.gelu(xn @ p["w_in_y"].to(dtype), approximate="tanh")
+    hist = torch.cat([conv_state, xn @ p["w_in_x"].to(dtype)], dim=1)      # (B,K,D)
+    xr = (hist * p["conv"].to(dtype)).sum(dim=1)[:, None]
+    h, new_h = rg_lru_step(h_state[:, None], xr, xn @ p["w_gate_x"].to(dtype),
+                           xn @ p["w_gate_a"].to(dtype), p["lam"])
+    return x + (h * y) @ p["w_out"].to(dtype), new_h[:, 0], hist[:, 1:]
+
+
+def _attn_step(cfg: ArchConfig, p, x, kv, pos: int, cos, sin):
+    """One token through an attention layer, writing its K/V into ring slot
+    ``pos % w``; the live slots are ``min(pos + 1, w)``."""
+    b = x.shape[0]
+    q, k, v = _qkv(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin)
+    w = kv["k"].shape[1]
+    kv["k"][:, pos % w] = k[:, 0].to(kv["k"].dtype)
+    kv["v"][:, pos % w] = v[:, 0].to(kv["v"].dtype)
+    cache_len = torch.full((b,), min(pos + 1, w), dtype=torch.int32, device=x.device)
+    o = L.decode_attention(q, kv["k"], kv["v"], cache_len)
+    x = x + o.reshape(b, 1, -1) @ p["attn"]["wo"].to(x.dtype)
+    return _mlp_out(cfg, p, x)
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos, *,
+                dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict]:
+    """One new token for the whole batch at position ``pos`` (an int).
+    Returns ``(logits (B, vocab), cache)``: the cache's tensors are written
+    in place, as a donated buffer would be, and the returned dict holds them
+    with ``len`` advanced by one."""
+    pos = int(pos)
+    x = T._embed(params, cfg, token[:, None], dtype)
+    cos, sin = L.rope_table(torch.tensor([pos], device=x.device), cfg.hd, cfg.rope_theta)
+    for c in range(n_cycles(cfg)):
+        for j in range(2):
+            p = tree_map(lambda a: a[c, j], params["rec"])
+            x, cache["rec_h"][c, j], cache["rec_conv"][c, j] = _rec_step(
+                cfg, p, x, cache["rec_h"][c, j], cache["rec_conv"][c, j])
+        kv = {"k": cache["attn"]["k"][c], "v": cache["attn"]["v"][c]}
+        x = _attn_step(cfg, tree_map(lambda a: a[c], params["attn"]), x, kv, pos, cos, sin)
+    for t in range(cache["tail_h"].shape[0] if "tail_h" in cache else 0):
+        p = tree_map(lambda a: a[t], params["tail"])
+        x, cache["tail_h"][t], cache["tail_conv"][t] = _rec_step(
+            cfg, p, x, cache["tail_h"][t], cache["tail_conv"][t])
+    return T._head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
+
+
+def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Last-token logits (B, vocab) of the full forward (only the last row
+    goes through the head)."""
+    return T._head(params, cfg, _hidden(params, cfg, tokens, dtype)[:, -1])

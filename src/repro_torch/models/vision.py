@@ -1,0 +1,160 @@
+"""Llama-3.2-Vision-11B backbone, port of ``repro.models.vision``: a llama
+decoder with gated cross-attention image layers every ``cross_attn_every``
+layers.
+
+The vision encoder is a stub, as in the reference: the batch carries
+precomputed patch embeddings ``patches`` (B, num_image_tokens, d_model).
+Each of the ``n_layers / cross_attn_every`` cycles is one gated
+cross-attention layer (``qk_norm``, output scaled by ``tanh(gate)``, the
+gate zero at init) and ``cross_attn_every - 1`` self-attention blocks of
+``models/transformer`` (``_block_init``, ``_block_apply``,
+``_decode_block``), stacked ``(n_cycles, n_self)``.
+
+``decode_step`` attends to the image K/V in the cache, which nothing in the
+reference (or here) writes: served decoding attends to zeros, and agrees
+with ``forward`` only because the gate is zero at init (ROADMAP C.11).
+
+The reference's ``lax.scan`` over cycles and blocks is a Python loop here.
+Not ported: ``param_specs`` and ``cache_specs`` are GSPMD sharding specs
+(N/A); ``cfg.remat`` is not honoured, as in ``models/transformer``
+(ROADMAP A.10.4).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.tree import tree_map
+
+__all__ = ["init_params", "forward", "train_loss", "init_cache", "prefill", "decode_step"]
+
+
+def _groups(cfg: ArchConfig) -> tuple[int, int]:
+    p = cfg.cross_attn_every
+    assert p > 1 and cfg.n_layers % p == 0
+    return cfg.n_layers // p, p - 1      # (cycles, self layers per cycle)
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], device) -> dict:
+    """Random weights with the reference's nesting and scales
+    (vision.py:34-53).  ``generator`` lives on ``device`` (``None`` on
+    ``meta``)."""
+    n_cyc, n_self = _groups(cfg)
+    return {
+        "embed": L._normal(generator, (cfg.vocab_padded, cfg.d_model), 0.02, device),
+        "selfs": T._block_init(generator, cfg, (n_cyc, n_self), device),
+        "cross": {"xattn": L.init_attention(generator, cfg.d_model, cfg.n_heads,
+                                            cfg.n_kv_heads, cfg.hd, stack=(n_cyc,),
+                                            qk_norm=True, device=device),
+                  "lnx": L.init_rmsnorm(cfg.d_model, stack=(n_cyc,), device=device),
+                  "gate": torch.zeros((n_cyc,), device=device)},
+        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
+        "lm_head": L.init_dense(generator, cfg.d_model, cfg.vocab_padded, device=device),
+    }
+
+
+def _gated(p, x, o):
+    """``x + tanh(gate) · (o @ wo)``: the cross layer's residual."""
+    dtype = x.dtype
+    return x + torch.tanh(p["gate"]).to(dtype) * (o @ p["xattn"]["wo"].to(dtype))
+
+
+def _cross_q(p, x, cfg: ArchConfig):
+    b, s, _ = x.shape
+    xa = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+    q = (xa @ p["xattn"]["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.hd)
+    return L.rms_norm(q, p["xattn"]["q_norm"], cfg.norm_eps)
+
+
+def _cross_apply(p, x, img, cfg: ArchConfig):
+    b, s, _ = x.shape
+    dtype = x.dtype
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    q = _cross_q(p, x, cfg)
+    k = (img @ p["xattn"]["wk"].to(dtype)).reshape(b, img.shape[1], hkv, hd)
+    v = (img @ p["xattn"]["wv"].to(dtype)).reshape(b, img.shape[1], hkv, hd)
+    k = L.rms_norm(k, p["xattn"]["k_norm"], cfg.norm_eps)
+    o = L.gqa_attention(q, k, v, causal=False)
+    return _gated(p, x, o.reshape(b, s, -1))
+
+
+def _hidden(params, cfg: ArchConfig, batch, dtype):
+    tokens = batch["tokens"]
+    img = batch["patches"].to(dtype)
+    x = params["embed"][tokens].to(dtype)
+    cos, sin = L.rope_table(torch.arange(tokens.shape[1], device=tokens.device), cfg.hd,
+                            cfg.rope_theta)
+    n_cyc, n_self = _groups(cfg)
+    for c in range(n_cyc):
+        x = _cross_apply(tree_map(lambda a: a[c], params["cross"]), x, img, cfg)
+        for j in range(n_self):
+            x, _ = T._block_apply(tree_map(lambda a: a[c, j], params["selfs"]), x, cfg,
+                                  window=None, cos=cos, sin=sin)
+    return x
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict, *,
+            dtype: torch.dtype = torch.bfloat16):
+    """``batch`` holds ``tokens`` and ``patches`` -> (logits, aux 0)."""
+    x = _hidden(params, cfg, batch, dtype)
+    return T._head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    logits, _ = forward(params, cfg, batch, dtype=dtype)
+    return L.softmax_xent(logits, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+               *, device) -> dict:
+    """Zero caches: the self blocks' K/V ``(n_cyc, n_self, B, max_len, Hkv,
+    hd)`` and the image K/V ``(n_cyc, B, num_image_tokens, Hkv, hd)`` (left
+    zero: ROADMAP C.11)."""
+    n_cyc, n_self = _groups(cfg)
+    kv = lambda *shape: {k: torch.zeros((*shape, cfg.n_kv_heads, cfg.hd), dtype=dtype,
+                                        device=device) for k in ("k", "v")}
+    return {"selfs": kv(n_cyc, n_self, batch, max_len),
+            "cross": kv(n_cyc, batch, cfg.num_image_tokens),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos, *,
+                dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict]:
+    """One new token for the whole batch at position ``pos`` (an int): each
+    cycle's gated cross-attention against the cached image K/V, then its
+    self blocks, whose K/V are written in place.  Returns ``(logits (B,
+    vocab), cache)`` with ``len`` advanced by one."""
+    pos = int(pos)
+    b = token.shape[0]
+    x = params["embed"][token[:, None]].to(dtype)
+    cos, sin = L.rope_table(torch.tensor([pos], device=x.device), cfg.hd, cfg.rope_theta)
+    img_len = torch.full((b,), cache["cross"]["k"].shape[2], dtype=torch.int32,
+                         device=x.device)
+    n_cyc, n_self = _groups(cfg)
+    for c in range(n_cyc):
+        p = tree_map(lambda a: a[c], params["cross"])
+        o = L.decode_attention(_cross_q(p, x, cfg), cache["cross"]["k"][c],
+                               cache["cross"]["v"][c], img_len)
+        x = _gated(p, x, o.reshape(b, 1, -1))
+        for j in range(n_self):
+            kv = {"k": cache["selfs"]["k"][c, j], "v": cache["selfs"]["v"][c, j]}
+            x = T._decode_block(tree_map(lambda a: a[c, j], params["selfs"]), x, kv, cfg,
+                                window=None, pos=pos, cos=cos, sin=sin)
+    return T._head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
+
+
+def prefill(params: dict, cfg: ArchConfig, batch: dict, *,
+            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Last-token logits (B, vocab) of the full forward (only the last row
+    goes through the head)."""
+    return T._head(params, cfg, _hidden(params, cfg, batch, dtype)[:, -1])

@@ -39,9 +39,10 @@ Dispatch records hold the kernels that launched, and the plan validator
 reads a plan on the card as it reads its copy on the CPU.  The dense
 attention's grad branch (training) gives the gradients of the unchunked
 attention on the card, and one training step of flux-mmdit at full width and
-2 blocks runs with no kernel launched.  The decoder-only LMs (gemma3-1b
-and granite-moe-3b-a800m smoke) run on the card against the CPU, and one
-MoE layer at granite-moe's full width routes as on the CPU.
+2 blocks runs with no kernel launched.  The LM smoke configs (gemma3-1b,
+granite-moe-3b-a800m, mamba2-370m, recurrentgemma-2b, whisper-large-v3 and
+llama-3.2-vision-11b) run on the card against the CPU, and one MoE layer
+at granite-moe's full width routes as on the CPU.
 """
 
 import dataclasses
@@ -828,39 +829,49 @@ def test_one_full_width_training_step_on_the_card(dev, tmp_path):
         train("flux-mmdit", smoke=False, steps=1, ckpt_dir=str(tmp_path), device=dev)
 
 
-def _lm_logits(params, cfg, tokens, steps):
+def _lm_logits(params, cfg, batch, steps):
     """forward's logits, ``steps`` teacher-forced decode logits and prefill's
     last row, in f32."""
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
     f32 = torch.float32
-    logits, _ = transformer.forward(params, cfg, tokens, dtype=f32)
-    cache = transformer.init_cache(cfg, tokens.shape[0], 64, f32, device=tokens.device)
+    model = get_model(cfg)
+    tokens = batch["tokens"]
+    logits, _ = model.forward(params, batch, dtype=f32)
+    cache = model.init_cache(tokens.shape[0], 64, f32, device=tokens.device)
     dec = []
     for i in range(steps):
-        lg, cache = transformer.decode_step(params, cfg, cache, tokens[:, i], i, dtype=f32)
+        lg, cache = model.decode_step(params, cache, tokens[:, i], i, dtype=f32)
         dec.append(lg)
-    return logits, torch.stack(dec, dim=1), transformer.prefill(params, cfg, tokens, dtype=f32)
+    return logits, torch.stack(dec, dim=1), model.prefill(params, batch, dtype=f32)
 
 
 def _rel(got, want):
     return float((got.cpu() - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m", "mamba2-370m",
+                                  "recurrentgemma-2b", "whisper-large-v3",
+                                  "llama-3.2-vision-11b"])
 def test_lm_smoke_on_the_card_matches_the_cpu(dev, arch):
     """The LM smoke config on the card against the CPU from the same weights:
-    forward on 80 tokens (gemma's local layers on the banded path), 40
-    decode steps that wrap the 32-slot rings, prefill; within 1e-4 of the
-    largest magnitude."""
+    forward on 80 tokens (gemma's and recurrentgemma's windowed layers on
+    the banded path), 40 decode steps that wrap the 32-slot rings, prefill,
+    with the stub frames or patches where the family takes them; within
+    1e-4 of the largest magnitude."""
     from repro_torch.configs.registry import get_smoke
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
     from repro_torch.tree import tree_map
     cfg = get_smoke(arch)
-    params = transformer.init_params(cfg, _gen(0), "cpu")
-    tokens = torch.randint(0, cfg.vocab, (2, 80), generator=_gen(1))
+    params = get_model(cfg).init_params(_gen(0), "cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 80), generator=_gen(1))}
+    stub = {"encdec": ("frames", cfg.encoder_len),
+            "vlm": ("patches", cfg.num_image_tokens)}.get(cfg.family)
+    if stub:
+        batch[stub[0]] = torch.randn((2, stub[1], cfg.d_model), generator=_gen(4))
     with torch.no_grad():
-        want = _lm_logits(params, cfg, tokens, 40)
-        got = _lm_logits(tree_map(lambda t: t.to(dev), params), cfg, tokens.to(dev), 40)
+        want = _lm_logits(params, cfg, batch, 40)
+        got = _lm_logits(tree_map(lambda t: t.to(dev), params), cfg,
+                         {k: v.to(dev) for k, v in batch.items()}, 40)
     for a, w in zip(got, want):
         assert _rel(a, w) <= 1e-4
 

@@ -132,8 +132,19 @@ def test_hunyuan_config_matches_field_for_field(which):
 
 
 def test_registry_refuses_an_unported_arch():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("mamba2-370m")
+    """Every arch is ported now: an unknown one raises ``KeyError``, and all
+    twelve of the reference's ids resolve (also with ``_`` for ``-``)."""
+    from repro.configs.registry import ARCH_IDS as J_ARCH_IDS
+    from repro.configs.registry import get_config as j_get_config
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba3-370m")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_smoke("no-such-arch")
+    assert ARCH_IDS == J_ARCH_IDS and len(ARCH_IDS) == 12
+    for arch in J_ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
+        assert dataclasses.asdict(get_smoke(arch)) == dataclasses.asdict(j_get_smoke(arch))
+    assert get_config("mamba2_370m") is get_config("mamba2-370m")
 
 
 # --- (c), (e) samplers ------------------------------------------------------------

@@ -252,7 +252,8 @@ def test_serve_lm_full_refuses_what_does_not_fit(arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m", "granite-8b",
-                                  "gemma3-12b"])
+                                  "gemma3-12b", "mamba2-370m", "recurrentgemma-2b",
+                                  "whisper-large-v3", "llama-3.2-vision-11b"])
 def test_serve_lm_full_admits_what_fits(arch):
     TS.check_params_fit(get_config(arch), 80 * 10 ** 9)
 

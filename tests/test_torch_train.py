@@ -164,9 +164,9 @@ def test_model_registry_runs_dit_only():
     g = torch.Generator().manual_seed(0)
     params = model.init_params(g, "cpu")
     assert params["blocks"]["wq"].shape[0] == get_smoke(SMOKE).n_layers
-    unported = _port_cfg(j_get_smoke("mamba2-370m"))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        get_model(unported)
+    unknown = dataclasses.replace(get_smoke(SMOKE), family="rnn")
+    with pytest.raises(KeyError, match="unknown model family 'rnn'"):
+        get_model(unknown)
 
 
 def test_n_params_matches_reference():
