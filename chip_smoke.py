@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Thirteen paths run, each with the launch counts set to 0 just before it
+Sixteen paths run, each with the launch counts set to 0 just before it
 and read just after: T1 (training flux-mmdit at full width and 2 blocks,
-the engine off: no kernel may launch), L1-L6 (the LMs gemma3-1b,
+the engine off: no kernel may launch), L-train (training gemma3-1b at full
+width with remat on and off: no kernel), L1-L6 (the LMs gemma3-1b,
 granite-moe-3b-a800m, mamba2-370m, recurrentgemma-2b, whisper-large-v3 and
 llama-3.2-vision-11b served at full width: they reach no kernel, so none
-may launch), P1 (``flashomni``, uniform layout: GEMM-Q, CSR attention,
-GEMM-O), P2 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2
-buckets: GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
+may launch), long_context (the long-context sparse decode: no kernel),
+sharding (the sharding modules on two ranks: no kernel), P1
+(``flashomni``, uniform layout: GEMM-Q, CSR attention, GEMM-O), P2
+(``sliding-window`` with ``kv_buckets=0``, which resolves to 2 buckets:
+GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
 unified kernel entry on one full-width layer: the symbols attention and the
 Taylor reuse, beside the other five), M1 (P1's request across a (1, 2)
 mesh of two ranks on the card: GEMM-Q, CSR attention on each shard,
@@ -70,7 +73,13 @@ final line):
                 restart, step 3 bit-equal before and after it, no kernel
                 launched; parameters, step seconds (loss and gradients,
                 update), checkpoint bytes and seconds, restore seconds, peak
-                memory;
+                memory; then L-train: gemma3-1b as published (26 layers,
+                d_model 1152, vocab 262 144, ``remat=True``), one step at
+                batch 1 and 4096 tokens through ``make_step_fn`` with remat
+                on and off on the same weights and batch (a warm-up, then
+                the median of 3): step seconds, peak memory, the loss, and
+                the loss and gradients of the two within 1e-5 of the largest
+                magnitude; no kernel launched;
   6. lm       — the LM families (``models/transformer``, ``ssm``,
                 ``rglru``, ``encdec``, ``vision``; ``launch/serve.serve_lm``):
                 their ten smoke configs on the card and on the CPU from the
@@ -92,29 +101,37 @@ final line):
                 finite logits), peak memory, and for L1, L3 and L4 decode's
                 logits at positions 0-39 against ``forward``'s within 1e-4;
                 B1-B7 launched 0 times on all six;
-  7. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
+  7. long_context — ``repro_torch.long_context_lm`` (top-k KV blocks by
+                pooled keys at decode): the example's size on the card and
+                on the CPU (block ids and counts equal, outputs within 1e-5
+                of the largest magnitude), then 524 288 tokens at gemma3-1b's
+                attention geometry (4 query heads x 256, K and V 2.15 GB
+                each): the error against dense attention, selection, sparse
+                and dense decode ms (median of 20), the KV bytes each reads,
+                the peak; no kernel launched;
+  8. serve    — P1: ``serve_diffusion`` on flux-mmdit at full width, 1
                 request of 8 steps (steps 3, 4, 5 and 7 are Dispatch
                 steps): finite outputs, and GEMM-Q, CSR attention and GEMM-O
                 each launched 38 layers x 4 steps = 152 times;
-  8. serve_bucketed — P2 at full width, 1 request of 8 steps: GEMM-Q and the
+  9. serve_bucketed — P2 at full width, 1 request of 8 steps: GEMM-Q and the
                 two bucketed kernels each launched 38 x 4 = 152 times, the
                 uniform attention and GEMM-O never; latency, density, peak
                 memory, and the share of live KV blocks and live (row, head)
                 pairs the buckets dropped at one interior layer's last plan;
-  9. ops      — ``python -m repro_torch.quickstart --full`` on the card: one
+ 10. ops      — ``python -m repro_torch.quickstart --full`` on the card: one
                 Update and one Dispatch of a flux-mmdit-width attention
                 layer, then every ``repro_torch.kernels.ops`` entry on the
                 layer's own symbols (symbols attention bit-equal to CSR, both
                 against the mask oracle, 2-bucket attention against its plain
                 version, Taylor reuse against the layer's forecast); the
                 symbols attention and the Taylor reuse must launch;
- 10. twin     — one flux-width Dispatch layer under the kernels and under
+ 11. twin     — one flux-width Dispatch layer under the kernels and under
                 the structural twin (``backend="torch"``, no kernel) on three
                 plans (union layout at ``cap_kv = T_kv``, sliding-window at 2
                 buckets, per-row layout at ``cap_kv < T_kv``): the largest
                 difference and its share of the float32 tolerance, with the
                 rows of empty KV lists zeroed, and both times;
- 11. mesh     — plan-sharded Dispatch, every rank a process of its own on
+ 12. mesh     — plan-sharded Dispatch, every rank a process of its own on
                 the card over ``gloo`` (the kernels built before any rank
                 starts).  The layer cell: one flux-width Dispatch layer (B 2)
                 on mesh (2, 4), seq mode with flashomni at 1 and 3 buckets
@@ -131,11 +148,19 @@ final line):
                 latents within rel-L2 1e-6 of P1's, B1-B3 launched 152 times
                 on each rank, B2's first call on each rank against its plain
                 version, latency beside P1's (not a speed number);
- 12. dense    — P1's request under ``force_dense`` on the same weights and
+ 13. sharding — ``distributed/{sharding, collective_matmul}`` and
+                ``runtime/elastic`` on two ``gloo`` ranks sharing the card:
+                ``ag_matmul_overlapped`` at flux width (x (1, 4608, 3072) split
+                on tokens, w (3072, 3072)) within 1e-4 of one rank's product,
+                its ms beside an all_gather followed by the product;
+                ``reshard_state`` of T1's 2-block flux-mmdit parameters (1.48
+                GB) over a (2, 1) mesh and onto ``shrink_mesh``'s (1, 1):
+                ``torch.equal`` to the unsharded tensors; no kernel launched;
+ 14. dense    — P1's request under ``force_dense`` on the same weights and
                 noise (no kernel launches): P1's and P2's speedup over it and
                 their relative L2 / PSNR against its latents; then P1, P2
                 and the dense run in bfloat16;
- 13. serve_batched — C1: flux-mmdit at full width, 3 requests of batch 1 at
+ 15. serve_batched — C1: flux-mmdit at full width, 3 requests of batch 1 at
                 t = 0 with 8 and 6 steps in turn, served sequentially,
                 stacked and by the continuous batcher (2 lanes,
                 ``grouped="auto"``: grouped and scan ticks both run):
@@ -146,18 +171,18 @@ final line):
                 stacked 8-step group and its requests alone in lockstep up
                 to the first step whose plans differ, with the Q/K and
                 library-GEMM differences there;
- 14. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
+ 16. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
                 (48 blocks, B=1, 256 + 32 768 tokens), ``hunyuan-1.5x``,
                 uniform layout, float32, 8 steps (3-5 and 7 Dispatch):
                 GEMM-Q, CSR attention and GEMM-O each launched 48 x 4 = 192
                 times, the others never; then its dense run on the same
                 inputs: latency, step seconds, peak memory, speedup, rel-L2
                 / PSNR against dense, and the 50-step projection;
- 15. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
+ 17. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
                 and the bucketed pair on the ``hunyuan-1.5x`` interior plan
                 at 3 buckets, at H1's shapes (B=1, N=33 024) in float32;
- 16. profile  — device time by kernel group within one Update and one
-                Dispatch step of P1, P2 and H1 (at 12 of its 48 blocks) at
+ 18. profile  — device time by kernel group within one Update and one
+                Dispatch step of P1 and H1 (at 4 of its 48 blocks) at
                 full width (torch.profiler; the chunked dense attention as its
                 own group), and the device's idle share; dispatch purity on
                 the card: no Dispatch step may launch a sort or top-k kernel,
@@ -195,9 +220,11 @@ H1_STEPS = STEPS
 # Held against the resolved schedule, so that a schedule fault that drops
 # Dispatch steps cannot lower the launches expected of it.
 DISPATCH_STEPS = 4
-# The profile runs H1 at 12 of its 48 blocks (full width): a step's 48
-# blocks under the profiler take minutes to trace and read back.
-H1_PROFILE_LAYERS = 12
+# The profile runs P1 and H1 at 4 of its 48 blocks (full width): a step's
+# 48 blocks under the profiler take minutes to trace and read back.  Until
+# the long_context, L-train and sharding paths needed the time it ran H1 at
+# 12 blocks and P2 as well (P2's last breakdown: PERF.md section 5).
+H1_PROFILE_LAYERS = 4
 # C1, the batched-serving cell: flux-mmdit at full width, requests of batch
 # 1 arriving together with steps alternating 8 and 6, served sequentially,
 # stacked and by the continuous batcher; every request held to its own
@@ -970,13 +997,123 @@ def train_smoke_vs_cpu(compress) -> dict:
             "ok": bool(rel <= TRAIN_REL and len(runs[DEVICE].metrics) == TRAIN_SMOKE["steps"])}
 
 
+# L-train: gemma3-1b as published (26 layers, d_model 1152, vocab 262 144,
+# remat on) trained one step at batch 1 and 4096 tokens through
+# launch/train.make_step_fn (not the restartable loop: a checkpoint of its
+# 16 GB of f32 state would cost tens of seconds), with remat on and with
+# it off (dataclasses.replace(cfg, remat=False)) on the same weights and
+# batch: a warm-up step, then the median of LTRAIN_STEPS; the loss and every
+# gradient of the two within LTRAIN_REL of the largest magnitude.
+LTRAIN = dict(arch="gemma3-1b", batch=1, seq_len=4096)
+LTRAIN_STEPS = 3
+LTRAIN_REL = 1e-5
+
+
+def ltrain_grads(model, params, batch) -> tuple:
+    """``(loss, gradient leaves)`` of ``model``'s f32 train loss."""
+    import torch
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    leaves, tdef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    loss = model.train_loss(tree_unflatten(tdef, leaves), batch, dtype=torch.float32)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), [g.detach() for g in grads]
+
+
+def ltrain_mode(cfg, params, opt_state) -> dict:
+    """One remat mode of L-train: a warm-up step, then LTRAIN_STEPS steps from
+    the same state at step 0 (the same batch), each new state dropped; the
+    median seconds, the loss and the peak memory of the steps."""
+    import statistics
+    import torch
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch.train import make_step_fn
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import AdamWConfig
+    dcfg = DataConfig(seed=0, batch=LTRAIN["batch"], seq_len=LTRAIN["seq_len"])
+    step_fn = make_step_fn(get_model(cfg), AdamWConfig(lr=1e-3, warmup_steps=10,
+                                                       total_steps=LTRAIN_STEPS + 1),
+                           dcfg, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(1 + LTRAIN_STEPS):
+        new_state, m = step_fn((params, opt_state), 0)
+        del new_state
+        steps.append(m)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed_steps = steps[1:]
+    return {"remat": cfg.remat, "loss": [m["loss"] for m in steps],
+            "grad_norm": timed_steps[0]["grad_norm"],
+            "warmup_s": {k: steps[0][k] for k in ("grad_s", "update_s")},
+            "grad_s": statistics.median(m["grad_s"] for m in timed_steps),
+            "update_s": statistics.median(m["update_s"] for m in timed_steps),
+            "steps_s": [[m["grad_s"], m["update_s"]] for m in timed_steps],
+            "peak_mem_gb": peak}
+
+
+def ltrain() -> tuple[dict, dict, list]:
+    """L-train, the launch counts set to 0 just before and read just after;
+    returns its row and its launches."""
+    import math
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.models.registry import get_model, param_count
+    from repro_torch.optim.optimizer import adamw_init
+    cfg = get_config(LTRAIN["arch"])
+    off = dataclasses.replace(cfg, remat=False)
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params = get_model(cfg).init_params(gen, DEVICE)
+    opt_state = adamw_init(params)
+    modes = {"remat_on": ltrain_mode(cfg, params, opt_state),
+             "remat_off": ltrain_mode(off, params, opt_state)}
+    del opt_state
+    torch.cuda.empty_cache()
+    batch = make_batch(cfg, DataConfig(seed=0, batch=LTRAIN["batch"],
+                                       seq_len=LTRAIN["seq_len"]), 0, device=DEVICE)
+    loss_on, grads_on = ltrain_grads(get_model(cfg), params, batch)
+    loss_off, grads_off = ltrain_grads(get_model(off), params, batch)
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(grads_on, grads_off))
+    loss_err = abs(float(loss_on) - float(loss_off)) / abs(float(loss_off))
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    del params, grads_on, grads_off, batch
+    torch.cuda.empty_cache()
+    res = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "vocab": cfg.vocab, "remat": cfg.remat, **LTRAIN},
+           "n_params": param_count(cfg), **modes,
+           "loss_rel_diff": loss_err, "grad_rel_err": grad_err,
+           "loss_on_off": [float(loss_on), float(loss_off)],
+           "peak_saved_gb": modes["remat_off"]["peak_mem_gb"] - modes["remat_on"]["peak_mem_gb"],
+           "grad_s_ratio_on_over_off": modes["remat_on"]["grad_s"] / modes["remat_off"]["grad_s"],
+           "seconds": time.perf_counter() - t0, "launches": launches}
+    faults = []
+    if not (loss_err <= LTRAIN_REL and grad_err <= LTRAIN_REL):
+        faults.append(f"L-train: remat on and off differ: loss {loss_err:.3e}, "
+                      f"gradients {grad_err:.3e} (limit {LTRAIN_REL})")
+    if not all(math.isfinite(x) for m in modes.values() for x in m["loss"]):
+        faults.append("L-train: a loss is not finite")
+    if any(launches.values()):
+        faults.append(f"L-train launched kernels: {launches}")
+    return res, launches, faults
+
+
 def phase_train() -> dict:
     """The training path (``repro_torch.launch.train``) on the card: the
     gradient check of the dense attention at full width, flux-smoke trained on
-    the card against the CPU (no compression, int8, top-k), then T1: flux-mmdit
-    at full width and 2 blocks through the restartable loop with one injected
-    failure.  Launch counts set to 0 just before T1 and read just after: the
-    engine is off in training, so no kernel may launch."""
+    the card against the CPU (no compression, int8, top-k), T1: flux-mmdit at
+    full width and 2 blocks through the restartable loop with one injected
+    failure, then L-train: gemma3-1b at full width, one step with remat on
+    and off.  Launch counts set to 0 just before T1 and before L-train and
+    read just after each: the engine is off in training, so no kernel may
+    launch.  Returns each path's launch counts."""
     import math
     import shutil
     import statistics
@@ -1020,9 +1157,9 @@ def phase_train() -> dict:
         "checkpoints": saves, "restores": restores, "ckpt_dir_free_gb": tmp_free_gb,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "step3_before_after_restart": step3, "launches": launches}
+    res["L-train"], ltrain_launches, faults = ltrain()
     res["seconds"] = time.perf_counter() - t_all
     emit(res)
-    faults = []
     if not res["grad_check"]["ok"]:
         faults.append(f"gradient check: {res['grad_check']}")
     faults += [f"card vs CPU: {r}" for r in res["smoke_vs_cpu"] if not r["ok"]]
@@ -1036,7 +1173,7 @@ def phase_train() -> dict:
         faults.append(f"T1 launched kernels: {launches}")
     if faults:
         raise AssertionError("train: " + "; ".join(faults))
-    return launches
+    return {"T1": launches, "L-train": ltrain_launches}
 
 
 # The LM families (models/transformer, ssm, rglru, encdec and vision;
@@ -1259,6 +1396,242 @@ def phase_lm() -> dict:
     if faults:
         raise AssertionError("lm: " + "; ".join(faults))
     return by_path
+
+
+# long_context: repro_torch.long_context_lm, the port of the reference's
+# long-context example (top-k KV blocks by pooled keys at decode).  The
+# example at its size (LC_EXAMPLE: B 2, H 4, S 8192, head_dim 64, blocks of
+# 64, 25 % kept) on the card and on the CPU from the same inputs: the block
+# ids and counts equal, the outputs within LC_REL of the largest magnitude.
+# Then the same path at the long_500k shape's context with gemma3-1b's
+# attention geometry (LC_LONG: B 1, 4 query heads, head_dim 256, 524 288
+# tokens; K and V caches of 2.15 GB each in f32): the relative error against
+# dense attention, the selection, sparse and dense decode ms (CUDA events,
+# median of LC_ITERS after 2 warm-ups), the KV bytes each reads and the peak.
+LC_EXAMPLE = dict(b=2, h=4, s=8192, dh=64)
+LC_LONG = dict(b=1, h=4, s=524288, dh=256)
+LC_BLOCK, LC_KEEP = 64, 0.25
+LC_REL = 1e-5
+LC_ITERS = 20
+
+
+def median_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median CUDA-event ms of ``iters`` calls of ``fn`` after ``warmup``."""
+    import statistics
+    import torch
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def phase_long_context() -> dict:
+    """The long-context sparse decode on the card (``long_context``); the
+    launch counts are set to 0 just before and read just after: no kernel of
+    B1-B7 lies on this path."""
+    import math
+    import torch
+    from repro_torch import long_context_lm as LC
+    from repro_torch.kernels import KERNELS, reset_launches
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    inputs = LC.make_inputs(**LC_EXAMPLE, block=LC_BLOCK, seed=0, device="cpu")
+    cpu = LC.select_and_attend(*inputs, block=LC_BLOCK, keep_frac=LC_KEEP)
+    card = LC.select_and_attend(*(t.to(DEVICE) for t in inputs), block=LC_BLOCK,
+                                keep_frac=LC_KEEP)
+    example = {**LC_EXAMPLE, "block": LC_BLOCK, "keep_frac": LC_KEEP,
+               "ids_equal": bool(torch.equal(card.kv_ids.cpu(), cpu.kv_ids)
+                                 and torch.equal(card.kv_cnt.cpu(), cpu.kv_cnt)),
+               "sparse_rel_err": rel_err(card.sparse, cpu.sparse),
+               "dense_rel_err": rel_err(card.dense, cpu.dense),
+               "rel_vs_dense": {"card": card.rel, "cpu": cpu.rel}}
+    del inputs, cpu, card
+    torch.cuda.reset_peak_memory_stats()
+    q, k_cache, v_cache = LC.make_inputs(**LC_LONG, block=LC_BLOCK, seed=0, device=DEVICE)
+    out = LC.select_and_attend(q, k_cache, v_cache, block=LC_BLOCK, keep_frac=LC_KEEP)
+    ids, cnt = out.kv_ids, out.kv_cnt
+    ms = {"select": median_ms(lambda: LC.select_blocks(q, k_cache, block=LC_BLOCK,
+                                                       keep_frac=LC_KEEP), LC_ITERS),
+          "sparse_decode": median_ms(lambda: LC.sparse_decode_attention(
+              q, k_cache, v_cache, ids, cnt, LC_BLOCK), LC_ITERS),
+          "dense_decode": median_ms(lambda: LC.dense_decode(q, k_cache, v_cache), LC_ITERS)}
+    bh, s, dh = k_cache.shape
+    f32 = 4
+    read = {"sparse_decode": 2 * int(cnt.sum()) * LC_BLOCK * dh * f32 + q.numel() * f32,
+            "dense_decode": 2 * bh * s * dh * f32 + q.numel() * f32,
+            "select": bh * s * dh * f32 + q.numel() * f32}
+    long = {**LC_LONG, "block": LC_BLOCK, "keep_frac": LC_KEEP,
+            "cache_gb_each": k_cache.numel() * f32 / 1e9, "blocks_kept": int(cnt[0]),
+            "blocks": s // LC_BLOCK, "rel_vs_dense": out.rel, "ms": ms, "kv_bytes_read": read,
+            "hbm_bound_ms": {k: v / HBM_BYTES_S * 1e3 for k, v in read.items()},
+            "sparse_over_dense_ms": ms["sparse_decode"] / ms["dense_decode"],
+            "select_note": "the selection pools every key each call; a server would keep "
+                           "the pooled keys with the cache",
+            "finite": bool(torch.isfinite(out.sparse).all() and torch.isfinite(out.dense).all()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del q, k_cache, v_cache, out, ids, cnt
+    torch.cuda.empty_cache()
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    res = {"phase": "long_context", "example": example, "long_500k": long,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(res)
+    faults = []
+    if not (example["ids_equal"] and example["sparse_rel_err"] <= LC_REL
+            and example["dense_rel_err"] <= LC_REL):
+        faults.append(f"the example on the card differs from the CPU: {example}")
+    if not (long["finite"] and math.isfinite(long["rel_vs_dense"])):
+        faults.append("the 524 288-token decode is not finite")
+    if any(launches.values()):
+        faults.append(f"long_context launched kernels: {launches}")
+    if faults:
+        raise AssertionError("long_context: " + "; ".join(faults))
+    return launches
+
+
+# sharding: repro_torch.distributed.{sharding, collective_matmul} and
+# runtime/elastic in a gloo world of 2 ranks sharing the card
+# (launch/mesh.run_local_mesh).  ag_matmul_overlapped at flux width (x
+# (1, 4608, 3072) split on tokens, w (3072, 3072)) within SHARD_ATOL (the
+# reference's test tolerance) of one rank's x @ w, timed beside an
+# all_gather followed by the product (host clock, the card synchronised;
+# median of SHARD_ITERS after one warm-up); then reshard_state of T1's
+# 2-block flux-mmdit parameters (1.48 GB f32), sharded ("fsdp", None, ...)
+# over a (2, 1) mesh and then onto shrink_mesh(..., drop_data_rows=1):
+# torch.equal to the unsharded tensors.
+SHARD_MESH = (2, 1)
+SHARD_CM = dict(b=1, s=4608, d=3072, f=3072)
+SHARD_ATOL = 1e-4
+SHARD_ITERS = 5
+SHARD_JOIN_S = 300
+
+
+def sharding_rank(rank: int) -> dict:
+    """One rank of the ``sharding`` phase: its launch counts are set to 0 at
+    its start and read at its end."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.collective_matmul import ag_matmul_overlapped
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.models import dit
+    from repro_torch.runtime.elastic import reshard_state, shrink_mesh
+    from repro_torch.tree import tree_flatten, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    world = dist.get_world_size()
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(MESH_SEED)
+    b, s, d, f = (SHARD_CM[k] for k in ("b", "s", "d", "f"))
+    x = torch.randn((b, s, d), generator=g, device=DEVICE)
+    w = torch.randn((d, f), generator=g, device=DEVICE) * d ** -0.5
+    s_loc = s // world
+    shard = x[:, rank * s_loc:(rank + 1) * s_loc].contiguous()
+    y = ag_matmul_overlapped(shard, w)
+    want = x @ w
+    err = float((y - want).abs().max())
+
+    def gathered():
+        parts = [torch.empty_like(shard) for _ in range(world)]
+        dist.all_gather(parts, shard)
+        return torch.cat(parts, dim=1) @ w
+
+    gather_err = float((gathered() - want).abs().max())
+
+    def host_ms(fn) -> float:
+        fn()
+        times = []
+        for _ in range(SHARD_ITERS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    cm = {**SHARD_CM, "ranks": world, "max_abs_err": err, "allgather_max_abs_err": gather_err,
+          "overlapped_vs_allgather_max_abs_diff": float((y - gathered()).abs().max()),
+          "ms": host_ms(lambda: ag_matmul_overlapped(shard, w)),
+          "allgather_then_matmul_ms": host_ms(gathered),
+          "local_matmul_ms": median_ms(lambda: x @ w, SHARD_ITERS)}
+    del x, w, y, want, shard
+    cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=T1["n_layers"])
+    gp = torch.Generator(device=DEVICE)
+    gp.manual_seed(0)
+    params = dit.init_params(cfg, gp, DEVICE)
+    spec = tree_map(lambda t: ("fsdp",) + (None,) * (t.ndim - 1) if t.ndim else (), params)
+    mesh = DeviceMesh(DEVICE, torch.arange(world).reshape(SHARD_MESH),
+                      mesh_dim_names=("data", "model"))
+    t0 = time.perf_counter()                     # DTensor's first call sets up its machinery
+    reshard_state({"w": torch.zeros((world, 2), device=DEVICE)}, {"w": ("fsdp", None)}, mesh,
+                  DEFAULT_RULES)
+    warmup_s = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    sharded = reshard_state(params, spec, mesh, DEFAULT_RULES)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    small = shrink_mesh(mesh, drop_data_rows=1)
+    dist.barrier()
+    t0 = time.perf_counter()
+    moved = reshard_state(sharded, spec, small, DEFAULT_RULES)
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t0
+    leaves = tree_flatten(params)[0]
+    local = [t.to_local() for t in tree_flatten(sharded)[0]]
+    rs = {"mesh": list(SHARD_MESH), "new_mesh": small.mesh.tolist(),
+          "n_params": sum(t.numel() for t in leaves),
+          "bytes": sum(t.numel() * t.element_size() for t in leaves),
+          "local_bytes": sum(t.numel() * t.element_size() for t in local),
+          "warmup_s": warmup_s, "shard_s": shard_s, "reshard_s": move_s,
+          "in_new_mesh": small.get_coordinate() is not None}
+    if rs["in_new_mesh"]:
+        rs["equal"] = all(torch.equal(a.to_local(), b)
+                          for a, b in zip(tree_flatten(moved)[0], leaves))
+    del params, sharded, moved, leaves, local
+    torch.cuda.empty_cache()
+    return {"rank": rank, "collective_matmul": cm, "reshard": rs,
+            "launches": {fn.__name__: fn.launches for fn in KERNELS}}
+
+
+def phase_sharding() -> dict:
+    """The ``sharding`` phase: two ranks on the card over ``gloo``.  Fails if
+    a rank fails, the collective matmul lies beyond SHARD_ATOL of the local
+    product, the resharded parameters are not ``torch.equal`` to the
+    unsharded ones on the surviving rank, or a kernel launched."""
+    import torch
+    torch.cuda.empty_cache()
+    from repro_torch.launch.mesh import run_local_mesh
+    t0 = time.perf_counter()
+    ranks = run_local_mesh(sharding_rank, *SHARD_MESH, timeout=SHARD_JOIN_S)
+    res = {"phase": "sharding", "transport": "gloo", "ranks": ranks,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    faults = []
+    for r in ranks:
+        cm, rs = r["collective_matmul"], r["reshard"]
+        if not cm["max_abs_err"] <= SHARD_ATOL:
+            faults.append(f"rank {r['rank']}: collective matmul {cm['max_abs_err']:.3e} off")
+        if rs["in_new_mesh"] and not rs["equal"]:
+            faults.append(f"rank {r['rank']}: the resharded parameters differ")
+        if any(r["launches"].values()):
+            faults.append(f"rank {r['rank']} launched kernels: {r['launches']}")
+    if sum(r["reshard"]["in_new_mesh"] for r in ranks) != 1:
+        faults.append("the shrunk mesh does not hold exactly one rank")
+    if faults:
+        raise AssertionError("sharding: " + "; ".join(faults))
+    return ranks[0]["launches"]
 
 
 def dispatch_steps(sched, dense=False) -> int:
@@ -2234,18 +2607,15 @@ def profile_inputs(cfg, batch, n_vision, seed=0):
 
 
 def phase_profile():
-    """One Update and one Dispatch step of P1 and of P2 at full width, then
-    of H1 at full width and ``H1_PROFILE_LAYERS`` blocks (its Update step on
-    the hunyuan-1.5x schedule's strategies)."""
+    """One Update and one Dispatch step of P1 at full width, then of H1 at
+    full width and ``H1_PROFILE_LAYERS`` blocks (its Update step on the
+    hunyuan-1.5x schedule's strategies)."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serving_engine_config
     cfg = get_config(FLUX["arch"])
-    inputs = profile_inputs(cfg, FLUX["batch"], FLUX["n_vision"])
-    paths = [profile_path(label, ecfg, cfg, *inputs) for label, ecfg in (
-        ("P1", serving_engine_config()),
-        ("P2", serving_engine_config("sliding-window", kv_buckets=0)))]
-    del inputs
+    paths = [profile_path("P1", serving_engine_config(), cfg,
+                          *profile_inputs(cfg, FLUX["batch"], FLUX["n_vision"]))]
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config(H1["arch"]), n_layers=H1_PROFILE_LAYERS)
     paths.append(profile_path("H1", serving_engine_config(), cfg,
@@ -2289,13 +2659,15 @@ def main() -> int:
         timed(phase_small)
         timed(phase_analysis)
         served, by_path = {}, {}
-        by_path["T1"] = timed(phase_train)
+        by_path.update(timed(phase_train))
         by_path.update(timed(phase_lm))
+        by_path["long_context"] = timed(phase_long_context)
         by_path["P1"], served["P1"], p1_plans = timed(phase_serve)
         by_path["P2"], served["P2"] = timed(phase_serve_bucketed)
         by_path["ops"] = timed(phase_ops)
         timed(phase_twin, **FULL)
         by_path["M1"] = timed(phase_mesh, served["P1"], p1_plans)
+        by_path["sharding"] = timed(phase_sharding)
         del p1_plans
         timed(phase_dense, served)
         del served

@@ -1,5 +1,8 @@
 """The op stream of one call (the analyzer's shared walker), the port's
-counterpart of ``repro.analysis.jaxpr_walk``.
+counterpart of ``repro.analysis.jaxpr_walk``.  The reference's module walks
+a traced jaxpr, which the port has none of, so it is not applicable as
+such (ROADMAP A.10.3); this recorder of dispatched aten ops stands in for
+it.
 
 :func:`record_call` runs a function under a ``TorchDispatchMode`` and
 records every aten op that reaches the dispatcher: its name, the shapes,

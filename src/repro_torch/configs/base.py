@@ -1,6 +1,15 @@
-"""Architecture configuration schema (copy of ``repro.configs.base``).
+"""Architecture configuration schema and shape grid (copy of
+``repro.configs.base``).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
+The shape grid (``SHAPES``) is the task's:
+
+  train_4k    : seq 4096,   global batch 256  -> train_step
+  prefill_32k : seq 32768,  global batch 32   -> serve prefill
+  decode_32k  : seq 32768,  global batch 128  -> serve decode (1 new token)
+  long_500k   : seq 524288, global batch 1    -> long-context decode
+
+:func:`repro_torch.launch.mesh.rules_for` reads it.
 """
 
 from __future__ import annotations
@@ -8,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["MoESpec", "ArchConfig"]
+__all__ = ["MoESpec", "ArchConfig", "SHAPES", "ShapeSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,6 +25,22 @@ class MoESpec:
     num_experts: int
     top_k: int
     d_ff: int                      # per-expert hidden size
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

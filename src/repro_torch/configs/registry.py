@@ -1,7 +1,10 @@
 """Config registry: ``--arch <id>`` resolution for the port's launchers and
 tests.  ``ARCH_IDS`` holds the reference's twelve archs in its order: the
 decoder-only LMs, the ssm, encdec, vlm and hybrid archs, and the paper's
-two DiTs."""
+two DiTs.  Not applicable: ``arch_shapes``, the shape-grid cells an arch
+runs, which only the GSPMD tools read (``launch/roofline_sweep`` and
+``launch/steps``; ROADMAP A.10.3); the grid itself is
+``configs.base.SHAPES``."""
 
 from __future__ import annotations
 

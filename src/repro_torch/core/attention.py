@@ -290,7 +290,8 @@ def sparse_decode_attention(q, k_cache, v_cache, kv_ids, kv_cnt, block_kv: int, 
     gathered KV-cache blocks ``kv_ids``/``kv_cnt`` of caches (..., S, d);
     ``cache_len`` (...) masks tokens past the filled length.  ``positions``
     is accepted for the reference's signature and unused, as there.
-    Kept for parity with the reference; nothing in the port calls it."""
+    Its caller is :mod:`repro_torch.long_context_lm`, the port of the
+    reference's long-context example."""
     d = q.shape[-1]
     t_kv = k_cache.shape[-2] // block_kv
     scale = (d ** -0.5) if scale is None else scale

@@ -1,6 +1,15 @@
-"""Multi-rank execution of the engine, port of ``repro.distributed``:
-:mod:`~repro_torch.distributed.plan_shard` (plan-sharded mesh dispatch over
-``torch.distributed``) and :mod:`~repro_torch.distributed.compression`
-(gradient compression with error feedback).  The reference's GSPMD sharding
-rules, collective matmul and context helpers are not ported yet (ROADMAP
-A.10)."""
+"""Multi-rank execution, port of ``repro.distributed``, every module of it
+over ``torch.distributed``:
+
+* :mod:`~repro_torch.distributed.plan_shard` — plan-sharded mesh dispatch;
+* :mod:`~repro_torch.distributed.compression` — gradient compression with
+  error feedback;
+* :mod:`~repro_torch.distributed.sharding` — logical-axis sharding rules,
+  mapped onto DTensor placements over a named ``DeviceMesh``;
+* :mod:`~repro_torch.distributed.ctx` — the activation-rules context and
+  ``constrain``;
+* :mod:`~repro_torch.distributed.collective_matmul` — the all-gather matmul
+  as a ring of point-to-point steps.
+
+The sharded train step that would use the rules (FSDP over DTensor) is not
+ported yet (ROADMAP A.10.1)."""

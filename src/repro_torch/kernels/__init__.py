@@ -1,7 +1,9 @@
 """The port's kernels: hand-written CUDA C++ for Hopper (``csrc/``), one
 wrapper per kernel with a launch counter, and their plain PyTorch versions
 (:mod:`repro_torch.kernels.ref`).  :mod:`repro_torch.kernels.ops` is the
-unified entry over them (the reference's ``kernels/ops.py``)."""
+unified entry over them (the reference's ``kernels/ops.py``).  Not
+applicable: the reference's ``kernels/_compat.py``, an alias that reaches
+Pallas' TPU compiler parameters across JAX versions (ROADMAP A.10.3)."""
 
 from repro_torch.kernels.flashomni_attention import (flashomni_attention_csr,
                                                      flashomni_attention_csr_bucketed,

@@ -5,12 +5,13 @@ These translate the engine's logical masks into the index lists (or the
 packed symbols) the kernels take, with the reference's signatures and
 defaults.  What differs:
 
-  * no ``interpret`` flag and no ``on_tpu``: the route follows the tensors'
-    device, as everywhere in the port (a CPU tensor runs each kernel's plain
-    version, a CUDA tensor launches the kernel or raises);
+  * no ``interpret`` flag, and ``on_tpu`` is not applicable (ROADMAP
+    A.10.3): the route follows the tensors' device, as everywhere in the
+    port (a CPU tensor runs each kernel's plain version, a CUDA tensor
+    launches the kernel or raises);
   * no ``kernel_tiles``: the reference sizes its TPU GEMM tiles from a
     calibration table, while the Hopper kernels pick their own tiles; a
-    Hopper tile table needs a sweep on the H100 (ROADMAP A.13);
+    Hopper tile table needs a sweep on the H100 (ROADMAP A.9);
   * no guard for an all-cached head, a GEMM-O with no live row or a Taylor
     reuse with nothing cached: the reference needs them because its grids
     visit the padding slots, while the Hopper kernels skip every slot past

@@ -1,6 +1,11 @@
-"""The engine mesh over ``torch.distributed``, port of ``repro.launch.mesh``.
+"""The meshes over ``torch.distributed``, port of ``repro.launch.mesh``.
 
 * :func:`mesh_shape_for` — the largest power-of-two mesh within a cap (pure).
+* :func:`make_production_mesh` — the named ``(data, model)`` or ``(pod,
+  data, model)`` ``DeviceMesh`` over the initialised world, at the largest
+  power-of-two shape within the production cap that the world holds.
+* :func:`rules_for` — the :class:`~repro_torch.distributed.sharding.ShardingRules`
+  of an (arch, shape, mesh) cell (pure).
 * :func:`make_engine_mesh` — the ``(data, seq)`` mesh of plan-sharded
   dispatch (:mod:`repro_torch.distributed.plan_shard`) over a world the
   caller has already initialised: rank ``r`` sits at
@@ -17,14 +22,11 @@ naming ``transport="gloo"``; nothing switches transport by itself.  Gloo's
 all-to-all and all-gather take CUDA tensors as they are (they stage through
 the host inside the collective), so the dispatch path passes card tensors
 straight to the collective on either transport.
-
-Not applicable: ``make_production_mesh`` and ``rules_for`` build GSPMD
-device meshes and sharding rules for ``jax.jit``; the port has no compiler
-that partitions a program (ROADMAP A.10).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import socket
 import tempfile
@@ -34,7 +36,8 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["EngineMesh", "mesh_shape_for", "make_engine_mesh", "run_local_mesh"]
+__all__ = ["EngineMesh", "mesh_shape_for", "make_production_mesh", "make_engine_mesh",
+           "rules_for", "run_local_mesh"]
 
 
 def mesh_shape_for(n_devices: int, cap_shape: tuple[int, ...]) -> tuple[int, ...]:
@@ -58,6 +61,52 @@ def mesh_shape_for(n_devices: int, cap_shape: tuple[int, ...]) -> tuple[int, ...
         total //= a
         shape.append(a)
     return tuple(reversed(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The named production ``DeviceMesh`` over the initialised world: axes
+    ``(data, model)``, or ``(pod, data, model)`` with ``multi_pod``, at
+    :func:`mesh_shape_for` of the world size within the cap ``(16, 16)`` or
+    ``(2, 16, 16)``; ranks ``0 .. n-1`` in row-major order, the reference's
+    ``devices[:n].reshape(shape)``, on the card where one exists.
+    Collective: every rank of the world calls it (the ranks past ``n`` hold
+    no place in the mesh)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("the production mesh needs an initialised torch.distributed world")
+    cap = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape = mesh_shape_for(dist.get_world_size(), cap)
+    return DeviceMesh("cuda" if torch.cuda.is_available() else "cpu",
+                      torch.arange(math.prod(shape)).reshape(shape), mesh_dim_names=axes)
+
+
+def rules_for(cfg, shape, *, multi_pod: bool):
+    """Pick sharding rules for an (arch, shape, mesh) cell.
+
+    * decode cells map the KV-cache sequence axis (``sp``) onto the model
+      axis (kv heads are replicated there — GQA kv counts don't divide 16);
+    * batch=1 long-context cells replicate the batch and spread the cache
+      sequence over BOTH mesh axes;
+    * ≥100B configs (``zero_over_pod``) extend fsdp over the pod axis.
+    """
+    from repro_torch.distributed.sharding import ShardingRules
+
+    if getattr(cfg, "family", "") == "dit":
+        # Batch=1 video DiT serving: sequence parallel over data (and pod,
+        # when present — 33K tokens over 32 ways), heads/ff over model.
+        sp = ("pod", "data") if multi_pod else ("data",)
+        return ShardingRules(dp=(), fsdp=("data",), tp=("model",), sp=sp, ep=())
+    dp = ("pod", "data") if multi_pod else ("data",)
+    fsdp = ("pod", "data") if (multi_pod and cfg.zero_over_pod) else ("data",)
+    sp: tuple[str, ...] = ()
+    if shape.kind == "decode":
+        if shape.global_batch == 1:           # long_500k: batch can't shard
+            dp = ()
+            sp = ("data", "model")
+        else:
+            sp = ("model",)
+    return ShardingRules(dp=dp, fsdp=fsdp, tp=("model",), sp=sp, ep=())
 
 
 class EngineMesh(NamedTuple):

@@ -11,19 +11,21 @@ launches.  Without ``--full`` it trains the arch's smoke config; ``--full``
 takes the published one, and refuses before allocating when the f32
 training state (parameters, gradients and AdamW's two moments, 16 bytes a
 parameter, counted from the parameter tensors' shapes) and the blocks'
-activations do not fit on the card: flux-mmdit's 38 blocks hold
-6 485 041 664 parameters, ≈ 103.8 GB of state before any activation, more
-than one H100 holds, and full depth waits for sharded training state
-(ROADMAP A.10).  :func:`train` also takes an ``ArchConfig``, e.g.
+activations (a constant measured on the H100 for each kind of block: the
+DiT's, and the LM's with and without remat) do not fit on the card:
+flux-mmdit's 38 blocks hold 6 485 041 664 parameters, ≈ 103.8 GB of state
+before any activation, more than one H100 holds, and full depth waits for
+a sharded train step (ROADMAP A.10.1).  :func:`train` also takes an ``ArchConfig``, e.g.
 flux-mmdit cut to 2 blocks, and initial ``params``.  It trains every LM
 family too (dense, MoE, ssm, hybrid, encdec and vlm; ``data/synthetic``
 adds the ``frames`` and ``patches`` stubs), at smoke width.
 
 Runs on the card unless ``device="cpu"`` is asked for; without a card it
-raises.  Not applicable, each with ROADMAP A.10: ``launch/steps.py``'s step
-builders and ``launch/specs.py`` (jit + ``NamedSharding`` step factories
-for the GSPMD dry-run), and ``runtime/elastic.py`` (resharding GSPMD state
-onto a new mesh).
+raises.  Not applicable: ``launch/specs.py`` (jit + ``NamedSharding`` step
+factories for the GSPMD dry-run).  Not ported yet: ``launch/steps.py``'s
+sharded step builders, ``param_specs`` and ``adamw_state_specs``, whose
+counterpart is an FSDP step over DTensor on the port's sharding modules
+(``distributed/sharding``, ``runtime/elastic``; ROADMAP A.10.1).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from repro_torch.runtime.fault_tolerance import (FailureInjector, RestartableLoo
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["make_step_fn", "train", "check_state_fits", "STATE_BYTES_PER_PARAM",
-           "ACT_BYTES_PER_BLOCK_ELEM"]
+           "ACT_BYTES_PER_BLOCK_ELEM", "LM_ACT_BYTES_PER_BLOCK_ELEM", "act_bytes_per_block_elem"]
 
 # f32 parameters, gradients and AdamW's mu and nu.
 STATE_BYTES_PER_PARAM = 16
@@ -57,6 +59,24 @@ STATE_BYTES_PER_PARAM = 16
 # (flux-mmdit, 2 blocks, batch 1, 4608 tokens: 14.51 GB, of which
 # 16 B x 369 073 664 is state): (14.51e9 - 5.905e9) / (2 x 4608 x 3072).
 ACT_BYTES_PER_BLOCK_ELEM = (14.51e9 - STATE_BYTES_PER_PARAM * 369_073_664) / (2 * 4608 * 3072)
+# The same for an LM block, with cfg.remat and without, from L-train's
+# measured peaks on the H100 (gemma3-1b, 26 layers, batch 1, 4096 tokens,
+# 999 826 048 parameters: 41.63 GB with remat, 53.26 GB without).  What the
+# step holds beside the 16 B a parameter (the 262 144-word head's logits,
+# the new state while the old one lives) is billed to the blocks with the
+# rest: (peak - 16 B x parameters) / (26 x 4096 x 1152).
+LM_ACT_BYTES_PER_BLOCK_ELEM = {
+    remat: (peak - STATE_BYTES_PER_PARAM * 999_826_048) / (26 * 4096 * 1152)
+    for remat, peak in ((True, 41.629705216e9), (False, 53.260346368e9))}
+
+
+def act_bytes_per_block_elem(cfg: ArchConfig) -> float:
+    """The activation bytes ``cfg``'s blocks hold per element of a (batch,
+    tokens, d_model) activation: the DiT's constant, or the LM's for its
+    ``remat``."""
+    if cfg.family == "dit":
+        return ACT_BYTES_PER_BLOCK_ELEM
+    return LM_ACT_BYTES_PER_BLOCK_ELEM[bool(cfg.remat)]
 
 
 def check_state_fits(cfg: ArchConfig, free_bytes: int, *, batch: int = 1,
@@ -64,11 +84,11 @@ def check_state_fits(cfg: ArchConfig, free_bytes: int, *, batch: int = 1,
     """Raise ``ValueError`` when ``cfg``'s training step does not fit in
     ``free_bytes`` of device memory: its f32 state (16 B a parameter, the
     parameters counted from their shapes) and, for each block,
-    ``ACT_BYTES_PER_BLOCK_ELEM`` per element of a ``(batch, tokens,
+    :func:`act_bytes_per_block_elem` per element of a ``(batch, tokens,
     d_model)`` activation."""
     n = param_count(cfg)
     state = n * STATE_BYTES_PER_PARAM
-    act = int(cfg.n_layers * ACT_BYTES_PER_BLOCK_ELEM * batch * tokens * cfg.d_model)
+    act = int(cfg.n_layers * act_bytes_per_block_elem(cfg) * batch * tokens * cfg.d_model)
     if state + act > free_bytes:
         raise ValueError(
             f"{cfg.name} at {cfg.n_layers} blocks needs {(state + act) / 1e9:.1f} GB: "
@@ -76,8 +96,9 @@ def check_state_fits(cfg: ArchConfig, free_bytes: int, *, batch: int = 1,
             f"and nu: {STATE_BYTES_PER_PARAM} B x {n} parameters) and {act / 1e9:.1f} GB "
             f"of activations (batch {batch}, {tokens} tokens); the card has "
             f"{free_bytes / 1e9:.1f} GB free.  Full depth needs the training state "
-            f"sharded across cards (distributed/sharding, not ported: ROADMAP A.10); "
-            f"pass a config with fewer blocks")
+            f"sharded across cards, a sharded train step over the ported "
+            f"distributed/sharding and runtime/elastic (ROADMAP A.10.1); pass a "
+            f"config with fewer blocks")
 
 
 def make_step_fn(model, opt_cfg: AdamWConfig, dcfg: DataConfig, cfg: ArchConfig, *,

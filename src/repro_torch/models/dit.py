@@ -7,9 +7,10 @@ Update–Dispatch engine.  The text encoder and patchifier are stubs: inputs
 are precomputed text and latent-patch embeddings.  The reference scans the
 blocks with ``lax.scan``; here the layers are a Python loop over the stacked
 ``(L, ...)`` block parameters and a list of per-layer engine states.  Not
-applicable: ``param_specs`` and ``engine_state_specs`` (their mesh part
-included) are GSPMD sharding specs; under a mesh every rank holds the whole
-state and only attention shards (:mod:`repro_torch.distributed.plan_shard`).
+applicable (ROADMAP A.10.3): ``param_specs`` and ``engine_state_specs``
+(their mesh part included) are GSPMD sharding specs; under a mesh every rank
+holds the whole state and only attention shards
+(:mod:`repro_torch.distributed.plan_shard`).
 """
 
 from __future__ import annotations

@@ -12,10 +12,11 @@ in the reference (or here) writes them: ``init_cache`` leaves them zero,
 so served decoding attends to zeros (ROADMAP C.11).  The port reproduces
 this; it does not fix it.
 
-The reference's ``lax.scan`` over layers is a Python loop here.  Not
-ported: ``param_specs`` and ``cache_specs`` are GSPMD sharding specs
-(N/A); ``cfg.remat`` is not honoured, as in ``models/transformer``
-(ROADMAP A.10.4).
+The reference's ``lax.scan`` over layers is a Python loop here.
+``cfg.remat`` checkpoints each encoder and each decoder block, as the
+reference's ``jax.checkpoint`` of its scan bodies does
+(``models/transformer.remat``, whose docstring maps the policy).  Not
+ported: ``param_specs`` and ``cache_specs`` are GSPMD sharding specs (N/A).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.tree import tree_map
 
 __all__ = ["layer_norm", "init_params", "forward", "train_loss", "encode", "decode_train",
@@ -111,21 +113,27 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, *,
     """frames: (B, encoder_len, d_model), the precomputed frontend output."""
     x = frames.to(dtype) + params["pos_enc"].to(dtype)
     for i in range(cfg.n_layers):
-        p = tree_map(lambda a: a[i], params["enc"])
-        xa = _ln(x, p["ln1"])
-        x = x + _mha(p["attn"], xa, xa, cfg, causal=False)
-        x = x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
+        x = T.remat(cfg, _enc_block, tree_map(lambda a: a[i], params["enc"]), x, cfg)
     return _ln(x, params["ln_enc"])
+
+
+def _enc_block(p, x, cfg: ArchConfig):
+    xa = _ln(x, p["ln1"])
+    x = x + _mha(p["attn"], xa, xa, cfg, causal=False)
+    return x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
+
+
+def _dec_block(p, x, enc_out, cfg: ArchConfig):
+    xa = _ln(x, p["ln1"])
+    x = x + _mha(p["attn"], xa, xa, cfg, causal=True)
+    x = x + _mha(p["xattn"], _ln(x, p["lnx"]), enc_out, cfg, causal=False)
+    return x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
 
 
 def _decoder_hidden(params, cfg: ArchConfig, tokens, enc_out, dtype):
     x = params["tok_embed"][tokens].to(dtype) + params["pos_dec"][:tokens.shape[1]].to(dtype)
     for i in range(cfg.n_layers):
-        p = tree_map(lambda a: a[i], params["dec"])
-        xa = _ln(x, p["ln1"])
-        x = x + _mha(p["attn"], xa, xa, cfg, causal=True)
-        x = x + _mha(p["xattn"], _ln(x, p["lnx"]), enc_out, cfg, causal=False)
-        x = x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
+        x = T.remat(cfg, _dec_block, tree_map(lambda a: a[i], params["dec"]), x, enc_out, cfg)
     return x
 
 

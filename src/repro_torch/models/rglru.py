@@ -14,9 +14,10 @@ and the head is the tied ``embed.T``.  The attention layers take the banded
 window; decode keeps a ring of ``min(window, max_len)`` K/V slots.
 
 The reference's ``lax.scan`` over cycles and blocks is a Python loop here.
-Not ported: ``param_specs`` and ``cache_specs`` are GSPMD sharding specs
-(N/A); ``cfg.remat`` is not honoured, as in ``models/transformer``
-(ROADMAP A.10.4).
+``cfg.remat`` checkpoints each recurrent block and each attention block,
+as the reference's ``jax.checkpoint`` does (``models/transformer.remat``,
+whose docstring maps the policy).  Not ported: ``param_specs`` and
+``cache_specs`` are GSPMD sharding specs (N/A).
 """
 
 from __future__ import annotations
@@ -161,10 +162,11 @@ def _hidden(params, cfg: ArchConfig, tokens, dtype):
                             cfg.rope_theta)
     for c in range(n_cycles(cfg)):
         for j in range(2):
-            x = _rec_apply(cfg, tree_map(lambda a: a[c, j], params["rec"]), x)
-        x = _attn_apply_blk(cfg, tree_map(lambda a: a[c], params["attn"]), x, cos, sin)
+            x = T.remat(cfg, _rec_apply, cfg, tree_map(lambda a: a[c, j], params["rec"]), x)
+        x = T.remat(cfg, _attn_apply_blk, cfg, tree_map(lambda a: a[c], params["attn"]), x,
+                    cos, sin)
     for t in range(params["tail"]["ln"].shape[0] if "tail" in params else 0):
-        x = _rec_apply(cfg, tree_map(lambda a: a[t], params["tail"]), x)
+        x = T.remat(cfg, _rec_apply, cfg, tree_map(lambda a: a[t], params["tail"]), x)
     return x
 
 

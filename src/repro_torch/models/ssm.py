@@ -20,9 +20,10 @@ Two departures in form, with the reference's values:
     port's gradients are finite at every length.
 
 The reference's ``lax.scan`` over layers and over chunk states is a Python
-loop here.  Not ported: ``param_specs`` and ``cache_specs`` are GSPMD
-sharding specs (N/A); ``cfg.remat`` (``jax.checkpoint`` of the block body)
-is not honoured, as in ``models/transformer`` (ROADMAP A.10.4).
+loop here.  ``cfg.remat`` checkpoints each block, as the reference's
+``jax.checkpoint`` of its scan body does (``models/transformer.remat``,
+whose docstring maps the policy).  Not ported: ``param_specs`` and
+``cache_specs`` are GSPMD sharding specs (N/A).
 """
 
 from __future__ import annotations
@@ -174,7 +175,8 @@ def _block_apply(cfg: ArchConfig, p, x, *, chunk: int = 128):
 def _hidden(params, cfg: ArchConfig, tokens, dtype, chunk):
     x = params["embed"][tokens].to(dtype)
     for i in range(cfg.n_layers):
-        x = _block_apply(cfg, tree_map(lambda a: a[i], params["blocks"]), x, chunk=chunk)
+        x = T.remat(cfg, _block_apply, cfg, tree_map(lambda a: a[i], params["blocks"]), x,
+                    chunk=chunk)
     return x
 
 

@@ -11,12 +11,25 @@ take the banded :func:`layers.local_attention` when the sequence is longer
 than twice the window, and ring-buffer KV caches of length ``window`` at
 decode.
 
+``cfg.remat`` recomputes each block in the backward pass, as the
+reference's ``jax.checkpoint(policy=dots_with_no_batch_dims_saveable)`` of
+the block body does (:func:`remat`; every LM family wraps the same bodies
+the reference wraps).  The policy maps onto PyTorch's selective activation
+checkpoint (``torch.utils.checkpoint`` with ``use_reentrant=False`` and
+``create_selective_checkpoint_contexts``): a dot with no batch dimension
+is a weight product, which reaches autograd as ``aten.mm`` (``x @ W`` on a
+flattened ``(B·S, d)`` view) or ``aten.addmm`` (with a bias), and those
+outputs are saved; every other op, ``aten.bmm`` of the attention scores
+and the MoE's per-expert products included, is recomputed.  Remat changes
+memory, not values: the loss and the gradients are the same bits with it
+on or off.  It acts only where grad mode is on, so prefill and decode (no
+grad) never take it.
+
 Not ported, with their reasons: ``param_specs`` and ``cache_specs`` are
 GSPMD sharding specs (N/A); the reference's ``constrain(...)`` calls are
-GSPMD layout hints that compute nothing, and are dropped; ``cfg.remat``
-(``jax.checkpoint`` of the block body) is not honoured yet: values do not
-depend on it, and LM training at full width with recompute is queued in
-ROADMAP A.10.4.
+layout hints for its sharded step builders, which compute nothing, and are
+dropped until the port's sharded train step (ROADMAP A.10.1) installs
+:mod:`repro_torch.distributed.ctx`'s rules.
 """
 
 from __future__ import annotations
@@ -24,13 +37,42 @@ from __future__ import annotations
 from typing import Iterator, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
 
 __all__ = ["layer_groups", "init_params", "forward", "train_loss", "init_cache",
-           "decode_step", "prefill"]
+           "decode_step", "prefill", "remat", "remat_policy"]
+
+
+# ---------------------------------------------------------------------------
+# Remat: the counterpart of jax.checkpoint(dots_with_no_batch_dims_saveable)
+# ---------------------------------------------------------------------------
+
+_WEIGHT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Save the weight products (``aten.mm``, ``aten.addmm``), recompute
+    everything else."""
+    if op in _WEIGHT_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_contexts():
+    return create_selective_checkpoint_contexts(remat_policy)
+
+
+def remat(cfg: ArchConfig, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, checkpointed under :func:`remat_policy` when
+    ``cfg.remat`` is set and grad mode is on."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=_remat_contexts, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +192,7 @@ def _hidden(params, cfg: ArchConfig, tokens, dtype):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group, idx, window in _layers(cfg):
         p = tree_map(lambda a: a[idx], params[group])
-        x, a = _block_apply(p, x, cfg, window=window, cos=cos, sin=sin)
+        x, a = remat(cfg, _block_apply, p, x, cfg, window=window, cos=cos, sin=sin)
         if a is not None:
             aux = aux + a
     return x, aux

@@ -15,9 +15,10 @@ reference (or here) writes: served decoding attends to zeros, and agrees
 with ``forward`` only because the gate is zero at init (ROADMAP C.11).
 
 The reference's ``lax.scan`` over cycles and blocks is a Python loop here.
-Not ported: ``param_specs`` and ``cache_specs`` are GSPMD sharding specs
-(N/A); ``cfg.remat`` is not honoured, as in ``models/transformer``
-(ROADMAP A.10.4).
+``cfg.remat`` checkpoints each cross-attention layer and each self block,
+as the reference's ``jax.checkpoint`` does (``models/transformer.remat``,
+whose docstring maps the policy).  Not ported: ``param_specs`` and
+``cache_specs`` are GSPMD sharding specs (N/A).
 """
 
 from __future__ import annotations
@@ -91,10 +92,10 @@ def _hidden(params, cfg: ArchConfig, batch, dtype):
                             cfg.rope_theta)
     n_cyc, n_self = _groups(cfg)
     for c in range(n_cyc):
-        x = _cross_apply(tree_map(lambda a: a[c], params["cross"]), x, img, cfg)
+        x = T.remat(cfg, _cross_apply, tree_map(lambda a: a[c], params["cross"]), x, img, cfg)
         for j in range(n_self):
-            x, _ = T._block_apply(tree_map(lambda a: a[c, j], params["selfs"]), x, cfg,
-                                  window=None, cos=cos, sin=sin)
+            x, _ = T.remat(cfg, T._block_apply, tree_map(lambda a: a[c, j], params["selfs"]),
+                           x, cfg, window=None, cos=cos, sin=sin)
     return x
 
 

@@ -1,1 +1,3 @@
-"""Training runtime, port of ``repro.runtime``."""
+"""Training runtime, port of ``repro.runtime``: ``fault_tolerance`` (the
+restartable loop, the straggler watchdog, failure injection) and
+``elastic`` (shrinking the mesh and resharding the state)."""

@@ -476,6 +476,22 @@ def test_state_count_is_the_parameters_numel():
         TT.check_state_fits(cfg, int(14.50e9))
 
 
+@pytest.mark.parametrize("remat,peak", [(True, 41.629705216e9), (False, 53.260346368e9)])
+def test_lm_state_check_bills_l_train_peaks(remat, peak):
+    """An LM block is billed from L-train's measured peaks (gemma3-1b, 26
+    layers, batch 1, 4096 tokens), with remat and without; the DiT keeps
+    T1's constant."""
+    cfg = dataclasses.replace(get_config("gemma3-1b"), remat=remat)
+    assert param_count(cfg) == 999_826_048
+    assert TT.act_bytes_per_block_elem(cfg) == TT.LM_ACT_BYTES_PER_BLOCK_ELEM[remat]
+    act = cfg.n_layers * TT.act_bytes_per_block_elem(cfg) * 4096 * cfg.d_model
+    assert abs(999_826_048 * TT.STATE_BYTES_PER_PARAM + act - peak) < 1e3
+    TT.check_state_fits(cfg, int(peak + 1e7), tokens=4096)
+    with pytest.raises(ValueError, match="sharded train step"):
+        TT.check_state_fits(cfg, int(peak - 1e7), tokens=4096)
+    assert TT.act_bytes_per_block_elem(get_config("flux-mmdit")) == TT.ACT_BYTES_PER_BLOCK_ELEM
+
+
 def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     TT.main(["--arch", SMOKE, "--steps", "2", "--batch", "1", "--seq-len", "16",
              "--compress", "int8", "--ckpt-dir", str(tmp_path), "--device", "cpu"])
