@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Sixteen paths run, each with the launch counts set to 0 just before it
+Nineteen paths run, each with the launch counts set to 0 just before it
 and read just after: T1 (training flux-mmdit at full width and 2 blocks,
 the engine off: no kernel may launch), L-train (training gemma3-1b at full
 width with remat on and off: no kernel), L1-L6 (the LMs gemma3-1b,
 granite-moe-3b-a800m, mamba2-370m, recurrentgemma-2b, whisper-large-v3 and
 llama-3.2-vision-11b served at full width: they reach no kernel, so none
 may launch), long_context (the long-context sparse decode: no kernel),
-sharding (the sharding modules on two ranks: no kernel), P1
+sharding (the sharding modules on two ranks: no kernel), S2 (T1's
+training step sharded over two ranks by ``launch/steps``: no kernel), S3
+(a 2-block flux-mmdit denoise step sharded over two ranks, Update then
+Dispatch: GEMM-Q, CSR attention, GEMM-O, counted in each rank), S4
+(gemma3-1b's prefill and decode steps sharded over two ranks: no kernel),
+P1
 (``flashomni``, uniform layout: GEMM-Q, CSR attention, GEMM-O), P2
 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2 buckets:
 GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
@@ -155,7 +160,25 @@ final line):
                 its ms beside an all_gather followed by the product;
                 ``reshard_state`` of T1's 2-block flux-mmdit parameters (1.48
                 GB) over a (2, 1) mesh and onto ``shrink_mesh``'s (1, 1):
-                ``torch.equal`` to the unsharded tensors; no kernel launched;
+                ``torch.equal`` to the unsharded tensors; no kernel launched.
+                Then the step builders (``launch/steps``) in the same world:
+                S2, T1 sharded (FSDP, batch 2, 3 steps, f32): loss and
+                grad_norm within 1e-4 relative of ``make_step_fn``'s
+                unsharded step at every step, the parameters within 1e-4 of
+                their largest magnitude, the step's seconds split into
+                gather, loss and gradients, scatter and update, the bytes
+                each rank copied from the other (the two share the card and
+                map each other's tensors), the peak a rank; no kernel
+                launched.  S3, ``build_dit_step`` on the same 2-block model
+                at P1's engine config, batch 2, Update then Dispatch: each
+                rank's ``v`` and integer state fields ``torch.equal`` to its
+                batch-1 slice run alone, rel-L2 3e-4 against the batch-2
+                step, B1-B3 launched twice a rank at Dispatch and never at
+                Update, B2's first call against its plain version.  S4,
+                gemma3-1b at full width in bf16, batch 2: the prefill
+                builder on 256 tokens, then 8 greedy steps of the decode
+                builder: tokens equal to the unsharded model's, logits
+                within 2e-2 of their largest magnitude; no kernel;
  14. dense    — P1's request under ``force_dense`` on the same weights and
                 noise (no kernel launches): P1's and P2's speedup over it and
                 their relative L2 / PSNR against its latents; then P1, P2
@@ -182,8 +205,8 @@ final line):
                 and the bucketed pair on the ``hunyuan-1.5x`` interior plan
                 at 3 buckets, at H1's shapes (B=1, N=33 024) in float32;
  18. profile  — device time by kernel group within one Update and one
-                Dispatch step of P1 and H1 (at 4 of its 48 blocks) at
-                full width (torch.profiler; the chunked dense attention as its
+                Dispatch step of P1 at full width (torch.profiler; the
+                chunked dense attention as its
                 own group), and the device's idle share; dispatch purity on
                 the card: no Dispatch step may launch a sort or top-k kernel,
                 every Update step must launch one (scans are reported).
@@ -220,11 +243,9 @@ H1_STEPS = STEPS
 # Held against the resolved schedule, so that a schedule fault that drops
 # Dispatch steps cannot lower the launches expected of it.
 DISPATCH_STEPS = 4
-# The profile runs P1 and H1 at 4 of its 48 blocks (full width): a step's
-# 48 blocks under the profiler take minutes to trace and read back.  Until
-# the long_context, L-train and sharding paths needed the time it ran H1 at
-# 12 blocks and P2 as well (P2's last breakdown: PERF.md section 5).
-H1_PROFILE_LAYERS = 4
+# The profile runs P1 alone.  It ran H1 at 4 of its 48 blocks until the
+# sharding phase's step builders needed the time, and at 12 blocks with P2
+# as well before that (their last breakdowns: PERF.md section 5).
 # C1, the batched-serving cell: flux-mmdit at full width, requests of batch
 # 1 arriving together with steps alternating 8 and 6, served sequentially,
 # stacked and by the continuous batcher; every request held to its own
@@ -498,7 +519,8 @@ def measure(name, dn, kern, plain, library, counts, peaks, twin=None,
     if twin is not None:        # the uniform kernel's time on the same plan
         row["uniform_ms"] = time_ms(twin, iters)
     row.update({"ms": time_ms(kern, iters),
-                "plain_ms": time_ms(plain, max(1, iters // 5), warmup=1),
+                # warm already: ``want`` above was its first call
+                "plain_ms": time_ms(plain, max(1, iters // 5), warmup=0),
                 "library_ms": (time_ms(library, max(1, iters // 2), warmup=1)
                                if library is not None else None),
                 "bound_ms": max(t_op, t_mem),
@@ -1528,6 +1550,7 @@ def sharding_rank(rank: int) -> dict:
     from repro_torch.runtime.elastic import reshard_state, shrink_mesh
     from repro_torch.tree import tree_flatten, tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_rank = time.perf_counter()
     reset_launches()
     world = dist.get_world_size()
     g = torch.Generator(device=DEVICE)
@@ -1601,15 +1624,310 @@ def sharding_rank(rank: int) -> dict:
                           for a, b in zip(tree_flatten(moved)[0], leaves))
     del params, sharded, moved, leaves, local
     torch.cuda.empty_cache()
-    return {"rank": rank, "collective_matmul": cm, "reshard": rs,
-            "launches": {fn.__name__: fn.launches for fn in KERNELS}}
+    out = {"rank": rank, "collective_matmul": cm, "reshard": rs,
+           "launches": {fn.__name__: fn.launches for fn in KERNELS},
+           "S1_s": time.perf_counter() - t_rank}
+    out["S2"] = s2_rank(mesh)
+    out["S3"] = s3_rank(mesh)
+    out["S4"] = s4_rank(mesh)
+    return out
+
+
+# S2-S4: the step builders of launch/steps in the same world (mesh (2, 1),
+# ("data", "model"), batch over data).  S2: T1 sharded, FSDP: flux-mmdit at
+# every published width and 2 of 38 blocks, batch 2 (1 a rank), 4096
+# vision + 512 text tokens, S2["steps"] steps of build_train_step under the
+# default rules in f32, T1's AdamW; held against make_step_fn's unsharded
+# step on the same batches (run on rank 0 after the sharded state is
+# freed): loss and grad_norm within S2_REL relative at every step, every
+# parameter after the last step within S2_REL of the largest parameter
+# magnitude (each leaf's error over its own largest magnitude is reported
+# beside it: AdamW passes the batch-row GEMM rounding of a gradient near its
+# eps straight into a move, which shows on the zero-initialised adaln_b).
+# S3: build_dit_step at P1's engine config on the same 2-block
+# model (bf16 weights, f32 compute), batch 2, Update then Dispatch on the
+# states the Update returned: each rank's v and every integer field of its
+# states torch.equal to an unsharded denoise_step on its own batch-1 slice,
+# and within S3_REL_L2 of the unsharded batch-2 step (cuBLAS rounds by row
+# count, ROADMAP C.3); B1-B3 launched S3_LAUNCHES times a rank at Dispatch,
+# none at Update; the first B2 call against its plain version.  S4:
+# gemma3-1b at full width in bf16 (the reference's serving parameters),
+# batch 2, build_prefill_step on S4["prompt"] tokens, then
+# S4["decode_steps"] greedy steps of build_decode_step at the following
+# positions, rules from rules_for; the greedy tokens equal to the unsharded
+# Model.prefill / decode_step's on the same weights, logits within S4_REL of
+# their largest magnitude.  S2 and S4 launch no kernel.
+S2 = dict(n_layers=2, batch=2, seq_len=4096, steps=3)
+S2_REL = 1e-4
+S3 = dict(n_layers=2, batch=2, n_vision=4096)
+S3_REL_L2 = 3e-4
+S3_LAUNCHES = 2
+S4 = dict(arch="gemma3-1b", batch=2, prompt=256, decode_steps=8)
+S4_REL = 2e-2
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import KERNELS
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def _peak_gb() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _whole(x):
+    """A DTensor gathered whole on every rank."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.distributed.sharding import redistribute
+    return redistribute(x, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def s2_rank(mesh) -> dict:
+    """S2 on one rank: the sharded steps; rank 0 then runs the unsharded
+    reference and holds the whole parameter tree to it."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.specs import train_batch_logical
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import make_step_fn
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import AdamWConfig, adamw_init, adamw_state_specs
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=S2["n_layers"])
+    model = get_model(cfg)
+    dcfg = DataConfig(seed=0, batch=S2["batch"], seq_len=S2["seq_len"])
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=S2["steps"])   # T1's (train())
+    shape = ShapeSpec("S2", S2["seq_len"] + cfg.n_text_tokens, S2["batch"], "train")
+    fn = build_train_step(cfg, shape, mesh, R, opt_cfg=opt, dtype=torch.float32)[0]
+
+    def weights():
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(0)
+        return model.init_params(g, DEVICE)
+
+    t_cell = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    params = weights()
+    p = reshard_state(params, model.param_specs(), mesh, R)
+    o = reshard_state(adamw_init(params), adamw_state_specs(model.param_specs()), mesh, R)
+    del params
+    steps = []
+    for step in range(S2["steps"]):
+        b = reshard_state(make_batch(cfg, dcfg, step, device=DEVICE), train_batch_logical(cfg),
+                          mesh, R)
+        dist.barrier()
+        t0 = time.perf_counter()
+        p, o, m = fn(p, o, b)
+        steps.append({"step": step, "loss": float(m["loss"].to_local()),
+                      "grad_norm": float(m["grad_norm"].to_local()),
+                      "step_s": time.perf_counter() - t0, **fn.stats})
+        del b, m
+    launches = _launches()
+    res = {"steps": steps, "peak_gb": _peak_gb(), "launches": launches,
+           "local_bytes": sum(x.to_local().nbytes for x in tree_leaves(p))}
+    whole = [_whole(x) for x in tree_leaves(p)]
+    del p, o
+    res["sharded_s"] = time.perf_counter() - t_cell
+    if mesh.get_coordinate()[0] != 0:
+        del whole
+        torch.cuda.empty_cache()
+        dist.barrier()                   # rank 0 runs the reference
+        res["seconds"] = time.perf_counter() - t_cell
+        return res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_step_fn(model, opt, dcfg, cfg, dtype=torch.float32, device=DEVICE)
+    params = weights()
+    state, want = (params, adamw_init(params)), []
+    del params
+    for step in range(S2["steps"]):
+        state, met = step_fn(state, step)
+        want.append((met["loss"], met["grad_norm"]))
+    res["reference_peak_gb"] = _peak_gb()
+    ref = tree_leaves(state[0])
+    diffs = [float((a - b).abs().max()) for a, b in zip(whole, ref)]
+    scales = [float(b.abs().max()) for b in ref]
+    res["reference"] = want
+    res["loss_rel"] = max(abs(s["loss"] - w[0]) / abs(w[0]) for s, w in zip(steps, want))
+    res["grad_norm_rel"] = max(abs(s["grad_norm"] - w[1]) / abs(w[1])
+                               for s, w in zip(steps, want))
+    res["param_abs"] = max(diffs)
+    res["param_rel"] = max(diffs) / max(scales)
+    res["param_rel_by_leaf"] = [d / max(m, 1e-30) for d, m in zip(diffs, scales)]
+    del state, ref, whole
+    torch.cuda.empty_cache()
+    dist.barrier()
+    res["seconds"] = time.perf_counter() - t_cell
+    return res
+
+
+def _int_fields(st) -> list:
+    """The integer (and boolean) tensors of one layer's state."""
+    out = [st.s_c, st.s_s]
+    out += [t for f in st.plan._fields
+            if (t := getattr(st.plan, f)) is not None and not t.dtype.is_floating_point]
+    return out
+
+
+def s3_rank(mesh) -> dict:
+    """S3 on one rank: the sharded Update and Dispatch steps, then this
+    rank's slice alone and the whole batch unsharded."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.launch.specs import dit_inputs_logical
+    from repro_torch.models import dit
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=S3["n_layers"])
+    ecfg = serving_engine_config()
+    b, n_tok = S3["batch"], S3["n_vision"] + cfg.n_text_tokens
+    shape = ShapeSpec("S3", n_tok, b, "serve")
+    t_cell = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, xe, text, t = profile_inputs(cfg, b, S3["n_vision"])
+    params = tree_map(lambda w: w.to(torch.bfloat16), params)
+    p = reshard_state(params, dit.param_specs(cfg), mesh, R)
+    x = reshard_state({"x_vision": xe, "text_emb": text, "t": t}, dit_inputs_logical(cfg),
+                      mesh, R)
+    spec = dit.engine_state_specs(cfg, ecfg)
+    states = ST.place_states(dit.init_engine_states(cfg, ecfg, b, n_tok, DEVICE), spec, mesh, R)
+    run = {}
+    for mode in ("update", "dispatch"):
+        fn = ST.build_dit_step(cfg, shape, mesh, R, mode=mode, ecfg=ecfg,
+                               dtype=torch.float32)[0]
+        reset_launches()
+        t0 = time.perf_counter()
+        (v, states), call = first_b2_call(lambda: fn(p, states, x))
+        run[mode] = {"v": v, "states": states, "s": time.perf_counter() - t0,
+                     "stats": dict(fn.stats), "launches": _launches(), "call": call}
+    res = {"peak_gb": _peak_gb(), "b2_vs_plain": b2_vs_plain(run["dispatch"]["call"])}
+    d = mesh.get_coordinate()[0]
+    sl = slice(d, d + 1)
+    compute = ST._compute_placements(ST._state_tree(spec), mesh, R)
+    local = lambda sts: [ST._state_from_tree(tree_map(ST._to_local, ST._state_tree(s), compute,
+                                                      is_leaf=ST._is_pl), s) for s in sts]
+    one = dit.init_engine_states(cfg, ecfg, 1, n_tok, DEVICE)
+    two = dit.init_engine_states(cfg, ecfg, b, n_tok, DEVICE)
+    for mode in ("update", "dispatch"):
+        r = run[mode]
+        v1, one = dit.denoise_step(params, cfg, ecfg, one, xe[sl], text[sl], t[sl], mode=mode,
+                                   dtype=torch.float32)
+        v2, two = dit.denoise_step(params, cfg, ecfg, two, xe, text, t, mode=mode,
+                                   dtype=torch.float32)
+        mine, v = local(r["states"]), r["v"].to_local()
+        fields = [(a, c, w[sl]) for m, o, w_st in zip(mine, one, two)
+                  for a, c, w in zip(_int_fields(m), _int_fields(o), _int_fields(w_st))]
+        res[mode] = {
+            "s": r["s"], **r["stats"], "launches": r["launches"],
+            "v_equal_slice": bool(torch.equal(v, v1)),
+            "int_fields_equal_slice": all(torch.equal(a, c) for a, c, _ in fields),
+            "int_fields": len(fields),
+            "int_fields_differing_batch2": sum(not torch.equal(a, w) for a, _, w in fields),
+            "sq_diff_batch2": float((v.float() - v2[sl].float()).square().sum()),
+            "sq_batch2": float(v2[sl].float().square().sum()),
+            "finite": bool(torch.isfinite(v).all())}
+        one, two = list(one), list(two)
+    del run, p, x, states, params, one, two
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_cell
+    return res
+
+
+def s4_rank(mesh) -> dict:
+    """S4 on one rank: the sharded prefill and decode; rank 0 then runs the
+    unsharded ones."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.base import SHAPES, ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.launch.specs import prefill_batch_logical
+    from repro_torch.models.registry import get_model
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_map
+    cfg = get_config(S4["arch"])
+    model = get_model(cfg)
+    b, n, k = S4["batch"], S4["prompt"], S4["decode_steps"]
+    pre_rules = rules_for(cfg, SHAPES["prefill_32k"], multi_pod=False)
+    dec_rules = rules_for(cfg, SHAPES["decode_32k"], multi_pod=False)
+    t_cell = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    params = tree_map(lambda w: w.to(torch.bfloat16), model.init_params(g, DEVICE))
+    tokens = torch.randint(0, cfg.vocab, (b, n), generator=g, device=DEVICE, dtype=torch.int32)
+    pre = ST.build_prefill_step(cfg, ShapeSpec("S4", n, b, "prefill"), mesh, pre_rules)[0]
+    dec, _, dec_pl, _ = ST.build_decode_step(cfg, ShapeSpec("S4", n + k, b, "decode"), mesh,
+                                             dec_rules)
+    p = reshard_state(params, model.param_specs(), mesh, pre_rules)
+    batch = reshard_state({"tokens": tokens}, prefill_batch_logical(cfg), mesh, pre_rules)
+    cache = reshard_state(model.init_cache(b, n + k, device=DEVICE), model.cache_specs(), mesh,
+                          dec_rules)
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = pre(p, batch)
+    res = {"prefill": {"s": time.perf_counter() - t0, **pre.stats}, "decode": []}
+    got_logits, got_tokens = [_whole(logits)], []
+    for i in range(k):
+        tok = DTensor.from_local(logits.to_local().argmax(-1).to(torch.int32), mesh, dec_pl[2],
+                                 run_check=False)
+        got_tokens.append(_whole(tok))
+        t0 = time.perf_counter()
+        logits, cache = dec(p, cache, tok, n + i)
+        res["decode"].append({"s": time.perf_counter() - t0, **dec.stats})
+        got_logits.append(_whole(logits))
+    res["launches"] = _launches()
+    res["peak_gb"] = _peak_gb()
+    del p, batch, cache, logits
+    torch.cuda.empty_cache()
+    if mesh.get_coordinate()[0] == 0:
+        with torch.no_grad():
+            want = [model.prefill(params, {"tokens": tokens})]
+            cache = model.init_cache(b, n + k, device=DEVICE)
+            want_tokens = []
+            for i in range(k):
+                want_tokens.append(want[-1].argmax(-1).to(torch.int32))
+                logits, cache = model.decode_step(params, cache, want_tokens[-1], n + i)
+                want.append(logits)
+        res["tokens_equal"] = all(torch.equal(a, c) for a, c in zip(got_tokens, want_tokens))
+        res["first_differing_step"] = next(
+            (i for i, (a, c) in enumerate(zip(got_tokens, want_tokens)) if not torch.equal(a, c)),
+            None)
+        res["logits_rel"] = max(rel_err(a, c) for a, c in zip(got_logits, want))
+        res["tokens"] = [x.tolist() for x in got_tokens]
+        del cache, want
+    del params
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_cell
+    return res
 
 
 def phase_sharding() -> dict:
     """The ``sharding`` phase: two ranks on the card over ``gloo``.  Fails if
     a rank fails, the collective matmul lies beyond SHARD_ATOL of the local
     product, the resharded parameters are not ``torch.equal`` to the
-    unsharded ones on the surviving rank, or a kernel launched."""
+    unsharded ones on the surviving rank, a kernel launched in S1, S2 or S4,
+    or a check of S2-S4 fails.  Returns the launch counts of the paths
+    ``sharding`` (S1), S2, S3 (its Update and Dispatch steps) and S4, each
+    rank 0's."""
     import torch
     torch.cuda.empty_cache()
     from repro_torch.launch.mesh import run_local_mesh
@@ -1629,9 +1947,56 @@ def phase_sharding() -> dict:
             faults.append(f"rank {r['rank']} launched kernels: {r['launches']}")
     if sum(r["reshard"]["in_new_mesh"] for r in ranks) != 1:
         faults.append("the shrunk mesh does not hold exactly one rank")
+    faults += sharding_step_faults(ranks)
     if faults:
         raise AssertionError("sharding: " + "; ".join(faults))
-    return ranks[0]["launches"]
+    s3 = {name: n + ranks[0]["S3"]["dispatch"]["launches"][name]
+          for name, n in ranks[0]["S3"]["update"]["launches"].items()}
+    return {"sharding": ranks[0]["launches"], "S2": ranks[0]["S2"]["launches"], "S3": s3,
+            "S4": ranks[0]["S4"]["launches"]}
+
+
+def sharding_step_faults(ranks) -> list:
+    """The failed checks of S2-S4 (a summary line goes to stderr)."""
+    import math
+    faults = []
+    s3_sq = [sum(r["S3"][m][k] for r in ranks) for m in ("dispatch",)
+             for k in ("sq_diff_batch2", "sq_batch2")]
+    s3_rel = math.sqrt(s3_sq[0] / max(s3_sq[1], 1e-30))
+    ref = ranks[0]["S2"]
+    if not (ref["loss_rel"] <= S2_REL and ref["grad_norm_rel"] <= S2_REL):
+        faults.append(f"S2: loss/grad_norm {ref['loss_rel']:.2e}/{ref['grad_norm_rel']:.2e} "
+                      "off the unsharded step")
+    if not ref["param_rel"] <= S2_REL:
+        faults.append(f"S2: parameters {ref['param_rel']:.2e} off the unsharded step's")
+    metric = lambda s2: [(x["loss"], x["grad_norm"]) for x in s2["steps"]]
+    for r in ranks:
+        rank, s2, s3, s4 = r["rank"], r["S2"], r["S3"], r["S4"]
+        if metric(s2) != metric(ref):
+            faults.append(f"rank {rank}: S2 loss/grad_norm differ from rank 0's")
+        for path, launches in (("S2", s2["launches"]), ("S4", s4["launches"]),
+                               ("S3 update", s3["update"]["launches"])):
+            if any(launches.values()):
+                faults.append(f"rank {rank}: {path} launched kernels: {launches}")
+        want = {name: S3_LAUNCHES if name in P1_KERNELS else 0 for name in SOURCES}
+        if s3["dispatch"]["launches"] != want:
+            faults.append(f"rank {rank}: S3 Dispatch launches {s3['dispatch']['launches']}")
+        for mode in ("update", "dispatch"):
+            m = s3[mode]
+            if not (m["v_equal_slice"] and m["int_fields_equal_slice"] and m["finite"]):
+                faults.append(f"rank {rank}: S3 {mode} differs from its slice alone")
+        if not b2_agrees(s3["b2_vs_plain"]):
+            faults.append(f"rank {rank}: S3 B2 against its plain version: {s3['b2_vs_plain']}")
+        if "tokens_equal" in s4 and not (s4["tokens_equal"] and s4["logits_rel"] <= S4_REL):
+            faults.append(f"S4: tokens equal {s4['tokens_equal']} (first differing step "
+                          f"{s4['first_differing_step']}), logits {s4['logits_rel']:.2e}")
+    if not s3_rel <= S3_REL_L2:
+        faults.append(f"S3: rel-L2 {s3_rel:.3e} against the unsharded batch-2 step")
+    print(f"chip_smoke: S2 steps {[round(s['step_s'], 3) for s in ranks[0]['S2']['steps']]} s, "
+          f"S3 rel-L2 {s3_rel:.3e}, S4 decode "
+          f"{[round(d['s'], 3) for d in ranks[0]['S4']['decode']]} s", file=sys.stderr,
+          flush=True)
+    return faults
 
 
 def dispatch_steps(sched, dense=False) -> int:
@@ -2533,7 +2898,7 @@ def dense_attention_kernels(events, calls) -> list:
     return found
 
 
-def profile_path(label, ecfg, cfg, params, xe, text, t, schedule=None) -> dict:
+def profile_path(label, ecfg, cfg, params, xe, text, t) -> dict:
     """Device time by kernel group within one Update and one Dispatch step
     (the Update step's strategies from the path's schedule at step 0); the
     dense attention's kernels form a group of their own, whose total is
@@ -2543,7 +2908,7 @@ def profile_path(label, ecfg, cfg, params, xe, text, t, schedule=None) -> dict:
     from repro_torch.core.engine import resolve_schedule
     from repro_torch.models import dit
     b, nv = xe.shape[:2]
-    sched = resolve_schedule(ecfg, STEPS, cfg.n_layers, schedule=schedule)
+    sched = resolve_schedule(ecfg, STEPS, cfg.n_layers)
     states = dit.init_engine_states(cfg, ecfg, b, nv + cfg.n_text_tokens, xe.device)
     report = {}
     for mode in ("update", "dispatch"):
@@ -2589,7 +2954,7 @@ def profile_path(label, ecfg, cfg, params, xe, text, t, schedule=None) -> dict:
                         "dense_attention_event_ms": sum(a.elapsed_time(z) for a, z in spans)}
         del prof
     return {"path": label, "arch": cfg.name, "layers": cfg.n_layers, "batch": b,
-            "n_tokens": nv + cfg.n_text_tokens, "strategy": schedule or ecfg.strategy,
+            "n_tokens": nv + cfg.n_text_tokens, "strategy": ecfg.strategy,
             "kv_buckets": ecfg.resolved_kv_buckets(), **report}
 
 
@@ -2607,20 +2972,13 @@ def profile_inputs(cfg, batch, n_vision, seed=0):
 
 
 def phase_profile():
-    """One Update and one Dispatch step of P1 at full width, then of H1 at
-    full width and ``H1_PROFILE_LAYERS`` blocks (its Update step on the
-    hunyuan-1.5x schedule's strategies)."""
+    """One Update and one Dispatch step of P1 at full width."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serving_engine_config
     cfg = get_config(FLUX["arch"])
     paths = [profile_path("P1", serving_engine_config(), cfg,
                           *profile_inputs(cfg, FLUX["batch"], FLUX["n_vision"]))]
-    torch.cuda.empty_cache()
-    cfg = dataclasses.replace(get_config(H1["arch"]), n_layers=H1_PROFILE_LAYERS)
-    paths.append(profile_path("H1", serving_engine_config(), cfg,
-                              *profile_inputs(cfg, H1["batch"], H1["n_vision"]),
-                              schedule="hunyuan-1.5x"))
     torch.cuda.empty_cache()
     calls = lambda path, mode, group: path[mode]["by_group"].get(group, {}).get("calls", 0)
     purity = {p["path"]: {"dispatch_sort_kernels": calls(p, "dispatch", SORT_GROUP),
@@ -2667,7 +3025,7 @@ def main() -> int:
         by_path["ops"] = timed(phase_ops)
         timed(phase_twin, **FULL)
         by_path["M1"] = timed(phase_mesh, served["P1"], p1_plans)
-        by_path["sharding"] = timed(phase_sharding)
+        by_path.update(timed(phase_sharding))
         del p1_plans
         timed(phase_dense, served)
         del served

@@ -42,8 +42,8 @@ coverage`` lint); an id field (suffix ``_ids``/``_slots``/``_src``/
 ``_rows``/``_idx``, or ``bkt_head``) listed in ``plan._ID_FIELDS`` so
 ``widen()`` restores int32 (``plan-widen-coverage`` lint, and the
 validator's no-int16-after-widen check); and its core rank registered in
-``plan_check._CORE_RANK``.  The reference's fourth place, a sharding spec,
-has no counterpart (``plan-spec-coverage`` is N/A).
+``plan_check._CORE_RANK``.  The fourth place, its logical spec in
+``models/dit.engine_state_specs``, is the ``plan-spec-coverage`` lint's.
 """
 
 from __future__ import annotations

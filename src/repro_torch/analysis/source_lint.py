@@ -10,6 +10,10 @@
   path: a keyword of a ``DispatchPlan(...)`` call or a key of a dict the
   layout helpers emit in ``core/plan.py`` or the mesh partition emits in
   ``distributed/plan_shard.py`` (the path ``plan_from_state`` replays).
+* ``plan-spec-coverage`` — every field must be named as a keyword of a
+  ``DispatchPlan(...)`` or ``_replace`` call in
+  ``models/dit.engine_state_specs`` (a field without a logical spec has no
+  layout for :mod:`repro_torch.launch.steps` to lay it out by).
 * ``module-dict-cache`` — a module-level ``NAME = {}``/``dict()`` whose
   name contains ``CACHE`` or ``MEMO`` is an unbounded cache; bound it
   (``functools.lru_cache``).
@@ -18,10 +22,8 @@
   or through a local assigned from it) and touches a ``CACHE``/``MEMO``
   store; a transient local dict keyed by ``id`` stays legal.
 
-Not applicable, with the reason: ``plan-spec-coverage`` (the reference
-checks that every plan field has a GSPMD sharding spec; the port has no
-sharding specs) and ``jit-in-traced-body`` (the port jits nothing and has
-no traced bodies).
+Not applicable, with the reason: ``jit-in-traced-body`` (the port jits
+nothing and has no traced bodies).
 
 Entry points: :func:`lint_sources` (the whole tree) and :func:`lint_source`
 (one in-memory module, the generic rules: what the fixtures use).
@@ -173,6 +175,20 @@ def _lint_plan_coverage(pkg_root: Path) -> List[LintHit]:
             hits.append((str(plan_path), cls.lineno, "plan-rebuild-coverage",
                          f"DispatchPlan field {f!r} is never produced on the build/rebuild "
                          f"path"))
+
+    dit_path = pkg_root / "models" / "dit.py"
+    if dit_path.exists():
+        specs_fn = next((node for node in ast.walk(ast.parse(dit_path.read_text()))
+                         if isinstance(node, ast.FunctionDef)
+                         and node.name == "engine_state_specs"), None)
+        if specs_fn is None:
+            return hits + [(str(dit_path), 1, "plan-spec-coverage",
+                            "engine_state_specs not found")]
+        spec_kw = _call_keywords(specs_fn, {"DispatchPlan", "_replace"})
+        for f in fields:
+            if f not in spec_kw:
+                hits.append((str(dit_path), specs_fn.lineno, "plan-spec-coverage",
+                             f"DispatchPlan field {f!r} has no entry in engine_state_specs"))
     return hits
 
 

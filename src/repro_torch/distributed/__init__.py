@@ -11,5 +11,6 @@ over ``torch.distributed``:
 * :mod:`~repro_torch.distributed.collective_matmul` — the all-gather matmul
   as a ring of point-to-point steps.
 
-The sharded train step that would use the rules (FSDP over DTensor) is not
-ported yet (ROADMAP A.10.1)."""
+The step builders that lay a step out by the rules (the train step as
+FSDP over DTensor, prefill, decode and the DiT denoise step) are
+:mod:`repro_torch.launch.steps`."""

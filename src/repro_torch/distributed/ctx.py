@@ -10,9 +10,11 @@ propagation.  Here a layout is a DTensor's placements: inside a rules
 context a DTensor is redistributed to the rules' placements over its own
 mesh (:func:`~repro_torch.distributed.sharding.redistribute`, staged
 through the host on a ``gloo`` world of card tensors), and a plain tensor,
-which has no layout to pin, is returned unchanged.  The port's models drop the reference's ``constrain``
-calls for now; the sharded step builders that would install rules are the
-next slice (ROADMAP A.10.1).
+which has no layout to pin, is returned unchanged.  The step builders of
+:mod:`repro_torch.launch.steps` install the rules around each model call;
+they hand the model local tensors, laid out by the builder itself, so the
+reference's ``constrain`` hints would be the identity there and the port's
+models leave them out.
 """
 
 from __future__ import annotations

@@ -30,10 +30,23 @@ Transport.  :func:`redistribute` moves a DTensor to new placements over its
 mesh.  On NCCL, or on the CPU, it is DTensor's own ``redistribute``.  On a
 ``gloo`` world whose DTensors live on a card, DTensor's collectives crash
 (torch 2.11 on the H100: a segmentation fault in the functional
-collectives' wait), so the move is staged through the host explicitly: the
-local shard is copied to the host, redistributed there over a CPU twin of
-the mesh (the same ranks and names), and the result copied back to the
-card.
+collectives' wait), so the move is made explicitly, in one of two ways:
+
+* every rank of the world on one host (the ranks that share a card): each
+  rank maps its peers' local tensors into its own address space (CUDA IPC,
+  through ``torch.multiprocessing``'s tensor sharing; the handles travel
+  over ``gloo``) and concatenates or sums them, in mesh order, on the
+  card; ``redistribute.peer_bytes`` counts the bytes copied from peers;
+* otherwise staged through the host: the local shard is copied to the host
+  (page-locked), redistributed there over a CPU twin of the mesh (the same
+  ranks and names), and the result copied back to the card;
+  ``redistribute.staged_bytes`` counts the bytes those copies move (both
+  ways).
+
+A move to the placements ``x`` already has returns ``x``, and one that
+only narrows (every mesh dim that changes goes from ``Replicate()`` to
+``Shard``) keeps each rank's slice where it is: it needs no collective, so
+it is DTensor's own on every backend.
 """
 
 from __future__ import annotations
@@ -153,18 +166,109 @@ def _staged(mesh) -> bool:
     return mesh.device_type != "cpu" and dist.get_backend() == "gloo"
 
 
+_ONE_HOST: list = []
+
+
+def _one_host() -> bool:
+    """Whether every rank of the world runs on this host (asked once,
+    collectively over the world)."""
+    if not _ONE_HOST:
+        import socket
+        import torch.distributed as dist
+        names = [None] * dist.get_world_size()
+        dist.all_gather_object(names, socket.gethostname())
+        _ONE_HOST.append(len(set(names)) == 1)
+    return _ONE_HOST[0]
+
+
+def _undo_dim(local, mesh, dim: int, placement):
+    """``local`` made whole over mesh dim ``dim`` (``Shard``: the peers'
+    shards concatenated; ``Partial``: summed), from the peers' tensors
+    mapped into this process.  Collective over the ranks of that dim; on
+    return every peer has finished reading this rank's tensor."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    from torch.multiprocessing.reductions import reduce_tensor
+    group = mesh.get_group(dim)
+    coord = mesh.get_coordinate()[dim]
+    local = local.contiguous()
+    if local.is_cuda:
+        torch.cuda.synchronize(local.device)          # written before a peer reads it
+    items = [None] * dist.get_world_size(group)
+    dist.all_gather_object(items, (coord, reduce_tensor(local)), group=group)
+    parts = [None] * len(items)
+    for c, (rebuild, args) in items:
+        parts[c] = local if c == coord else rebuild(*args)
+    if isinstance(placement, Shard):
+        out = torch.cat(parts, dim=placement.dim)
+    else:
+        out = parts[0].clone()
+        for part in parts[1:]:
+            out += part
+        if placement.reduce_op == "avg":
+            out /= len(parts)
+    redistribute.peer_bytes += sum(p.nbytes for c, p in enumerate(parts) if c != coord)
+    if out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    del parts, items
+    dist.barrier(group)                               # every peer is done reading
+    if out.is_cuda:
+        torch.cuda.ipc_collect()
+    return out
+
+
+def _redistribute_peers(x, pl: list):
+    """:func:`redistribute` between the ranks of one host: every mesh dim
+    that is not replicated is made whole from the peers' tensors, innermost
+    first (a tensor dim sharded over several mesh dims nests in mesh-dim
+    order), then each rank keeps its slice of ``pl``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    src, local = list(x.placements), x.to_local()
+    for i in reversed(range(mesh.ndim)):
+        if src[i] != Replicate():
+            local = _undo_dim(local, mesh, i, src[i])
+            src[i] = Replicate()
+    whole = DTensor.from_local(local, mesh, src, run_check=False, shape=x.shape,
+                               stride=x.stride())
+    return whole.redistribute(mesh, pl)
+
+
+def _narrows(src, dst) -> bool:
+    """Every mesh dim that changes goes from ``Replicate()`` to ``Shard``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return all(a == b or (a == Replicate() and isinstance(b, Shard)) for a, b in zip(src, dst))
+
+
 def redistribute(x, pl: list):
-    """The DTensor ``x`` with placements ``pl`` over its own mesh; staged
-    through the host on a ``gloo`` world whose DTensors live on a card.
-    Collective over the mesh's ranks (and, the first time a layout is
-    staged, over the world)."""
+    """The DTensor ``x`` with placements ``pl`` over its own mesh; on a
+    ``gloo`` world whose DTensors live on a card, moved between the ranks'
+    tensors directly when the world is on one host, else staged through the
+    host.  Collective over the mesh's ranks (and, the first time a layout
+    is moved so, over the world)."""
+    import torch
     from torch.distributed.tensor import DTensor
     mesh = x.device_mesh
-    if not _staged(mesh):
+    if tuple(x.placements) == tuple(pl):
+        return x
+    if not _staged(mesh) or _narrows(x.placements, pl):
         return x.redistribute(mesh, pl)
+    if _one_host():
+        return _redistribute_peers(x, pl)
     host_mesh = _host_mesh(mesh)
-    host = DTensor.from_local(x.to_local().cpu(), host_mesh, x.placements, run_check=False,
+    local = x.to_local()
+    # Page-locked staging: the copy down runs at the link's rate (the
+    # caching host allocator keeps the buffer for the next move).
+    down = torch.empty(local.shape, dtype=local.dtype, pin_memory=local.is_cuda)
+    down.copy_(local)
+    host = DTensor.from_local(down, host_mesh, x.placements, run_check=False,
                               shape=x.shape, stride=x.stride())
-    host = host.redistribute(host_mesh, pl)
-    return DTensor.from_local(host.to_local().to(x.device), mesh, pl, run_check=False,
+    host = host.redistribute(host_mesh, pl).to_local()
+    redistribute.staged_bytes += local.nbytes + host.nbytes
+    return DTensor.from_local(host.to(x.device), mesh, pl, run_check=False,
                               shape=x.shape, stride=x.stride())
+
+
+redistribute.staged_bytes = 0
+redistribute.peer_bytes = 0

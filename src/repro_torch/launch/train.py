@@ -14,18 +14,16 @@ parameter, counted from the parameter tensors' shapes) and the blocks'
 activations (a constant measured on the H100 for each kind of block: the
 DiT's, and the LM's with and without remat) do not fit on the card:
 flux-mmdit's 38 blocks hold 6 485 041 664 parameters, ≈ 103.8 GB of state
-before any activation, more than one H100 holds, and full depth waits for
-a sharded train step (ROADMAP A.10.1).  :func:`train` also takes an ``ArchConfig``, e.g.
+before any activation, more than one H100 holds: full depth needs the
+sharded train step (:func:`repro_torch.launch.steps.build_train_step`) on
+several cards (ROADMAP A.10.1).  :func:`train` also takes an ``ArchConfig``, e.g.
 flux-mmdit cut to 2 blocks, and initial ``params``.  It trains every LM
 family too (dense, MoE, ssm, hybrid, encdec and vlm; ``data/synthetic``
 adds the ``frames`` and ``patches`` stubs), at smoke width.
 
 Runs on the card unless ``device="cpu"`` is asked for; without a card it
-raises.  Not applicable: ``launch/specs.py`` (jit + ``NamedSharding`` step
-factories for the GSPMD dry-run).  Not ported yet: ``launch/steps.py``'s
-sharded step builders, ``param_specs`` and ``adamw_state_specs``, whose
-counterpart is an FSDP step over DTensor on the port's sharding modules
-(``distributed/sharding``, ``runtime/elastic``; ROADMAP A.10.1).
+raises.  The loop here trains on one device; the FSDP step over a mesh is
+:mod:`repro_torch.launch.steps`.
 """
 
 from __future__ import annotations
@@ -96,8 +94,8 @@ def check_state_fits(cfg: ArchConfig, free_bytes: int, *, batch: int = 1,
             f"and nu: {STATE_BYTES_PER_PARAM} B x {n} parameters) and {act / 1e9:.1f} GB "
             f"of activations (batch {batch}, {tokens} tokens); the card has "
             f"{free_bytes / 1e9:.1f} GB free.  Full depth needs the training state "
-            f"sharded across cards, a sharded train step over the ported "
-            f"distributed/sharding and runtime/elastic (ROADMAP A.10.1); pass a "
+            f"sharded across cards: the sharded train step "
+            f"(launch/steps.build_train_step) on several cards (ROADMAP A.10.1); pass a "
             f"config with fewer blocks")
 
 

@@ -6,11 +6,14 @@ adaLN-Zero timestep modulation; joint attention runs through the FlashOmni
 Update–Dispatch engine.  The text encoder and patchifier are stubs: inputs
 are precomputed text and latent-patch embeddings.  The reference scans the
 blocks with ``lax.scan``; here the layers are a Python loop over the stacked
-``(L, ...)`` block parameters and a list of per-layer engine states.  Not
-applicable (ROADMAP A.10.3): ``param_specs`` and ``engine_state_specs``
-(their mesh part included) are GSPMD sharding specs; under a mesh every rank
-holds the whole state and only attention shards
-(:mod:`repro_torch.distributed.plan_shard`).
+``(L, ...)`` block parameters and a list of per-layer engine states.
+``param_specs`` and ``engine_state_specs`` are the reference's logical
+sharding specs for this layout: the parameters' are the reference's, and
+the engine state's are one :class:`LayerState` of specs that every layer's
+state shares, each the reference's without its leading layer entry.
+:mod:`repro_torch.launch.steps` lays the state out by them; the
+reference's ``constrain`` hints are dropped, since a step runs on each
+rank's local tensors.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from repro_torch.core.attention import dense_attention
 from repro_torch.core.engine import AttnParams, EngineConfig, LayerState
 from repro_torch.models.layers import rms_norm
 
-__all__ = ["init_params", "init_engine_states", "denoise_step", "timestep_embedding",
-           "train_loss"]
+__all__ = ["init_params", "param_specs", "init_engine_states", "engine_state_specs",
+           "denoise_step", "timestep_embedding", "train_loss"]
 
 
 def _canonicalize_layer_strategies(layer_strategies, ecfg: EngineConfig, n_layers: int):
@@ -80,6 +83,23 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
     }
 
 
+def _block_specs() -> dict:
+    n = (None,)
+    return {"wq": (*n, "fsdp", "tp"), "wk": (*n, "fsdp", "tp"),
+            "wv": (*n, "fsdp", "tp"), "wo": (*n, "tp", "fsdp"),
+            "q_scale": (*n, None), "k_scale": (*n, None),
+            "mlp_wi": (*n, "fsdp", "tp"), "mlp_wo": (*n, "tp", "fsdp"),
+            "adaln": (*n, "fsdp", None), "adaln_b": (*n, None)}
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_params`' tree."""
+    return {"blocks": _block_specs(),
+            "t_mlp1": (None, "fsdp"), "t_mlp2": ("fsdp", "tp"),
+            "final_mod": ("fsdp", None), "final_proj": ("fsdp", None),
+            "final_norm": (None,)}
+
+
 def init_engine_states(cfg: ArchConfig, ecfg: EngineConfig, batch: int,
                        n_tokens: int, device) -> list[LayerState]:
     """One initial state per layer.  States are updated out of place, so
@@ -87,6 +107,46 @@ def init_engine_states(cfg: ArchConfig, ecfg: EngineConfig, batch: int,
     one = E.init_layer_state(batch, cfg.n_heads, n_tokens, cfg.d_model, cfg.hd,
                              ecfg, device)
     return [one] * cfg.n_layers
+
+
+def engine_state_specs(cfg: ArchConfig, ecfg: EngineConfig) -> LayerState:
+    """The logical specs of one layer's state (every entry of
+    :func:`init_engine_states`' list): the reference's, each without its
+    leading layer entry.  The counters ``k_since`` and ``n_updates`` are
+    host ints here, spec ``()``.  Packed symbols replicate their head dim
+    (24 heads do not divide a 16-wide model axis); the plan's index fields
+    are small and capacity-shaped, so they shard on batch only.  The
+    bucketed fields are leaves only when ``resolved_kv_buckets() > 1`` and
+    the seq-mesh partition's only when ``mesh_sp > 1`` in seq mode, as the
+    plan builder emits them."""
+    from repro_torch.core.plan import DispatchPlan
+    from repro_torch.core.taylorseer import TaylorState
+    if ecfg.cache_mode == "bias":
+        taylor_feat = (None, "dp", "sp", "tp")            # (D+1, B, N, dm)
+    else:
+        taylor_feat = (None, "dp", None, "sp", None)      # (D+1, B, H, N, dh)
+    plan = DispatchPlan(
+        q_ids=("dp", None, None), q_cnt=("dp", None), q_slots=("dp", None, None),
+        kv_ids=("dp", None, None), kv_cnt=("dp", None),
+        pair_live=("dp", None, None, None), kv_row_ids=("dp", None, None, None),
+        kv_row_cnt=("dp", None, None), row_ids=("dp", None), row_cnt=("dp",),
+        head_ids=("dp", None, None), head_cnt=("dp", None), head_mask=("dp", None, None),
+        m_ch=("dp", None, None), row_score=("dp", None), occ_hist=("dp", None))
+    if ecfg.resolved_kv_buckets() > 1:
+        b2 = ("dp", None)
+        plan = plan._replace(bkt_head=b2, bkt_q_ids=b2, bkt_q_src=b2, bkt_q_slots=b2,
+                             bkt_kv_ids=b2, bkt_kv_cnt=b2, gmo_rows=b2, gmo_src=b2,
+                             gmo_head_ids=b2, gmo_head_cnt=b2)
+    if ecfg.mesh_sp > 1 and ecfg.mesh_axis == "seq":
+        p3, p4 = ("dp", None, None), ("dp", None, None, None)
+        p5 = ("dp", None, None, None, None)
+        plan = plan._replace(shd_q_ids=p4, shd_q_src=p4, shd_q_slots=p4, shd_q_cnt=p3,
+                             shd_kv_ids=p4, shd_kv_cnt=p3, shd_kv_row_ids=p5,
+                             shd_kv_row_cnt=p4, shd_gather_idx=p4, shd_send_ids=p5,
+                             shd_send_cnt=p4)
+    return LayerState(s_c=("dp", None, None), s_s=("dp", None, None),
+                      taylor=TaylorState(derivs=taylor_feat, n_updates=()),
+                      k_since=(), plan=plan)
 
 
 def _modulate(x, shift, scale):

@@ -15,8 +15,10 @@ this; it does not fix it.
 The reference's ``lax.scan`` over layers is a Python loop here.
 ``cfg.remat`` checkpoints each encoder and each decoder block, as the
 reference's ``jax.checkpoint`` of its scan bodies does
-(``models/transformer.remat``, whose docstring maps the policy).  Not
-ported: ``param_specs`` and ``cache_specs`` are GSPMD sharding specs (N/A).
+(``models/transformer.remat``, whose docstring maps the policy).
+``param_specs`` and ``cache_specs`` are the reference's logical sharding
+specs, leaf for leaf with ``init_params`` and ``init_cache`` (read by
+:mod:`repro_torch.launch.steps`).
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_map
 
-__all__ = ["layer_norm", "init_params", "forward", "train_loss", "encode", "decode_train",
-           "init_cache", "prefill", "decode_step"]
+__all__ = ["layer_norm", "init_params", "param_specs", "forward", "train_loss", "encode",
+           "decode_train", "init_cache", "cache_specs", "prefill", "decode_step"]
 
 POS_DEC_ROWS = 32768
 
@@ -95,6 +97,25 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], device) -
         "ln_enc": _init_ln(cfg.d_model, device=device),
         "ln_dec": _init_ln(cfg.d_model, device=device),
     }
+
+
+def _block_specs(cross: bool) -> dict:
+    ln = {"scale": (None, None), "bias": (None, None)}
+    mlp = {"wi": (None, "fsdp", "tp"), "bi": (None, "tp"),
+           "wo": (None, "tp", "fsdp"), "bo": (None, None)}
+    s = {"attn": L.attention_specs(True), "ln1": ln, "mlp": mlp, "ln2": ln}
+    if cross:
+        s["xattn"] = L.attention_specs(True)
+        s["lnx"] = ln
+    return s
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_params`' tree."""
+    ln0 = {"scale": (None,), "bias": (None,)}
+    return {"tok_embed": ("tp", "fsdp"), "pos_enc": (None, "fsdp"), "pos_dec": (None, "fsdp"),
+            "enc": _block_specs(cross=False), "dec": _block_specs(cross=True),
+            "ln_enc": ln0, "ln_dec": ln0}
 
 
 def _mha(p, x, kv_src, cfg: ArchConfig, *, causal: bool):
@@ -177,6 +198,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype = t
                        device=device) for k in ("k", "v")}
     return {"self": kv(max_len), "cross": kv(cfg.encoder_len),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_cache`' tree; the cross K/V's
+    ``encoder_len`` (1500) divides no mesh axis, so it shards on batch
+    only."""
+    kv = {"k": (None, "dp", "sp", None, None), "v": (None, "dp", "sp", None, None)}
+    xkv = {"k": (None, "dp", None, None, None), "v": (None, "dp", None, None, None)}
+    return {"self": kv, "cross": xkv, "len": ("dp",)}
 
 
 def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos, *,

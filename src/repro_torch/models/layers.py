@@ -2,9 +2,11 @@
 and the decoder-only LM's RoPE, attention, MLP, MoE and loss.
 
 Every ``init_*`` takes an explicit ``torch.Generator`` and device, like
-``dit.init_params``, and returns the parameter tensors alone: the
-reference's logical sharding specs (its second return value and
-``attention_specs``) are GSPMD specs with no counterpart here.  A stack of
+``dit.init_params``, and returns the parameter tensors alone.  The
+reference's logical sharding specs, its second return value, are plain
+spec functions here, beside each family's ``init_params``
+(:func:`attention_specs`, ``param_specs``, ``cache_specs``), read by
+:mod:`repro_torch.launch.steps`.  A stack of
 layers is one tensor with leading dims ``stack`` (the reference's single
 ``L`` dim, or two for ``(cycles, locals)``), built at its stacked shape, so
 ``device="meta"`` with ``generator=None`` counts parameters without
@@ -27,7 +29,8 @@ import torch.nn.functional as F
 __all__ = [
     "init_dense", "init_rmsnorm", "rms_norm", "rope_table", "apply_rope",
     "gqa_attention", "local_attention", "decode_attention", "init_attention",
-    "init_mlp", "mlp", "init_moe", "moe_route", "moe_mlp", "softmax_xent", "causal_conv",
+    "attention_specs", "init_mlp", "mlp", "init_moe", "moe_route", "moe_mlp", "softmax_xent",
+    "causal_conv",
 ]
 
 _NEG_INF = -1e30
@@ -72,6 +75,18 @@ def init_attention(generator, d_model: int, n_heads: int, n_kv_heads: int, head_
         p["q_norm"] = init_rmsnorm(head_dim, stack=stack, device=device)
         p["k_norm"] = init_rmsnorm(head_dim, stack=stack, device=device)
     return p
+
+
+def attention_specs(stack: bool, qk_norm: bool = False) -> dict:
+    """The logical specs of :func:`init_attention`'s tree (one leading
+    ``None`` when stacked)."""
+    base = (None,) if stack else ()
+    s = {"wq": (*base, "fsdp", "tp"), "wk": (*base, "fsdp", "tp"),
+         "wv": (*base, "fsdp", "tp"), "wo": (*base, "tp", "fsdp")}
+    if qk_norm:
+        s["q_norm"] = (*base, None)
+        s["k_norm"] = (*base, None)
+    return s
 
 
 def init_mlp(generator, d_model: int, d_ff: int, *, stack: tuple = (), device) -> dict:

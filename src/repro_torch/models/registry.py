@@ -2,8 +2,9 @@
 reference, ``dit`` (the paper's own), the decoder-only LMs ``dense`` and
 ``moe`` (``models/transformer``), ``ssm`` (``models/ssm``), ``hybrid``
 (``models/rglru``), ``encdec`` (``models/encdec``) and ``vlm``
-(``models/vision``).  ``param_specs`` and ``cache_specs`` are GSPMD
-sharding specs and have no counterpart here."""
+(``models/vision``).  ``param_specs`` and ``cache_specs`` return the
+family's logical sharding specs (:mod:`repro_torch.launch.steps` lays the
+state out by them)."""
 
 from __future__ import annotations
 
@@ -25,8 +26,9 @@ _TOKEN_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class Model:
-    """The reference's adapter: ``init_params``, ``train_loss(params, batch)``,
-    ``prefill(params, batch)``, ``init_cache`` and
+    """The reference's adapter: ``init_params``, ``param_specs``,
+    ``train_loss(params, batch)``, ``prefill(params, batch)``, ``init_cache``,
+    ``cache_specs`` and
     ``decode_step(params, cache, token, pos)``; and ``forward(params,
     batch)`` for the LM families."""
 
@@ -38,6 +40,9 @@ class Model:
 
     def init_params(self, generator, device) -> dict:
         return self.mod.init_params(self.cfg, generator, device)
+
+    def param_specs(self) -> dict:
+        return self.mod.param_specs(self.cfg)
 
     def train_loss(self, params: dict, batch: dict, *,
                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -57,6 +62,9 @@ class Model:
     def init_cache(self, batch_size: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
                    *, device) -> dict:
         return self.mod.init_cache(self.cfg, batch_size, max_len, dtype, device=device)
+
+    def cache_specs(self) -> dict:
+        return self.mod.cache_specs(self.cfg)
 
     def decode_step(self, params: dict, cache: dict, token: torch.Tensor, pos, *,
                     dtype: torch.dtype = torch.bfloat16):

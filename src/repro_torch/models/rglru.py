@@ -16,8 +16,10 @@ window; decode keeps a ring of ``min(window, max_len)`` K/V slots.
 The reference's ``lax.scan`` over cycles and blocks is a Python loop here.
 ``cfg.remat`` checkpoints each recurrent block and each attention block,
 as the reference's ``jax.checkpoint`` does (``models/transformer.remat``,
-whose docstring maps the policy).  Not ported: ``param_specs`` and
-``cache_specs`` are GSPMD sharding specs (N/A).
+whose docstring maps the policy).  ``param_specs`` and
+``cache_specs`` are the reference's logical sharding specs, leaf for leaf
+with ``init_params`` and ``init_cache`` (read by
+:mod:`repro_torch.launch.steps`).
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_map
 
-__all__ = ["init_params", "forward", "train_loss", "init_cache", "prefill", "decode_step",
-           "rg_lru", "rg_lru_step", "n_cycles"]
+__all__ = ["init_params", "param_specs", "forward", "train_loss", "init_cache",
+           "cache_specs", "prefill", "decode_step", "rg_lru", "rg_lru_step", "n_cycles"]
 
 _C = 8.0
 CONV_K = 4
@@ -122,6 +124,30 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], device) -
     return params
 
 
+def _rec_specs(stack: bool) -> dict:
+    b = (None,) if stack else ()
+    return {"ln": (*b, None), "w_in_x": (*b, "fsdp", "tp"), "w_in_y": (*b, "fsdp", "tp"),
+            "conv": (*b, None, "tp"), "w_gate_x": (*b, "fsdp", "tp"),
+            "w_gate_a": (*b, "fsdp", "tp"), "lam": (*b, "tp"),
+            "w_out": (*b, "tp", "fsdp")}
+
+
+def _attn_specs(stack: bool) -> dict:
+    b = (None,) if stack else ()
+    return {"attn": L.attention_specs(stack), "ln1": (*b, None), "ln2": (*b, None),
+            "mlp": {"wi": (*b, "fsdp", "tp"), "wg": (*b, "fsdp", "tp"),
+                    "wo": (*b, "tp", "fsdp")}}
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_params`' tree."""
+    specs = {"embed": ("tp", "fsdp"), "rec": T._prepend_none(_rec_specs(True)),
+             "attn": _attn_specs(True), "final_norm": (None,)}
+    if cfg.n_layers - n_cycles(cfg) * 3:
+        specs["tail"] = _rec_specs(True)
+    return specs
+
+
 def _rec_apply(cfg: ArchConfig, p, x):
     dtype = x.dtype
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
@@ -208,6 +234,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype = t
         cache["tail_h"] = zeros(tail, batch, d, dt=torch.float32)
         cache["tail_conv"] = zeros(tail, batch, CONV_K - 1, d)
     return cache
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_cache`' tree."""
+    specs = {"rec_h": (None, None, "dp", "tp"), "rec_conv": (None, None, "dp", None, "tp"),
+             "attn": {"k": (None, "dp", "sp", None, None),
+                      "v": (None, "dp", "sp", None, None)},
+             "len": ("dp",)}
+    if cfg.n_layers - n_cycles(cfg) * 3:
+        specs["tail_h"] = (None, "dp", "tp")
+        specs["tail_conv"] = (None, "dp", None, "tp")
+    return specs
 
 
 def _rec_step(cfg: ArchConfig, p, x, h_state, conv_state):

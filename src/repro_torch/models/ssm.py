@@ -22,8 +22,10 @@ Two departures in form, with the reference's values:
 The reference's ``lax.scan`` over layers and over chunk states is a Python
 loop here.  ``cfg.remat`` checkpoints each block, as the reference's
 ``jax.checkpoint`` of its scan body does (``models/transformer.remat``,
-whose docstring maps the policy).  Not ported: ``param_specs`` and
-``cache_specs`` are GSPMD sharding specs (N/A).
+whose docstring maps the policy).  ``param_specs`` and
+``cache_specs`` are the reference's logical sharding specs, leaf for leaf
+with ``init_params`` and ``init_cache`` (read by
+:mod:`repro_torch.launch.steps`).
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_map
 
-__all__ = ["init_params", "forward", "train_loss", "init_cache", "prefill", "decode_step",
-           "ssd_chunked", "ssd_recurrent_step"]
+__all__ = ["init_params", "param_specs", "forward", "train_loss", "init_cache",
+           "cache_specs", "prefill", "decode_step", "ssd_chunked", "ssd_recurrent_step"]
 
 HEAD_DIM = 64
 CONV_K = 4
@@ -142,6 +144,19 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], device) -
     }
 
 
+def _block_specs(stack: bool) -> dict:
+    b = (None,) if stack else ()
+    return {"in_proj": (*b, "fsdp", "tp"), "conv": (*b, None, "tp"),
+            "a_log": (*b, "tp"), "dt_bias": (*b, "tp"), "d_skip": (*b, "tp"),
+            "norm": (*b, "tp"), "out_proj": (*b, "tp", "fsdp"), "ln": (*b, None)}
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_params`' tree."""
+    return {"embed": ("tp", "fsdp"), "blocks": _block_specs(True),
+            "final_norm": (None,), "lm_head": ("fsdp", "tp")}
+
+
 def _split_proj(cfg: ArchConfig, proj):
     d_inner, h, n = _dims(cfg)
     return proj[..., :d_inner], proj[..., d_inner:2 * d_inner + 2 * n], proj[..., -h:]
@@ -210,6 +225,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype = t
                             device=device),
         "len": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_cache`' tree."""
+    return {"ssm": (None, "dp", "tp", None, None),
+            "conv": (None, "dp", None, "tp"), "len": ("dp",)}
 
 
 def _decode_block(cfg: ArchConfig, p, x, ssm, conv):

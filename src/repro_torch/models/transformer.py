@@ -25,11 +25,13 @@ memory, not values: the loss and the gradients are the same bits with it
 on or off.  It acts only where grad mode is on, so prefill and decode (no
 grad) never take it.
 
-Not ported, with their reasons: ``param_specs`` and ``cache_specs`` are
-GSPMD sharding specs (N/A); the reference's ``constrain(...)`` calls are
-layout hints for its sharded step builders, which compute nothing, and are
-dropped until the port's sharded train step (ROADMAP A.10.1) installs
-:mod:`repro_torch.distributed.ctx`'s rules.
+``param_specs`` and ``cache_specs`` are the reference's logical sharding
+specs, one tuple of axis names a tensor dim, leaf for leaf with
+``init_params`` and ``init_cache``; :mod:`repro_torch.launch.steps` lays the
+parameters and caches out by them.  The reference's ``constrain(...)``
+calls are dropped: the step builders run the model on each rank's local
+tensors, where :func:`repro_torch.distributed.ctx.constrain` is the
+identity.
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
 
-__all__ = ["layer_groups", "init_params", "forward", "train_loss", "init_cache",
-           "decode_step", "prefill", "remat", "remat_policy"]
+__all__ = ["layer_groups", "init_params", "param_specs", "forward", "train_loss",
+           "init_cache", "cache_specs", "decode_step", "prefill", "remat", "remat_policy"]
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +135,39 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], device) -
         params["lm_head"] = L.init_dense(generator, cfg.d_model, cfg.vocab_padded,
                                          device=device)
     return params
+
+
+def _block_specs(cfg: ArchConfig, stack: bool) -> dict:
+    base = (None,) if stack else ()
+    attn = L.attention_specs(stack, qk_norm=True)
+    if cfg.moe:
+        mlp = {"router": (*base, "fsdp", None), "wi": (*base, "ep", "fsdp", "tp"),
+               "wg": (*base, "ep", "fsdp", "tp"), "wo": (*base, "ep", "tp", "fsdp")}
+    else:
+        mlp = {"wi": (*base, "fsdp", "tp"), "wg": (*base, "fsdp", "tp"),
+               "wo": (*base, "tp", "fsdp")}
+    return {"attn": attn, "mlp": mlp, "ln1": (*base, None), "ln2": (*base, None)}
+
+
+def _prepend_none(specs: dict) -> dict:
+    """Every spec of ``specs`` with one more leading stacked dim."""
+    return tree_map(lambda s: (None, *s), specs, is_leaf=lambda x: isinstance(x, tuple))
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_params`' tree."""
+    n_cyc, n_loc, n_tail = layer_groups(cfg)
+    specs: dict = {"embed": ("tp", "fsdp"), "final_norm": (None,)}
+    blk = _block_specs(cfg, stack=True)
+    if n_cyc and n_loc:
+        specs["locals"] = _prepend_none(blk)
+    if n_cyc:
+        specs["globals"] = blk
+    if n_tail:
+        specs["tail"] = blk
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("fsdp", "tp")
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +270,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype = t
     if n_tail:
         cache["tail"] = entry(w, (n_tail,))
     return cache
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_cache`' tree: batch over ``dp``, the
+    sequence over ``sp`` (long-context cells), heads replicated."""
+    n_cyc, n_loc, n_tail = layer_groups(cfg)
+    kv = lambda extra: {"k": (*extra, "dp", "sp", None, None),
+                        "v": (*extra, "dp", "sp", None, None)}
+    specs: dict = {"len": ("dp",)}
+    if n_cyc and n_loc:
+        specs["locals"] = kv((None, None))
+    if n_cyc:
+        specs["globals"] = kv((None,))
+    if n_tail:
+        specs["tail"] = kv((None,))
+    return specs
 
 
 def _decode_block(p, x, kv, cfg: ArchConfig, *, window, pos: int, cos, sin):

@@ -17,8 +17,10 @@ with ``forward`` only because the gate is zero at init (ROADMAP C.11).
 The reference's ``lax.scan`` over cycles and blocks is a Python loop here.
 ``cfg.remat`` checkpoints each cross-attention layer and each self block,
 as the reference's ``jax.checkpoint`` does (``models/transformer.remat``,
-whose docstring maps the policy).  Not ported: ``param_specs`` and
-``cache_specs`` are GSPMD sharding specs (N/A).
+whose docstring maps the policy).  ``param_specs`` and
+``cache_specs`` are the reference's logical sharding specs, leaf for leaf
+with ``init_params`` and ``init_cache`` (read by
+:mod:`repro_torch.launch.steps`).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_map
 
-__all__ = ["init_params", "forward", "train_loss", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_params", "param_specs", "forward", "train_loss", "init_cache",
+           "cache_specs", "prefill", "decode_step"]
 
 
 def _groups(cfg: ArchConfig) -> tuple[int, int]:
@@ -57,6 +60,15 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator], device) -
         "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
         "lm_head": L.init_dense(generator, cfg.d_model, cfg.vocab_padded, device=device),
     }
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_params`' tree."""
+    return {"embed": ("tp", "fsdp"),
+            "selfs": T._prepend_none(T._block_specs(cfg, stack=True)),
+            "cross": {"xattn": L.attention_specs(True, qk_norm=True), "lnx": (None, None),
+                      "gate": (None,)},
+            "final_norm": (None,), "lm_head": ("fsdp", "tp")}
 
 
 def _gated(p, x, o):
@@ -127,6 +139,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype = t
     return {"selfs": kv(n_cyc, n_self, batch, max_len),
             "cross": kv(n_cyc, batch, cfg.num_image_tokens),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    """The logical specs of :func:`init_cache`' tree."""
+    kv2 = {"k": (None, None, "dp", "sp", None, None), "v": (None, None, "dp", "sp", None, None)}
+    kv1 = {"k": (None, "dp", None, None, None), "v": (None, "dp", None, None, None)}
+    return {"selfs": kv2, "cross": kv1, "len": ("dp",)}
 
 
 def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos, *,

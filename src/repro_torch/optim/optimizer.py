@@ -4,9 +4,10 @@
 The state is ``{"mu": tree, "nu": tree, "step": int32 scalar}`` over the
 port's nested parameter dicts; :func:`adamw_update` is out of place under
 ``torch.no_grad`` and runs the reference's float32 operations in the
-reference's order.  Not applicable: ``adamw_state_specs``, a GSPMD sharding
-spec (the optimizer state shards like the parameters there); the port's
-training state lives whole on one device (ROADMAP A.10).
+reference's order.  :func:`adamw_state_specs` lays the moments out like the
+parameters (ZeRO falls out of the sharding rules):
+:mod:`repro_torch.launch.steps` runs :func:`adamw_update` on each rank's
+shards and passes the gradient norm of the whole tree in ``gnorm``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_state_specs", "adamw_update", "cosine_lr"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,14 +55,27 @@ def adamw_init(params: Any, cfg: AdamWConfig = AdamWConfig()) -> Any:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def adamw_state_specs(param_specs: Any) -> Any:
+    """The logical specs of :func:`adamw_init`'s state: each moment laid out
+    like its parameter, the step count replicated."""
+    is_spec = lambda x: isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                                     for e in x)
+    ident = tree_map(lambda s: s, param_specs, is_leaf=is_spec)
+    return {"mu": ident, "nu": ident, "step": ()}
+
+
 @torch.no_grad()
-def adamw_update(grads: Any, state: Any, params: Any, cfg: AdamWConfig):
-    """Returns (new_params, new_state, grad_norm)."""
+def adamw_update(grads: Any, state: Any, params: Any, cfg: AdamWConfig,
+                 gnorm: torch.Tensor | None = None):
+    """Returns (new_params, new_state, grad_norm).  ``gnorm``: the global
+    gradient norm, when ``grads`` are one rank's shards of a larger tree;
+    by default the norm of ``grads``."""
     flat_p, tdef = tree_flatten(params)
     flat_g = tree_flatten(grads)[0]
     flat_mu = tree_flatten(state["mu"])[0]
     flat_nu = tree_flatten(state["nu"])[0]
-    gnorm = torch.sqrt(sum(g.to(torch.float32).square().sum() for g in flat_g))
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(g.to(torch.float32).square().sum() for g in flat_g))
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)

@@ -593,6 +593,24 @@ def test_plan_field_coverage_lints(tmp_path):
     assert rules == ["plan-rebuild-coverage", "plan-widen-coverage"]
 
 
+def test_plan_spec_coverage_lint(tmp_path):
+    """A plan field with no logical spec in ``dit.engine_state_specs``."""
+    pkg = ROOT / "src" / "repro_torch"
+    src = (pkg / "core" / "plan.py").read_text()
+    src = src.replace("    occ_hist: torch.Tensor    # (B, OCC_BINS) int32\n",
+                      "    occ_hist: torch.Tensor    # (B, OCC_BINS) int32\n"
+                      "    foo_cnt: Optional[torch.Tensor] = None\n")
+    dit_src = (pkg / "models" / "dit.py").read_text()
+    for sub, text in (("core/plan.py", src), ("models/dit.py", dit_src)):
+        (tmp_path / "repro_torch" / sub).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / "repro_torch" / sub).write_text(text)
+    rules = sorted(rule for _, _, rule, msg in lint_sources(tmp_path) if "'foo_cnt'" in msg)
+    assert rules == ["plan-rebuild-coverage", "plan-spec-coverage"]
+    (tmp_path / "repro_torch" / "models" / "dit.py").write_text("def other():\n    pass\n")
+    assert ("plan-spec-coverage", "engine_state_specs not found") in {
+        (rule, msg) for _, _, rule, msg in lint_sources(tmp_path)}
+
+
 # ---------------------------------------------------------------------------
 # The CLI
 # ---------------------------------------------------------------------------

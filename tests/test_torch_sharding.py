@@ -12,8 +12,10 @@
     ``ag_matmul_overlapped`` within 1e-4 of ``jnp.einsum`` on the same
     numpy inputs; ``shrink_mesh`` takes (4, 2) to (2, 2), and its
     ``surviving=`` path keeps the reference's rank order; ``reshard_state``
-    round trips bit for bit (``tests/test_distributed.py``'s elastic case);
-    ``constrain`` inside a rules context redistributes a DTensor and leaves
+    round trips bit for bit (``tests/test_distributed.py``'s elastic case),
+    also on the two paths a ``gloo`` world of card tensors takes (staged
+    through the host, and between the ranks of one host, whose moves of
+    nested shards and partial sums equal DTensor's own); ``constrain`` inside a rules context redistributes a DTensor and leaves
     a plain tensor alone; ``make_production_mesh`` over the world.
 
 The spawned ranks run a module-level function of this file, which imports
@@ -128,7 +130,7 @@ def world_rank(rank: int) -> dict:
     """One rank of the world of 8: every case, this rank's results."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
     from repro_torch.distributed.collective_matmul import ag_matmul_overlapped
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.runtime.elastic import reshard_state, shrink_mesh
@@ -156,16 +158,30 @@ def world_rank(rank: int) -> dict:
         out["round_trip"] = {k: bool(torch.equal(v.full_tensor(), state[k]))
                              for k, v in moved.items()}
         out["moved_local"] = tuple(moved["w"].to_local().shape)
-    # The host-staged path that a gloo world of card tensors takes, here on
-    # CPU tensors: the same bits.
-    staged, TS._staged = TS._staged, lambda m: True
+    # The two paths that a gloo world of card tensors takes, here on CPU
+    # tensors: staged through the host, and between the ranks of one host
+    # (the peers' tensors mapped into each rank).  The same bits.
+    nested = distribute_tensor(torch.arange(64.0).reshape(8, 8), mesh, [Shard(0), Shard(0)])
+    partial = DTensor.from_local(torch.full((4, 2), rank + 1.0), mesh, [Partial(), Replicate()])
+    moves = ((nested, [Replicate(), Shard(0)]), (nested, [Shard(1), Replicate()]),
+             (partial, [Shard(0), Replicate()]), (partial, [Replicate(), Replicate()]))
+    own = [x.redistribute(mesh, pl).to_local() for x, pl in moves]
+    staged, one_host = TS._staged, TS._one_host
+    TS._staged = lambda m: True
     try:
+        TS._one_host = lambda: False
         via_host = reshard_state(reshard_state(state, spec, mesh, rules), spec, small, rules)
+        TS._one_host = lambda: True
+        via_peers = reshard_state(reshard_state(state, spec, mesh, rules), spec, small, rules)
+        out["peer_moves"] = [bool(torch.equal(TS.redistribute(x, pl).to_local(), want))
+                             for (x, pl), want in zip(moves, own)]
     finally:
-        TS._staged = staged
+        TS._staged, TS._one_host = staged, one_host
     if out["in_small"]:
         out["round_trip_via_host"] = {k: bool(torch.equal(v.full_tensor(), state[k]))
                                       for k, v in via_host.items()}
+        out["round_trip_via_peers"] = {k: bool(torch.equal(v.full_tensor(), state[k]))
+                                       for k, v in via_peers.items()}
     out["surviving"] = shrink_mesh(mesh, surviving=[0, 2, 3, 4, 5, 6, 7]).mesh.tolist()
     mesh3 = DeviceMesh("cpu", torch.arange(8).reshape(2, 2, 2),
                        mesh_dim_names=("pod", "data", "model"))
@@ -217,7 +233,16 @@ def test_reshard_state_round_trips_bit_for_bit(world):
         if r["in_small"]:
             assert r["round_trip"] == {"w": True, "b": True}
             assert r["round_trip_via_host"] == {"w": True, "b": True}
+            assert r["round_trip_via_peers"] == {"w": True, "b": True}
             assert r["moved_local"] == (4, 4)
+
+
+def test_peer_moves_equal_dtensors_own(world):
+    """Moves between the ranks of one host (nested shards made whole
+    innermost first, partial sums in mesh order) give DTensor's own
+    results."""
+    for r in world:
+        assert r["peer_moves"] == [True] * 4
 
 
 def test_constrain_redistributes_a_dtensor_in_a_context(world):

@@ -1,0 +1,466 @@
+"""The port's sharded step builders (``repro_torch.launch.steps``) in one
+spawned ``gloo`` world of 4 CPU ranks on mesh (2, 2), ``("data", "model")``
+under the default rules, shared by every case, so that both the ``fsdp``
+(data) and ``tp`` (model) dims of the parameters are really sharded.  The
+weights (the port's ``init_params`` from a seed) and the batches are numpy
+arrays handed to both packages.
+
+  * **train**: 2 FSDP steps of flux-mmdit and gemma3-1b (smoke, f32)
+    against the unsharded port step (``adamw_update`` on the whole tree)
+    and against the reference's ``build_train_step`` fn (jitted over a
+    (1, 1) CPU mesh): loss, grad_norm and every parameter within 1e-4;
+    ``cast_params_bf16=True`` against the reference's within 2e-2;
+  * **DiT step**: Update then Dispatch on flux-mmdit smoke (the serving
+    launcher's engine config, batch 2 over data): each rank's ``v`` and its
+    states ``torch.equal`` to the unsharded ``denoise_step`` on its own
+    batch-1 slice, the gathered ``v`` within 1e-5 of the reference's
+    ``build_dit_step`` fn on the XLA backend, and the kernels' plain
+    versions called once a layer at Dispatch (none at Update);
+  * **prefill / decode**: gemma3-1b and whisper-large-v3 smoke, batch 4 over
+    data: greedy tokens equal to the unsharded port's, logits within 1e-4
+    of the reference builders' fns (f32 weights and caches);
+  * a rank whose inputs disagree with the step's placements makes every
+    rank raise, instead of hanging a collective.
+
+The reference runs in f32: its adapters default to bf16, so the tests wrap
+``Model.train_loss``/``prefill``/``decode_step`` and ``dit.denoise_step``
+to pass ``dtype=float32``, as the port's builders take ``dtype``.  The
+ranks run a module-level function of this file, which imports neither JAX
+nor the reference at module level.
+"""
+
+import contextlib
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.mesh import run_local_mesh
+
+MESH = (2, 2)
+JOIN_S = 180
+TRAIN_ARCHS = ("flux-mmdit", "gemma3-1b")
+TRAIN_SEQ = {"flux-mmdit": 128, "gemma3-1b": 32}
+TRAIN_B, TRAIN_STEPS = 4, 2
+OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+DIT_B, DIT_VISION = 2, 96
+SERVE_ARCHS = ("gemma3-1b", "whisper-large-v3")
+SERVE_B, PROMPT, MAX_LEN, DECODE_STEPS = 4, 32, 64, 4
+TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+DIT_TOL = dict(rtol=1e-5, atol=1e-5)
+DISPATCH_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel")
+
+
+def _train_batch(arch: str, seed: int) -> dict:
+    from repro_torch.configs.registry import get_smoke
+    cfg = get_smoke(arch)
+    rng = np.random.default_rng(seed)
+    b, s = TRAIN_B, TRAIN_SEQ[arch]
+    if cfg.family == "dit":
+        nv, nt = s - cfg.n_text_tokens, cfg.n_text_tokens
+        f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+        return {"latents": f(b, nv, cfg.patch_dim), "noise": f(b, nv, cfg.patch_dim),
+                "patch_emb": f(b, nv, cfg.d_model), "text_emb": f(b, nt, cfg.d_model),
+                "t": rng.uniform(0, 1, (b,)).astype(np.float32)}
+    tok = lambda: rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    return {"tokens": tok(), "labels": tok()}
+
+
+def _serve_batch(cfg) -> dict:
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (SERVE_B, PROMPT)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (SERVE_B, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _dit_inputs(cfg) -> dict:
+    rng = np.random.default_rng(11)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    return {"x_vision": f(DIT_B, DIT_VISION, cfg.d_model),
+            "text_emb": f(DIT_B, cfg.n_text_tokens, cfg.d_model),
+            "t": np.array([0.3, 0.7], np.float32)}
+
+
+def _torch(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def _states_equal(a: list, b: list) -> bool:
+    for x, y in zip(a, b):
+        pairs = [(x.s_c, y.s_c), (x.s_s, y.s_s), (x.taylor.derivs, y.taylor.derivs)]
+        pairs += [(getattr(x.plan, f), getattr(y.plan, f)) for f in x.plan._fields]
+        if x.k_since != y.k_since or x.taylor.n_updates != y.taylor.n_updates:
+            return False
+        if not all((p is None and q is None) or torch.equal(p, q) for p, q in pairs):
+            return False
+    return True
+
+
+def steps_rank(rank: int, inputs: dict) -> dict:
+    """One rank of the world: every case, this rank's results."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.core import backend
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R, redistribute
+    from repro_torch.launch import specs as S
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.models import dit
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import AdamWConfig, adamw_init, adamw_state_specs
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_leaves, tree_map
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(MESH), mesh_dim_names=("data", "model"))
+    whole = lambda x: redistribute(x, [Replicate(), Replicate()]).to_local()
+    d = mesh.get_coordinate()[0]
+    out = {"train": {}, "serve": {}}
+
+    for arch, cast in [(a, False) for a in TRAIN_ARCHS] + [("flux-mmdit", True)]:
+        cfg = get_smoke(arch)
+        model = get_model(cfg)
+        fn, _, in_pl, out_pl = ST.build_train_step(
+            cfg, ShapeSpec("t", TRAIN_SEQ[arch], TRAIN_B, "train"), mesh, R,
+            opt_cfg=AdamWConfig(**OPT), cast_params_bf16=cast, dtype=torch.float32)
+        params = _torch(inputs["params"][arch])
+        p = reshard_state(params, model.param_specs(), mesh, R)
+        o = reshard_state(adamw_init(params), adamw_state_specs(model.param_specs()), mesh, R)
+        metrics = []
+        for i in range(TRAIN_STEPS):
+            b = reshard_state(_torch(inputs["train_batches"][arch][i]),
+                              S.train_batch_logical(cfg), mesh, R)
+            p, o, m = fn(p, o, b)
+            metrics.append((float(m["loss"].to_local()), float(m["grad_norm"].to_local())))
+        laid_out = all(list(x.placements) == pl for x, pl in
+                       zip(*(tree_leaves(t, is_leaf=ST._is_pl) for t in (p, out_pl[0]))))
+        out["train"][(arch, cast)] = {"metrics": metrics, "params": tree_map(whole, p),
+                                      "laid_out": laid_out,
+                                      "step": int(o["step"].to_local())}
+
+    # The DiT step: Update, then Dispatch on the states it returned.
+    cfg, ecfg = get_smoke("flux-mmdit"), serving_engine_config()
+    n_tok = DIT_VISION + cfg.n_text_tokens
+    shape = ShapeSpec("d", n_tok, DIT_B, "serve")
+    params = tree_map(lambda t: t.to(torch.bfloat16), _torch(inputs["params"]["flux-mmdit"]))
+    x = _torch(inputs["dit_inputs"])
+    p = reshard_state(params, dit.param_specs(cfg), mesh, R)
+    spec = dit.engine_state_specs(cfg, ecfg)
+    states = ST.place_states(dit.init_engine_states(cfg, ecfg, DIT_B, n_tok, "cpu"), spec,
+                             mesh, R)
+    xd = reshard_state(x, S.dit_inputs_logical(cfg), mesh, R)
+    calls = {name: 0 for name in DISPATCH_KERNELS}
+    kept = {name: getattr(backend, name) for name in DISPATCH_KERNELS}
+
+    def counting(name):
+        def run(*args, **kw):
+            calls[name] += 1
+            return kept[name](*args, **kw)
+        return run
+
+    compute = ST._compute_placements(ST._state_tree(spec), mesh, R)
+    one = dit.init_engine_states(cfg, ecfg, 1, n_tok, "cpu")
+    sl = slice(d, d + 1)
+    dit_out = {}
+    for mode in ("update", "dispatch"):
+        fn, _, _, out_pl = ST.build_dit_step(cfg, shape, mesh, R, mode=mode, ecfg=ecfg,
+                                             dtype=torch.float32)
+        for name in DISPATCH_KERNELS:
+            setattr(backend, name, counting(name))
+        try:
+            v, states = fn(p, states, xd)
+        finally:
+            for name in DISPATCH_KERNELS:
+                setattr(backend, name, kept[name])
+        v1, one = dit.denoise_step(params, cfg, ecfg, one, x["x_vision"][sl],
+                                   x["text_emb"][sl], x["t"][sl], mode=mode, dtype=torch.float32)
+        local = [ST._state_from_tree(tree_map(ST._to_local, ST._state_tree(s), compute,
+                                              is_leaf=ST._is_pl), s) for s in states]
+        dit_out[mode] = {"v": whole(v), "v_equal": torch.equal(v.to_local(), v1),
+                         "states_equal": _states_equal(local, one),
+                         "v_placements": list(v.placements) == out_pl[0],
+                         "calls": dict(calls)}
+    out["dit"] = dit_out
+
+    for arch in SERVE_ARCHS:
+        cfg = get_smoke(arch)
+        model = get_model(cfg)
+        params = _torch(inputs["params"][arch])
+        p = reshard_state(params, model.param_specs(), mesh, R)
+        pre, _, _, _ = ST.build_prefill_step(cfg, ShapeSpec("p", PROMPT, SERVE_B, "prefill"),
+                                             mesh, R, dtype=torch.float32)
+        dec, _, _, _ = ST.build_decode_step(cfg, ShapeSpec("d", MAX_LEN, SERVE_B, "decode"),
+                                            mesh, R, dtype=torch.float32)
+        batch = reshard_state(_torch(inputs["serve_batches"][arch]),
+                              S.prefill_batch_logical(cfg), mesh, R)
+        logits = pre(p, batch)
+        rec = {"prefill": whole(logits), "decode": [], "tokens": []}
+        cache = reshard_state(model.init_cache(SERVE_B, MAX_LEN, torch.float32, device="cpu"),
+                              model.cache_specs(), mesh, R)
+        tok = logits.to_local().argmax(-1).to(torch.int32)
+        for pos in range(DECODE_STEPS):
+            tok_d = ST._dtensor(tok, mesh, [Shard(0), Replicate()], (SERVE_B,))
+            rec["tokens"].append(whole(tok_d))
+            logits, cache = dec(p, cache, tok_d, pos)
+            rec["decode"].append(whole(logits))
+            tok = logits.to_local().argmax(-1).to(torch.int32)
+        out["serve"][arch] = rec
+
+    # Rank 1 hands in one parameter laid out otherwise than the step says.
+    cfg = get_smoke("gemma3-1b")
+    model = get_model(cfg)
+    params = _torch(inputs["params"]["gemma3-1b"])
+    p = reshard_state(params, model.param_specs(), mesh, R)
+    if rank == 1:
+        p["final_norm"] = reshard_state({"w": params["final_norm"]}, {"w": ("fsdp",)}, mesh,
+                                        R)["w"]
+    pre = ST.build_prefill_step(cfg, ShapeSpec("p", PROMPT, SERVE_B, "prefill"), mesh, R,
+                                dtype=torch.float32)[0]
+    batch = reshard_state(_torch(inputs["serve_batches"]["gemma3-1b"]),
+                          S.prefill_batch_logical(cfg), mesh, R)
+    try:
+        pre(p, batch)
+        out["disagree"] = None
+    except ValueError as e:
+        out["disagree"] = str(e)
+    dist.barrier()
+    return out
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import tree_map
+    params = {a: tree_map(lambda t: t.numpy(), get_model(get_smoke(a)).init_params(
+        torch.Generator().manual_seed(0), "cpu")) for a in (*TRAIN_ARCHS, *SERVE_ARCHS)}
+    return {"params": params,
+            "train_batches": {a: [_train_batch(a, 100 + i) for i in range(TRAIN_STEPS)]
+                              for a in TRAIN_ARCHS},
+            "dit_inputs": _dit_inputs(get_smoke("flux-mmdit")),
+            "serve_batches": {a: _serve_batch(get_smoke(a)) for a in SERVE_ARCHS}}
+
+
+@pytest.fixture(scope="module")
+def runs(inputs):
+    """The world's results and the unsharded and reference runs, the latter
+    computed here while the ranks run."""
+    box = {}
+
+    def run_world():
+        try:
+            box["world"] = run_local_mesh(steps_rank, *MESH, inputs, timeout=JOIN_S)
+        except BaseException as e:                  # re-raised on the test's thread
+            box["error"] = e
+
+    thread = threading.Thread(target=run_world)
+    thread.start()
+    try:
+        local = {"train": {a: _unsharded_train(a, inputs) for a in TRAIN_ARCHS},
+                 "serve": {a: _unsharded_serve(a, inputs) for a in SERVE_ARCHS}}
+        with _f32_reference():
+            ref = _references(inputs, local)
+    finally:
+        thread.join()
+    if "error" in box:
+        raise box["error"]
+    return box["world"], local, ref
+
+
+@contextlib.contextmanager
+def _f32_reference():
+    """The reference's adapters and ``denoise_step`` with ``dtype=float32``."""
+    import jax.numpy as jnp
+    from repro.models import dit as jdit
+    from repro.models import registry as JR
+    kept = {name: getattr(JR.Model, name) for name in ("train_loss", "prefill", "decode_step")}
+    kept_dn = jdit.denoise_step
+    JR.Model.train_loss = lambda self, p, b, **kw: kept["train_loss"](self, p, b,
+                                                                      dtype=jnp.float32)
+    JR.Model.prefill = lambda self, p, b, **kw: kept["prefill"](self, p, b, dtype=jnp.float32)
+    JR.Model.decode_step = lambda self, p, c, t, pos, **kw: kept["decode_step"](
+        self, p, c, t, pos, dtype=jnp.float32)
+    jdit.denoise_step = lambda *a, **kw: kept_dn(*a, **{**kw, "dtype": jnp.float32})
+    try:
+        yield
+    finally:
+        for name, fn in kept.items():
+            setattr(JR.Model, name, fn)
+        jdit.denoise_step = kept_dn
+
+
+def _close(got, want, **tol):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want, dtype=np.float32), **tol)
+
+
+def _unsharded_train(arch, inputs):
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    model = get_model(get_smoke(arch))
+    p = _torch(inputs["params"][arch])
+    o, metrics = adamw_init(p), []
+    for batch in inputs["train_batches"][arch]:
+        leaves, tdef = tree_flatten(p)
+        leaves = [t.requires_grad_(True) for t in leaves]
+        loss = model.train_loss(tree_unflatten(tdef, leaves), _torch(batch), dtype=torch.float32)
+        grads = tree_unflatten(tdef, torch.autograd.grad(loss, leaves))
+        p, o, gnorm = adamw_update(grads, o, tree_unflatten(tdef, [t.detach() for t in leaves]),
+                                   AdamWConfig(**OPT))
+        metrics.append((float(loss.detach()), float(gnorm)))
+    return metrics, p
+
+
+@torch.no_grad()
+def _unsharded_serve(arch, inputs) -> dict:
+    """The port's greedy prefill and decode on the whole batch."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.registry import get_model
+    model = get_model(get_smoke(arch))
+    params = _torch(inputs["params"][arch])
+    logits = model.prefill(params, _torch(inputs["serve_batches"][arch]), dtype=torch.float32)
+    cache = model.init_cache(SERVE_B, MAX_LEN, torch.float32, device="cpu")
+    rec = {"prefill": logits, "tokens": [], "decode": []}
+    for pos in range(DECODE_STEPS):
+        tok = logits.argmax(-1).to(torch.int32)
+        logits, cache = model.decode_step(params, cache, tok, pos, dtype=torch.float32)
+        rec["tokens"].append(tok)
+        rec["decode"].append(logits)
+    return rec
+
+
+def _jit(mesh, built):
+    """A reference builder's fn jitted with its own shardings, and a placer
+    for its first inputs (so later calls hit the same executable)."""
+    import jax
+    fn, _, in_sh, out_sh = built
+    return jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh), \
+        lambda *args: jax.device_put(args, in_sh)
+
+
+def _references(inputs, local) -> dict:
+    """The reference builders' fns on a (1, 1) CPU mesh, on the same inputs
+    (decode fed the unsharded port's greedy tokens)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.configs.base import ShapeSpec as J
+    from repro.configs.registry import get_smoke as j_get_smoke
+    from repro.core.engine import EngineConfig as JEngineConfig
+    from repro.core.masks import MaskConfig as JMaskConfig
+    from repro.distributed.sharding import DEFAULT_RULES as R
+    from repro.launch import steps as JST
+    from repro.models import dit as jdit
+    from repro.models.registry import get_model as j_get_model
+    from repro.optim.optimizer import AdamWConfig, adamw_init
+    mesh = Mesh(np.array(jax.devices("cpu")[:1]).reshape(1, 1), ("data", "model"))
+    ref = {"train": {}, "serve": {}, "dit": {}}
+    with mesh:
+        for arch, cast in [(a, False) for a in TRAIN_ARCHS] + [("flux-mmdit", True)]:
+            step, place = _jit(mesh, JST.build_train_step(
+                j_get_smoke(arch), J("t", TRAIN_SEQ[arch], TRAIN_B, "train"), mesh, R,
+                opt_cfg=AdamWConfig(**OPT), cast_params_bf16=cast))
+            p = inputs["params"][arch]
+            o, metrics = adamw_init(p), []
+            for batch in inputs["train_batches"][arch]:
+                p, o, m = step(*place(p, o, batch))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            ref["train"][(arch, cast)] = (metrics, jax.tree.map(np.asarray, p))
+
+        jcfg = j_get_smoke("flux-mmdit")
+        jecfg = JEngineConfig(mask=JMaskConfig(tau_q=0.5, tau_kv=0.15, interval=4, order=1,
+                                               degrade=0.3, block_q=16, block_kv=16, pool=32,
+                                               warmup_steps=2))
+        n_tok = DIT_VISION + jcfg.n_text_tokens
+        params = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                              inputs["params"]["flux-mmdit"])
+        states = jdit.init_engine_states(jcfg, jecfg, DIT_B, n_tok)
+        for mode in ("update", "dispatch"):
+            step, place = _jit(mesh, JST.build_dit_step(jcfg, J("d", n_tok, DIT_B, "serve"),
+                                                        mesh, R, mode=mode, ecfg=jecfg))
+            v, states = step(*place(params, states, inputs["dit_inputs"]))
+            ref["dit"][mode] = np.asarray(v)
+
+        for arch in SERVE_ARCHS:
+            jcfg, jp = j_get_smoke(arch), inputs["params"][arch]
+            pre, place = _jit(mesh, JST.build_prefill_step(
+                jcfg, J("p", PROMPT, SERVE_B, "prefill"), mesh, R))
+            rec = {"prefill": np.asarray(pre(*place(jp, inputs["serve_batches"][arch]))),
+                   "decode": []}
+            dec, place = _jit(mesh, JST.build_decode_step(
+                jcfg, J("d", MAX_LEN, SERVE_B, "decode"), mesh, R))
+            jcache = j_get_model(jcfg).init_cache(SERVE_B, MAX_LEN, jnp.float32)
+            for pos, tok in enumerate(local["serve"][arch]["tokens"]):
+                logits, jcache = dec(*place(jp, jcache, tok.numpy(), jnp.int32(pos)))
+                rec["decode"].append(np.asarray(logits))
+            ref["serve"][arch] = rec
+    return ref
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_matches_unsharded_and_the_reference(runs, arch):
+    import jax
+    from repro_torch.tree import tree_flatten
+    world, local, ref = runs
+    got = [r["train"][(arch, False)] for r in world]
+    assert all(g["laid_out"] and g["step"] == TRAIN_STEPS for g in got)
+    assert all(g["metrics"] == got[0]["metrics"] for g in got)
+    leaves = [tree_flatten(g["params"])[0] for g in got]
+    assert all(torch.equal(a, b) for other in leaves[1:] for a, b in zip(other, leaves[0]))
+    un_metrics, un_params = local["train"][arch]
+    ref_metrics, ref_params = ref["train"][(arch, False)]
+    _close(np.array(got[0]["metrics"]), un_metrics, **TOL)
+    _close(np.array(got[0]["metrics"]), ref_metrics, **TOL)
+    for a, b, c in zip(leaves[0], tree_flatten(un_params)[0], jax.tree.leaves(ref_params)):
+        _close(a, b, **TOL)
+        _close(a, c, **TOL)
+
+
+def test_train_step_with_bf16_params_matches_the_reference(runs):
+    import jax
+    from repro_torch.tree import tree_flatten
+    world, _, ref = runs
+    got = world[0]["train"][("flux-mmdit", True)]
+    ref_metrics, ref_params = ref["train"][("flux-mmdit", True)]
+    _close(np.array(got["metrics"]), ref_metrics, **BF16_TOL)
+    for a, c in zip(tree_flatten(got["params"])[0], jax.tree.leaves(ref_params)):
+        _close(a, c, **BF16_TOL)
+
+
+def test_dit_step_is_each_ranks_slice_and_matches_the_reference(runs):
+    world, _, ref = runs
+    for r in world:
+        for mode in ("update", "dispatch"):
+            rec = r["dit"][mode]
+            assert rec["v_equal"] and rec["states_equal"] and rec["v_placements"], mode
+            _close(rec["v"], ref["dit"][mode], **DIT_TOL)
+        # The plain versions ran once a layer at Dispatch, never at Update.
+        assert r["dit"]["update"]["calls"] == dict.fromkeys(DISPATCH_KERNELS, 0)
+        assert r["dit"]["dispatch"]["calls"] == dict.fromkeys(DISPATCH_KERNELS, 3)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_prefill_and_decode_match_unsharded_and_the_reference(runs, arch):
+    world, local, ref = runs
+    got, want, jref = world[0]["serve"][arch], local["serve"][arch], ref["serve"][arch]
+    assert all(torch.equal(r["serve"][arch]["prefill"], got["prefill"]) for r in world)
+    for pos in range(DECODE_STEPS):
+        assert torch.equal(got["tokens"][pos], want["tokens"][pos]), pos
+        _close(got["decode"][pos], jref["decode"][pos], **TOL)
+    assert torch.equal(got["decode"][-1].argmax(-1), want["decode"][-1].argmax(-1))
+    _close(got["prefill"], jref["prefill"], **TOL)
+
+
+def test_ranks_that_disagree_on_a_placement_all_raise(runs):
+    for r in runs[0]:
+        assert r["disagree"] is not None
+        assert "disagree with the step's placements" in r["disagree"]
+        assert "1:" in r["disagree"] and "0:" not in r["disagree"]
