@@ -141,7 +141,7 @@ final line):
                 starts).  The layer cell: one flux-width Dispatch layer (B 2)
                 on mesh (2, 4), seq mode with flashomni at 1 and 3 buckets
                 and pair slack 1.5 (the clamp the identity) and 0.5 (it
-                binds), hunyuan-1.5x and multi-granularity, head mode; each
+                binds), hunyuan-1.5x, head mode; each
                 ``torch.equal`` to the single-device Dispatch on every
                 rank, B2 launched on every rank and its call at the shard's
                 shapes (Q compact and replicated, K/V the exchange buffer,
@@ -209,7 +209,19 @@ final line):
                 chunked dense attention as its
                 own group), and the device's idle share; dispatch purity on
                 the card: no Dispatch step may launch a sort or top-k kernel,
-                every Update step must launch one (scans are reported).
+                every Update step must launch one (scans are reported);
+ 19. dryrun   — ``launch/dryrun`` in a process of its own on the host: the
+                step builders' steps traced on ``meta`` tensors over a fake
+                world and costed (no card, no kernel launched), each
+                prediction beside this run's measurement: T1's peak (world
+                1) against T1's, its FLOPs over T1's step as a share of the
+                f32 peak, S2's peak a rank and wire bytes a step (world 2,
+                mesh (2, 1)) against S2's peak and the bytes a rank copied
+                from its peer, S3's Dispatch holding B1-B3 once a layer at
+                capacity as S3 launched them (each prediction within 2x of
+                its measurement); then the planning cell, flux-mmdit at all
+                38 blocks trained as T1 is, FSDP over 4 ranks, batch 1 a
+                rank: its peak a rank and whether it fits 80 GB.
 
 Then the ``kernels`` line, the ``nvidia-smi`` name/power-limit line, and
 the device line last.
@@ -1127,7 +1139,7 @@ def ltrain() -> tuple[dict, dict, list]:
     return res, launches, faults
 
 
-def phase_train() -> dict:
+def phase_train() -> tuple[dict, dict]:
     """The training path (``repro_torch.launch.train``) on the card: the
     gradient check of the dense attention at full width, flux-smoke trained on
     the card against the CPU (no compression, int8, top-k), T1: flux-mmdit at
@@ -1135,7 +1147,7 @@ def phase_train() -> dict:
     failure, then L-train: gemma3-1b at full width, one step with remat on
     and off.  Launch counts set to 0 just before T1 and before L-train and
     read just after each: the engine is off in training, so no kernel may
-    launch.  Returns each path's launch counts."""
+    launch.  Returns each path's launch counts and T1's record."""
     import math
     import shutil
     import statistics
@@ -1195,7 +1207,7 @@ def phase_train() -> dict:
         faults.append(f"T1 launched kernels: {launches}")
     if faults:
         raise AssertionError("train: " + "; ".join(faults))
-    return {"T1": launches, "L-train": ltrain_launches}
+    return {"T1": launches, "L-train": ltrain_launches}, res["T1"]
 
 
 # The LM families (models/transformer, ssm, rglru, encdec and vision;
@@ -1920,14 +1932,14 @@ def s4_rank(mesh) -> dict:
     return res
 
 
-def phase_sharding() -> dict:
+def phase_sharding() -> tuple[dict, dict]:
     """The ``sharding`` phase: two ranks on the card over ``gloo``.  Fails if
     a rank fails, the collective matmul lies beyond SHARD_ATOL of the local
     product, the resharded parameters are not ``torch.equal`` to the
     unsharded ones on the surviving rank, a kernel launched in S1, S2 or S4,
     or a check of S2-S4 fails.  Returns the launch counts of the paths
     ``sharding`` (S1), S2, S3 (its Update and Dispatch steps) and S4, each
-    rank 0's."""
+    rank 0's, and rank 0's record."""
     import torch
     torch.cuda.empty_cache()
     from repro_torch.launch.mesh import run_local_mesh
@@ -1953,7 +1965,7 @@ def phase_sharding() -> dict:
     s3 = {name: n + ranks[0]["S3"]["dispatch"]["launches"][name]
           for name, n in ranks[0]["S3"]["update"]["launches"].items()}
     return {"sharding": ranks[0]["launches"], "S2": ranks[0]["S2"]["launches"], "S3": s3,
-            "S4": ranks[0]["S4"]["launches"]}
+            "S4": ranks[0]["S4"]["launches"]}, ranks[0]
 
 
 def sharding_step_faults(ranks) -> list:
@@ -2172,14 +2184,16 @@ def phase_serve_bucketed() -> tuple[dict, tuple]:
 # test, each case checked on every rank against the single-device Dispatch;
 # a case is (label, strategy, kv_buckets, pair slack, mesh axis).  At
 # slack 1.5 pair_cap = kv_bps = 72 (the clamp is the identity), at 0.5
-# pair_cap = ceil(0.5 * 260 / 4) = 33 and the clamp binds.
+# pair_cap = ceil(0.5 * 260 / 4) = 33 and the clamp binds.  The
+# multi-granularity case was cut to make room for the dryrun phase within
+# the script's time limit (Dispatch never consults the strategy;
+# hunyuan-1.5x still gives the cell a second strategy's plan).
 MESH_LAYER = (2, 4)
 MESH_CASES = (("seq, flashomni, 1 bucket, slack 1.5", "flashomni", 1, 1.5, "seq"),
               ("seq, flashomni, 3 buckets, slack 1.5", "flashomni", 3, 1.5, "seq"),
               ("seq, flashomni, 1 bucket, slack 0.5", "flashomni", 1, 0.5, "seq"),
               ("seq, flashomni, 3 buckets, slack 0.5", "flashomni", 3, 0.5, "seq"),
               ("seq, hunyuan-1.5x, 1 bucket", "hunyuan-1.5x", 1, 1.5, "seq"),
-              ("seq, multi-granularity, 1 bucket", "multi-granularity", 1, 1.5, "seq"),
               ("head, flashomni, 1 bucket", "flashomni", 1, 1.5, "head"))
 MESH_SEED = 2468
 # M1: P1's request (same seed, weights and noise) served across mesh (1, 2).
@@ -2996,6 +3010,112 @@ def phase_profile():
                              f"top-k kernel, or an Update step none: {bad}")
 
 
+# The dry run (``launch/dryrun``): the step builders' steps traced on
+# ``meta`` tensors over a fake world and costed on the host, in a process of
+# its own (its fake world must not meet the script's gloo worlds), each
+# prediction printed beside what this run measured on the card.  T1 (world
+# 1): its peak against T1's ``max_memory_allocated``, and its FLOPs over
+# T1's measured step as a share of the f32 peak; S2 (world 2, mesh (2, 1)):
+# the peak a rank against S2's, and the wire bytes a step against the bytes
+# a rank copied from its peer (``fn.stats["peer_bytes"]``); S3's Dispatch:
+# B1-B3 once a layer, billed at the plan's capacity, as S3 launched them;
+# and the planning cell, flux-mmdit at all 38 blocks trained as T1 is, FSDP
+# over 4 ranks on mesh (4, 1), batch 1 a rank: its peak a rank and whether
+# it fits one H100's 80 GB.  A prediction more than DRYRUN_RATIO off its
+# measurement either way fails the phase, as does a cell that raises or a
+# kernel launch in the dry-run process.
+DRYRUN_PLAN = dict(n_layers=38, world=4, batch_per_rank=1)
+DRYRUN_RATIO = 2.0
+DRYRUN_JOIN_S = 180
+F32_FLOPS = 67e12                 # one H100 SXM at 700 W, f32 outside the tensor cores
+
+
+def dryrun_cells() -> None:
+    """The dry run's predictions of T1, S2, S3's Dispatch and the planning
+    cell, printed as one JSON line (``phase_dryrun`` runs this in a process
+    of its own)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.optim.optimizer import AdamWConfig
+
+    def cell(world, n_layers, batch, n_vision, mode=None):
+        cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=n_layers)
+        kind = "train" if mode is None else "dit"
+        shape = ShapeSpec(kind, n_vision + cfg.n_text_tokens, batch, kind)
+        kw = (dict(opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=T1["steps"]))
+              if mode is None else dict(mode=mode, ecfg=serving_engine_config()))
+        with D.fake_world(world):
+            mesh = DeviceMesh("cpu", torch.arange(world).reshape(world, 1),
+                              mesh_dim_names=("data", "model"))
+            return D.record_cell(cfg, shape, mesh, R, dtype=torch.float32, **kw)
+
+    reset_launches()
+    out = {"T1": cell(1, T1["n_layers"], T1["batch"], T1["seq_len"]),
+           "S2": cell(2, S2["n_layers"], S2["batch"], S2["seq_len"]),
+           "S3": cell(2, S3["n_layers"], S3["batch"], S3["n_vision"], mode="dispatch"),
+           "plan": cell(DRYRUN_PLAN["world"], DRYRUN_PLAN["n_layers"],
+                        DRYRUN_PLAN["world"] * DRYRUN_PLAN["batch_per_rank"], T1["seq_len"]),
+           "launches": _launches()}
+    print(json.dumps(out), flush=True)
+
+
+def phase_dryrun(t1: dict, s2: dict, s3: dict) -> dict:
+    """The ``dryrun`` phase: :func:`dryrun_cells` in a process of its own,
+    its predictions beside T1's, S2's and S3's measurements (``t1``,
+    ``s2``, ``s3``: their records, rank 0's for S2 and S3)."""
+    import statistics
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.dryrun_cells()"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=DRYRUN_JOIN_S)
+    if proc.returncode:
+        raise RuntimeError(f"dryrun: the dry-run process failed:\n{proc.stderr[-4000:]}")
+    pred = json.loads(proc.stdout.strip().splitlines()[-1])
+    gb = lambda cell: pred[cell]["peak_bytes"] / 1e9
+    t1_step_s = t1["median_s"]["grad"] + t1["median_s"]["update"]
+    s2_peer = statistics.median(st["peer_bytes"] for st in s2["steps"])
+    rows = {"T1 peak_gb": (gb("T1"), t1["peak_mem_gb"]),
+            "S2 peak_gb": (gb("S2"), s2["peak_gb"]),
+            "S2 bytes a step": (pred["S2"]["wire_bytes"], s2_peer)}
+    res = {"phase": "dryrun",
+           "note": "predicted for one H100 (80 GB) by launch/dryrun on the host (meta "
+                   "tensors, a fake world), beside this run's measurements on the card",
+           "compared": {k: {"predicted": p, "measured": m, "ratio": p / m}
+                        for k, (p, m) in rows.items()},
+           "T1": {"predicted_flops": pred["T1"]["flops_per_device"],
+                  "measured_step_s": t1_step_s,
+                  "f32_peak_share": pred["T1"]["flops_per_device"] / t1_step_s / F32_FLOPS},
+           "S2": {"collectives": pred["S2"]["collective_bytes"]},
+           "S3": {"predicted_kernels": pred["S3"]["kernels"],
+                  "kernel_billing": pred["S3"]["kernel_billing"],
+                  "measured_launches": {k: s3["dispatch"]["launches"][k] for k in P1_KERNELS},
+                  "predicted_peak_gb": gb("S3")},
+           "plan": {**DRYRUN_PLAN, "arch": "flux-mmdit", "seq_len": T1["seq_len"],
+                    "predicted_peak_gb": gb("plan"), "fits_80gb": pred["plan"]["fits"],
+                    "argument_gb": pred["plan"]["argument_bytes"] / 1e9,
+                    "wire_gb": pred["plan"]["wire_bytes"] / 1e9},
+           "trace_s": {c: pred[c]["trace_s"] for c in ("T1", "S2", "S3", "plan")},
+           "launches": pred["launches"], "seconds": time.perf_counter() - t0}
+    emit(res)
+    faults = [f"{k}: predicted {p:.4g}, measured {m:.4g}" for k, (p, m) in rows.items()
+              if not 1 / DRYRUN_RATIO <= p / m <= DRYRUN_RATIO]
+    want = {name: S3["n_layers"] for name in P1_KERNELS}
+    if pred["S3"]["kernels"] != want or res["S3"]["measured_launches"] != want \
+            or pred["S3"]["kernel_billing"] != "capacity":
+        faults.append(f"S3: predicted kernels {pred['S3']['kernels']}, launched "
+                      f"{res['S3']['measured_launches']}, want {want} at capacity")
+    if any(pred["launches"].values()):
+        faults.append(f"a kernel launched on meta: {pred['launches']}")
+    if faults:
+        raise AssertionError("dryrun: " + "; ".join(faults))
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3017,7 +3137,8 @@ def main() -> int:
         timed(phase_small)
         timed(phase_analysis)
         served, by_path = {}, {}
-        by_path.update(timed(phase_train))
+        launches, t1 = timed(phase_train)
+        by_path.update(launches)
         by_path.update(timed(phase_lm))
         by_path["long_context"] = timed(phase_long_context)
         by_path["P1"], served["P1"], p1_plans = timed(phase_serve)
@@ -3025,7 +3146,8 @@ def main() -> int:
         by_path["ops"] = timed(phase_ops)
         timed(phase_twin, **FULL)
         by_path["M1"] = timed(phase_mesh, served["P1"], p1_plans)
-        by_path.update(timed(phase_sharding))
+        launches, shard_rank0 = timed(phase_sharding)
+        by_path.update(launches)
         del p1_plans
         timed(phase_dense, served)
         del served
@@ -3035,6 +3157,7 @@ def main() -> int:
               plans=("flashomni", "hunyuan-1.5x interior"), dtypes=("float32",),
               with_ops=False, iters=3, phase="kernels_33k")
         timed(phase_profile)
+        timed(phase_dryrun, t1, shard_rank0["S2"], shard_rank0["S3"])
     except Exception:                     # report the failing phase, then fail
         traceback.print_exc()
         return 1

@@ -25,22 +25,29 @@ views (``view``, ``permute``, …)   0 FLOPs, 0 bytes (they move nothing)
 layout moves (``clone``,           0 FLOPs, in + out bytes (``copy_``,
 ``_to_copy``, ``cat``, …)          ``fill_``: the written bytes, not the old
                                    values)
-collectives (``c10d.*``)           payload = the result buffer (``all_to_all``:
-                                   the exchanged buffer; ``all_gather``: the
-                                   gathered one), count 1 per op, keyed by
+collectives (``c10d.*``,           payload = the RESULT (an in-place c10d op's
+``_c10d_functional.*``)            output buffer, a functional op's output:
+                                   ``all_gather`` the gathered tensor,
+                                   ``reduce_scatter`` the shard, ``all_reduce``
+                                   the tensor, ``all_to_all`` the moved
+                                   total); wire = the bytes crossing links at
+                                   group size p (:data:`WIRE_FACTORS`); count
+                                   1 per op, keyed by
                                    :func:`~repro_torch.analysis.op_walk.
                                    collective_kind`; bytes = the buffers
+``wait_tensor``,                   0 FLOPs, 0 bytes (they hand the result on)
+``_wrap_tensor_autograd``
 everything else (elementwise)      FLOPs = out_elems; bytes = in + out
 a kernel region                    :func:`kernel_cost` at the plan's
                                    CAPACITY counts (:func:`region_counts`)
 =================================  ===========================================
 
 Only nodes outside kernel regions are billed: a region is billed as its
-kernel, whatever its plain version does on the CPU, so a record costs the
-same on either device.  An in-place op is one node, billed once.  Like the
-reference's, the byte count is a pre-fusion upper bound: a scaling
-certificate (bytes a function of live slots, or of ``T_kv``?), not an
-absolute counter.
+kernel, whatever its plain version does on the CPU (or on ``meta``, where
+it runs nothing), so a record costs the same on every device.  An in-place
+op is one node, billed once.  Like the reference's, the byte count is a
+pre-fusion upper bound: a scaling certificate (bytes a function of live
+slots, or of ``T_kv``?), not an absolute counter.
 
 **The kernels.**  :func:`kernel_cost` is the one place the FLOPs and bytes
 of B1–B7 are written down.  ``chip_smoke.py`` bills each kernel at the
@@ -69,6 +76,12 @@ kernel                                 counts
 :func:`peak_bytes_of` estimates the peak of concurrently live storages by a
 last-use scan over the record (views share their base's bytes; the call's
 inputs live throughout).
+
+The collectives' payload is the reference's convention (the dry run's
+HLO-result bytes), and the wire bytes are its factors
+(``repro.analysis.cost_model._collective_cost``); the group size is the
+one the recorder read (``OpNode.group_size``), and a collective whose group
+is not known is billed its payload on the wire.
 """
 
 from __future__ import annotations
@@ -82,7 +95,7 @@ import torch
 from repro_torch.analysis.op_walk import OpNode, OpRecord, collective_kind
 
 __all__ = ["CostEstimate", "cost_of_record", "op_cost", "peak_bytes_of", "kernel_cost",
-           "region_counts", "plan_counts", "VIEW_OPS", "LAYOUT_OPS"]
+           "region_counts", "plan_counts", "VIEW_OPS", "LAYOUT_OPS", "WIRE_FACTORS"]
 
 
 @dataclasses.dataclass
@@ -92,15 +105,21 @@ class CostEstimate:
     flops: float = 0.0
     hbm_bytes: float = 0.0
     coll_payload: Dict[str, float] = dataclasses.field(default_factory=dict)
+    coll_wire: Dict[str, float] = dataclasses.field(default_factory=dict)
     coll_count: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def add(self, other: "CostEstimate") -> None:
         self.flops += other.flops
         self.hbm_bytes += other.hbm_bytes
-        for kind, v in other.coll_payload.items():
-            self.coll_payload[kind] = self.coll_payload.get(kind, 0.0) + v
-        for kind, v in other.coll_count.items():
-            self.coll_count[kind] = self.coll_count.get(kind, 0) + v
+        for mine, theirs in ((self.coll_payload, other.coll_payload),
+                             (self.coll_wire, other.coll_wire),
+                             (self.coll_count, other.coll_count)):
+            for kind, v in theirs.items():
+                mine[kind] = mine.get(kind, 0) + v
+
+    @property
+    def wire_bytes(self) -> float:
+        return float(sum(self.coll_wire.values()))
 
 
 # Ops that alias their input: no data moves.
@@ -123,6 +142,10 @@ _WRITE_ONLY = frozenset({"aten.copy_", "aten.fill_", "aten.zero_", "aten.normal_
 _FREE_OPS = frozenset({"aten._local_scalar_dense", "aten.sym_size", "aten.sym_numel",
                        "aten.sym_stride", "aten.is_nonzero", "aten.equal",
                        "aten.record_stream", "aten.set_"})
+# The functional collectives' bookkeeping: each hands its input on (in a
+# wrapper of its own, so a new storage key that holds no new bytes).
+_HAND_ON_OPS = frozenset({"_c10d_functional.wait_tensor",
+                          "_c10d_functional._wrap_tensor_autograd"})
 _MATMUL = frozenset({"aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm", "aten.addbmm",
                      "aten.dot", "aten.mv", "aten.vdot"})
 _GATHER = frozenset({"aten.gather", "aten.index", "aten.index_select", "aten.take",
@@ -220,13 +243,29 @@ def _attention_cost(node: OpNode) -> CostEstimate:
     return CostEstimate(flops=4.0 * _elems(q) * k.shape[-2], hbm_bytes=_io(node))
 
 
+# Wire bytes of a collective of ``payload`` result bytes over ``p`` ranks,
+# the reference's factors (all_reduce is its psum: a reduce-scatter and an
+# all-gather; a reduce-scatter's result is the shard).  Any other kind:
+# its payload.
+WIRE_FACTORS = {
+    "all_to_all": lambda payload, p: payload * (p - 1) / p,
+    "all_gather": lambda payload, p: payload * (p - 1) / p,
+    "all_reduce": lambda payload, p: 2.0 * payload * (p - 1) / p,
+    "reduce_scatter": lambda payload, p: payload * (p - 1),
+}
+
+
 def _collective_cost(node: OpNode, kind: str) -> CostEstimate:
-    # The torch collectives write into a caller's buffer, the first tensor
-    # argument: the exchanged (all_to_all) or the gathered (all_gather) one.
-    # The group's size is not in the op stream, so wire bytes are not modelled.
-    payload = node.inputs[0].nbytes if node.inputs else 0.0
+    # The result: what a functional op returns, or what an in-place c10d op
+    # returns beside its Work (``_allgather_base_``'s output buffer); an op
+    # that returns its Work alone (``alltoall_base_``) writes its first
+    # argument, the output buffer.
+    payload = _bytes(node.outputs) if node.outputs else (
+        node.inputs[0].nbytes if node.inputs else 0.0)
+    p = node.group_size
+    wire = WIRE_FACTORS[kind](payload, p) if kind in WIRE_FACTORS and p else payload
     return CostEstimate(hbm_bytes=_io(node), coll_payload={kind: payload},
-                        coll_count={kind: 1})
+                        coll_wire={kind: wire}, coll_count={kind: 1})
 
 
 def op_cost(node: OpNode) -> CostEstimate:
@@ -239,7 +278,7 @@ def op_cost(node: OpNode) -> CostEstimate:
         dtype = next((m.dtype for m in node.inputs if m.dtype.is_floating_point),
                      torch.float32)
         return kernel_cost(name, region_counts(node), dtype)
-    if name in _FREE_OPS or name in VIEW_OPS:
+    if name in _FREE_OPS or name in VIEW_OPS or name in _HAND_ON_OPS:
         return CostEstimate()
     if name in LAYOUT_OPS:
         if name in _WRITE_ONLY:
@@ -413,20 +452,27 @@ def peak_bytes_of(record: OpRecord) -> float:
     chip).  Live throughout: the call's inputs and any storage made
     before the call.  A storage made by a node lives from there to its
     last use (the call's outputs to the end); views and in-place results
-    share their base's storage, so they add nothing."""
+    share their base's storage, so they add nothing, as do the results of
+    the functional collectives' bookkeeping (``wait_tensor``)."""
     nodes = [n for n in record.nodes if not n.path]
     size = record.storage_bytes
+    alias: dict = {}
+    root = lambda key: alias.get(key, key)
     made, last = {}, {}
     for i, node in enumerate(nodes):
+        if node.name in _HAND_ON_OPS and node.inputs:
+            for m in node.outputs:
+                alias[m.key] = root(node.inputs[0].key)
         for m in node.inputs:
-            last[m.key] = i
+            last[root(m.key)] = i
         for m in node.outputs:
-            if m.key not in made and m.key not in last and m.key not in record.inputs:
-                made[m.key] = i
-            last[m.key] = max(last.get(m.key, i), i)
+            key = root(m.key)
+            if key not in made and key not in last and key not in record.inputs:
+                made[key] = i
+            last[key] = max(last.get(key, i), i)
     end = len(nodes)
     for key in record.outputs:
-        last[key] = end
+        last[root(key)] = end
     base = set(record.inputs) | {k for k in last if k not in made}
     base_bytes = float(sum(size[k] for k in base))
     born = {}

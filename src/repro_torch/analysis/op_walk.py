@@ -23,7 +23,16 @@ visible.
 
 Storages are keyed by their untyped storage (``_cdata``) and held by the
 record for its lifetime, so a key cannot be reused by a later allocation;
-a view shares its base's key.  Records are for small analysis shapes.
+a view shares its base's key.  A DTensor is recorded as its local tensor,
+the shard this rank holds.  Records are for small analysis shapes, or for
+``meta`` tensors of any size (the dry run, :mod:`repro_torch.launch.dryrun`).
+
+**Collectives.**  ``torch.distributed``'s ops reach the dispatcher as
+``c10d`` ops (in place, into a caller's buffer) or ``_c10d_functional``
+ops (DTensor's, returning their result).  :func:`collective_kind` names
+each by its collective stem; the recorder keeps the size of the group each
+ran over (``OpNode.group_size``), read from the op's arguments while the
+group exists.
 
 Entry points: :func:`record_call`, :func:`iter_nodes`,
 :func:`primitive_counts`, :func:`find_ops`, :func:`eqn_count`,
@@ -64,12 +73,16 @@ _CARRY_U8 = frozenset({"aten._to_copy", "aten.clone", "aten.index_select", "aten
                        "aten.reshape", "aten.permute", "aten.squeeze", "aten.alias"})
 # Cross-device collectives: torch.distributed's ops reach the dispatcher in
 # these namespaces (``dist.all_to_all_single`` as ``c10d.alltoall_base_``,
-# ``dist.all_gather_single`` as ``c10d._allgather_base_``).
+# ``dist.all_gather_single`` as ``c10d._allgather_base_``, DTensor's
+# gather as ``_c10d_functional.all_gather_into_tensor``).
 COLLECTIVE_NAMESPACES = frozenset({"c10d", "_c10d_functional", "_c10d_functional_autograd"})
-# Op-name stems of the collective kinds mesh dispatch runs, named as the
-# reference's jaxpr primitives; any other collective keeps its op name.
+# Op-name stems of the collective kinds (c10d's and the functional ops'
+# spellings).  Any other c10d op keeps its op name; any other functional op
+# (``wait_tensor``, ``_wrap_tensor_autograd``) is bookkeeping, no collective.
 _COLLECTIVE_KINDS = (("alltoall", "all_to_all"), ("all_to_all", "all_to_all"),
-                     ("allgather", "all_gather"), ("all_gather", "all_gather"))
+                     ("allgather", "all_gather"), ("all_gather", "all_gather"),
+                     ("allreduce", "all_reduce"), ("all_reduce", "all_reduce"),
+                     ("reduce_scatter", "reduce_scatter"), ("broadcast", "broadcast"))
 
 
 class TensorMeta(NamedTuple):
@@ -94,6 +107,7 @@ class OpNode:
                          # kernel: {parameter: TensorMeta or value}
     overload: str = ""   # the full op name, "aten.sort.stable"
     u8: bool = False     # an input carries the uint8 symbol buffer
+    group_size: int = 0  # a collective: the ranks of its group (0: not known)
 
 
 @dataclasses.dataclass
@@ -110,6 +124,8 @@ class OpRecord:
     _open: list = dataclasses.field(default_factory=list, repr=False)
 
     def meta(self, t: torch.Tensor) -> TensorMeta:
+        if type(t) is not torch.Tensor and _is_dtensor(t):
+            t = t._local_tensor
         st = t.untyped_storage()
         key = st._cdata
         if key not in self._held:
@@ -133,8 +149,10 @@ class OpRecord:
         u8 = any(m.key in self._u8 for m in ins)
         if u8 and name in _CARRY_U8:
             self._u8.update(m.key for m in outs)
+        group = _group_size(func, args, kwargs) if collective_kind(name) is not None else 0
         self.nodes.append(OpNode(name, "op", tuple(self._path), ins, outs,
-                                 tree_map(self._as_meta, (args, kwargs)), str(func), u8))
+                                 tree_map(self._as_meta, (args, kwargs)), str(func), u8,
+                                 group))
 
     # The kernel-region listener (repro_torch.kernels._region).
     def enter_region(self, name: str, bound: dict) -> None:
@@ -149,6 +167,28 @@ class OpRecord:
         self._path.pop()
         node = self._open.pop()
         node.outputs = self._metas(result)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _group_size(func, args, kwargs) -> int:
+    """The size of the group a collective op runs over: its ``group_size``
+    argument, its ``process_group`` (c10d) or the group its ``group_name``
+    names (the functional ops), 0 where none is given."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    for i, arg in enumerate(func._schema.arguments):
+        val = args[i] if i < len(args) else kwargs.get(arg.name)
+        if arg.name == "group_size":
+            return int(val)
+        if arg.name == "process_group":
+            return dist.ProcessGroup.unbox(val).size()
+        if arg.name == "group_name":
+            return _resolve_process_group(val).size()
+    return 0
 
 
 class _Recorder(TorchDispatchMode):
@@ -218,14 +258,18 @@ def kernel_regions(record: OpRecord) -> list:
 
 
 def collective_kind(name: str):
-    """``"all_to_all"``, ``"all_gather"``, … for a collective op name
-    (``c10d.alltoall_base_``), the op name itself for an unknown collective,
-    None for any other op."""
+    """``"all_to_all"``, ``"all_gather"``, ``"all_reduce"``,
+    ``"reduce_scatter"`` or ``"broadcast"`` for a collective op name
+    (``c10d.alltoall_base_``, ``_c10d_functional.all_gather_into_tensor``),
+    the op name itself for another c10d op, None for any other op (the
+    functional namespaces' ``wait_tensor`` and ``_wrap_tensor_autograd``
+    included)."""
     ns, _, op = name.partition(".")
     if ns not in COLLECTIVE_NAMESPACES:
         return None
     stem = op.strip("_")
-    return next((kind for key, kind in _COLLECTIVE_KINDS if stem.startswith(key)), name)
+    kind = next((kind for key, kind in _COLLECTIVE_KINDS if stem.startswith(key)), None)
+    return name if kind is None and ns == "c10d" else kind
 
 
 def collective_counts(record: OpRecord) -> Counter:

@@ -9,7 +9,8 @@ The shape grid (``SHAPES``) is the task's:
   decode_32k  : seq 32768,  global batch 128  -> serve decode (1 new token)
   long_500k   : seq 524288, global batch 1    -> long-context decode
 
-:func:`repro_torch.launch.mesh.rules_for` reads it.
+:func:`repro_torch.launch.mesh.rules_for` reads it, and
+:func:`repro_torch.configs.registry.arch_shapes` picks an arch's cells from it.
 """
 
 from __future__ import annotations
@@ -99,3 +100,12 @@ class ArchConfig:
             d_in = 2 * d
             attn, mlp = 0, d * (2 * d_in + 2 * self.ssm_state) + d_in * d
         return emb + self.n_layers * (attn + mlp)
+
+    def n_active_params(self) -> int:
+        """Parameters a token reaches, the reference's formula: a MoE
+        counts ``top_k`` of its experts a layer; any other family, all."""
+        if not self.moe:
+            return self.n_params()
+        d = self.d_model
+        dense_part = self.n_params() - self.n_layers * self.moe.num_experts * 3 * d * self.moe.d_ff
+        return dense_part + self.n_layers * self.moe.top_k * 3 * d * self.moe.d_ff

@@ -1,10 +1,10 @@
 """Config registry: ``--arch <id>`` resolution for the port's launchers and
 tests.  ``ARCH_IDS`` holds the reference's twelve archs in its order: the
 decoder-only LMs, the ssm, encdec, vlm and hybrid archs, and the paper's
-two DiTs.  Not applicable: ``arch_shapes``, the shape-grid cells an arch
-runs, which only the GSPMD tools read (``launch/roofline_sweep`` and
-``launch/steps``; ROADMAP A.10.3); the grid itself is
-``configs.base.SHAPES``."""
+two DiTs.  :func:`arch_shapes` gives the shape-grid cells an arch runs
+(``configs.base.SHAPES`` less its skips, or the DiT serving cell), which
+the dry run (``launch/dryrun``, ``perf_probe``, ``roofline_sweep``)
+walks."""
 
 from __future__ import annotations
 
@@ -12,9 +12,9 @@ from repro_torch.configs import (flux_mmdit, gemma3_12b, gemma3_1b, granite_8b,
                                  granite_moe_3b_a800m, hunyuan_video, llama3_405b,
                                  llama_3_2_vision_11b, mamba2_370m, mixtral_8x22b,
                                  recurrentgemma_2b, whisper_large_v3)
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke", "arch_shapes"]
 
 _MODULES = {
     "gemma3-1b": gemma3_1b, "granite-8b": granite_8b, "llama3-405b": llama3_405b,
@@ -41,3 +41,14 @@ def get_config(arch: str) -> ArchConfig:
 
 def get_smoke(arch: str) -> ArchConfig:
     return _module(arch).SMOKE
+
+
+def arch_shapes(cfg: ArchConfig) -> list[ShapeSpec]:
+    """The shape-grid cells this arch runs, the reference's: a DiT serves
+    one request of batch 1 at its text tokens plus 4096 (flux) or 32 768
+    vision tokens; any other family runs ``SHAPES`` less its
+    ``skip_shapes``."""
+    if cfg.family == "dit":
+        return [ShapeSpec("dit_serve", cfg.n_text_tokens +
+                          (4096 if "flux" in cfg.name else 32768), 1, "dit")]
+    return [s for s in SHAPES.values() if s.name not in cfg.skip_shapes]

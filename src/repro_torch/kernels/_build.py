@@ -140,9 +140,11 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def check(name: str, t: torch.Tensor, device: torch.device, dtype: torch.dtype,
           shape: tuple) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of this device, dtype and shape."""
-    if t.device != device or device.type != "cuda":
-        raise ValueError(f"{name}: expected a tensor on {device} (CUDA), got {t.device}")
+    """Raise unless ``t`` is a contiguous CUDA (or ``meta``) tensor of this
+    device, dtype and shape."""
+    if t.device != device or device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name}: expected a tensor on {device} (CUDA or meta), "
+                         f"got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):

@@ -10,7 +10,9 @@ on the H100 and how the design answers that); the plain versions are
 :func:`repro_torch.kernels.ref.attention_csr_ref`,
 :func:`~repro_torch.kernels.ref.attention_csr_bucketed_ref` and
 :func:`~repro_torch.kernels.ref.attention_symbols_ref`.  A CPU tensor runs
-the plain version; a CUDA tensor launches the kernel or raises.
+the plain version; a CUDA tensor launches the kernel or raises; a ``meta``
+tensor (the dry run's) passes the CUDA route's checks and returns an empty
+``meta`` output, launching and counting nothing.
 :func:`count_walk` counts, on the card, what the grouped walk of the
 kernels launched inside it staged and computed.
 """
@@ -83,7 +85,7 @@ def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_csr_ref(q, k, v, o_reuse, q_ids, q_src, q_cnt, kv_ids,
                                  kv_cnt, block_q=block_q, block_kv=block_kv,
                                  scale=scale)
-    lib = _build.load()
+    lib = None if q.is_meta else _build.load()
     bh, n_q, d = q.shape
     n_kv = k.shape[1]
     n = o_reuse.shape[1]
@@ -99,6 +101,8 @@ def flashomni_attention_csr(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check("kv_cnt", kv_cnt, dev, torch.int32, (bh, cq))
     scale = (d ** -0.5) if scale is None else scale
     out = o_reuse.clone()
+    if lib is None:                     # meta: shapes only, nothing to launch
+        return out
     rc = lib.fo_csr_attention(
         _build.dtype_code(dt), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_ids.data_ptr(), q_src.data_ptr(), q_cnt.data_ptr(), kv_ids.data_ptr(),
@@ -140,7 +144,7 @@ def flashomni_attention_csr_bucketed(q: torch.Tensor, k: torch.Tensor, v: torch.
         return attention_csr_bucketed_ref(
             q, k, v, o_reuse, bkt_head, bkt_q_ids, bkt_q_src, bkt_kv_ids, bkt_kv_cnt,
             geometry, heads=heads, block_q=block_q, block_kv=block_kv, scale=scale)
-    lib = _build.load()
+    lib = None if q.is_meta else _build.load()
     bh, n_q, d = q.shape
     n_kv = k.shape[1]
     n = o_reuse.shape[1]
@@ -159,6 +163,8 @@ def flashomni_attention_csr_bucketed(q: torch.Tensor, k: torch.Tensor, v: torch.
     _build.check("bkt_kv_ids", bkt_kv_ids, dev, torch.int32, (b, s))
     scale = (d ** -0.5) if scale is None else scale
     out = o_reuse.clone()
+    if lib is None:                     # meta: shapes only, nothing to launch
+        return out
     rc = lib.fo_csr_attention_bucketed(
         _build.dtype_code(dt), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         bkt_head.data_ptr(), bkt_q_ids.data_ptr(), bkt_q_src.data_ptr(),
@@ -187,7 +193,7 @@ def flashomni_attention_symbols(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     if q.device.type == "cpu":
         return attention_symbols_ref(q, k, v, o_reuse, s_c, s_s, block_q=block_q,
                                      block_kv=block_kv, scale=scale)
-    lib = _build.load()
+    lib = None if q.is_meta else _build.load()
     bh, n, d = q.shape
     n_kv = k.shape[1]
     _check_sizes(n, n_kv, n, d, block_q, block_kv)
@@ -200,6 +206,8 @@ def flashomni_attention_symbols(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     _build.check("s_s", s_s, dev, torch.uint8, (bh, s_bytes))
     scale = (d ** -0.5) if scale is None else scale
     out = torch.empty_like(o_reuse)
+    if lib is None:                     # meta: shapes only, nothing to launch
+        return out
     rc = lib.fo_symbols_attention(
         _build.dtype_code(dt), q.data_ptr(), k.data_ptr(), v.data_ptr(), o_reuse.data_ptr(),
         out.data_ptr(), s_c.data_ptr(), s_s.data_ptr(), bh, n, n_kv, d, c_bytes, s_bytes,

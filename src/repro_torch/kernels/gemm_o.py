@@ -6,7 +6,9 @@ Port of ``repro.kernels.gemm_o.gemm_o_sparse_kernel`` and
 ``csrc/gemm_o.cu`` (its header says what bounds them on the H100 and how the
 design answers that); the plain versions are :func:`repro_torch.kernels.ref.
 gemm_o_ref` and :func:`~repro_torch.kernels.ref.gemm_o_bucketed_ref`.  A CPU
-tensor runs the plain version; a CUDA tensor launches the kernel or raises.
+tensor runs the plain version; a CUDA tensor launches the kernel or raises; a
+``meta`` tensor (the dry run's) passes the CUDA route's checks and returns an
+empty ``meta`` output, launching and counting nothing.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def gemm_o_sparse_kernel(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Ten
     if o_heads.device.type == "cpu":
         return gemm_o_ref(o_heads, w, bias, row_ids, head_ids, head_cnt,
                           block=block_rows)
-    lib = _build.load()
+    lib = None if o_heads.is_meta else _build.load()
     b, h, n, dh = o_heads.shape
     f = w.shape[-1]
     cr = row_ids.shape[-1]
@@ -49,6 +51,8 @@ def gemm_o_sparse_kernel(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Ten
     _build.check("head_ids", head_ids, dev, torch.int32, (b, cr, h))
     _build.check("head_cnt", head_cnt, dev, torch.int32, (b, cr))
     out = bias.clone()
+    if lib is None:                     # meta: shapes only, nothing to launch
+        return out
     vec = _build.aligned_rows((o_heads, dh), (w, f), (out, f))
     rc = lib.fo_gemm_o(_build.dtype_code(dt), int(vec), o_heads.data_ptr(), w.data_ptr(),
                        row_ids.data_ptr(), head_ids.data_ptr(), head_cnt.data_ptr(),
@@ -77,7 +81,7 @@ def gemm_o_sparse_bucketed_kernel(o_heads: torch.Tensor, w: torch.Tensor,
     if o_heads.device.type == "cpu":
         return gemm_o_bucketed_ref(o_heads, w, bias, gmo_rows, gmo_src, gmo_head_ids,
                                    gmo_head_cnt, geometry, block=block_rows)
-    lib = _build.load()
+    lib = None if o_heads.is_meta else _build.load()
     b, h, n, dh = o_heads.shape
     f = w.shape[-1]
     cr = gmo_rows.shape[-1]
@@ -94,6 +98,8 @@ def gemm_o_sparse_bucketed_kernel(o_heads: torch.Tensor, w: torch.Tensor,
         _build.check(name, t, dev, torch.int32, (b, cr))
     _build.check("gmo_head_ids", gmo_head_ids, dev, torch.int32, (b, s))
     out = bias.clone()
+    if lib is None:                     # meta: shapes only, nothing to launch
+        return out
     vec = _build.aligned_rows((o_heads, dh), (w, f), (out, f))
     rc = lib.fo_gemm_o_bucketed(
         _build.dtype_code(dt), int(vec), o_heads.data_ptr(), w.data_ptr(), gmo_rows.data_ptr(),

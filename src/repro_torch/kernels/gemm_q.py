@@ -4,7 +4,8 @@ Port of ``repro.kernels.gemm_q.gemm_q_sparse_kernel``.  The CUDA kernel is
 ``csrc/gemm_q.cu`` (its header says what bounds it on the H100 and how the
 design answers that); the plain version is :func:`repro_torch.kernels.ref.
 gemm_q_ref`.  A CPU tensor runs the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises; a ``meta`` tensor (the dry run's) passes the CUDA route's
+checks and returns an empty ``meta`` output, launching and counting nothing.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ def gemm_q_sparse_kernel(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor
     """
     if x.device.type == "cpu":
         return gemm_q_ref(x, w, row_ids, row_cnt, block=block_rows)
-    lib = _build.load()
+    lib = None if x.is_meta else _build.load()
     b, n, k = x.shape
     f = w.shape[-1]
     cr = row_ids.shape[-1]
@@ -42,6 +43,8 @@ def gemm_q_sparse_kernel(x: torch.Tensor, w: torch.Tensor, row_ids: torch.Tensor
     _build.check("row_ids", row_ids, dev, torch.int32, (b, cr))
     _build.check("row_cnt", row_cnt, dev, torch.int32, (b,))
     out = torch.empty((b, cr * block_rows, f), dtype=x.dtype, device=dev)
+    if lib is None:                     # meta: shapes only, nothing to launch
+        return out
     vec = _build.aligned_rows((x, k), (w, f), (out, f))
     rc = lib.fo_gemm_q(_build.dtype_code(x.dtype), int(vec), x.data_ptr(), w.data_ptr(),
                        row_ids.data_ptr(), row_cnt.data_ptr(), out.data_ptr(),

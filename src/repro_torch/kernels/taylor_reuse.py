@@ -5,7 +5,9 @@ Port of ``repro.kernels.taylor_reuse.taylor_reuse_kernel``.  The CUDA kernel
 is ``csrc/taylor_reuse.cu`` (its header says what bounds it on the H100 and
 how the design answers that); the plain version is
 :func:`repro_torch.kernels.ref.taylor_reuse_blocks_ref`.  A CPU tensor runs
-the plain version; a CUDA tensor launches the kernel or raises.
+the plain version; a CUDA tensor launches the kernel or raises; a ``meta``
+tensor (the dry run's) passes the CUDA route's checks and returns an empty
+``meta`` output, launching and counting nothing.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def taylor_reuse_kernel(derivs: torch.Tensor, coef: torch.Tensor, base: torch.Te
     """
     if base.device.type == "cpu":
         return taylor_reuse_blocks_ref(derivs, coef, base, ids, cnt, block=block)
-    lib = _build.load()
+    lib = None if base.is_meta else _build.load()
     o1, bh, n, d = derivs.shape
     cc = ids.shape[-1]
     if n % block:
@@ -48,6 +50,8 @@ def taylor_reuse_kernel(derivs: torch.Tensor, coef: torch.Tensor, base: torch.Te
     _build.check("ids", ids, dev, torch.int32, (bh, cc))
     _build.check("cnt", cnt, dev, torch.int32, (bh,))
     out = base.clone()
+    if lib is None:                     # meta: shapes only, nothing to launch
+        return out
     rc = lib.fo_taylor_reuse(_build.dtype_code(derivs.dtype), _build.dtype_code(base.dtype),
                              derivs.data_ptr(), coef.data_ptr(), out.data_ptr(), ids.data_ptr(),
                              cnt.data_ptr(), o1, bh, n, d, cc, block, _build.stream_of(dev))

@@ -2,12 +2,12 @@
 serving), ``batching`` (stacked and continuous batched serving), ``train``
 (the restartable training loop), ``mesh`` (the engine mesh, the
 production mesh and ``rules_for``), ``specs`` (the input shape stand-ins
-of every cell and their logical specs) and ``steps`` (the sharded step
+of every cell and their logical specs), ``steps`` (the sharded step
 builders: the train step as FSDP, prefill, decode and the DiT denoise
-step, over DTensor on :mod:`repro_torch.distributed.sharding`).
-
-Not applicable, each a GSPMD or TPU tool with no one-to-one torch meaning
-(ROADMAP A.10.3): ``dryrun`` (lowers a step on a simulated 256-chip mesh
-through ``jax.jit``), ``perf_probe`` and ``roofline_sweep`` (XLA cost
-analysis of compiled steps against TPU peaks).
+step, over DTensor on :mod:`repro_torch.distributed.sharding`), ``dryrun``
+(one rank's step of every (arch × shape) cell traced on ``meta`` tensors
+over a fake world of the production mesh's size and costed for one H100:
+FLOPs, bytes, collective bytes, peak and whether it fits), ``perf_probe``
+(one cell's roofline terms against the H100's peaks under perf options)
+and ``roofline_sweep`` (every single-pod cell, smallest first).
 """

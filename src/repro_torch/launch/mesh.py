@@ -63,12 +63,14 @@ def mesh_shape_for(n_devices: int, cap_shape: tuple[int, ...]) -> tuple[int, ...
     return tuple(reversed(shape))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
     """The named production ``DeviceMesh`` over the initialised world: axes
     ``(data, model)``, or ``(pod, data, model)`` with ``multi_pod``, at
     :func:`mesh_shape_for` of the world size within the cap ``(16, 16)`` or
     ``(2, 16, 16)``; ranks ``0 .. n-1`` in row-major order, the reference's
-    ``devices[:n].reshape(shape)``, on the card where one exists.
+    ``devices[:n].reshape(shape)``, on ``device_type``: by default the card
+    where one exists, else the CPU (the dry run's ``meta`` tensors ask for
+    the CPU, where they live on every host).
     Collective: every rank of the world calls it (the ranks past ``n`` hold
     no place in the mesh)."""
     from torch.distributed.device_mesh import DeviceMesh
@@ -77,8 +79,10 @@ def make_production_mesh(*, multi_pod: bool = False):
     cap = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     shape = mesh_shape_for(dist.get_world_size(), cap)
-    return DeviceMesh("cuda" if torch.cuda.is_available() else "cpu",
-                      torch.arange(math.prod(shape)).reshape(shape), mesh_dim_names=axes)
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return DeviceMesh(device_type, torch.arange(math.prod(shape)).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def rules_for(cfg, shape, *, multi_pod: bool):

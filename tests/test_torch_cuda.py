@@ -42,10 +42,14 @@ attention on the card, and one training step of flux-mmdit at full width and
 2 blocks runs with no kernel launched.  The LM smoke configs (gemma3-1b,
 granite-moe-3b-a800m, mamba2-370m, recurrentgemma-2b, whisper-large-v3 and
 llama-3.2-vision-11b) run on the card against the CPU, and one MoE layer
-at granite-moe's full width routes as on the CPU.
+at granite-moe's full width routes as on the CPU.  Each of the seven
+wrappers launches its kernel on CUDA tensors (its count +1) and never on
+``meta`` tensors (the dry run's shapes-only route).
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -60,6 +64,9 @@ from repro_torch.kernels.ref import (attention_csr_bucketed_ref, attention_csr_r
                                      attention_symbols_ref, csr_layout, gemm_o_bucketed_ref,
                                      gemm_o_ref,
                                      gemm_q_ref, taylor_reuse_blocks_ref)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from _kernel_cases import KERNEL_NAMES, kernel_call, on  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -428,6 +435,17 @@ def test_taylor_reuse_kernel_matches_plain(dev, dtype, order, d, block):
     mixed = TK.taylor_reuse_kernel(derivs.float(), coef, base, ids, cnt, block=block)
     _close(mixed, taylor_reuse_blocks_ref(derivs.float(), coef, base, ids, cnt, block=block),
            dtype)
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_wrapper_launches_on_the_card_and_never_on_meta(dev, name):
+    fn, args, kw = kernel_call(name)
+    launches = fn.launches
+    got = fn(*on(dev, args), **kw)
+    assert got.is_cuda and fn.launches == launches + 1
+    shape = fn(*on("meta", args), **kw)
+    assert shape.is_meta and (shape.shape, shape.dtype) == (got.shape, got.dtype)
+    assert fn.launches == launches + 1
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -6,10 +6,11 @@
 (c) The serving entry points (diffusion and LM) and the quickstart
     default to the card and raise without one (the training launcher's case is in
     ``tests/test_torch_train.py``).
-(d) A kernel call on a tensor that is not on the CPU builds or raises: with
-    no ``nvcc`` it raises and never falls back to the plain version.  (A
-    CPU-only PyTorch cannot make a CUDA tensor, so a ``meta`` tensor stands
-    in for one: both take the kernel route.)
+(d) A kernel call on a CUDA tensor builds or raises: with no ``nvcc`` it
+    raises and never falls back to the plain version.  (A CPU-only PyTorch
+    cannot allocate a CUDA tensor, so a fake one, ``FakeTensorMode``'s
+    ``device="cuda"``, stands in for one; a ``meta`` tensor takes the
+    wrappers' shapes-only route, ``tests/test_torch_dryrun.py``.)
 (e) The profile of ``chip_smoke.py`` sees every kernel: each ``__global__``
     function in ``csrc/*.cu`` falls into the group of the wrapper that
     launches it, never into "other".
@@ -106,38 +107,39 @@ def test_kernel_route_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_LIB", None)
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
-    meta = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="meta")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    card = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device="cuda")
     i32 = torch.int32
     calls = [
-        lambda: TK.gemm_q_sparse_kernel(meta(2, 64, 32), meta(32, 32), meta(2, 2, dtype=i32),
-                                        meta(2, dtype=i32), block_rows=32),
+        lambda: TK.gemm_q_sparse_kernel(card(2, 64, 32), card(32, 32), card(2, 2, dtype=i32),
+                                        card(2, dtype=i32), block_rows=32),
         lambda: TK.flashomni_attention_csr(
-            meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32),
-            meta(4, 4, dtype=i32), meta(4, 4, dtype=i32), meta(4, dtype=i32),
-            meta(4, 4, 4, dtype=i32), meta(4, 4, dtype=i32), block_q=16, block_kv=16),
-        lambda: TK.gemm_o_sparse_kernel(meta(2, 2, 64, 32), meta(2, 32, 32), meta(2, 64, 32),
-                                        meta(2, 2, dtype=i32), meta(2, 2, 2, dtype=i32),
-                                        meta(2, 2, dtype=i32), block_rows=32),
+            card(4, 64, 32), card(4, 64, 32), card(4, 64, 32), card(4, 64, 32),
+            card(4, 4, dtype=i32), card(4, 4, dtype=i32), card(4, dtype=i32),
+            card(4, 4, 4, dtype=i32), card(4, 4, dtype=i32), block_q=16, block_kv=16),
+        lambda: TK.gemm_o_sparse_kernel(card(2, 2, 64, 32), card(2, 32, 32), card(2, 64, 32),
+                                        card(2, 2, dtype=i32), card(2, 2, 2, dtype=i32),
+                                        card(2, 2, dtype=i32), block_rows=32),
         lambda: TK.flashomni_attention_csr_bucketed(
-            meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32),
-            meta(2, 8, dtype=i32), meta(2, 8, dtype=i32), meta(2, 8, dtype=i32),
-            meta(2, 24, dtype=i32), meta(2, 8, dtype=i32), ((2, 4), (6, 2)),
+            card(4, 64, 32), card(4, 64, 32), card(4, 64, 32), card(4, 64, 32),
+            card(2, 8, dtype=i32), card(2, 8, dtype=i32), card(2, 8, dtype=i32),
+            card(2, 24, dtype=i32), card(2, 8, dtype=i32), ((2, 4), (6, 2)),
             heads=2, block_q=16, block_kv=16),
         lambda: TK.gemm_o_sparse_bucketed_kernel(
-            meta(2, 2, 64, 32), meta(2, 32, 32), meta(2, 64, 32), meta(2, 2, dtype=i32),
-            meta(2, 2, dtype=i32), meta(2, 3, dtype=i32), meta(2, 2, dtype=i32),
+            card(2, 2, 64, 32), card(2, 32, 32), card(2, 64, 32), card(2, 2, dtype=i32),
+            card(2, 2, dtype=i32), card(2, 3, dtype=i32), card(2, 2, dtype=i32),
             ((1, 2), (1, 1)), block_rows=32),
         lambda: TK.flashomni_attention_symbols(
-            meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32), meta(4, 64, 32),
-            meta(4, 1, dtype=torch.uint8), meta(4, 2, dtype=torch.uint8),
+            card(4, 64, 32), card(4, 64, 32), card(4, 64, 32), card(4, 64, 32),
+            card(4, 1, dtype=torch.uint8), card(4, 2, dtype=torch.uint8),
             block_q=16, block_kv=16),
-        lambda: TK.taylor_reuse_kernel(meta(2, 4, 64, 32), meta(2), meta(4, 64, 32),
-                                       meta(4, 4, dtype=i32), meta(4, dtype=i32), block=16),
+        lambda: TK.taylor_reuse_kernel(card(2, 4, 64, 32), card(2), card(4, 64, 32),
+                                       card(4, 4, dtype=i32), card(4, dtype=i32), block=16),
     ]
     assert len(calls) == len(TK.KERNELS)
     before = [fn.launches for fn in TK.KERNELS]
     for call in calls:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
+        with FakeTensorMode(), pytest.raises(RuntimeError, match="nvcc not found"):
             call()
     assert [fn.launches for fn in TK.KERNELS] == before
     assert not (tmp_path / "build").exists()
