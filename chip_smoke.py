@@ -136,7 +136,20 @@ final line):
                 buckets, per-row layout at ``cap_kv < T_kv``): the largest
                 difference and its share of the float32 tolerance, with the
                 rows of empty KV lists zeroed, and both times;
- 12. mesh     — plan-sharded Dispatch, every rank a process of its own on
+ 12. rope     — the engine's RoPE (``rope_freqs``, ``freqs=``) at the flux
+                shapes, three cases: bias mode uniform (GEMM-Q, CSR
+                attention, GEMM-O), bias mode sliding-window at 2 buckets
+                (GEMM-Q, the bucketed pair), ``o_cache`` mode uniform
+                (GEMM-Q, CSR attention).  Each: two Update layers with
+                ``freqs`` at ``cap_q_frac`` 0.75 build a plan from the
+                rotated Q/K (sparse, not empty), then one Dispatch layer
+                with ``freqs`` under the kernels (compact GEMM-Q rows
+                rotated at their original positions; the case's kernels
+                launched once each, no other) and under the twin, within
+                the float32 tolerance with the rows of empty KV lists
+                zeroed; the kernels' layer without ``freqs`` differs by
+                more than 100x the tolerance (rel-L2); both layer times;
+ 13. mesh     — plan-sharded Dispatch, every rank a process of its own on
                 the card over ``gloo`` (the kernels built before any rank
                 starts).  The layer cell: one flux-width Dispatch layer (B 2)
                 on mesh (2, 4), seq mode with flashomni at 1 and 3 buckets
@@ -153,7 +166,7 @@ final line):
                 latents within rel-L2 1e-6 of P1's, B1-B3 launched 152 times
                 on each rank, B2's first call on each rank against its plain
                 version, latency beside P1's (not a speed number);
- 13. sharding — ``distributed/{sharding, collective_matmul}`` and
+ 14. sharding — ``distributed/{sharding, collective_matmul}`` and
                 ``runtime/elastic`` on two ``gloo`` ranks sharing the card:
                 ``ag_matmul_overlapped`` at flux width (x (1, 4608, 3072) split
                 on tokens, w (3072, 3072)) within 1e-4 of one rank's product,
@@ -179,11 +192,11 @@ final line):
                 builder on 256 tokens, then 8 greedy steps of the decode
                 builder: tokens equal to the unsharded model's, logits
                 within 2e-2 of their largest magnitude; no kernel;
- 14. dense    — P1's request under ``force_dense`` on the same weights and
+ 15. dense    — P1's request under ``force_dense`` on the same weights and
                 noise (no kernel launches): P1's and P2's speedup over it and
                 their relative L2 / PSNR against its latents; then P1, P2
                 and the dense run in bfloat16;
- 15. serve_batched — C1: flux-mmdit at full width, 3 requests of batch 1 at
+ 16. serve_batched — C1: flux-mmdit at full width, 3 requests of batch 1 at
                 t = 0 with 8 and 6 steps in turn, served sequentially,
                 stacked and by the continuous batcher (2 lanes,
                 ``grouped="auto"``: grouped and scan ticks both run):
@@ -194,23 +207,23 @@ final line):
                 stacked 8-step group and its requests alone in lockstep up
                 to the first step whose plans differ, with the Q/K and
                 library-GEMM differences there;
- 16. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
+ 17. hunyuan  — H1: ``serve_diffusion`` on hunyuan-video-dit at full width
                 (48 blocks, B=1, 256 + 32 768 tokens), ``hunyuan-1.5x``,
                 uniform layout, float32, 8 steps (3-5 and 7 Dispatch):
                 GEMM-Q, CSR attention and GEMM-O each launched 48 x 4 = 192
                 times, the others never; then its dense run on the same
                 inputs: latency, step seconds, peak memory, speedup, rel-L2
                 / PSNR against dense, and the 50-step projection;
- 17. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
+ 18. kernels_33k — GEMM-Q, CSR attention and GEMM-O on a ``flashomni`` plan
                 and the bucketed pair on the ``hunyuan-1.5x`` interior plan
                 at 3 buckets, at H1's shapes (B=1, N=33 024) in float32;
- 18. profile  — device time by kernel group within one Update and one
+ 19. profile  — device time by kernel group within one Update and one
                 Dispatch step of P1 at full width (torch.profiler; the
                 chunked dense attention as its
                 own group), and the device's idle share; dispatch purity on
                 the card: no Dispatch step may launch a sort or top-k kernel,
                 every Update step must launch one (scans are reported);
- 19. dryrun   — ``launch/dryrun`` in a process of its own on the host: the
+ 20. dryrun   — ``launch/dryrun`` in a process of its own on the host: the
                 step builders' steps traced on ``meta`` tensors over a fake
                 world and costed (no card, no kernel launched), each
                 prediction beside this run's measurement: T1's peak (world
@@ -223,8 +236,8 @@ final line):
                 38 blocks trained as T1 is, FSDP over 4 ranks, batch 1 a
                 rank: its peak a rank and whether it fits 80 GB.
 
-Then the ``kernels`` line, the ``nvidia-smi`` name/power-limit line, and
-the device line last.
+Then the script's seconds (``total``), the ``kernels`` line, the
+``nvidia-smi`` name/power-limit line, and the device line last.
 """
 
 from __future__ import annotations
@@ -2555,6 +2568,21 @@ def phase_ops() -> dict:
     return launches
 
 
+def empty_kv_rows(plan, block_q: int, n: int) -> tuple:
+    """``(empty, bad)``: the live q slots (B, H, cap_q) whose KV list is
+    empty, and the token rows (B, N) where such a slot of some head lies.
+    The twin gives those rows a uniform softmax, the kernels zeros, so a
+    comparison of the two zeroes them first."""
+    import torch
+    live = torch.arange(plan.q_ids.shape[-1], device=plan.q_cnt.device) < plan.q_cnt[..., None]
+    empty = live & (plan.kv_row_cnt == 0)
+    t_q = n // block_q
+    blocks = torch.zeros((*plan.q_ids.shape[:2], t_q + 1), dtype=torch.bool,
+                         device=empty.device)
+    blocks.scatter_(-1, torch.where(empty, plan.q_ids.long(), t_q), True)
+    return empty, blocks[..., :t_q].any(dim=1).repeat_interleave(block_q, dim=-1)
+
+
 def phase_twin(b=2, h=24, n=4608, dh=128, d=3072, n_text=512, iters=3) -> dict:
     """One Dispatch layer (``engine.dispatch_layer``) at the flux shapes under
     ``backend="kernels"`` and under ``backend="torch"`` (the structural twin,
@@ -2592,13 +2620,7 @@ def phase_twin(b=2, h=24, n=4608, dh=128, d=3072, n_text=512, iters=3) -> dict:
                       E.dispatch_layer(params, x, state, c, n_text=n_text, heads=h)[0])
                for name in ("kernels", "torch")}
         out_k, out_t = run["kernels"](), run["torch"]()
-        # Token rows where a live q block of some head has an empty KV list.
-        live = torch.arange(plan.q_ids.shape[-1], device=dev) < plan.q_cnt[..., None]
-        empty = live & (plan.kv_row_cnt == 0)
-        t_q = n // ecfg.mask.block_q
-        blocks = torch.zeros((b, h, t_q + 1), dtype=torch.bool, device=dev)
-        blocks.scatter_(-1, torch.where(empty, plan.q_ids.long(), t_q), True)
-        bad = blocks[..., :t_q].any(dim=1).repeat_interleave(ecfg.mask.block_q, dim=-1)
+        empty, bad = empty_kv_rows(plan, ecfg.mask.block_q, n)
         zero = lambda o: torch.where(bad[..., None], 0.0, o)
         max_err, share = check_close(f"twin [{label}]", "float32", zero(out_t), zero(out_k))
         del out_k, out_t
@@ -2612,6 +2634,87 @@ def phase_twin(b=2, h=24, n=4608, dh=128, d=3072, n_text=512, iters=3) -> dict:
         torch.cuda.empty_cache()
     res = {"phase": "twin", "b": b, "h": h, "n": n, "dh": dh, "d": d, "dtype": "float32",
            "tolerance": TOL["float32"], "cases": rows}
+    emit(res)
+    return res
+
+
+def phase_rope(b=2, h=24, n=4608, dh=128, d=3072, n_text=512, iters=3) -> dict:
+    """The engine's RoPE at the flux shapes: for each case two Update layers
+    (``update_layer(freqs=rope_freqs(n, dh))``, ``cap_q_frac`` 0.75 so the
+    gathers are capacity-truncated) build the plan from the rotated Q/K,
+    which must be sparse and not empty; then one Dispatch layer with the
+    same ``freqs`` under the kernels (compact GEMM-Q rows rotated at their
+    original positions; the case's kernels launched once each, no other)
+    and under the twin, within the float32 tolerance once the token rows
+    where some head's live row has an empty KV list are zeroed, as in
+    ``phase_twin``.  The kernels' run without ``freqs`` must differ from it
+    by more than 100x that tolerance (rel-L2); both layer times (median of
+    ``iters``) and their difference."""
+    import torch
+    from repro_torch import kernels as TK
+    from repro_torch.core import engine as E
+    from repro_torch.launch.serve import serving_engine_config
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1357)
+    rnd = lambda *s, std=1.0: torch.randn(s, generator=g, device=dev).mul_(std)
+    params = E.AttnParams(wq=rnd(d, h * dh, std=d ** -0.5), wk=rnd(d, h * dh, std=d ** -0.5),
+                          wv=rnd(d, h * dh, std=d ** -0.5), wo=rnd(h * dh, d, std=d ** -0.5),
+                          q_scale=torch.ones(dh, device=dev), k_scale=torch.ones(dh, device=dev))
+    x = rnd(b, n, d)
+    freqs = E.rope_freqs(n, dh, device=dev)
+    tol = TOL["float32"]
+    cases = [("bias, flashomni, uniform", "bias", "flashomni", 1, P1_KERNELS),
+             ("bias, sliding-window, 2 buckets", "bias", "sliding-window", 2, P2_KERNELS),
+             ("o_cache, flashomni, uniform", "o_cache", "flashomni", 1, P1_KERNELS[:2])]
+    rows = []
+    for label, mode, strategy, kb, kernels in cases:
+        ecfg = dataclasses.replace(serving_engine_config(strategy, kb), cache_mode=mode,
+                                   cap_q_frac=0.75, cache_dtype=torch.float32)
+        state = E.init_layer_state(b, h, n, d, dh, ecfg, dev)
+        for _ in range(2):        # two Updates: the Taylor stack forecasts at order 1
+            _, state = E.update_layer(params, x, state, ecfg, n_text=n_text, heads=h,
+                                      freqs=freqs)
+        plan = state.plan.widen()
+        live = torch.arange(plan.q_ids.shape[-1], device=dev) < plan.q_cnt[..., None]
+        pairs = int(plan.kv_row_cnt[live].sum())
+        full = int(live.sum()) * (n // ecfg.mask.block_kv)
+        if not 0 < pairs < full:
+            raise AssertionError(f"rope [{label}]: the plan from the rotated Q/K holds "
+                                 f"{pairs} of {full} live (q, kv) block pairs")
+        run = {name: (lambda c=dataclasses.replace(ecfg, backend=name):
+                      E.dispatch_layer(params, x, state, c, n_text=n_text, heads=h,
+                                       freqs=freqs)[0])
+               for name in ("kernels", "torch")}
+        bare = lambda: E.dispatch_layer(params, x, state, ecfg, n_text=n_text, heads=h)[0]
+        TK.reset_launches()
+        out_k = run["kernels"]()
+        launches = {fn.__name__: fn.launches for fn in TK.KERNELS}
+        if launches != {name: int(name in kernels) for name in launches}:
+            raise AssertionError(f"rope [{label}]: launches {launches}, want {kernels} once")
+        out_t = run["torch"]()
+        empty, bad = empty_kv_rows(plan, ecfg.mask.block_q, n)
+        zero = lambda o: torch.where(bad[..., None], 0.0, o)
+        max_err, share = check_close(f"rope [{label}]", "float32", zero(out_t), zero(out_k))
+        out_b = bare()
+        rel = float(torch.linalg.vector_norm(out_b - out_k) / torch.linalg.vector_norm(out_k))
+        if not rel > 100 * tol:
+            raise AssertionError(f"rope [{label}]: the layer without freqs is within "
+                                 f"rel-L2 {rel:.3e} of the layer with them")
+        del out_k, out_t, out_b
+        rope_ms, bare_ms = median_ms(run["kernels"], iters), median_ms(bare, iters)
+        rows.append({"case": label, "kv_buckets": kb, "cache_mode": mode,
+                     "q_blocks_live": int(plan.q_cnt.sum()), "q_blocks": plan.q_ids.numel(),
+                     "pairs_live": pairs, "pairs_full": full,
+                     "empty_live_rows": int(empty.sum()), "zeroed_token_rows": int(bad.sum()),
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "max_abs_err": max_err, "tol_share": share,
+                     "rel_l2_without_freqs": rel, "kernels_ms": rope_ms,
+                     "kernels_ms_without_freqs": bare_ms, "rope_ms": rope_ms - bare_ms})
+        del run, bare, state, plan
+        torch.cuda.empty_cache()
+    res = {"phase": "rope", "b": b, "h": h, "n": n, "dh": dh, "d": d, "dtype": "float32",
+           "cap_q_frac": 0.75, "tolerance": tol, "cases": rows}
     emit(res)
     return res
 
@@ -2661,8 +2764,8 @@ def stack_witness(params, cfg, ecfg, pe, reqs) -> dict:
     for step in range(WITNESS_STEPS):
         stored = []                   # per layer: the batch's Q, K and its GEMM difference
 
-        def keep(p, x, heads):
-            q, k = orig_qk(p, x, heads)
+        def keep(p, x, heads, freqs=None):
+            q, k = orig_qk(p, x, heads, freqs)
             rows = torch.cat([x[i:i + 1] @ p.wq for i in range(x.shape[0])])
             stored.append((q.clone(), k.clone(), float((x @ p.wq - rows).abs().max())))
             return q, k
@@ -2672,8 +2775,8 @@ def stack_witness(params, cfg, ecfg, pe, reqs) -> dict:
         for i in range(len(group)):
             seen = []
 
-            def compare(p, x, heads, i=i, seen=seen):
-                q, k = orig_qk(p, x, heads)
+            def compare(p, x, heads, freqs=None, i=i, seen=seen):
+                q, k = orig_qk(p, x, heads, freqs)
                 qb, kb, _ = stored[len(seen)]
                 seen.append((float((q - qb[i:i + 1]).abs().max()),
                              float((k - kb[i:i + 1]).abs().max())))
@@ -3117,6 +3220,7 @@ def phase_dryrun(t1: dict, s2: dict, s3: dict) -> dict:
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -3145,6 +3249,7 @@ def main() -> int:
         by_path["P2"], served["P2"] = timed(phase_serve_bucketed)
         by_path["ops"] = timed(phase_ops)
         timed(phase_twin, **FULL)
+        timed(phase_rope, **FULL)
         by_path["M1"] = timed(phase_mesh, served["P1"], p1_plans)
         launches, shard_rank0 = timed(phase_sharding)
         by_path.update(launches)
@@ -3161,6 +3266,7 @@ def main() -> int:
     except Exception:                     # report the failing phase, then fail
         traceback.print_exc()
         return 1
+    emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 1)})
     # A kernel's launches are those of the path it belongs to (GEMM-Q runs on
     # every path; its count is P1's, and all are listed).
     path_of = lambda name: ("P1" if name in P1_KERNELS else

@@ -30,8 +30,12 @@ the result back into lanes of their own tensors; :func:`stack_lane_states`,
 :func:`merge_lane_states` and :func:`set_lane_state` are the reference's
 host-side lane operations.  The reference's ``schedule_cache_stats`` has no
 counterpart: :func:`resolve_schedule` keeps no memo, since the port compiles
-nothing per schedule.  RoPE is not ported (the DiT serving path runs
-none).  ``mesh_dp``/``mesh_sp`` > 1 runs Dispatch attention across a
+nothing per schedule.  ``freqs=`` (a :func:`rope_freqs` table) rotates Q and
+K with :func:`apply_rope` after their RMSNorm, at Update before the dense
+attention and the symbols, at Dispatch before the kernels; the compact
+GEMM-Q rows take the phases of their original token positions.  These are
+the engine's RoPE, apart from ``models.layers.rope_table``/``apply_rope`` of
+the LM families.  ``mesh_dp``/``mesh_sp`` > 1 runs Dispatch attention across a
 ``(data, seq)`` mesh of ``torch.distributed`` ranks
 (:mod:`repro_torch.distributed.plan_shard`): with ``mesh_axis="seq"`` the
 plan carries the per-shard partition (``shd_*``) and only plan-live K/V
@@ -72,6 +76,8 @@ __all__ = [
     "merge_lane_states",
     "set_lane_state",
     "refresh_symbols",
+    "rope_freqs",
+    "apply_rope",
     "update_layer",
     "dispatch_layer",
     "rms_norm",
@@ -331,24 +337,54 @@ def _project_heads(x: torch.Tensor, w: torch.Tensor, heads: int) -> torch.Tensor
     return (x @ w).reshape(b, n, heads, -1).transpose(1, 2)
 
 
-def _qk(params: AttnParams, x: torch.Tensor, heads: int):
+def rope_freqs(n: int, dim: int, theta: float = 10000.0, *, device="cuda") -> torch.Tensor:
+    """The (n, dim//2) float32 table of rotation angles ``t · theta^(-2i/dim)``."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+    return torch.outer(torch.arange(n, dtype=torch.float32, device=device), inv)
+
+
+def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """x (..., N, dh), freqs broadcastable to (..., N, dh//2): rotates the two
+    halves of the last axis (not interleaved pairs) in float32 and returns a
+    fresh contiguous tensor in ``x``'s dtype."""
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    cos, sin = torch.cos(freqs), torch.sin(freqs)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def rope_positions(row_ids: torch.Tensor, pool: int, n_pos: int) -> torch.Tensor:
+    """(B, Cr) row-block ids -> (B, Cr·pool) int64 token positions of the
+    compact GEMM-Q rows.  Computed in int64, so the int16 ids of a plan past
+    32 767 tokens do not overflow; positions past the table's ``n_pos`` rows
+    (the tail of a partial block) clamp to its last, as the reference's
+    gather does."""
+    pos = row_ids.long()[..., :, None] * pool + torch.arange(pool, device=row_ids.device)
+    return pos.reshape(row_ids.shape[0], -1).clamp_(max=n_pos - 1)
+
+
+def _qk(params: AttnParams, x: torch.Tensor, heads: int,
+        freqs: Optional[torch.Tensor] = None):
     q = rms_norm(_project_heads(x, params.wq, heads), params.q_scale)
     k = rms_norm(_project_heads(x, params.wk, heads), params.k_scale)
+    if freqs is not None:
+        q, k = apply_rope(q, freqs), apply_rope(k, freqs)
     return q, k
 
 
 def update_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
                  cfg: EngineConfig, *, n_text: int = 0, heads: int,
+                 freqs: Optional[torch.Tensor] = None,
                  strategy: Optional[str | SparsityStrategy] = None,
                  layer_idx: Optional[int] = None, step_idx: Optional[int] = None,
                  num_steps: Optional[int] = None) -> tuple[torch.Tensor, LayerState]:
     """Full attention + symbol/cache refresh (paper *Update* phase).
 
     ``strategy`` (a registry name or object) overrides ``cfg.strategy``; the
-    schedule passes each layer's entry of its strategy table here."""
+    schedule passes each layer's entry of its strategy table here.  With
+    ``freqs`` the symbols and the plan come from the rotated Q/K."""
     n = x.shape[1]
     dm = x.shape[-1]
-    q, k = _qk(params, x, heads)
+    q, k = _qk(params, x, heads, freqs)
     v = _project_heads(x, params.wv, heads)
     o = dense_attention(q, k, v)                                   # (B,H,N,dh)
     ctx = StrategyContext(cfg=cfg, n_text=n_text, n_tokens=n, layer_idx=layer_idx,
@@ -375,15 +411,18 @@ def update_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
 
 def dispatch_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
                    cfg: EngineConfig, *, n_text: int = 0, heads: int,
+                   freqs: Optional[torch.Tensor] = None,
                    plan: Optional[DispatchPlan] = None) -> tuple[torch.Tensor, LayerState]:
     """Sparse execution over the frozen DispatchPlan (paper *Dispatch*).
 
     ``plan`` overrides the stored plan.  ``n_text`` is accepted for call
-    symmetry with :func:`update_layer`; the plan already encodes it."""
+    symmetry with :func:`update_layer`; the plan already encodes it.
+    ``freqs`` (N, dh//2) rotates Q and K before the attention; compact
+    GEMM-Q rows are rotated at the positions of the row blocks they hold."""
     b, n, dm = x.shape
     m = cfg.mask
     plan_stored = state.plan if plan is None else plan
-    plan = plan_stored.widen()                 # int16 id fields -> int32 for kernels
+    plan = plan_stored.widen()                 # int16 id fields -> int32 for kernels/RoPE
     backend = get_backend(cfg)
     k_since = state.k_since + 1
     spec_c = cfg.caps(n)
@@ -398,6 +437,12 @@ def dispatch_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
     n_q = q_flat.shape[1]
     qh = rms_norm(q_flat.reshape(b, n_q, heads, -1).transpose(1, 2), params.q_scale)
     k_h = rms_norm(_project_heads(x, params.wk, heads), params.k_scale)
+    if freqs is not None:
+        # The phases of compact rows are gathered as the rows were, and
+        # broadcast over the heads: (B, 1, Cr·pool, dh/2).
+        q_freqs = (freqs[rope_positions(plan.row_ids, m.pool, len(freqs))][:, None]
+                   if compact else freqs)
+        qh, k_h = apply_rope(qh, q_freqs), apply_rope(k_h, freqs)
     v_h = _project_heads(x, params.wv, heads)
 
     # --- Attention over the frozen plan. ---

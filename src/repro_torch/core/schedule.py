@@ -12,8 +12,11 @@ pointing each layer at its variant: the deployment table is the schedule.
 Named presets, with the reference's one-line descriptions
 (:func:`schedule_summaries`): ``hunyuan-1.5x`` (the paper's HunyuanVideo
 1.5× table) and ``step-ramp`` (skip-only → flashomni → cache-all over the
-steps).  The batched-serving lane tables (``stack_schedules`` and friends)
-are not ported.
+steps).  The batched-serving lane tables are here too:
+:func:`merge_strategies`, :func:`schedule_lane_rows` (one schedule
+remapped onto the shared strategy set and padded to a lane),
+:func:`stack_schedules` and :func:`tick_mode_groups` (a tick's active lanes
+partitioned by mode).
 """
 
 from __future__ import annotations

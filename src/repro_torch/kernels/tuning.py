@@ -15,9 +15,12 @@ whose prediction stays under ``bucket_model.max_clamp_frac``; an
 uncalibrated strategy gets 1 (the uniform grid).
 
 The table (``default_calibration.json`` beside this module) carries the
-reference table's ``bucket_model`` and ``strategies`` sections.  Its TPU tile
-sizes are left out: Hopper tile entries wait for a sweep on the card
-(``kernel_tiles`` is not ported).  Schema (version 1)::
+reference table's ``bucket_model`` and ``strategies`` sections.  The
+reference's ``kernel_tiles`` is N/A here: its table holds the TPU
+kernels' ``block_k``/``block_f`` defaults, while the Hopper kernels' tiles
+are compile-time constants (``csrc/gemm_tile.cuh``, ``Tile<T>``) and no
+wrapper takes a tile at run time.  A redesign that takes one brings the
+lookup back with entries swept on the H100.  Schema (version 1)::
 
     {"version": 1,
      "bucket_model": {"max_clamp_frac": 0.02},

@@ -34,6 +34,8 @@ a full and an empty KV list), and the chunked dense attention of the Update
 step runs on the card against the CPU at widths that span several chunks.
 The continuous batcher serves a mixed-step queue at smoke size on the card
 (grouped and scan ticks, lane refills) against the same run on the CPU.
+Update and Dispatch with RoPE (``freqs=``) run the kernels on rotated
+inputs against the twin (B1-B3, B1/B4/B5, and B1/B2 in ``o_cache`` mode).
 The invariant analyzer runs green with the engine on the card, its
 Dispatch records hold the kernels that launched, and the plan validator
 reads a plan on the card as it reads its copy on the CPU.  The dense
@@ -807,6 +809,56 @@ def test_mesh_dispatch_layer_on_the_card(dev):
     _build.load()                         # build once here: the ranks only load it
     for rank in run_local_mesh(_card_mesh_rank, 1, 2, timeout=120):
         assert rank == [(True, 1), (True, 1)], rank
+
+
+@pytest.mark.parametrize("mode,strategy,kv_buckets,want", [
+    ("bias", "flashomni", 1, ("gemm_q_sparse_kernel", "flashomni_attention_csr",
+                              "gemm_o_sparse_kernel")),
+    ("bias", "sliding-window", 2, ("gemm_q_sparse_kernel", "flashomni_attention_csr_bucketed",
+                                   "gemm_o_sparse_bucketed_kernel")),
+    ("o_cache", "flashomni", 1, ("gemm_q_sparse_kernel", "flashomni_attention_csr"))])
+def test_dispatch_with_rope_kernels_match_the_twin_on_the_card(dev, mode, strategy,
+                                                               kv_buckets, want):
+    """Update and Dispatch with ``freqs`` on the card at capacity-truncated
+    gathers (``cap_q_frac`` 0.75): the kernels, fed compact GEMM-Q rows
+    rotated at their original positions, against the twin within 1e-4 once
+    the rows of live blocks with an empty KV list are zeroed (the twin gives
+    them a uniform softmax, the kernels zeros); each kernel of the path
+    launched once, and the run without ``freqs`` differs."""
+    from repro_torch.core.engine import (AttnParams, dispatch_layer, init_layer_state,
+                                         rope_freqs, update_layer)
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    b, h, n, dm, dh = 2, 4, 512, 256, 64
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev) * dm ** -0.5
+    p = AttnParams(wq=rnd(dm, h * dh), wk=rnd(dm, h * dh), wv=rnd(dm, h * dh),
+                   wo=rnd(h * dh, dm), q_scale=torch.ones(dh, device=dev),
+                   k_scale=torch.ones(dh, device=dev))
+    x = torch.randn((b, n, dm), generator=g, device=dev)
+    cfg = EngineConfig(mask=MaskConfig(tau_q=0.5, tau_kv=0.15, interval=4, order=1,
+                                       degrade=0.3, block_q=16, block_kv=16, pool=32),
+                       cache_mode=mode, strategy=strategy, kv_buckets=kv_buckets,
+                       cap_q_frac=0.75, cache_dtype=torch.float32)
+    freqs = rope_freqs(n, dh, device=dev)
+    st = init_layer_state(b, h, n, dm, dh, cfg, dev)
+    for _ in range(2):
+        _, st = update_layer(p, x, st, cfg, n_text=64, heads=h, freqs=freqs)
+    TK.reset_launches()
+    got, _ = dispatch_layer(p, x, st, cfg, n_text=64, heads=h, freqs=freqs)
+    launches = {fn.__name__: fn.launches for fn in TK.KERNELS}
+    assert {k: v for k, v in launches.items() if v} == dict.fromkeys(want, 1)
+    twin, _ = dispatch_layer(p, x, st, dataclasses.replace(cfg, backend="torch"), n_text=64,
+                             heads=h, freqs=freqs)
+    plan = st.plan.widen()
+    live = torch.arange(plan.q_ids.shape[-1], device=dev) < plan.q_cnt[..., None]
+    empty = live & (plan.kv_row_cnt == 0)
+    blocks = torch.zeros((b, h, n // 16 + 1), dtype=torch.bool, device=dev)
+    blocks.scatter_(-1, torch.where(empty, plan.q_ids.long(), n // 16), True)
+    bad = blocks[..., :-1].any(dim=1).repeat_interleave(16, dim=-1)
+    zero = lambda o: torch.where(bad[..., None], 0.0, o)
+    _close(zero(got), zero(twin), torch.float32)
+    bare, _ = dispatch_layer(p, x, st, cfg, n_text=64, heads=h)
+    assert float((bare - got).norm() / got.norm()) > 1e-2
 
 
 @pytest.mark.parametrize("budget,n", [(None, 2048), (1 << 20, 1500)])
