@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Nineteen paths run, each with the launch counts set to 0 just before it
+Twenty-one paths run, each with the launch counts set to 0 just before it
 and read just after: T1 (training flux-mmdit at full width and 2 blocks,
 the engine off: no kernel may launch), L-train (training gemma3-1b at full
 width with remat on and off: no kernel), L1-L6 (the LMs gemma3-1b,
@@ -15,6 +15,9 @@ training step sharded over two ranks by ``launch/steps``: no kernel), S3
 (a 2-block flux-mmdit denoise step sharded over two ranks, Update then
 Dispatch: GEMM-Q, CSR attention, GEMM-O, counted in each rank), S4
 (gemma3-1b's prefill and decode steps sharded over two ranks: no kernel),
+S4-tp (S4 with the model axis split over the two ranks: no kernel), S5
+(gemma3-1b trained at full width with the model axis split over two
+ranks: no kernel),
 P1
 (``flashomni``, uniform layout: GEMM-Q, CSR attention, GEMM-O), P2
 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2 buckets:
@@ -100,11 +103,11 @@ final line):
                 1500 frames) and L6 llama-3.2-vision-11b (40 layers, 8 gated
                 cross-attention, 1600 patches): ``serve_lm`` at the
                 reference's defaults (greedy tokens), ms a decode token
-                (median of 20), device-busy ms, idle share and aten ops a
+                (median of 10), device-busy ms, idle share and aten ops a
                 step, one prefill (4096 tokens; L5 1500 frames + 448
                 tokens; L6 2048 tokens + 1600 patches: seconds, tokens/s,
                 finite logits), peak memory, and for L1, L3 and L4 decode's
-                logits at positions 0-39 against ``forward``'s within 1e-4;
+                logits at positions 0-19 against ``forward``'s within 1e-4;
                 B1-B7 launched 0 times on all six;
   7. long_context — ``repro_torch.long_context_lm`` (top-k KV blocks by
                 pooled keys at decode): the example's size on the card and
@@ -152,9 +155,9 @@ final line):
  13. mesh     — plan-sharded Dispatch, every rank a process of its own on
                 the card over ``gloo`` (the kernels built before any rank
                 starts).  The layer cell: one flux-width Dispatch layer (B 2)
-                on mesh (2, 4), seq mode with flashomni at 1 and 3 buckets
-                and pair slack 1.5 (the clamp the identity) and 0.5 (it
-                binds), hunyuan-1.5x, head mode; each
+                on mesh (2, 4), seq mode with flashomni at 1 bucket and
+                pair slack 1.5 (the clamp the identity) and at 3 buckets and
+                0.5 (it binds), head mode; each
                 ``torch.equal`` to the single-device Dispatch on every
                 rank, B2 launched on every rank and its call at the shard's
                 shapes (Q compact and replicated, K/V the exchange buffer,
@@ -175,7 +178,7 @@ final line):
                 GB) over a (2, 1) mesh and onto ``shrink_mesh``'s (1, 1):
                 ``torch.equal`` to the unsharded tensors; no kernel launched.
                 Then the step builders (``launch/steps``) in the same world:
-                S2, T1 sharded (FSDP, batch 2, 3 steps, f32): loss and
+                S2, T1 sharded (FSDP, batch 2, 2 steps, f32): loss and
                 grad_norm within 1e-4 relative of ``make_step_fn``'s
                 unsharded step at every step, the parameters within 1e-4 of
                 their largest magnitude, the step's seconds split into
@@ -189,13 +192,23 @@ final line):
                 step, B1-B3 launched twice a rank at Dispatch and never at
                 Update, B2's first call against its plain version.  S4,
                 gemma3-1b at full width in bf16, batch 2: the prefill
-                builder on 256 tokens, then 8 greedy steps of the decode
+                builder on 256 tokens, then 4 greedy steps of the decode
                 builder: tokens equal to the unsharded model's, logits
-                within 2e-2 of their largest magnitude; no kernel;
+                within 2e-2 of their largest magnitude; no kernel.  S4-tp,
+                S4 on mesh (1, 2): the model axis split, held as S4 is.
+                S5, gemma3-1b at full width (26 layers, f32, remat on),
+                1 x 4096 tokens, one train step on mesh (1, 2) with the
+                model axis split: loss, grad_norm and every gradient
+                (AdamW's first moment) within 1e-4 of the unsharded step,
+                run first in this process and kept on the host; step s by
+                part, peer bytes, peak a rank; no kernel.  Every step
+                gathers one block at a time (``max_gathered_bytes``);
+                S2's and S3's peaks are printed beside 14.35 / 6.68 GB,
+                their peaks when every leaf was gathered whole;
  15. dense    — P1's request under ``force_dense`` on the same weights and
                 noise (no kernel launches): P1's and P2's speedup over it and
-                their relative L2 / PSNR against its latents; then P1, P2
-                and the dense run in bfloat16;
+                their relative L2 / PSNR against its latents; then P1 and
+                the dense run in bfloat16;
  16. serve_batched — C1: flux-mmdit at full width, 3 requests of batch 1 at
                 t = 0 with 8 and 6 steps in turn, served sequentially,
                 stacked and by the continuous batcher (2 lanes,
@@ -223,7 +236,8 @@ final line):
                 own group), and the device's idle share; dispatch purity on
                 the card: no Dispatch step may launch a sort or top-k kernel,
                 every Update step must launch one (scans are reported);
- 20. dryrun   — ``launch/dryrun`` in a process of its own on the host: the
+ 20. dryrun   — ``launch/dryrun`` in a process of its own on the host,
+                started before H1 (it needs nothing of the card): the
                 step builders' steps traced on ``meta`` tensors over a fake
                 world and costed (no card, no kernel launched), each
                 prediction beside this run's measurement: T1's peak (world
@@ -231,7 +245,8 @@ final line):
                 f32 peak, S2's peak a rank and wire bytes a step (world 2,
                 mesh (2, 1)) against S2's peak and the bytes a rank copied
                 from its peer, S3's Dispatch holding B1-B3 once a layer at
-                capacity as S3 launched them (each prediction within 2x of
+                capacity as S3 launched them, S5's peak a rank (world 2,
+                mesh (1, 2)) against S5's (each prediction within 2x of
                 its measurement); then the planning cell, flux-mmdit at all
                 38 blocks trained as T1 is, FSDP over 4 ranks, batch 1 a
                 rank: its peak a rank and whether it fits 80 GB.
@@ -1250,8 +1265,8 @@ LM_PATHS = (("L1", "gemma3-1b"), ("L2", "granite-moe-3b-a800m"), ("L3", "mamba2-
 LM_PREFILL_TOKENS = 4096
 LM_PREFILL = {"L5": 448, "L6": 2048}
 LM_DECODE_CHECK = ("L1", "L3", "L4")
-LM_TIMED_STEPS = 20
-LM_CHECK_STEPS = 40
+LM_TIMED_STEPS = 10
+LM_CHECK_STEPS = 20
 
 
 def rel_err(got, want) -> float:
@@ -1560,9 +1575,10 @@ SHARD_ITERS = 5
 SHARD_JOIN_S = 300
 
 
-def sharding_rank(rank: int) -> dict:
+def sharding_rank(rank: int, s5_ref: str) -> dict:
     """One rank of the ``sharding`` phase: its launch counts are set to 0 at
-    its start and read at its end."""
+    its start and read at its end (and around each of S2-S5).  ``s5_ref``
+    is the file of S5's unsharded step (:func:`s5_reference`)."""
     import statistics
     import torch
     import torch.distributed as dist
@@ -1655,6 +1671,10 @@ def sharding_rank(rank: int) -> dict:
     out["S2"] = s2_rank(mesh)
     out["S3"] = s3_rank(mesh)
     out["S4"] = s4_rank(mesh)
+    row = DeviceMesh(DEVICE, torch.arange(world).reshape(S5_MESH),
+                     mesh_dim_names=("data", "model"))
+    out["S4tp"] = s4_rank(row)
+    out["S5"] = s5_rank(row, s5_ref)
     return out
 
 
@@ -1681,14 +1701,28 @@ def sharding_rank(rank: int) -> dict:
 # S4["decode_steps"] greedy steps of build_decode_step at the following
 # positions, rules from rules_for; the greedy tokens equal to the unsharded
 # Model.prefill / decode_step's on the same weights, logits within S4_REL of
-# their largest magnitude.  S2 and S4 launch no kernel.
-S2 = dict(n_layers=2, batch=2, seq_len=4096, steps=3)
+# their largest magnitude.  S2 and S4 launch no kernel.  S4-tp: S4 on mesh
+# (1, 2), the model axis split (tensor parallel over both ranks), held as
+# S4 is.  S5: gemma3-1b at full width (26 layers, f32, remat on as
+# L-train's "on" case), L-train's batch (1 x 4096 tokens), trained one
+# step of build_train_step on mesh (1, 2) (the model axis split), against
+# make_step_fn's unsharded step run first in the parent and kept on the
+# host (s5_reference): loss and grad_norm within S5_REL relative, AdamW's
+# first moment (the clipped gradient times 1 - b1) within S5_REL of its
+# largest magnitude on every rank's shard; no kernel.  S2's and S3's peaks
+# a rank are printed beside their peaks with every parameter gathered
+# whole (S2_PEAK_BEFORE_GB, S3_PEAK_BEFORE_GB, on the H100 at 700 W).
+S2 = dict(n_layers=2, batch=2, seq_len=4096, steps=2)
 S2_REL = 1e-4
 S3 = dict(n_layers=2, batch=2, n_vision=4096)
 S3_REL_L2 = 3e-4
 S3_LAUNCHES = 2
-S4 = dict(arch="gemma3-1b", batch=2, prompt=256, decode_steps=8)
+S4 = dict(arch="gemma3-1b", batch=2, prompt=256, decode_steps=4)
 S4_REL = 2e-2
+S5 = dict(arch="gemma3-1b", batch=1, seq_len=4096)
+S5_MESH = (1, 2)
+S5_REL = 1e-4
+S2_PEAK_BEFORE_GB, S3_PEAK_BEFORE_GB = 14.35, 6.68
 
 
 def _launches() -> dict:
@@ -1923,7 +1957,7 @@ def s4_rank(mesh) -> dict:
     res["peak_gb"] = _peak_gb()
     del p, batch, cache, logits
     torch.cuda.empty_cache()
-    if mesh.get_coordinate()[0] == 0:
+    if torch.distributed.get_rank() == 0:
         with torch.no_grad():
             want = [model.prefill(params, {"tokens": tokens})]
             cache = model.init_cache(b, n + k, device=DEVICE)
@@ -1942,6 +1976,110 @@ def s4_rank(mesh) -> dict:
     del params
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_cell
+    res["mesh"] = list(mesh.mesh.shape)
+    return res
+
+
+def _s5_setup():
+    """S5's config, weights (seed 0), batch (L-train's) and optimizer."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import AdamWConfig
+    cfg = get_config(S5["arch"])
+    dcfg = DataConfig(seed=0, batch=S5["batch"], seq_len=S5["seq_len"])
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    params = get_model(cfg).init_params(g, DEVICE)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=LTRAIN_STEPS + 1)   # L-train's
+    return cfg, dcfg, params, make_batch(cfg, dcfg, 0, device=DEVICE), opt
+
+
+def s5_reference(path: Path) -> dict:
+    """S5's unsharded step in this process (``make_step_fn``, as L-train
+    runs it): its loss, grad_norm and AdamW first moment written to
+    ``path`` on the host, everything freed on the card; returns its
+    seconds and peak."""
+    import torch
+    from repro_torch.launch.train import make_step_fn
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import adamw_init
+    from repro_torch.tree import tree_leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, dcfg, params, _, opt = _s5_setup()
+    step_fn = make_step_fn(get_model(cfg), opt, dcfg, cfg, dtype=torch.float32, device=DEVICE)
+    state = (params, adamw_init(params))
+    del params
+    torch.cuda.synchronize()
+    t_step = time.perf_counter()
+    state, met = step_fn(state, 0)
+    torch.cuda.synchronize()
+    rec = {"step_s": time.perf_counter() - t_step, "peak_gb": _peak_gb(),
+           "loss": met["loss"], "grad_norm": met["grad_norm"]}
+    torch.save({"loss": met["loss"], "grad_norm": met["grad_norm"],
+                "mu": [t.cpu() for t in tree_leaves(state[1]["mu"])]}, path)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def s5_rank(mesh, ref_path: str) -> dict:
+    """S5 on one rank: one sharded train step of gemma3-1b at full width
+    with the model axis split, held to the unsharded step's record."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.specs import train_batch_logical
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import get_model, param_count
+    from repro_torch.optim.optimizer import adamw_init, adamw_state_specs
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_leaves
+    t_cell = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, _, params, batch, opt = _s5_setup()
+    model = get_model(cfg)
+    fn = build_train_step(cfg, ShapeSpec("S5", S5["seq_len"], S5["batch"], "train"), mesh, R,
+                          opt_cfg=opt, dtype=torch.float32)[0]
+    p = reshard_state(params, model.param_specs(), mesh, R)
+    o = reshard_state(adamw_init(params), adamw_state_specs(model.param_specs()), mesh, R)
+    b = reshard_state(batch, train_batch_logical(cfg), mesh, R)
+    del params, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    p, o, m = fn(p, o, b)
+    torch.cuda.synchronize()
+    res = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers, "remat": cfg.remat,
+                      "n_params": param_count(cfg), "mesh": list(S5_MESH), **S5},
+           "step_s": time.perf_counter() - t0, **fn.stats, "peak_gb": _peak_gb(),
+           "launches": _launches(), "loss": float(m["loss"].to_local()),
+           "grad_norm": float(m["grad_norm"].to_local()),
+           "local_bytes": sum(x.to_local().nbytes for x in tree_leaves(p))}
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    res["loss_rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+    res["grad_norm_rel"] = abs(res["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    diff = scale = 0.0
+    for x, want in zip(tree_leaves(o["mu"]), ref["mu"]):
+        shape, off = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+        want = want[tuple(slice(a, a + n) for a, n in zip(off, shape))].to(DEVICE)
+        diff = max(diff, float((x.to_local() - want).abs().max()))
+        scale = max(scale, float(want.abs().max()))
+    del ref, p, o, b, m
+    torch.cuda.empty_cache()
+    res["grad_abs"] = diff
+    res["grad_rel"] = diff / max(scale, 1e-30)
+    res["seconds"] = time.perf_counter() - t_cell
     return res
 
 
@@ -1950,15 +2088,21 @@ def phase_sharding() -> tuple[dict, dict]:
     a rank fails, the collective matmul lies beyond SHARD_ATOL of the local
     product, the resharded parameters are not ``torch.equal`` to the
     unsharded ones on the surviving rank, a kernel launched in S1, S2 or S4,
-    or a check of S2-S4 fails.  Returns the launch counts of the paths
-    ``sharding`` (S1), S2, S3 (its Update and Dispatch steps) and S4, each
-    rank 0's, and rank 0's record."""
+    or a check of S2-S5 fails.  S5's unsharded step runs here first, its
+    results kept in a file on the host for the ranks.  Returns the launch
+    counts of the paths ``sharding`` (S1), S2, S3 (its Update and Dispatch
+    steps), S4, S4-tp and S5, each rank 0's, and rank 0's record."""
+    import tempfile
     import torch
     torch.cuda.empty_cache()
     from repro_torch.launch.mesh import run_local_mesh
     t0 = time.perf_counter()
-    ranks = run_local_mesh(sharding_rank, *SHARD_MESH, timeout=SHARD_JOIN_S)
-    res = {"phase": "sharding", "transport": "gloo", "ranks": ranks,
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s5_") as tmp:
+        ref_path = Path(tmp) / "s5_reference.pt"
+        s5_ref = s5_reference(ref_path)
+        ranks = run_local_mesh(sharding_rank, *SHARD_MESH, str(ref_path),
+                               timeout=SHARD_JOIN_S)
+    res = {"phase": "sharding", "transport": "gloo", "ranks": ranks, "S5_reference": s5_ref,
            "seconds": time.perf_counter() - t0}
     emit(res)
     faults = []
@@ -1978,11 +2122,12 @@ def phase_sharding() -> tuple[dict, dict]:
     s3 = {name: n + ranks[0]["S3"]["dispatch"]["launches"][name]
           for name, n in ranks[0]["S3"]["update"]["launches"].items()}
     return {"sharding": ranks[0]["launches"], "S2": ranks[0]["S2"]["launches"], "S3": s3,
-            "S4": ranks[0]["S4"]["launches"]}, ranks[0]
+            "S4": ranks[0]["S4"]["launches"], "S4tp": ranks[0]["S4tp"]["launches"],
+            "S5": ranks[0]["S5"]["launches"]}, ranks[0]
 
 
 def sharding_step_faults(ranks) -> list:
-    """The failed checks of S2-S4 (a summary line goes to stderr)."""
+    """The failed checks of S2-S5 (a summary line goes to stderr)."""
     import math
     faults = []
     s3_sq = [sum(r["S3"][m][k] for r in ranks) for m in ("dispatch",)
@@ -1996,10 +2141,11 @@ def sharding_step_faults(ranks) -> list:
         faults.append(f"S2: parameters {ref['param_rel']:.2e} off the unsharded step's")
     metric = lambda s2: [(x["loss"], x["grad_norm"]) for x in s2["steps"]]
     for r in ranks:
-        rank, s2, s3, s4 = r["rank"], r["S2"], r["S3"], r["S4"]
+        rank, s2, s3, s4, s5 = r["rank"], r["S2"], r["S3"], r["S4"], r["S5"]
         if metric(s2) != metric(ref):
             faults.append(f"rank {rank}: S2 loss/grad_norm differ from rank 0's")
         for path, launches in (("S2", s2["launches"]), ("S4", s4["launches"]),
+                               ("S4-tp", r["S4tp"]["launches"]), ("S5", s5["launches"]),
                                ("S3 update", s3["update"]["launches"])):
             if any(launches.values()):
                 faults.append(f"rank {rank}: {path} launched kernels: {launches}")
@@ -2012,11 +2158,29 @@ def sharding_step_faults(ranks) -> list:
                 faults.append(f"rank {rank}: S3 {mode} differs from its slice alone")
         if not b2_agrees(s3["b2_vs_plain"]):
             faults.append(f"rank {rank}: S3 B2 against its plain version: {s3['b2_vs_plain']}")
-        if "tokens_equal" in s4 and not (s4["tokens_equal"] and s4["logits_rel"] <= S4_REL):
-            faults.append(f"S4: tokens equal {s4['tokens_equal']} (first differing step "
-                          f"{s4['first_differing_step']}), logits {s4['logits_rel']:.2e}")
+        for label, rec in (("S4", s4), ("S4-tp", r["S4tp"])):
+            if "tokens_equal" in rec and not (rec["tokens_equal"]
+                                              and rec["logits_rel"] <= S4_REL):
+                faults.append(f"{label}: tokens equal {rec['tokens_equal']} (first differing "
+                              f"step {rec['first_differing_step']}), logits "
+                              f"{rec['logits_rel']:.2e}")
+        if not (s5["loss_rel"] <= S5_REL and s5["grad_norm_rel"] <= S5_REL
+                and s5["grad_rel"] <= S5_REL):
+            faults.append(f"rank {rank}: S5 loss/grad_norm/gradients {s5['loss_rel']:.2e}/"
+                          f"{s5['grad_norm_rel']:.2e}/{s5['grad_rel']:.2e} off the unsharded "
+                          "step")
+        if (s5["loss"], s5["grad_norm"]) != (ranks[0]["S5"]["loss"], ranks[0]["S5"]["grad_norm"]):
+            faults.append(f"rank {rank}: S5 loss/grad_norm differ from rank 0's")
     if not s3_rel <= S3_REL_L2:
         faults.append(f"S3: rel-L2 {s3_rel:.3e} against the unsharded batch-2 step")
+    r0 = ranks[0]
+    print(f"chip_smoke: S2 peak {r0['S2']['peak_gb']:.2f} GB a rank (whole gather "
+          f"{S2_PEAK_BEFORE_GB}), max gathered "
+          f"{r0['S2']['steps'][-1]['max_gathered_bytes'] / 1e9:.3f} GB; S3 peak "
+          f"{r0['S3']['peak_gb']:.2f} GB ({S3_PEAK_BEFORE_GB}); S4-tp tokens equal "
+          f"{r0['S4tp'].get('tokens_equal')}; S5 step {r0['S5']['step_s']:.2f} s, peak "
+          f"{[round(r['S5']['peak_gb'], 2) for r in ranks]} GB, gradients "
+          f"{r0['S5']['grad_rel']:.2e}", file=sys.stderr, flush=True)
     print(f"chip_smoke: S2 steps {[round(s['step_s'], 3) for s in ranks[0]['S2']['steps']]} s, "
           f"S3 rel-L2 {s3_rel:.3e}, S4 decode "
           f"{[round(d['s'], 3) for d in ranks[0]['S4']['decode']]} s", file=sys.stderr,
@@ -2197,16 +2361,14 @@ def phase_serve_bucketed() -> tuple[dict, tuple]:
 # test, each case checked on every rank against the single-device Dispatch;
 # a case is (label, strategy, kv_buckets, pair slack, mesh axis).  At
 # slack 1.5 pair_cap = kv_bps = 72 (the clamp is the identity), at 0.5
-# pair_cap = ceil(0.5 * 260 / 4) = 33 and the clamp binds.  The
-# multi-granularity case was cut to make room for the dryrun phase within
-# the script's time limit (Dispatch never consults the strategy;
-# hunyuan-1.5x still gives the cell a second strategy's plan).
+# pair_cap = ceil(0.5 * 260 / 4) = 33 and the clamp binds.  Three cases
+# within the script's time limit: 1 and 3 buckets, slack 1.5 and 0.5, and
+# both axes still run (Dispatch never consults the strategy, so the
+# multi-granularity and hunyuan-1.5x plans were cut, with 3 buckets at
+# slack 1.5 and 1 bucket at 0.5, for the dryrun phase, S4-tp and S5).
 MESH_LAYER = (2, 4)
 MESH_CASES = (("seq, flashomni, 1 bucket, slack 1.5", "flashomni", 1, 1.5, "seq"),
-              ("seq, flashomni, 3 buckets, slack 1.5", "flashomni", 3, 1.5, "seq"),
-              ("seq, flashomni, 1 bucket, slack 0.5", "flashomni", 1, 0.5, "seq"),
               ("seq, flashomni, 3 buckets, slack 0.5", "flashomni", 3, 0.5, "seq"),
-              ("seq, hunyuan-1.5x, 1 bucket", "hunyuan-1.5x", 1, 1.5, "seq"),
               ("head, flashomni, 1 bucket", "flashomni", 1, 1.5, "head"))
 MESH_SEED = 2468
 # M1: P1's request (same seed, weights and noise) served across mesh (1, 2).
@@ -2470,8 +2632,8 @@ def phase_dense(served: dict) -> None:
     dense, no kernel may launch) on the weights, latents, text and patch
     embedding that served P1 and P2; each sparse run's speedup (dense
     latency / its latency) and rel-L2 / PSNR against the dense latents.
-    Then P1, P2 and the dense run again in bfloat16, each also read against
-    the float32 dense latents.  ``served``: path -> (latency, latents)."""
+    Then P1 and the dense run again in bfloat16, each also read against the
+    float32 dense latents.  ``served``: path -> (latency, latents)."""
     import torch
     from repro_torch.launch.serve import get_config, serving_engine_config, serving_inputs
     cfg = get_config(FLUX["arch"])
@@ -2489,6 +2651,8 @@ def phase_dense(served: dict) -> None:
                         "dense_latency_s": dense32["latency_s"],
                         "speedup": dense32["latency_s"] / latency,
                         "vs_dense": fidelity(out, ref32)})
+        if path != "P1":              # bf16: P1 alone (P2's run cut for the time limit)
+            continue
         rec, out16 = serve_request(path, cfg, ecfg, inputs, kernels, dtype="bfloat16")
         runs.append(rec)
         compare.append({"path": path, "dtype": "bfloat16", "latency_s": rec["latency_s"],
@@ -3158,33 +3322,61 @@ def dryrun_cells() -> None:
                               mesh_dim_names=("data", "model"))
             return D.record_cell(cfg, shape, mesh, R, dtype=torch.float32, **kw)
 
+    def s5_cell():
+        cfg = get_config(S5["arch"])
+        opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=LTRAIN_STEPS + 1)
+        with D.fake_world(2):
+            mesh = DeviceMesh("cpu", torch.arange(2).reshape(S5_MESH),
+                              mesh_dim_names=("data", "model"))
+            return D.record_cell(cfg, ShapeSpec("S5", S5["seq_len"], S5["batch"], "train"),
+                                 mesh, R, dtype=torch.float32, opt_cfg=opt)
+
+    t0 = time.perf_counter()
     reset_launches()
     out = {"T1": cell(1, T1["n_layers"], T1["batch"], T1["seq_len"]),
+           "S5": s5_cell(),
            "S2": cell(2, S2["n_layers"], S2["batch"], S2["seq_len"]),
            "S3": cell(2, S3["n_layers"], S3["batch"], S3["n_vision"], mode="dispatch"),
            "plan": cell(DRYRUN_PLAN["world"], DRYRUN_PLAN["n_layers"],
                         DRYRUN_PLAN["world"] * DRYRUN_PLAN["batch_per_rank"], T1["seq_len"]),
            "launches": _launches()}
+    out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
 
 
-def phase_dryrun(t1: dict, s2: dict, s3: dict) -> dict:
-    """The ``dryrun`` phase: :func:`dryrun_cells` in a process of its own,
-    its predictions beside T1's, S2's and S3's measurements (``t1``,
-    ``s2``, ``s3``: their records, rank 0's for S2 and S3)."""
+def start_dryrun() -> tuple:
+    """:func:`dryrun_cells` started in a process of its own: the predictions
+    come from shapes alone, so it runs on the host while H1 runs on the card;
+    ``(process, start time)`` for :func:`phase_dryrun`."""
+    return (subprocess.Popen([sys.executable, "-c",
+                              "import chip_smoke; chip_smoke.dryrun_cells()"],
+                             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), time.perf_counter())
+
+
+def phase_dryrun(started: tuple, t1: dict, s2: dict, s3: dict, s5: dict) -> dict:
+    """The ``dryrun`` phase: the predictions of the process :func:`start_dryrun`
+    started, beside T1's, S2's, S3's and S5's measurements (``t1``, ``s2``,
+    ``s3``, ``s5``: their records, rank 0's for S2, S3 and S5)."""
     import statistics
+    proc, t_start = started
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.dryrun_cells()"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=DRYRUN_JOIN_S)
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_JOIN_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     if proc.returncode:
-        raise RuntimeError(f"dryrun: the dry-run process failed:\n{proc.stderr[-4000:]}")
-    pred = json.loads(proc.stdout.strip().splitlines()[-1])
+        raise RuntimeError(f"dryrun: the dry-run process failed:\n{err[-4000:]}")
+    pred = json.loads(out.strip().splitlines()[-1])
     gb = lambda cell: pred[cell]["peak_bytes"] / 1e9
     t1_step_s = t1["median_s"]["grad"] + t1["median_s"]["update"]
     s2_peer = statistics.median(st["peer_bytes"] for st in s2["steps"])
     rows = {"T1 peak_gb": (gb("T1"), t1["peak_mem_gb"]),
             "S2 peak_gb": (gb("S2"), s2["peak_gb"]),
-            "S2 bytes a step": (pred["S2"]["wire_bytes"], s2_peer)}
+            "S2 bytes a step": (pred["S2"]["wire_bytes"], s2_peer),
+            "S5 peak_gb": (gb("S5"), s5["peak_gb"])}
     res = {"phase": "dryrun",
            "note": "predicted for one H100 (80 GB) by launch/dryrun on the host (meta "
                    "tensors, a fake world), beside this run's measurements on the card",
@@ -3202,8 +3394,12 @@ def phase_dryrun(t1: dict, s2: dict, s3: dict) -> dict:
                     "predicted_peak_gb": gb("plan"), "fits_80gb": pred["plan"]["fits"],
                     "argument_gb": pred["plan"]["argument_bytes"] / 1e9,
                     "wire_gb": pred["plan"]["wire_bytes"] / 1e9},
-           "trace_s": {c: pred[c]["trace_s"] for c in ("T1", "S2", "S3", "plan")},
-           "launches": pred["launches"], "seconds": time.perf_counter() - t0}
+           "S5": {"collectives": pred["S5"]["collective_bytes"],
+                  "argument_gb": pred["S5"]["argument_bytes"] / 1e9,
+                  "measured_peer_bytes": s5["peer_bytes"]},
+           "trace_s": {c: pred[c]["trace_s"] for c in ("T1", "S2", "S3", "S5", "plan")},
+           "launches": pred["launches"], "seconds": time.perf_counter() - t0,
+           "process_s": pred["seconds"], "started_s_before": t0 - t_start}
     emit(res)
     faults = [f"{k}: predicted {p:.4g}, measured {m:.4g}" for k, (p, m) in rows.items()
               if not 1 / DRYRUN_RATIO <= p / m <= DRYRUN_RATIO]
@@ -3235,6 +3431,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dry = None
     try:
         smi = timed(phase_build)
         rows = timed(phase_kernels, torch.cuda.get_device_name(0), **FULL)
@@ -3257,15 +3454,20 @@ def main() -> int:
         timed(phase_dense, served)
         del served
         by_path["C1"] = timed(phase_serve_batched)
+        dry = start_dryrun()
         by_path["H1"] = timed(phase_hunyuan)
         timed(phase_kernels, torch.cuda.get_device_name(0), **H1_SHAPE,
               plans=("flashomni", "hunyuan-1.5x interior"), dtypes=("float32",),
               with_ops=False, iters=3, phase="kernels_33k")
         timed(phase_profile)
-        timed(phase_dryrun, t1, shard_rank0["S2"], shard_rank0["S3"])
+        timed(phase_dryrun, dry, t1, shard_rank0["S2"], shard_rank0["S3"], shard_rank0["S5"])
     except Exception:                     # report the failing phase, then fail
         traceback.print_exc()
         return 1
+    finally:
+        if dry is not None and dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].communicate()
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 1)})
     # A kernel's launches are those of the path it belongs to (GEMM-Q runs on
     # every path; its count is P1's, and all are listed).

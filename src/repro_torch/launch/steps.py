@@ -13,21 +13,31 @@ every rank calls it with its own shards.
 Where the reference hands the whole step to GSPMD, ``fn`` moves the data
 itself and runs the model on plain local tensors:
 
-  * the parameters are gathered whole on every rank (FSDP's all-gather);
+  * the parameters are gathered one block at a time
+    (:class:`~repro_torch.distributed.tensor_parallel.ParamGather`): the
+    leaves outside the block stacks (embeddings, head, final norms, the
+    DiT's ``t_mlp*``/``final_*``) once, up front; each block's slice of the
+    stacks when the model takes that block (``layers.block``), freed when the
+    model drops it.  ``cast_params_bf16`` casts the shards before they move;
   * every input with a batch dim keeps its ``dp`` sharding and is gathered
     on every other dim, so each rank computes its own slice of the batch;
-  * the results are laid out by ``out_placements`` from that layout; the
-    train step's gradients are averaged over the ``dp`` mesh dims (an
-    all-reduce, which outruns ``gloo``'s reduce-scatter on one host) and
-    each rank keeps its shard, laid out as the parameters are; AdamW runs
-    on each rank's shards with the norm of the whole gradient tree.
+  * the results are laid out by ``out_placements`` from that layout.  In the
+    train step each block's gradient is averaged over the ``dp`` mesh dims
+    (an all-reduce, which outruns ``gloo``'s reduce-scatter on one host) and
+    cut to the rank's shard as soon as backward produces it; autograd keeps
+    handles, not gathered blocks, and backward gathers a block again where
+    it needs its weights (under ``cfg.remat`` the checkpoint's recompute
+    does).  AdamW runs on each rank's shards with the norm of the whole
+    gradient tree.
 
-**Tensor-parallel axes are computed replicated.**  Every rank of a
-``model`` row gathers the full weights and repeats the same products, where
-GSPMD would split them across the row.  The results are the same; no wire
-volume or speed is claimed for the ``tp`` axis (as for the K/V projections
-of :mod:`repro_torch.distributed.plan_shard`).  Real tensor parallelism
-waits for an NCCL multi-card cell.
+**The ``model`` axis.**  The decoder-only transformers (families ``dense``
+and ``moe``) split it as the reference's specs do (Megatron-style, see
+:mod:`repro_torch.models.transformer` and
+:mod:`~repro_torch.distributed.tensor_parallel`): a block keeps its ``tp``
+shards after the gather, which gathers the ``fsdp`` dims only.  Every other
+family (the DiT's head-parallel engine, ssm, hybrid, encdec, vlm) still
+gathers its ``tp`` dims too and computes the ``model`` axis replicated:
+every rank of a row repeats the same products, with the same results.
 
 Every move goes through
 :func:`~repro_torch.distributed.sharding.redistribute` (on a ``gloo``
@@ -44,10 +54,15 @@ a disagreement fails loudly instead of hanging a collective.  There is no
 fallback: a rank computes on its tensors' device, the card on a card run.
 
 Each ``fn`` carries ``fn.stats``, the seconds of its last call split into
-gathering (``gather_s``), the model (``compute_s``) and laying the results
-out (``scatter_s``; for the train step also ``update_s``), and the bytes
-it moved: staged through the host (``staged_bytes``) and copied from the
-peers on one host (``peer_bytes``).
+gathering the non-block leaves and the inputs (``gather_s``), the model
+with its per-block gathers (and, in the train step, its backward and the
+per-block gradient reduction: ``compute_s``) and laying the results out
+(``scatter_s``; for the train step also ``update_s``), the bytes it moved:
+staged through the host (``staged_bytes``) and copied from the peers on
+one host (``peer_bytes``), the most bytes of gathered parameters alive at
+once (``max_gathered_bytes``) and the layers a split ``model`` row computed
+replicated (``tp_replicated``: a head count or ``d_ff`` the row does not
+divide).
 """
 
 from __future__ import annotations
@@ -65,6 +80,7 @@ from repro_torch.core.taylorseer import TaylorState
 from repro_torch.distributed.ctx import activation_rules
 from repro_torch.distributed.sharding import (PartitionSpec, ShardingRules, named_sharding_tree,
                                               placements, redistribute)
+from repro_torch.distributed.tensor_parallel import ParamGather, _dtensor, _same_layout, mesh_dims
 from repro_torch.launch import specs as S
 from repro_torch.models.registry import get_model
 from repro_torch.optim.optimizer import AdamWConfig, adamw_state_specs, adamw_update
@@ -155,27 +171,6 @@ def _compute_placements(spec_tree: Any, mesh, rules: ShardingRules) -> Any:
     return named_sharding_tree(tree_map(_compute_spec, spec_tree, is_leaf=logical), mesh, rules)
 
 
-def _same_layout(a, b, mesh) -> bool:
-    """Placements ``a`` and ``b`` hold the same local tensor on every rank:
-    they agree on every mesh dim wider than one."""
-    return all(pa == pb or mesh.size(i) == 1 for i, (pa, pb) in enumerate(zip(a, b)))
-
-
-def _contiguous_stride(shape) -> tuple:
-    stride, acc = [], 1
-    for n in reversed(tuple(shape)):
-        stride.append(acc)
-        acc *= n
-    return tuple(reversed(stride))
-
-
-def _dtensor(local: torch.Tensor, mesh, pl, shape):
-    from torch.distributed.tensor import DTensor
-    shape = torch.Size(shape)
-    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
-                              stride=_contiguous_stride(shape))
-
-
 def _to_local(x, pl) -> torch.Tensor:
     """The local tensor of DTensor ``x`` laid out as ``pl``."""
     if _same_layout(x.placements, pl, x.device_mesh):
@@ -202,9 +197,14 @@ def _global_shape(local: torch.Tensor, pl, mesh) -> tuple:
 
 
 def _dp_dims(mesh, rules: ShardingRules) -> tuple:
-    axes = rules.physical("dp")
-    axes = () if axes is None else (axes,) if isinstance(axes, str) else axes
-    return tuple(mesh.mesh_dim_names.index(a) for a in axes)
+    return mesh_dims(mesh, rules, "dp")
+
+
+def _splits_model(cfg: ArchConfig, mesh, rules: ShardingRules) -> bool:
+    """Whether the step splits the ``model`` axis: a decoder-only
+    transformer on a mesh whose ``tp`` dims hold more than one rank."""
+    return cfg.family in ("dense", "moe") and math.prod(
+        mesh.size(i) for i in mesh_dims(mesh, rules, "tp")) > 1
 
 
 def _sync(device: torch.device) -> None:
@@ -252,32 +252,15 @@ class _Stats:
         self.out[name] = now - self.t
         self.t = now
 
-    def done(self, fn) -> None:
+    def done(self, fn, gath: ParamGather) -> None:
         self.out["staged_bytes"] = redistribute.staged_bytes - self.bytes0[0]
         self.out["peer_bytes"] = redistribute.peer_bytes - self.bytes0[1]
+        self.out.update(gath.stats())
         fn.stats = self.out
 
 
 def _device_of(tree: Any) -> torch.device:
     return next(t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)).device
-
-
-def _gather_params(params: Any, cast_bf16: bool = False) -> Any:
-    """Every parameter whole on every rank: the local shards (cast to bf16
-    first when ``cast_bf16``) all-gathered."""
-    from torch.distributed.tensor import Replicate
-
-    def one(x):
-        mesh = x.device_mesh
-        local = x.to_local()
-        if cast_bf16 and local.dtype == torch.float32:
-            local = local.to(torch.bfloat16)
-        full = [Replicate()] * mesh.ndim
-        if _same_layout(x.placements, full, mesh):
-            return local
-        return redistribute(_dtensor(local, mesh, list(x.placements), x.shape), full).to_local()
-
-    return tree_map(one, params)
 
 
 # ---------------------------------------------------------------------------
@@ -305,9 +288,9 @@ def build_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRul
     m_pl = {"loss": scalar, "grad_norm": scalar}
     dp = _dp_dims(mesh, rules)
     n_dp = math.prod(mesh.size(i) for i in dp)
+    split = _splits_model(cfg, mesh, rules)
     partial_on = lambda dims: [Partial("sum") if i in dims else Replicate()
                                for i in range(mesh.ndim)]
-    whole = [Replicate()] * mesh.ndim
 
     def reduced(value: torch.Tensor, dims) -> torch.Tensor:
         """``value`` summed over the mesh dims ``dims``, one dim at a time."""
@@ -319,27 +302,23 @@ def build_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRul
     def train_step(params, opt_state, batch):
         _check_layout("train_step", (params, opt_state, batch), (p_pl, o_pl, b_pl), mesh)
         stats = _Stats(_device_of(params))
-        full = _gather_params(params, cast_params_bf16)
+        # The gradients (each over n_dp, summed over dp) land in gath.grads
+        # as the rank's shards while backward runs, block by block.
+        gath = ParamGather(mesh, rules, tp=split, cast_bf16=cast_params_bf16, train=True,
+                           n_dp=n_dp)
+        tree = gath.prepare(params, model.block_groups())
         local_batch = tree_map(_to_local, batch, b_compute, is_leaf=_is_pl)
         stats.lap("gather_s")
-        leaves, tdef = tree_flatten(full)
-        del full
-        leaves = [t.detach().requires_grad_(True) for t in leaves]
-        with activation_rules(rules):
-            loss = model.train_loss(tree_unflatten(tdef, leaves), local_batch, dtype=dtype)
-        grads = torch.autograd.grad(loss, leaves)
-        del leaves, local_batch
+        with activation_rules(rules), gath.active():
+            loss = model.train_loss(tree, local_batch, dtype=dtype)
+            del tree, local_batch
+            torch.autograd.grad(loss, gath.anchor)
         stats.lap("compute_s")
-        # The mean over dp of each rank's mean loss; the gradients likewise,
-        # summed over dp and left sharded as the parameters are.
-        flat_p, _ = tree_flatten(params)
+        # The mean over dp of each rank's mean loss (the same on every rank
+        # of a model row).
         flat_pl = tree_leaves(p_pl, is_leaf=_is_pl)
-        shards = []
-        for g, p, pl in zip(grads, flat_p, flat_pl):
-            g = (g.to(p.dtype) / n_dp).contiguous()
-            g = _from_local(g, mesh, partial_on(dp), whole, p.shape)
-            shards.append(redistribute(g, pl).to_local())
-        del grads
+        _, tdef = tree_flatten(params)
+        shards = gath.take_grads()
         loss = reduced(loss.detach().to(torch.float32) / n_dp, dp)
         # Each shard counts once: on the mesh dims where its parameter is
         # replicated, only the rank at coordinate 0 adds it.
@@ -360,7 +339,7 @@ def build_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRul
         metrics = {"loss": _dtensor(loss, mesh, scalar, ()),
                    "grad_norm": _dtensor(gnorm, mesh, scalar, ())}
         stats.lap("update_s")
-        stats.done(train_step)
+        stats.done(train_step, gath)
         return new_p, new_o, metrics
 
     train_step.stats = {}
@@ -387,22 +366,24 @@ def build_prefill_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingR
     b_compute = _compute_placements(b_specs, mesh, rules)
     out_pl = placements(PartitionSpec(rules.physical("dp"), None), mesh)
     logits_local = _compute_placements(("dp", None), mesh, rules)
+    split = _splits_model(cfg, mesh, rules)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         _check_layout("prefill_step", (params, batch), (p_pl, b_pl), mesh)
         stats = _Stats(_device_of(params))
-        full = _gather_params(params)
+        gath = ParamGather(mesh, rules, tp=split)
+        tree = gath.prepare(params, model.block_groups())
         local_batch = tree_map(_to_local, batch, b_compute, is_leaf=_is_pl)
         stats.lap("gather_s")
-        with activation_rules(rules):
-            logits = model.prefill(full, local_batch, dtype=dtype)
-        del full
+        with activation_rules(rules), gath.active():
+            logits = model.prefill(tree, local_batch, dtype=dtype)
+        del tree
         stats.lap("compute_s")
         out = _from_local(logits, mesh, logits_local, out_pl,
                           _global_shape(logits, logits_local, mesh))
         stats.lap("scatter_s")
-        stats.done(prefill_step)
+        stats.done(prefill_step, gath)
         return out
 
     prefill_step.stats = {}
@@ -428,25 +409,27 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRu
     s_pl = placements(PartitionSpec(), mesh)
     logits_pl = placements(PartitionSpec(rules.physical("dp"), None), mesh)
     logits_local = _compute_placements(("dp", None), mesh, rules)
+    split = _splits_model(cfg, mesh, rules)
 
     @torch.no_grad()
     def decode_step(params, cache, token, pos):
         _check_layout("decode_step", (params, cache, token), (p_pl, c_pl, t_pl), mesh)
         stats = _Stats(_device_of(params))
-        full = _gather_params(params)
+        gath = ParamGather(mesh, rules, tp=split)
+        tree = gath.prepare(params, model.block_groups())
         local_cache = tree_map(_to_local, cache, c_compute, is_leaf=_is_pl)
         tok = _to_local(token, t_compute)
         stats.lap("gather_s")
-        with activation_rules(rules):
-            logits, new_cache = model.decode_step(full, local_cache, tok, int(pos), dtype=dtype)
-        del full
+        with activation_rules(rules), gath.active():
+            logits, new_cache = model.decode_step(tree, local_cache, tok, int(pos), dtype=dtype)
+        del tree
         stats.lap("compute_s")
         logits = _from_local(logits, mesh, logits_local, logits_pl,
                              _global_shape(logits, logits_local, mesh))
         new_cache = tree_map(lambda x, like, pl_l, pl: _from_local(x, mesh, pl_l, pl, like.shape),
                              new_cache, cache, c_compute, c_pl, is_leaf=_is_pl)
         stats.lap("scatter_s")
-        stats.done(decode_step)
+        stats.done(decode_step, gath)
         return logits, new_cache
 
     decode_step.stats = {}
@@ -471,8 +454,9 @@ def build_dit_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRules
     """One diffusion denoise step, ``fn(params, states, inputs) -> (v,
     new_states)``: ``states`` one :class:`LayerState` a layer, laid out by
     ``dit.engine_state_specs``; ``v`` ``(dp, sp, None)``.  Each rank runs
-    ``dit.denoise_step`` on its ``dp`` slice with the gathered bf16
-    weights; in ``mode="dispatch"`` that goes through the engine's
+    ``dit.denoise_step`` on its ``dp`` slice with the bf16 weights gathered
+    a block at a time (whole: the head-parallel engine is not split over
+    ``model`` yet); in ``mode="dispatch"`` that goes through the engine's
     backend, so the kernels (B1-B3) launch on the card."""
     from repro_torch.models import dit as ditmod
     ecfg = default_dit_engine_config() if ecfg is None else ecfg
@@ -494,16 +478,17 @@ def build_dit_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRules
         _check_layout("dit_step", (params, [_state_tree(s) for s in states], inputs),
                       (p_pl, [st_tree_pl] * len(states), in_pl), mesh)
         stats = _Stats(_device_of(params))
-        full = _gather_params(params)
+        gath = ParamGather(mesh, rules, tp=False)
+        tree = gath.prepare(params, ditmod.BLOCK_GROUPS)
         local_states = [
             _state_from_tree(tree_map(_to_local, _state_tree(s), st_compute, is_leaf=_is_pl), s)
             for s in states]
         x = {k: _to_local(inputs[k], in_compute[k]) for k in inputs}
         stats.lap("gather_s")
-        with activation_rules(rules):
-            v, new_states = ditmod.denoise_step(full, cfg, ecfg, local_states, x["x_vision"],
+        with activation_rules(rules), gath.active():
+            v, new_states = ditmod.denoise_step(tree, cfg, ecfg, local_states, x["x_vision"],
                                                 x["text_emb"], x["t"], mode=mode, dtype=dtype)
-        del full
+        del tree
         stats.lap("compute_s")
         v = _from_local(v, mesh, v_local, v_pl, _global_shape(v, v_local, mesh))
         out_states = []
@@ -513,7 +498,7 @@ def build_dit_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRules
                             is_leaf=_is_pl)
             out_states.append(_state_from_tree(tree, st))
         stats.lap("scatter_s")
-        stats.done(step)
+        stats.done(step, gath)
         return v, out_states
 
     step.stats = {}

@@ -28,10 +28,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine as E
 from repro_torch.core.attention import dense_attention
 from repro_torch.core.engine import AttnParams, EngineConfig, LayerState
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import block, rms_norm
 
 __all__ = ["init_params", "param_specs", "init_engine_states", "engine_state_specs",
            "denoise_step", "timestep_embedding", "train_loss"]
+
+# The top-level groups of stacked blocks, taken one block at a time through
+# layers.block (every other leaf is read whole).
+BLOCK_GROUPS = ("blocks",)
 
 
 def _canonicalize_layer_strategies(layer_strategies, ecfg: EngineConfig, n_layers: int):
@@ -221,14 +225,12 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
     t_emb = timestep_embedding(t * 1000.0, 256).to(dtype) @ params["t_mlp1"].to(dtype)
     t_emb = (F.silu(t_emb) @ params["t_mlp2"].to(dtype)).to(dtype)
 
-    blocks = params["blocks"]
     for li in range(cfg.n_layers):
         strategy = None
         if strategies is not None and mode == "update":
             strategy = strategies[0 if strategy_row is None else int(strategy_row[li])]
-        p = {name: leaf[li] for name, leaf in blocks.items()}
-        x, st = _block(cfg, ecfg, p, states[li], x, t_emb, mode=mode, n_text=n_text,
-                       strategy=strategy, layer_idx=li, step_idx=step_idx,
+        x, st = _block(cfg, ecfg, block(params["blocks"], li), states[li], x, t_emb, mode=mode,
+                       n_text=n_text, strategy=strategy, layer_idx=li, step_idx=step_idx,
                        num_steps=num_steps)
         states[li] = st
     mod = F.silu(t_emb) @ params["final_mod"].to(dtype)

@@ -31,10 +31,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_map
 
 __all__ = ["layer_norm", "init_params", "param_specs", "forward", "train_loss", "encode",
            "decode_train", "init_cache", "cache_specs", "prefill", "decode_step"]
+
+# The top-level groups of stacked blocks, taken one block at a time through
+# layers.block (every other leaf is read whole).
+BLOCK_GROUPS = ("enc", "dec")
 
 POS_DEC_ROWS = 32768
 
@@ -134,7 +137,7 @@ def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, *,
     """frames: (B, encoder_len, d_model), the precomputed frontend output."""
     x = frames.to(dtype) + params["pos_enc"].to(dtype)
     for i in range(cfg.n_layers):
-        x = T.remat(cfg, _enc_block, tree_map(lambda a: a[i], params["enc"]), x, cfg)
+        x = T.remat(cfg, _enc_block, L.BlockRef(params["enc"], i), x, cfg)
     return _ln(x, params["ln_enc"])
 
 
@@ -154,7 +157,7 @@ def _dec_block(p, x, enc_out, cfg: ArchConfig):
 def _decoder_hidden(params, cfg: ArchConfig, tokens, enc_out, dtype):
     x = params["tok_embed"][tokens].to(dtype) + params["pos_dec"][:tokens.shape[1]].to(dtype)
     for i in range(cfg.n_layers):
-        x = T.remat(cfg, _dec_block, tree_map(lambda a: a[i], params["dec"]), x, enc_out, cfg)
+        x = T.remat(cfg, _dec_block, L.BlockRef(params["dec"], i), x, enc_out, cfg)
     return x
 
 
@@ -227,7 +230,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     cross_len = torch.full((b,), cache["cross"]["k"].shape[2], dtype=torch.int32,
                            device=x.device)
     for i in range(cfg.n_layers):
-        p = tree_map(lambda a: a[i], params["dec"])
+        p = L.block(params["dec"], i)
         kc, vc = cache["self"]["k"][i], cache["self"]["v"][i]
         xa = _ln(x, p["ln1"])
         q = (xa @ p["attn"]["wq"].to(dtype)).reshape(b, 1, h, hd)
@@ -239,6 +242,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
         ox = L.decode_attention(qx, cache["cross"]["k"][i], cache["cross"]["v"][i], cross_len)
         x = x + ox.reshape(b, 1, h * hd) @ p["xattn"]["wo"].to(dtype)
         x = x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
+        del p                        # one block's parameters alive at a time
     return _head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
 
 

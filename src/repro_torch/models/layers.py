@@ -21,19 +21,48 @@ value, so a row with no live key averages its values as the reference does.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.tree import tree_map
+
 __all__ = [
-    "init_dense", "init_rmsnorm", "rms_norm", "rope_table", "apply_rope",
+    "block", "BlockRef", "init_dense", "init_rmsnorm", "rms_norm", "rope_table", "apply_rope",
     "gqa_attention", "local_attention", "decode_attention", "init_attention",
     "attention_specs", "init_mlp", "mlp", "init_moe", "moe_route", "moe_mlp", "softmax_xent",
     "causal_conv",
 ]
 
 _NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# One block of a stacked group
+# ---------------------------------------------------------------------------
+
+def block(group: dict, idx) -> dict:
+    """One block's parameters: every leaf of the stacked ``group`` at ``idx``
+    (an int, or a tuple for two stacked dims).  Every family takes its
+    blocks through here.  Outside a sharded step this is the slice itself;
+    inside one (an active
+    :class:`~repro_torch.distributed.tensor_parallel.ParamGather`) ``group``
+    holds the rank's shards and this block's slice of them is gathered."""
+    src = tp.block_source()
+    if src is None:
+        return tree_map(lambda a: a[idx], group)
+    return src.block(group, idx)
+
+
+class BlockRef(NamedTuple):
+    """A block not yet taken: :func:`repro_torch.models.transformer.remat`
+    resolves it with :func:`block` inside the checkpointed region, so a
+    recompute takes (and, in a sharded step, gathers) the block again."""
+
+    group: dict
+    idx: object
 
 
 def _promote(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -246,11 +275,15 @@ def moe_route(probs: torch.Tensor, top_k: int, cap: int):
     return gates, eids, flat_pos, flat_pos < cap
 
 
-def moe_mlp(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25):
+def moe_mlp(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
+            combine=None):
     """Capacity-based top-k MoE (gather-dispatch; FLOPs ≈ k·tokens·expert).
     Every expert's buffer of ``cap`` slots runs, live or not.  A dropped slot
     adds zeros at ``(E-1, cap-1)`` and its combine reads ``min(pos, cap-1)``
-    with a zero gate, as in the reference.  Returns ``(y, aux)``."""
+    with a zero gate, as in the reference.  ``combine``, when given, is
+    applied to the combined f32 output before its cast (the sum over the
+    model row when the experts' ``d_ff`` is split across it).  Returns
+    ``(y, aux)``."""
     b, s, d = x.shape
     e = p["router"].shape[-1]
     n = b * s
@@ -274,6 +307,8 @@ def moe_mlp(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.
     w = (gates.reshape(-1) * keep.to(gates.dtype))[:, None]
     contrib = yb[flat_e, flat_pos.clamp(max=cap - 1)] * w
     y = contrib.to(torch.float32).reshape(n, top_k, d).sum(dim=1)
+    if combine is not None:
+        y = combine(y)
     aux = _load_balance_loss(probs, eids, e)
     return y.reshape(b, s, d).to(x.dtype), aux
 
@@ -285,9 +320,30 @@ def _load_balance_loss(probs: torch.Tensor, eids: torch.Tensor, e: int) -> torch
     return e * (frac_tokens * frac_probs).sum()
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4):
-    """Cross entropy with z-loss; logits (..., V), labels (...) int."""
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4, *,
+                 vocab: Optional[int] = None):
+    """Cross entropy with z-loss; logits (..., V), labels (...) int.
+
+    With ``vocab`` given the softmax is vocab-parallel: ``logits`` is this
+    rank's shard of the padded vocabulary over the model row (columns
+    ``rank · V`` on; the whole padded vocabulary on a row of one), columns
+    at or past ``vocab`` are left out, and the max, the sum of exps and the
+    target's logit are each reduced over the row
+    (:mod:`~repro_torch.distributed.tensor_parallel`), so every rank of the
+    row holds the same loss."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels[..., None].to(torch.int64))[..., 0]
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[..., None].to(torch.int64))[..., 0]
+        return (lse - ll + z_loss * lse.square()).mean()
+    v_loc = logits.shape[-1]
+    first = tp.rank() * v_loc
+    cols = first + torch.arange(v_loc, device=logits.device)
+    logits = torch.where(cols < vocab, logits, float("-inf"))
+    top = tp.row_max(logits.detach().amax(dim=-1))     # a constant of the gradient
+    lse = top + torch.log(tp.reduce(torch.exp(logits - top[..., None]).sum(dim=-1)))
+    local = labels.to(torch.int64) - first
+    inside = (local >= 0) & (local < v_loc)
+    hit = logits.gather(-1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    ll = tp.reduce(torch.where(inside, hit, torch.zeros((), device=logits.device)))
     return (lse - ll + z_loss * lse.square()).mean()

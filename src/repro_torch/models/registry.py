@@ -44,6 +44,11 @@ class Model:
     def param_specs(self) -> dict:
         return self.mod.param_specs(self.cfg)
 
+    def block_groups(self) -> tuple:
+        """The top-level groups of stacked blocks (``layers.block`` takes
+        them one block at a time)."""
+        return self.mod.BLOCK_GROUPS
+
     def train_loss(self, params: dict, batch: dict, *,
                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         return self.mod.train_loss(params, self.cfg, batch, dtype=dtype)

@@ -37,6 +37,10 @@ from repro_torch.tree import tree_map
 __all__ = ["init_params", "param_specs", "forward", "train_loss", "init_cache",
            "cache_specs", "prefill", "decode_step", "rg_lru", "rg_lru_step", "n_cycles"]
 
+# The top-level groups of stacked blocks, taken one block at a time through
+# layers.block (every other leaf is read whole).
+BLOCK_GROUPS = ("rec", "attn", "tail")
+
 _C = 8.0
 CONV_K = 4
 
@@ -188,11 +192,10 @@ def _hidden(params, cfg: ArchConfig, tokens, dtype):
                             cfg.rope_theta)
     for c in range(n_cycles(cfg)):
         for j in range(2):
-            x = T.remat(cfg, _rec_apply, cfg, tree_map(lambda a: a[c, j], params["rec"]), x)
-        x = T.remat(cfg, _attn_apply_blk, cfg, tree_map(lambda a: a[c], params["attn"]), x,
-                    cos, sin)
+            x = T.remat(cfg, _rec_apply, cfg, L.BlockRef(params["rec"], (c, j)), x)
+        x = T.remat(cfg, _attn_apply_blk, cfg, L.BlockRef(params["attn"], c), x, cos, sin)
     for t in range(params["tail"]["ln"].shape[0] if "tail" in params else 0):
-        x = T.remat(cfg, _rec_apply, cfg, tree_map(lambda a: a[t], params["tail"]), x)
+        x = T.remat(cfg, _rec_apply, cfg, L.BlockRef(params["tail"], t), x)
     return x
 
 
@@ -285,15 +288,14 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     cos, sin = L.rope_table(torch.tensor([pos], device=x.device), cfg.hd, cfg.rope_theta)
     for c in range(n_cycles(cfg)):
         for j in range(2):
-            p = tree_map(lambda a: a[c, j], params["rec"])
             x, cache["rec_h"][c, j], cache["rec_conv"][c, j] = _rec_step(
-                cfg, p, x, cache["rec_h"][c, j], cache["rec_conv"][c, j])
+                cfg, L.block(params["rec"], (c, j)), x, cache["rec_h"][c, j],
+                cache["rec_conv"][c, j])
         kv = {"k": cache["attn"]["k"][c], "v": cache["attn"]["v"][c]}
-        x = _attn_step(cfg, tree_map(lambda a: a[c], params["attn"]), x, kv, pos, cos, sin)
+        x = _attn_step(cfg, L.block(params["attn"], c), x, kv, pos, cos, sin)
     for t in range(cache["tail_h"].shape[0] if "tail_h" in cache else 0):
-        p = tree_map(lambda a: a[t], params["tail"])
         x, cache["tail_h"][t], cache["tail_conv"][t] = _rec_step(
-            cfg, p, x, cache["tail_h"][t], cache["tail_conv"][t])
+            cfg, L.block(params["tail"], t), x, cache["tail_h"][t], cache["tail_conv"][t])
     return T._head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
 
 

@@ -38,10 +38,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_map
 
 __all__ = ["init_params", "param_specs", "forward", "train_loss", "init_cache",
            "cache_specs", "prefill", "decode_step", "ssd_chunked", "ssd_recurrent_step"]
+
+# The top-level groups of stacked blocks, taken one block at a time through
+# layers.block (every other leaf is read whole).
+BLOCK_GROUPS = ("blocks",)
 
 HEAD_DIM = 64
 CONV_K = 4
@@ -190,8 +193,7 @@ def _block_apply(cfg: ArchConfig, p, x, *, chunk: int = 128):
 def _hidden(params, cfg: ArchConfig, tokens, dtype, chunk):
     x = params["embed"][tokens].to(dtype)
     for i in range(cfg.n_layers):
-        x = T.remat(cfg, _block_apply, cfg, tree_map(lambda a: a[i], params["blocks"]), x,
-                    chunk=chunk)
+        x = T.remat(cfg, _block_apply, cfg, L.BlockRef(params["blocks"], i), x, chunk=chunk)
     return x
 
 
@@ -257,9 +259,8 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     by one.  ``pos`` does not enter the recurrence."""
     x = params["embed"][token[:, None]].to(dtype)
     for i in range(cfg.n_layers):
-        p = tree_map(lambda a: a[i], params["blocks"])
-        x, cache["ssm"][i], cache["conv"][i] = _decode_block(cfg, p, x, cache["ssm"][i],
-                                                             cache["conv"][i])
+        x, cache["ssm"][i], cache["conv"][i] = _decode_block(
+            cfg, L.block(params["blocks"], i), x, cache["ssm"][i], cache["conv"][i])
     return T._head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
 
 

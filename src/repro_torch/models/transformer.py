@@ -32,6 +32,24 @@ parameters and caches out by them.  The reference's ``constrain(...)``
 calls are dropped: the step builders run the model on each rank's local
 tensors, where :func:`repro_torch.distributed.ctx.constrain` is the
 identity.
+
+**Tensor parallelism.**  Inside a sharded step that splits the ``model``
+axis (:class:`~repro_torch.distributed.tensor_parallel.ParamGather` with
+``tp``), a block's ``tp`` leaves are the rank's shards and the operators of
+:mod:`~repro_torch.distributed.tensor_parallel` act over the row: each
+sublayer's input passes *f* (``tp.copy``) before its norm; ``wq`` is
+column-parallel by heads and ``wo`` row-parallel, followed by *g*
+(``tp.reduce``), when the head count divides the row; K/V are projected
+whole on every rank (their weights gathered; the caches stay whole over
+``model``) and each rank's query heads read the K/V heads they group with;
+the MLP (and each MoE expert) is column-parallel in ``wi``/``wg`` and
+row-parallel in ``wo``, the router replicated; the embedding is a
+vocab-parallel lookup, the head keeps the logits as ``(tokens, vocab/tp)``
+for :func:`layers.softmax_xent`'s vocab-parallel loss, and prefill and
+decode gather the last row whole.  A head count or ``d_ff`` that the row
+does not divide is gathered and computed replicated (``tp.note`` records
+it).  Outside such a step the row has one rank and every operator is the
+identity, so the code computes exactly as before.
 """
 
 from __future__ import annotations
@@ -39,15 +57,21 @@ from __future__ import annotations
 from typing import Iterator, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.tree import tree_map
 
 __all__ = ["layer_groups", "init_params", "param_specs", "forward", "train_loss",
            "init_cache", "cache_specs", "decode_step", "prefill", "remat", "remat_policy"]
+
+# The top-level groups of stacked blocks, taken one block at a time through
+# layers.block (every other leaf is read whole).
+BLOCK_GROUPS = ("locals", "globals", "tail")
 
 
 # ---------------------------------------------------------------------------
@@ -69,9 +93,28 @@ def _remat_contexts():
     return create_selective_checkpoint_contexts(remat_policy)
 
 
+def _resolving(fn):
+    """``fn`` with each :class:`~repro_torch.models.layers.BlockRef`
+    argument taken through :func:`~repro_torch.models.layers.block` first,
+    under the tensor-parallel context of this call (a recompute may run on
+    autograd's device thread, which does not see it)."""
+    snap = tp.snapshot()
+
+    def run(*args, **kwargs):
+        with tp.restored(snap):
+            return fn(*(L.block(*a) if isinstance(a, L.BlockRef) else a for a in args),
+                      **kwargs)
+    return run
+
+
 def remat(cfg: ArchConfig, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, checkpointed under :func:`remat_policy` when
-    ``cfg.remat`` is set and grad mode is on."""
+    ``cfg.remat`` is set and grad mode is on.  A
+    :class:`~repro_torch.models.layers.BlockRef` argument is taken inside the
+    checkpointed region (and again by its recompute), so the checkpoint
+    keeps no block's tensors for backward."""
+    if any(isinstance(a, L.BlockRef) for a in args):
+        fn = _resolving(fn)
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn(*args, **kwargs)
     return checkpoint(fn, *args, use_reentrant=False, context_fn=_remat_contexts, **kwargs)
@@ -174,49 +217,135 @@ def param_specs(cfg: ArchConfig) -> dict:
 # Forward (train / prefill shared body)
 # ---------------------------------------------------------------------------
 
+def _split(n: int, what: str) -> bool:
+    """Whether ``n`` (heads, or ``d_ff``) splits over the model row; a row
+    that it does not divide computes ``what`` replicated (noted)."""
+    m = tp.size()
+    if m == 1:
+        return False
+    if n % m:
+        tp.note(f"{what}: {n} on a model row of {m}")
+        return False
+    return True
+
+
+def _attn_weights(p, cfg: ArchConfig) -> tuple:
+    """``(wq, wk, wv, wo, split)`` as this rank computes with them: K/V's
+    weights whole, ``wq``/``wo`` the rank's heads when ``split``, else
+    whole."""
+    split = _split(cfg.n_heads, "attention heads")
+    wq, wo = p["wq"], p["wo"]
+    if tp.size() > 1 and not split:
+        wq, wo = tp.gather(wq, -1), tp.gather(wo, -2)
+    return wq, tp.gather(p["wk"], -1), tp.gather(p["wv"], -1), wo, split
+
+
+def _kv_for(k, v, cfg: ArchConfig, h: int) -> tuple:
+    """The K/V heads (dim 2) that this rank's ``h`` query heads read,
+    grouped as GQA groups them (``h // n`` query heads to each of ``n``)."""
+    if h == cfg.n_heads:
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = tp.rank() * h
+    if h % g == 0 or g % h == 0:
+        lo, hi = first // g, (first + h - 1) // g + 1
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    ids = (first + torch.arange(h, device=k.device)) // g
+    return k.index_select(2, ids), v.index_select(2, ids)
+
+
+def _row_parallel(x, w, dtype):
+    """``x @ w`` of a row-parallel weight, summed over the row.  Without
+    grad (serving) in a half dtype the partial products are formed in f32
+    from the half operands and rounded once after the sum, as one card's
+    GEMM accumulates in f32 and rounds once, so the split row gives the
+    unsharded step's bits up to f32 reassociation; training keeps the
+    compute dtype's products."""
+    w = w.to(dtype)
+    if dtype in (torch.bfloat16, torch.float16) and not torch.is_grad_enabled():
+        return tp.reduce(x.to(torch.float32) @ w.to(torch.float32)).to(dtype)
+    return tp.reduce(x @ w)
+
+
+def _attn_out(o, wo, split: bool, dtype):
+    """The output projection: row-parallel and summed over the row, or
+    computed whole on every rank."""
+    return _row_parallel(o, wo, dtype) if split else tp.replicated(o @ wo.to(dtype))
+
+
 def _attn_apply(p, x, cfg: ArchConfig, *, window, cos, sin, dtype):
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"].to(dtype)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].to(dtype)).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"].to(dtype)).reshape(b, s, hkv, hd)
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    wq, wk, wv, wo, split = _attn_weights(p, cfg)
+    h = wq.shape[-1] // hd
+    q = (x @ wq.to(dtype)).reshape(b, s, h, hd)
+    k = (x @ wk.to(dtype)).reshape(b, s, hkv, hd)
+    v = (x @ wv.to(dtype)).reshape(b, s, hkv, hd)
     q = L.apply_rope(L.rms_norm(q, p["q_norm"], cfg.norm_eps), cos, sin)
     k = L.apply_rope(L.rms_norm(k, p["k_norm"], cfg.norm_eps), cos, sin)
+    k, v = _kv_for(k, v, cfg, h)
     if window is not None and s > 2 * window:
         o = L.local_attention(q, k, v, window=window)
     else:
         o = L.gqa_attention(q, k, v, causal=True, window=window)
-    return o.reshape(b, s, h * hd) @ p["wo"].to(dtype)
+    return _attn_out(o.reshape(b, s, h * hd), wo, split, dtype)
 
 
 def _mlp_apply(p, h, cfg: ArchConfig):
     """``(y, aux)`` of the block's MLP: the MoE in its own dtypes, the dense
     MLP with its weights cast to the activations' dtype (aux ``None``: the
-    reference's zero, which adds nothing)."""
+    reference's zero, which adds nothing).  On a model row ``wi``/``wg`` are
+    column-parallel and ``wo`` row-parallel, the router replicated."""
     if cfg.moe:
-        return L.moe_mlp(p, h, top_k=cfg.moe.top_k)
-    return L.mlp(tree_map(lambda w: w.to(h.dtype), p), h), None
+        split = _split(cfg.moe.d_ff, "MoE d_ff")
+        if tp.size() > 1 and not split:
+            p = dict(p, wi=tp.gather(p["wi"], -1), wg=tp.gather(p["wg"], -1),
+                     wo=tp.gather(p["wo"], -2))
+        y, aux = L.moe_mlp(p, h, top_k=cfg.moe.top_k,
+                           combine=tp.reduce if split else tp.replicated)
+        return y, tp.replicated(aux)
+    split = _split(cfg.d_ff, "MLP d_ff")
+    if tp.size() > 1 and not split:
+        p = {"wi": tp.gather(p["wi"], -1), "wg": tp.gather(p["wg"], -1),
+             "wo": tp.gather(p["wo"], -2)}
+    w = tree_map(lambda t: t.to(h.dtype), p)
+    if split:
+        return _row_parallel(F.silu(h @ w["wg"]) * (h @ w["wi"]), w["wo"], h.dtype), None
+    return tp.replicated(L.mlp(w, h)), None
 
 
 def _block_apply(p, x, cfg: ArchConfig, *, window, cos, sin):
-    x = x + _attn_apply(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+    x = x + _attn_apply(p["attn"], L.rms_norm(tp.copy(x), p["ln1"], cfg.norm_eps), cfg,
                         window=window, cos=cos, sin=sin, dtype=x.dtype)
-    y, aux = _mlp_apply(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    y, aux = _mlp_apply(p["mlp"], L.rms_norm(tp.copy(x), p["ln2"], cfg.norm_eps), cfg)
     return x + y, aux
 
 
 def _embed(params, cfg: ArchConfig, tokens, dtype):
-    """The token embedding cast to ``dtype``, then scaled by sqrt(d_model)."""
-    return params["embed"][tokens].to(dtype) * (cfg.d_model ** 0.5)
+    """The token embedding cast to ``dtype``, then scaled by sqrt(d_model)
+    (a vocab-parallel lookup on a model row)."""
+    return tp.vocab_lookup(params["embed"], tokens).to(dtype) * (cfg.d_model ** 0.5)
 
 
 def _head(params, cfg: ArchConfig, x):
     """Final norm and the LM head (``embed.T`` when tied), logits sliced from
-    ``vocab_padded`` to ``vocab``."""
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    ``vocab_padded`` to ``vocab``; on a model row, this rank's shard of the
+    padded vocabulary."""
+    x = L.rms_norm(tp.copy(x), params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.to(x.dtype)
+    if tp.size() > 1:
+        return logits
     return logits[..., :cfg.vocab] if cfg.vocab_padded != cfg.vocab else logits
+
+
+def _whole_logits(params, cfg: ArchConfig, x):
+    """:func:`_head`'s logits over the whole vocabulary (on a model row the
+    shards gathered, as the reference's ``out_sh`` replicates the vocab)."""
+    logits = _head(params, cfg, x)
+    if tp.size() > 1:
+        logits = tp.gather(logits, -1)[..., :cfg.vocab]
+    return logits
 
 
 def _hidden(params, cfg: ArchConfig, tokens, dtype):
@@ -226,8 +355,8 @@ def _hidden(params, cfg: ArchConfig, tokens, dtype):
                             cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group, idx, window in _layers(cfg):
-        p = tree_map(lambda a: a[idx], params[group])
-        x, a = remat(cfg, _block_apply, p, x, cfg, window=window, cos=cos, sin=sin)
+        x, a = remat(cfg, _block_apply, L.BlockRef(params[group], idx), x, cfg,
+                     window=window, cos=cos, sin=sin)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -243,7 +372,8 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
 def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     logits, aux = forward(params, cfg, batch["tokens"], dtype=dtype)
-    return L.softmax_xent(logits, batch["labels"]) + 1e-2 * aux
+    vocab = cfg.vocab if tp.size() > 1 else None
+    return L.softmax_xent(logits, batch["labels"], vocab=vocab) + 1e-2 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -291,11 +421,13 @@ def cache_specs(cfg: ArchConfig) -> dict:
 def _decode_block(p, x, kv, cfg: ArchConfig, *, window, pos: int, cos, sin):
     """One-token decode through one block, writing its K/V into ``kv``."""
     b, dtype = x.shape[0], x.dtype
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    wq, wk, wv, wo, split = _attn_weights(p["attn"], cfg)
+    h = wq.shape[-1] // hd
     xa = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (xa @ p["attn"]["wq"].to(dtype)).reshape(b, 1, h, hd)
-    k = (xa @ p["attn"]["wk"].to(dtype)).reshape(b, 1, hkv, hd)
-    v = (xa @ p["attn"]["wv"].to(dtype)).reshape(b, 1, hkv, hd)
+    q = (xa @ wq.to(dtype)).reshape(b, 1, h, hd)
+    k = (xa @ wk.to(dtype)).reshape(b, 1, hkv, hd)
+    v = (xa @ wv.to(dtype)).reshape(b, 1, hkv, hd)
     q = L.apply_rope(L.rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps), cos, sin)
     k = L.apply_rope(L.rms_norm(k, p["attn"]["k_norm"], cfg.norm_eps), cos, sin)
     length = kv["k"].shape[1]
@@ -307,8 +439,8 @@ def _decode_block(p, x, kv, cfg: ArchConfig, *, window, pos: int, cos, sin):
     cache_len = torch.full((b,), min(pos + 1, length), dtype=torch.int32, device=x.device)
     # Ring-buffer slots are within-window by construction; keys carry their
     # absolute-position RoPE so scores stay relative-correct across wraps.
-    o = L.decode_attention(q, kv["k"], kv["v"], cache_len)
-    x = x + o.reshape(b, 1, h * hd) @ p["attn"]["wo"].to(dtype)
+    o = L.decode_attention(q, *_kv_for(kv["k"], kv["v"], cfg, h), cache_len)
+    x = x + _attn_out(o.reshape(b, 1, h * hd), wo, split, dtype)
     y, _ = _mlp_apply(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
     return x + y
 
@@ -323,12 +455,12 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     x = _embed(params, cfg, token[:, None], dtype)
     cos, sin = L.rope_table(torch.tensor([pos], device=x.device), cfg.hd, cfg.rope_theta)
     for group, idx, window in _layers(cfg):
-        p = tree_map(lambda a: a[idx], params[group])
         kv = {"k": cache[group]["k"][idx], "v": cache[group]["v"][idx]}
-        x = _decode_block(p, x, kv, cfg, window=window, pos=pos, cos=cos, sin=sin)
+        x = _decode_block(L.block(params[group], idx), x, kv, cfg, window=window, pos=pos,
+                          cos=cos, sin=sin)
     new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
-    return _head(params, cfg, x)[:, 0], new_cache
+    return _whole_logits(params, cfg, x)[:, 0], new_cache
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -338,4 +470,4 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     through the head here (the same function; a GEMM of another row count
     rounds differently on the card, so it agrees to the float tolerance)."""
     x, _ = _hidden(params, cfg, tokens, dtype)
-    return _head(params, cfg, x[:, -1])
+    return _whole_logits(params, cfg, x[:, -1])

@@ -32,10 +32,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_map
 
 __all__ = ["init_params", "param_specs", "forward", "train_loss", "init_cache",
            "cache_specs", "prefill", "decode_step"]
+
+# The top-level groups of stacked blocks, taken one block at a time through
+# layers.block (every other leaf is read whole).
+BLOCK_GROUPS = ("cross", "selfs")
 
 
 def _groups(cfg: ArchConfig) -> tuple[int, int]:
@@ -104,10 +107,10 @@ def _hidden(params, cfg: ArchConfig, batch, dtype):
                             cfg.rope_theta)
     n_cyc, n_self = _groups(cfg)
     for c in range(n_cyc):
-        x = T.remat(cfg, _cross_apply, tree_map(lambda a: a[c], params["cross"]), x, img, cfg)
+        x = T.remat(cfg, _cross_apply, L.BlockRef(params["cross"], c), x, img, cfg)
         for j in range(n_self):
-            x, _ = T.remat(cfg, T._block_apply, tree_map(lambda a: a[c, j], params["selfs"]),
-                           x, cfg, window=None, cos=cos, sin=sin)
+            x, _ = T.remat(cfg, T._block_apply, L.BlockRef(params["selfs"], (c, j)), x, cfg,
+                           window=None, cos=cos, sin=sin)
     return x
 
 
@@ -162,14 +165,15 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
                          device=x.device)
     n_cyc, n_self = _groups(cfg)
     for c in range(n_cyc):
-        p = tree_map(lambda a: a[c], params["cross"])
+        p = L.block(params["cross"], c)
         o = L.decode_attention(_cross_q(p, x, cfg), cache["cross"]["k"][c],
                                cache["cross"]["v"][c], img_len)
         x = _gated(p, x, o.reshape(b, 1, -1))
+        del p                        # one block's parameters alive at a time
         for j in range(n_self):
             kv = {"k": cache["selfs"]["k"][c, j], "v": cache["selfs"]["v"][c, j]}
-            x = T._decode_block(tree_map(lambda a: a[c, j], params["selfs"]), x, kv, cfg,
-                                window=None, pos=pos, cos=cos, sin=sin)
+            x = T._decode_block(L.block(params["selfs"], (c, j)), x, kv, cfg, window=None,
+                                pos=pos, cos=cos, sin=sin)
     return T._head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
 
 

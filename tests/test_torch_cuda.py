@@ -964,3 +964,71 @@ def test_moe_mlp_at_granite_moe_width_on_the_card(dev):
     for a, w in zip(route_d[1:], route[1:]):
         assert torch.equal(a.cpu(), w)
     assert _rel(yd, y) <= 1e-4 and _rel(auxd, aux) <= 1e-4
+
+
+TP_SEQ, TP_BATCH = 256, 2
+
+
+def _tp_inputs(dev):
+    """gemma3-1b smoke with remat, its weights and one batch, on ``dev``."""
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models.registry import get_model
+    cfg = dataclasses.replace(get_smoke("gemma3-1b"), remat=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = get_model(cfg).init_params(g, dev)
+    tok = lambda: torch.randint(0, cfg.vocab, (TP_BATCH, TP_SEQ), generator=g, device=dev,
+                                dtype=torch.int32)
+    return cfg, params, {"tokens": tok(), "labels": tok()}
+
+
+def _card_tp_rank(rank):
+    """One train step of gemma3-1b smoke split over ``model`` on mesh (1, 2)
+    on the card: (loss, AdamW's first moment gathered whole)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R, redistribute
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import adamw_init, adamw_state_specs
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg, params, batch = _tp_inputs(dev)
+    model = get_model(cfg)
+    mesh = DeviceMesh("cuda", torch.arange(2).reshape(1, 2), mesh_dim_names=("data", "model"))
+    fn = build_train_step(cfg, ShapeSpec("tp", TP_SEQ, TP_BATCH, "train"), mesh, R,
+                          dtype=torch.float32)[0]
+    p = reshard_state(params, model.param_specs(), mesh, R)
+    o = reshard_state(adamw_init(params), adamw_state_specs(model.param_specs()), mesh, R)
+    b = reshard_state(batch, S.train_batch_logical(cfg), mesh, R)
+    _, o, m = fn(p, o, b)
+    whole = [redistribute(x, [Replicate(), Replicate()]).to_local().cpu()
+             for x in tree_leaves(o["mu"])]
+    return float(m["loss"].to_local()), whole, fn.stats["tp_replicated"]
+
+
+def test_tensor_parallel_train_step_matches_autograd_on_the_card(dev):
+    """S5's pair at smoke width: the loss and every gradient (AdamW's first
+    moment after one step) of the step split over ``model`` within 1e-4 of
+    the tree's largest magnitude of unsharded autograd on the card."""
+    from repro_torch.launch.mesh import run_local_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+    cfg, params, batch = _tp_inputs(dev)
+    leaves, tdef = tree_flatten(params)
+    leaves = [t.requires_grad_(True) for t in leaves]
+    loss = get_model(cfg).train_loss(tree_unflatten(tdef, leaves), batch, dtype=torch.float32)
+    grads = tree_unflatten(tdef, torch.autograd.grad(loss, leaves))
+    _, o, _ = adamw_update(grads, adamw_init(params), params, AdamWConfig())
+    want = [t.cpu() for t in tree_leaves(o["mu"])]
+    scale = max(float(t.abs().max()) for t in want)
+    loss = float(loss.detach())
+    for got_loss, got, replicated in run_local_mesh(_card_tp_rank, 1, 2, timeout=300):
+        assert replicated == []
+        assert abs(got_loss - loss) <= 1e-4 * abs(loss)
+        assert max(float((a - w).abs().max()) for a, w in zip(got, want)) <= 1e-4 * scale

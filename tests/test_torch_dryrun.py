@@ -14,6 +14,9 @@ model.
   * the smoke gemma3-1b train, prefill and decode cells on a fake world of
     8: FLOPs, bytes, collectives and peak recorded on ``meta`` equal those
     recorded on CPU tensors of the same shapes;
+  * the smoke gemma3-1b train cell (3 layers) at 4096 tokens over a fake world of 2 on
+    mesh (1, 2): splitting the ``model`` axis predicts a lower peak than
+    computing it replicated, and bills the row's all-reduces;
   * the flux-mmdit smoke DiT cell records in both modes; Dispatch holds
     B1-B3 once a layer, each billed at the plan's capacity;
   * ``sharded_dispatch_report``'s payload equals the formula from the
@@ -183,6 +186,26 @@ def test_smoke_lm_cell_costs_the_same_on_meta_and_on_the_cpu(shape):
     assert fields["collective_bytes"]["all_gather"] > 0
     if shape.kind == "train":                 # the gradients' and the loss's sums over dp
         assert fields["collective_bytes"]["all_reduce"] > 0
+
+
+def test_split_model_axis_lowers_the_predicted_peak_and_bills_the_row(monkeypatch):
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.launch import steps as ST
+    cfg = dataclasses.replace(registry.get_smoke("gemma3-1b"), n_layers=3)   # one cycle
+    shape = ShapeSpec("train_4k", 4096, 2, "train")
+    fields = {}
+    for split in (True, False):
+        monkeypatch.setattr(ST, "_splits_model", lambda *a, split=split: split)
+        with D.fake_world(2):
+            mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
+                              mesh_dim_names=("data", "model"))
+            fields[split] = D.record_cell(cfg, shape, mesh, DEFAULT_RULES, dtype=torch.float32)
+    assert fields[True]["peak_bytes"] < fields[False]["peak_bytes"]
+    assert fields[True]["flops_per_device"] < fields[False]["flops_per_device"]
+    row = fields[True]["collective_bytes"]
+    assert row["all_reduce"] > fields[False]["collective_bytes"].get("all_reduce", 0)
+    assert row["all_reduce_count"] >= 2 * cfg.n_layers      # g after attention and MLP
 
 
 def test_smoke_dit_cell_records_both_modes_with_kernels_at_capacity():

@@ -5,20 +5,31 @@ under the default rules, shared by every case, so that both the ``fsdp``
 weights (the port's ``init_params`` from a seed) and the batches are numpy
 arrays handed to both packages.
 
-  * **train**: 2 FSDP steps of flux-mmdit and gemma3-1b (smoke, f32)
-    against the unsharded port step (``adamw_update`` on the whole tree)
-    and against the reference's ``build_train_step`` fn (jitted over a
-    (1, 1) CPU mesh): loss, grad_norm and every parameter within 1e-4;
-    ``cast_params_bf16=True`` against the reference's within 2e-2;
+  * **train**: 2 FSDP steps of flux-mmdit, gemma3-1b, llama3-405b and
+    mixtral-8x22b (smoke, f32; the three LMs split the ``model`` axis:
+    1, 2 and 2 K/V heads, and mixtral's MoE), gemma3-1b also with
+    ``cfg.remat``, against the unsharded port step (``adamw_update`` on the
+    whole tree) and against the reference's ``build_train_step`` fn (jitted
+    over a (1, 1) CPU mesh): loss, grad_norm and every parameter within
+    1e-4; ``cast_params_bf16=True`` against the reference's within 2e-2;
+    the gradients of every leaf replicated over ``model`` (norms, router),
+    read from AdamW's first moment, equal on the two ranks of each row;
   * **DiT step**: Update then Dispatch on flux-mmdit smoke (the serving
     launcher's engine config, batch 2 over data): each rank's ``v`` and its
     states ``torch.equal`` to the unsharded ``denoise_step`` on its own
     batch-1 slice, the gathered ``v`` within 1e-5 of the reference's
     ``build_dit_step`` fn on the XLA backend, and the kernels' plain
     versions called once a layer at Dispatch (none at Update);
-  * **prefill / decode**: gemma3-1b and whisper-large-v3 smoke, batch 4 over
-    data: greedy tokens equal to the unsharded port's, logits within 1e-4
-    of the reference builders' fns (f32 weights and caches);
+  * **prefill / decode**: gemma3-1b, llama3-405b, mixtral-8x22b and
+    whisper-large-v3 smoke, batch 4 over data: greedy tokens equal to the
+    unsharded port's, logits within 1e-4 of the reference builders' fns
+    (f32 weights and caches);
+  * every step gathers its parameters a block at a time: its
+    ``max_gathered_bytes`` is at most one block whole plus the leaves
+    outside the blocks, and each rank holds only its own shard of every
+    ``tp`` leaf;
+  * the vocab-parallel ``softmax_xent`` (with its z-loss) on each row's
+    vocab shards against the whole-vocab one, loss and gradient within 1e-6;
   * a rank whose inputs disagree with the step's placements makes every
     rank raise, instead of hanging a collective.
 
@@ -30,6 +41,8 @@ nor the reference at module level.
 """
 
 import contextlib
+import dataclasses
+import gc
 import threading
 
 import numpy as np
@@ -41,17 +54,84 @@ from repro_torch.launch.mesh import run_local_mesh
 
 MESH = (2, 2)
 JOIN_S = 180
-TRAIN_ARCHS = ("flux-mmdit", "gemma3-1b")
-TRAIN_SEQ = {"flux-mmdit": 128, "gemma3-1b": 32}
+TRAIN_ARCHS = ("flux-mmdit", "gemma3-1b", "llama3-405b", "mixtral-8x22b")
+TRAIN_SEQ = {"flux-mmdit": 128, "gemma3-1b": 32, "llama3-405b": 32, "mixtral-8x22b": 32}
+# (arch, cast_params_bf16, remat) of each sharded train case.
+TRAIN_CASES = ([(a, False, False) for a in TRAIN_ARCHS] + [("gemma3-1b", False, True),
+                                                             ("flux-mmdit", True, False)])
 TRAIN_B, TRAIN_STEPS = 4, 2
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 DIT_B, DIT_VISION = 2, 96
-SERVE_ARCHS = ("gemma3-1b", "whisper-large-v3")
+SERVE_ARCHS = ("gemma3-1b", "llama3-405b", "mixtral-8x22b", "whisper-large-v3")
 SERVE_B, PROMPT, MAX_LEN, DECODE_STEPS = 4, 32, 64, 4
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 DIT_TOL = dict(rtol=1e-5, atol=1e-5)
 DISPATCH_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel")
+XENT_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def gather_bound(params: dict, groups: tuple, dtype=None) -> int:
+    """One block of the largest block group, whole, plus every leaf outside
+    the groups, whole (in ``dtype`` when given)."""
+    from repro_torch.tree import tree_leaves
+    size = lambda t: t.numel() * (t.element_size() if dtype is None
+                                  else torch.empty((), dtype=dtype).element_size())
+    outside = sum(size(t) for k, v in params.items() if k not in groups
+                  for t in tree_leaves(v))
+    one_block = 0
+    for k in groups:
+        if k in params:
+            leaves = tree_leaves(params[k])
+            n = leaves[0].shape[0] * (leaves[0].shape[1] if k in ("locals", "rec", "selfs")
+                                      else 1)
+            one_block = max(one_block, sum(size(t) for t in leaves) // n)
+    return outside + one_block
+
+
+def _tp_leaves_local(tree, pls) -> bool:
+    """Every DTensor's local tensor has the shape of its own shard."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from repro_torch.launch import steps as ST
+    from repro_torch.tree import tree_leaves
+    for x, pl in zip(tree_leaves(tree), tree_leaves(pls, is_leaf=ST._is_pl)):
+        want, _ = compute_local_shape_and_global_offset(x.shape, x.device_mesh, pl)
+        if tuple(x.to_local().shape) != tuple(want):
+            return False
+    return True
+
+
+def rules_for_arch(arch: str, rules):
+    """The rules of ``arch``'s cases: the MoE routes the batch its rank
+    computes (capacity and load-balancing loss), where the reference's
+    GSPMD step routes the global batch, so mixtral replicates the batch over
+    data (``dp=()``) and shards only its parameters there (ROADMAP C.13)."""
+    return dataclasses.replace(rules, dp=()) if arch == "mixtral-8x22b" else rules
+
+
+def xent_rank(mesh) -> dict:
+    """The vocab-parallel softmax_xent against the whole-vocab one: each
+    rank's row holds the vocab split over ``model`` (padding columns past
+    ``vocab`` on the last shard)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import layers as L
+    n, vocab, padded = 24, 500, 512
+    g = torch.Generator().manual_seed(5)
+    logits = torch.randn((n, padded), generator=g) * 3.0
+    labels = torch.randint(0, vocab, (n,), generator=g)
+    whole = logits[:, :vocab].clone().requires_grad_(True)
+    want = L.softmax_xent(whole, labels)
+    (want_g,) = torch.autograd.grad(want, whole)
+    r, m = mesh.get_coordinate()[1], mesh.size(1)
+    v_loc = padded // m
+    mine = logits[:, r * v_loc:(r + 1) * v_loc].clone().requires_grad_(True)
+    with tp.model_parallel(mesh, (1,)):
+        got = L.softmax_xent(mine, labels, vocab=vocab)
+    (got_g,) = torch.autograd.grad(got, mine)
+    want_mine = torch.zeros_like(got_g)
+    cols = min(vocab, (r + 1) * v_loc) - r * v_loc
+    want_mine[:, :cols] = want_g[:, r * v_loc:r * v_loc + cols]
+    return {"loss": (float(got), float(want)), "grad": (got_g, want_mine)}
 
 
 def _train_batch(arch: str, seed: int) -> dict:
@@ -106,10 +186,11 @@ def steps_rank(rank: int, inputs: dict) -> dict:
     """One rank of the world: every case, this rank's results."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Replicate
     from repro_torch.configs.registry import get_smoke
     from repro_torch.core import backend
     from repro_torch.distributed.sharding import DEFAULT_RULES as R, redistribute
+    from repro_torch.distributed.tensor_parallel import ParamGather
     from repro_torch.launch import specs as S
     from repro_torch.launch import steps as ST
     from repro_torch.launch.serve import serving_engine_config
@@ -123,26 +204,41 @@ def steps_rank(rank: int, inputs: dict) -> dict:
     d = mesh.get_coordinate()[0]
     out = {"train": {}, "serve": {}}
 
-    for arch, cast in [(a, False) for a in TRAIN_ARCHS] + [("flux-mmdit", True)]:
-        cfg = get_smoke(arch)
-        model = get_model(cfg)
+    gc.disable()                  # a step's gather must not outlive it, cycle or not
+    for arch, cast, remat in TRAIN_CASES:
+        cfg = dataclasses.replace(get_smoke(arch), remat=remat)
+        model, rules = get_model(cfg), rules_for_arch(arch, R)
         fn, _, in_pl, out_pl = ST.build_train_step(
-            cfg, ShapeSpec("t", TRAIN_SEQ[arch], TRAIN_B, "train"), mesh, R,
+            cfg, ShapeSpec("t", TRAIN_SEQ[arch], TRAIN_B, "train"), mesh, rules,
             opt_cfg=AdamWConfig(**OPT), cast_params_bf16=cast, dtype=torch.float32)
         params = _torch(inputs["params"][arch])
-        p = reshard_state(params, model.param_specs(), mesh, R)
-        o = reshard_state(adamw_init(params), adamw_state_specs(model.param_specs()), mesh, R)
-        metrics = []
+        p = reshard_state(params, model.param_specs(), mesh, rules)
+        o = reshard_state(adamw_init(params), adamw_state_specs(model.param_specs()), mesh,
+                          rules)
+        metrics, gathered = [], []
         for i in range(TRAIN_STEPS):
             b = reshard_state(_torch(inputs["train_batches"][arch][i]),
-                              S.train_batch_logical(cfg), mesh, R)
+                              S.train_batch_logical(cfg), mesh, rules)
             p, o, m = fn(p, o, b)
             metrics.append((float(m["loss"].to_local()), float(m["grad_norm"].to_local())))
+            gathered.append(fn.stats["max_gathered_bytes"])
         laid_out = all(list(x.placements) == pl for x, pl in
                        zip(*(tree_leaves(t, is_leaf=ST._is_pl) for t in (p, out_pl[0]))))
-        out["train"][(arch, cast)] = {"metrics": metrics, "params": tree_map(whole, p),
-                                      "laid_out": laid_out,
-                                      "step": int(o["step"].to_local())}
+        # AdamW's first moment of the leaves replicated over model: the
+        # gradients, which every rank of a row must hold alike.
+        replicated = [x.to_local() for x, pl in
+                      zip(tree_leaves(o["mu"]), tree_leaves(out_pl[0], is_leaf=ST._is_pl))
+                      if pl[1] == Replicate()]
+        bound = gather_bound(params, model.block_groups(), torch.bfloat16 if cast else None)
+        out["train"][(arch, cast, remat)] = {
+            "metrics": metrics, "params": tree_map(whole, p), "laid_out": laid_out,
+            "local_shards": _tp_leaves_local(p, out_pl[0]),
+            "step": int(o["step"].to_local()), "replicated_mu": replicated,
+            "gathered": gathered, "gather_bound": bound,
+            "tp_replicated": fn.stats["tp_replicated"]}
+        del fn, p, o, b, m
+    out["gathers_alive"] = sum(isinstance(x, ParamGather) for x in gc.get_objects())
+    gc.enable()
 
     # The DiT step: Update, then Dispatch on the states it returned.
     cfg, ecfg = get_smoke("flux-mmdit"), serving_engine_config()
@@ -178,6 +274,7 @@ def steps_rank(rank: int, inputs: dict) -> dict:
         finally:
             for name in DISPATCH_KERNELS:
                 setattr(backend, name, kept[name])
+        gathered = (fn.stats["max_gathered_bytes"], gather_bound(params, dit.BLOCK_GROUPS))
         v1, one = dit.denoise_step(params, cfg, ecfg, one, x["x_vision"][sl],
                                    x["text_emb"][sl], x["t"][sl], mode=mode, dtype=torch.float32)
         local = [ST._state_from_tree(tree_map(ST._to_local, ST._state_tree(s), compute,
@@ -185,32 +282,36 @@ def steps_rank(rank: int, inputs: dict) -> dict:
         dit_out[mode] = {"v": whole(v), "v_equal": torch.equal(v.to_local(), v1),
                          "states_equal": _states_equal(local, one),
                          "v_placements": list(v.placements) == out_pl[0],
-                         "calls": dict(calls)}
+                         "calls": dict(calls), "gathered": gathered}
     out["dit"] = dit_out
 
     for arch in SERVE_ARCHS:
         cfg = get_smoke(arch)
-        model = get_model(cfg)
+        model, rules = get_model(cfg), rules_for_arch(arch, R)
         params = _torch(inputs["params"][arch])
-        p = reshard_state(params, model.param_specs(), mesh, R)
+        p = reshard_state(params, model.param_specs(), mesh, rules)
         pre, _, _, _ = ST.build_prefill_step(cfg, ShapeSpec("p", PROMPT, SERVE_B, "prefill"),
-                                             mesh, R, dtype=torch.float32)
-        dec, _, _, _ = ST.build_decode_step(cfg, ShapeSpec("d", MAX_LEN, SERVE_B, "decode"),
-                                            mesh, R, dtype=torch.float32)
+                                             mesh, rules, dtype=torch.float32)
+        dec, _, dec_pl, _ = ST.build_decode_step(
+            cfg, ShapeSpec("d", MAX_LEN, SERVE_B, "decode"), mesh, rules, dtype=torch.float32)
         batch = reshard_state(_torch(inputs["serve_batches"][arch]),
-                              S.prefill_batch_logical(cfg), mesh, R)
+                              S.prefill_batch_logical(cfg), mesh, rules)
         logits = pre(p, batch)
-        rec = {"prefill": whole(logits), "decode": [], "tokens": []}
+        bound = gather_bound(params, model.block_groups())
+        rec = {"prefill": whole(logits), "decode": [], "tokens": [],
+               "gathered": [(pre.stats["max_gathered_bytes"], bound)]}
         cache = reshard_state(model.init_cache(SERVE_B, MAX_LEN, torch.float32, device="cpu"),
-                              model.cache_specs(), mesh, R)
+                              model.cache_specs(), mesh, rules)
         tok = logits.to_local().argmax(-1).to(torch.int32)
         for pos in range(DECODE_STEPS):
-            tok_d = ST._dtensor(tok, mesh, [Shard(0), Replicate()], (SERVE_B,))
+            tok_d = ST._dtensor(tok, mesh, dec_pl[2], (SERVE_B,))
             rec["tokens"].append(whole(tok_d))
             logits, cache = dec(p, cache, tok_d, pos)
             rec["decode"].append(whole(logits))
+            rec["gathered"].append((dec.stats["max_gathered_bytes"], bound))
             tok = logits.to_local().argmax(-1).to(torch.int32)
         out["serve"][arch] = rec
+    out["xent"] = xent_rank(mesh)
 
     # Rank 1 hands in one parameter laid out otherwise than the step says.
     cfg = get_smoke("gemma3-1b")
@@ -405,13 +506,14 @@ def _references(inputs, local) -> dict:
     return ref
 
 
-@pytest.mark.parametrize("arch", TRAIN_ARCHS)
-def test_train_step_matches_unsharded_and_the_reference(runs, arch):
+@pytest.mark.parametrize("arch, remat", [pytest.param(a, False, id=a) for a in TRAIN_ARCHS]
+                         + [pytest.param("gemma3-1b", True, id="gemma3-1b-remat")])
+def test_train_step_matches_unsharded_and_the_reference(runs, arch, remat):
     import jax
     from repro_torch.tree import tree_flatten
     world, local, ref = runs
-    got = [r["train"][(arch, False)] for r in world]
-    assert all(g["laid_out"] and g["step"] == TRAIN_STEPS for g in got)
+    got = [r["train"][(arch, False, remat)] for r in world]
+    assert all(g["laid_out"] and g["local_shards"] and g["step"] == TRAIN_STEPS for g in got)
     assert all(g["metrics"] == got[0]["metrics"] for g in got)
     leaves = [tree_flatten(g["params"])[0] for g in got]
     assert all(torch.equal(a, b) for other in leaves[1:] for a, b in zip(other, leaves[0]))
@@ -428,7 +530,7 @@ def test_train_step_with_bf16_params_matches_the_reference(runs):
     import jax
     from repro_torch.tree import tree_flatten
     world, _, ref = runs
-    got = world[0]["train"][("flux-mmdit", True)]
+    got = world[0]["train"][("flux-mmdit", True, False)]
     ref_metrics, ref_params = ref["train"][("flux-mmdit", True)]
     _close(np.array(got["metrics"]), ref_metrics, **BF16_TOL)
     for a, c in zip(tree_flatten(got["params"])[0], jax.tree.leaves(ref_params)):
@@ -457,6 +559,46 @@ def test_prefill_and_decode_match_unsharded_and_the_reference(runs, arch):
         _close(got["decode"][pos], jref["decode"][pos], **TOL)
     assert torch.equal(got["decode"][-1].argmax(-1), want["decode"][-1].argmax(-1))
     _close(got["prefill"], jref["prefill"], **TOL)
+
+
+@pytest.mark.parametrize("arch, cast, remat", TRAIN_CASES)
+def test_train_step_gathers_a_block_at_a_time_and_rows_agree(runs, arch, cast, remat):
+    """At most one block whole plus the non-block leaves gathered at once;
+    the gradients of the leaves replicated over model alike on both ranks of
+    each row (world ranks 2d and 2d+1 form row d)."""
+    world = runs[0]
+    for r in world:
+        rec = r["train"][(arch, cast, remat)]
+        assert all(0 < n <= rec["gather_bound"] for n in rec["gathered"]), rec["gathered"]
+        assert rec["tp_replicated"] == []
+    for d in range(MESH[0]):
+        a, b = (world[2 * d + j]["train"][(arch, cast, remat)]["replicated_mu"]
+                for j in range(2))
+        assert a and len(a) == len(b)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_train_steps_leave_no_gather_behind(runs):
+    """With the cyclic gc off, no step's ParamGather (nor the parameter
+    shards it holds) outlives the step."""
+    assert all(r["gathers_alive"] == 0 for r in runs[0])
+
+
+def test_serving_steps_gather_a_block_at_a_time(runs):
+    for r in runs[0]:
+        for mode in ("update", "dispatch"):
+            n, bound = r["dit"][mode]["gathered"]
+            assert 0 < n <= bound, (mode, n, bound)
+        for arch in SERVE_ARCHS:
+            assert all(0 < n <= bound for n, bound in r["serve"][arch]["gathered"]), arch
+
+
+def test_vocab_parallel_xent_matches_the_whole_vocab(runs):
+    for r in runs[0]:
+        got, want = r["xent"]["loss"]
+        _close(np.float32(got), np.float32(want), **XENT_TOL)
+        g, w = r["xent"]["grad"]
+        _close(g, w.numpy(), **XENT_TOL)
 
 
 def test_ranks_that_disagree_on_a_placement_all_raise(runs):
