@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Twenty-one paths run, each with the launch counts set to 0 just before it
+Twenty-three paths run, each with the launch counts set to 0 just before it
 and read just after: T1 (training flux-mmdit at full width and 2 blocks,
 the engine off: no kernel may launch), L-train (training gemma3-1b at full
 width with remat on and off: no kernel), L1-L6 (the LMs gemma3-1b,
@@ -11,13 +11,16 @@ granite-moe-3b-a800m, mamba2-370m, recurrentgemma-2b, whisper-large-v3 and
 llama-3.2-vision-11b served at full width: they reach no kernel, so none
 may launch), long_context (the long-context sparse decode: no kernel),
 sharding (the sharding modules on two ranks: no kernel), S2 (T1's
-training step sharded over two ranks by ``launch/steps``: no kernel), S3
+training step sharded over two ranks by ``launch/steps``: no kernel),
+S2-moe (mixtral smoke's train step with its batch split over two ranks:
+no kernel), S3
 (a 2-block flux-mmdit denoise step sharded over two ranks, Update then
 Dispatch: GEMM-Q, CSR attention, GEMM-O, counted in each rank), S4
 (gemma3-1b's prefill and decode steps sharded over two ranks: no kernel),
 S4-tp (S4 with the model axis split over the two ranks: no kernel), S5
 (gemma3-1b trained at full width with the model axis split over two
-ranks: no kernel),
+ranks: no kernel), S3-tp (S3's cell with the model axis split over the
+two ranks: GEMM-Q, CSR attention, GEMM-O on each rank's heads),
 P1
 (``flashomni``, uniform layout: GEMM-Q, CSR attention, GEMM-O), P2
 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2 buckets:
@@ -155,9 +158,8 @@ final line):
  13. mesh     — plan-sharded Dispatch, every rank a process of its own on
                 the card over ``gloo`` (the kernels built before any rank
                 starts).  The layer cell: one flux-width Dispatch layer (B 2)
-                on mesh (2, 4), seq mode with flashomni at 1 bucket and
-                pair slack 1.5 (the clamp the identity) and at 3 buckets and
-                0.5 (it binds), head mode; each
+                on mesh (2, 4), seq mode with flashomni at 3 buckets and
+                pair slack 0.5 (the clamp binds), head mode; each
                 ``torch.equal`` to the single-device Dispatch on every
                 rank, B2 launched on every rank and its call at the shard's
                 shapes (Q compact and replicated, K/V the exchange buffer,
@@ -201,8 +203,23 @@ final line):
                 model axis split: loss, grad_norm and every gradient
                 (AdamW's first moment) within 1e-4 of the unsharded step,
                 run first in this process and kept on the host; step s by
-                part, peer bytes, peak a rank; no kernel.  Every step
-                gathers one block at a time (``max_gathered_bytes``);
+                part, peer bytes, peak a rank; no kernel.  S2-moe,
+                mixtral-8x22b smoke trained one step on mesh (2, 1), its
+                batch split over data, so the MoE routes the global batch
+                across the ranks: loss, grad_norm and parameters within
+                1e-4 of the unsharded step; no kernel.  S3-tp, S3's cell
+                on mesh (1, 2), the model row split (12 of 24 heads a
+                rank): the symbols and integer plan fields ``torch.equal``
+                to the unsharded batch-2 step's (else a witness: the first
+                differing field must follow a Q/K difference), ``v``
+                within rel-L2 1e-4, B1-B3 once a layer a rank at Dispatch
+                and never at Update, nothing computed replicated, B3's
+                first call over its head range against its plain version
+                and the two ranks' B3 partials summed against one B3 over
+                every head (1e-4); Update and Dispatch seconds, row
+                collectives a step, ``max_gathered_bytes``, peak a rank.
+                Every step gathers one block at a time
+                (``max_gathered_bytes``);
                 S2's and S3's peaks are printed beside 14.35 / 6.68 GB,
                 their peaks when every leaf was gathered whole;
  15. dense    — P1's request under ``force_dense`` on the same weights and
@@ -245,9 +262,9 @@ final line):
                 f32 peak, S2's peak a rank and wire bytes a step (world 2,
                 mesh (2, 1)) against S2's peak and the bytes a rank copied
                 from its peer, S3's Dispatch holding B1-B3 once a layer at
-                capacity as S3 launched them, S5's peak a rank (world 2,
-                mesh (1, 2)) against S5's (each prediction within 2x of
-                its measurement); then the planning cell, flux-mmdit at all
+                capacity as S3 launched them, S5's and S3-tp's Dispatch
+                peak a rank (world 2, mesh (1, 2)) against S5's and
+                S3-tp's (each prediction within 2x of its measurement); then the planning cell, flux-mmdit at all
                 38 blocks trained as T1 is, FSDP over 4 ranks, batch 1 a
                 rank: its peak a rank and whether it fits 80 GB.
 
@@ -1669,12 +1686,14 @@ def sharding_rank(rank: int, s5_ref: str) -> dict:
            "launches": {fn.__name__: fn.launches for fn in KERNELS},
            "S1_s": time.perf_counter() - t_rank}
     out["S2"] = s2_rank(mesh)
+    out["S2moe"] = s2moe_rank(mesh)
     out["S3"] = s3_rank(mesh)
     out["S4"] = s4_rank(mesh)
     row = DeviceMesh(DEVICE, torch.arange(world).reshape(S5_MESH),
                      mesh_dim_names=("data", "model"))
     out["S4tp"] = s4_rank(row)
     out["S5"] = s5_rank(row, s5_ref)
+    out["S3tp"] = s3tp_rank(row)
     return out
 
 
@@ -1712,6 +1731,23 @@ def sharding_rank(rank: int, s5_ref: str) -> dict:
 # largest magnitude on every rank's shard; no kernel.  S2's and S3's peaks
 # a rank are printed beside their peaks with every parameter gathered
 # whole (S2_PEAK_BEFORE_GB, S3_PEAK_BEFORE_GB, on the H100 at 700 W).
+# S2-moe (ROADMAP C.13): mixtral-8x22b smoke (f32), one step of
+# build_train_step on mesh (2, 1), its batch split over data (dp 2, so the
+# MoE routes the global batch across the ranks), against the unsharded step
+# on the global batch on each rank (adamw_update on the whole tree): loss,
+# grad_norm and every parameter within S2MOE_REL (of the largest
+# magnitude); no kernel.  S3-tp: S3's cell on mesh (1, 2), the model row
+# split (12 of 24 heads a rank: B1 on its wq columns, B2 on its heads, B3
+# over its head range, the partials summed over the row), Update then
+# Dispatch, against the unsharded batch-2 step: the symbols and every
+# integer plan field torch.equal (else the first differing layer and field,
+# which must follow a Q/K difference there: the ranks' Update Q/K against
+# the unsharded Q/K of their heads, as C1's witness), v within
+# S3TP_REL_L2; B1-B3 once a layer a rank at Dispatch, none at Update, no
+# layer replicated; B3's first call against its plain version over the same
+# head range, and the two ranks' B3 partials summed against one B3 over all
+# 24 heads (S3TP_B3_TOL).  Its time is not a speed: the row's collectives go
+# through CUDA IPC and gloo on one card (ROADMAP C.12).
 S2 = dict(n_layers=2, batch=2, seq_len=4096, steps=2)
 S2_REL = 1e-4
 S3 = dict(n_layers=2, batch=2, n_vision=4096)
@@ -1723,6 +1759,10 @@ S5 = dict(arch="gemma3-1b", batch=1, seq_len=4096)
 S5_MESH = (1, 2)
 S5_REL = 1e-4
 S2_PEAK_BEFORE_GB, S3_PEAK_BEFORE_GB = 14.35, 6.68
+S2MOE = dict(arch="mixtral-8x22b", batch=2, seq_len=64)
+S2MOE_REL = 1e-4
+S3TP_REL_L2 = 1e-4
+S3TP_B3_TOL = 1e-4
 
 
 def _launches() -> dict:
@@ -1902,6 +1942,266 @@ def s3_rank(mesh) -> dict:
             "finite": bool(torch.isfinite(v).all())}
         one, two = list(one), list(two)
     del run, p, x, states, params, one, two
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_cell
+    return res
+
+
+def s2moe_rank(mesh) -> dict:
+    """S2-moe on one rank: one sharded train step of mixtral smoke with its
+    batch split over data, then the unsharded step on the global batch."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.specs import train_batch_logical
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizer import (AdamWConfig, adamw_init, adamw_state_specs,
+                                             adamw_update)
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+    t_cell = time.perf_counter()
+    cfg = get_smoke(S2MOE["arch"])
+    model = get_model(cfg)
+    b, n = S2MOE["batch"], S2MOE["seq_len"]
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    params = model.init_params(g, DEVICE)
+    tok = lambda: torch.randint(0, cfg.vocab, (b, n), generator=g, device=DEVICE,
+                                dtype=torch.int32)
+    batch = {"tokens": tok(), "labels": tok()}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    fn = build_train_step(cfg, ShapeSpec("S2moe", n, b, "train"), mesh, R, opt_cfg=opt,
+                          dtype=torch.float32)[0]
+    p = reshard_state(params, model.param_specs(), mesh, R)
+    o = reshard_state(adamw_init(params), adamw_state_specs(model.param_specs()), mesh, R)
+    bd = reshard_state(batch, train_batch_logical(cfg), mesh, R)
+    reset_launches()
+    t0 = time.perf_counter()
+    p, o, m = fn(p, o, bd)
+    torch.cuda.synchronize()
+    res = {"config": {**S2MOE, "mesh": list(mesh.mesh.shape)},
+           "step_s": time.perf_counter() - t0, "launches": _launches(),
+           "loss": float(m["loss"].to_local()), "grad_norm": float(m["grad_norm"].to_local())}
+    leaves, tdef = tree_flatten(params)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss = model.train_loss(tree_unflatten(tdef, leaves), batch, dtype=torch.float32)
+    grads = tree_unflatten(tdef, list(torch.autograd.grad(loss, leaves)))
+    want, _, gnorm = adamw_update(grads, adamw_init(params), params, opt)
+    loss = float(loss.detach())
+    res["loss_rel"] = abs(res["loss"] - loss) / abs(loss)
+    res["grad_norm_rel"] = abs(res["grad_norm"] - float(gnorm)) / abs(float(gnorm))
+    got = [_whole(x) for x in tree_leaves(p)]
+    res["param_rel"] = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                           for a, c in zip(got, tree_leaves(want)))
+    res["seconds"] = time.perf_counter() - t_cell
+    return res
+
+
+def first_b3_call(run):
+    """``run()`` with the engine backend's B3 wrapper kept, as it launches,
+    with the inputs and output of its first call copied to the host (so
+    the step's peak holds none of them; None if B3 did not run)."""
+    from repro_torch.core import backend
+    kern, seen = backend.gemm_o_sparse_kernel, []
+
+    def keep(*args, **kw):
+        out = kern(*args, **kw)
+        if not seen:
+            seen.append((tuple(a.cpu() for a in args), kw, out.cpu()))
+        return out
+
+    backend.gemm_o_sparse_kernel = keep
+    try:
+        return run(), (seen[0] if seen else None)
+    finally:
+        backend.gemm_o_sparse_kernel = kern
+
+
+def b3_range_work(call) -> dict:
+    """The work of a kept B3 call over its head range, in the keys of
+    ``analysis.cost_model.kernel_cost``: the live (row, head) pairs and the
+    heads used inside the range (the lists, whole, are read all the same)."""
+    import torch
+    (o, w, bias, row_ids, head_ids, head_cnt), kw, _ = call
+    b, h, n, dh = o.shape
+    hp, lo = head_ids.shape[-1], kw["h_lo"]
+    listed = torch.arange(hp, device=o.device) < head_cnt[..., None]
+    mine = listed & (head_ids >= lo) & (head_ids < lo + h)
+    return {"live_heads": int(mine.sum()),
+            "heads_used": int(torch.unique(head_ids[mine]).numel()),
+            "block": kw["block_rows"], "dh": dh, "f": w.shape[-1], "b": b, "n": n,
+            "cr": row_ids.shape[-1], "h": hp}
+
+
+def b3_range_checks(call, mesh) -> dict:
+    """A rank's first B3 call over its head range against the plain
+    version, timed (each rank in turn, the other waiting) beside its bound
+    on the range's live heads; and the row's partials summed against one B3
+    over every head (its inputs gathered over the row: O and W by heads, the
+    bias rank 0's, the one that holds the forecast)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import gemm_o_sparse_kernel
+    from repro_torch.kernels.ref import gemm_o_ref
+    (o, w, bias, row_ids, head_ids, head_cnt), kw, out = call
+    o, w, bias, row_ids, head_ids, head_cnt, out = (
+        t.to(DEVICE) for t in (o, w, bias, row_ids, head_ids, head_cnt, out))
+    call = ((o, w, bias, row_ids, head_ids, head_cnt), kw, out)
+    group = mesh.get_group("model")
+    m, me = dist.get_world_size(group), dist.get_rank(group)
+    timed_row = None
+    for turn in range(m):
+        dist.barrier(group)
+        if turn == me:
+            timed_row = measure(
+                "gemm_o_sparse_kernel", str(o.dtype).removeprefix("torch."),
+                lambda: gemm_o_sparse_kernel(o, w, bias, row_ids, head_ids, head_cnt, **kw),
+                lambda: gemm_o_ref(o, w, bias, row_ids, head_ids, head_cnt,
+                                   block=kw["block_rows"], h_lo=kw["h_lo"]),
+                None, b3_range_work(call), peaks_for(torch.cuda.get_device_name(0)))
+        torch.cuda.synchronize()
+    want = gemm_o_ref(o, w, bias, row_ids, head_ids, head_cnt, block=kw["block_rows"],
+                      h_lo=kw["h_lo"])
+    err = (out.float() - want.float()).abs()
+    parts = lambda x: [torch.empty_like(x) for _ in range(m)]
+    outs, os_, ws = parts(out), parts(o), parts(w)
+    dist.all_gather(outs, out.contiguous(), group=group)
+    dist.all_gather(os_, o.contiguous(), group=group)
+    dist.all_gather(ws, w.contiguous(), group=group)
+    bias0 = bias.clone()
+    dist.broadcast(bias0, dist.get_global_rank(group, 0), group=group)
+    whole = gemm_o_sparse_kernel(torch.cat(os_, dim=1), torch.cat(ws), bias0, row_ids, head_ids,
+                                 head_cnt, block_rows=kw["block_rows"])
+    summed = (sum(x.float() for x in outs) - whole.float()).abs()
+    tol = lambda e, ref: float((e / (S3TP_B3_TOL + S3TP_B3_TOL * ref.float().abs())).max())
+    return {"o": list(o.shape), "w": list(w.shape), "h_lo": kw["h_lo"],
+            "heads_listed": head_ids.shape[-1], "max_abs_err": float(err.max()),
+            "tol_share": tol(err, want), "summed_max_abs_err": float(summed.max()),
+            "summed_tol_share": tol(summed, whole), "tolerance": S3TP_B3_TOL,
+            "finite": bool(torch.isfinite(out).all()),
+            "timed": {k: timed_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "flops", "bytes")},
+            "work": b3_range_work(call)}
+
+
+def s3tp_rank(mesh) -> dict:
+    """S3-tp on one rank: the unsharded batch-2 Update and Dispatch steps
+    first (what the checks need kept on the host), then S3's cell with the
+    model row split, each step's peak taken with only the step's own
+    tensors and its inputs alive on the card."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import engine as E
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.launch.specs import dit_inputs_logical
+    from repro_torch.models import dit
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=S3["n_layers"])
+    ecfg = serving_engine_config()
+    b, n_tok = S3["batch"], S3["n_vision"] + cfg.n_text_tokens
+    shape = ShapeSpec("S3tp", n_tok, b, "serve")
+    t_cell = time.perf_counter()
+    torch.cuda.empty_cache()
+    h = cfg.n_heads // mesh.size(1)
+    hs = slice(mesh.get_coordinate()[1] * h, (mesh.get_coordinate()[1] + 1) * h)
+    row_calls = {"sum": 0, "all_gather": 0}
+    kept_row = {k: getattr(TP._Row, k) for k in row_calls}
+    kept_qk, qk = E._qk, {"split": [], "whole": []}
+
+    def counted(name):
+        def call(self, *a, **kw):
+            row_calls[name] += 1
+            return kept_row[name](self, *a, **kw)
+        return call
+
+    def keep_qk(into, heads):
+        def call(*a, **kw):
+            q, k = kept_qk(*a, **kw)
+            qk[into].append((q[:, heads].cpu(), k[:, heads].cpu()))
+            return q, k
+        return call
+
+    params, xe, text, t = profile_inputs(cfg, b, S3["n_vision"])
+    params = tree_map(lambda w: w.to(torch.bfloat16), params)
+    want, two = {}, dit.init_engine_states(cfg, ecfg, b, n_tok, DEVICE)
+    for mode in ("update", "dispatch"):
+        E._qk = keep_qk("whole", hs) if mode == "update" else kept_qk
+        try:
+            v2, two = dit.denoise_step(params, cfg, ecfg, two, xe, text, t, mode=mode,
+                                       dtype=torch.float32)
+        finally:
+            E._qk = kept_qk
+        two = list(two)
+        want[mode] = {"v": v2.cpu(), "ints": [[a.cpu() for a in _int_fields(st)] for st in two]}
+    del two, v2
+    # The step's inputs own their memory (a narrowing reshard is a view of
+    # the whole tensor), so only they are alive on the card at its call.
+    own = lambda tree: tree_map(lambda d: ST._dtensor(d.to_local().clone(), mesh, d.placements,
+                                                      d.shape), tree)
+    p = own(reshard_state(params, dit.param_specs(cfg), mesh, R))
+    x = own(reshard_state({"x_vision": xe, "text_emb": text, "t": t}, dit_inputs_logical(cfg),
+                          mesh, R))
+    spec = dit.engine_state_specs(cfg, ecfg)
+    states = [ST._state_from_tree(own(ST._state_tree(st)), st) for st in ST.place_states(
+        dit.init_engine_states(cfg, ecfg, b, n_tok, DEVICE), spec, mesh, R)]
+    del params, xe, text, t
+    torch.cuda.empty_cache()
+    compute = ST._compute_placements(ST._state_tree(spec), mesh, R)
+    local = lambda sts: [ST._state_from_tree(tree_map(ST._to_local, ST._state_tree(s), compute,
+                                                      is_leaf=ST._is_pl), s) for s in sts]
+    res = {"mesh": list(mesh.mesh.shape),
+           "block_gb_a_rank": sum(y.to_local().nbytes for y in tree_leaves(p["blocks"]))
+           / S3["n_layers"] / 1e9}
+    call = None
+    for mode in ("update", "dispatch"):
+        fn = ST.build_dit_step(cfg, shape, mesh, R, mode=mode, ecfg=ecfg,
+                               dtype=torch.float32)[0]
+        for k in row_calls:
+            row_calls[k] = 0
+            setattr(TP._Row, k, counted(k))
+        E._qk = keep_qk("split", slice(None)) if mode == "update" else kept_qk
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        entry = torch.cuda.memory_allocated() / 1e9
+        try:
+            t0 = time.perf_counter()
+            (v, states), call = first_b3_call(lambda: fn(p, states, x))
+            sec = time.perf_counter() - t0
+        finally:
+            E._qk = kept_qk
+            for k, f in kept_row.items():
+                setattr(TP._Row, k, f)
+        peak, launches = _peak_gb(), _launches()
+        mine, w = local(states), want[mode]
+        first = next(((li, fi) for li, (a_st, w_st) in enumerate(zip(mine, w["ints"]))
+                      for fi, (a, c) in enumerate(zip(_int_fields(a_st), w_st))
+                      if not torch.equal(a.cpu(), c)), None)
+        vl = v.to_local().float().cpu()
+        res[mode] = {
+            "s": sec, **fn.stats, "entry_gb": entry, "peak_gb": peak, "launches": launches,
+            "row_collectives": dict(row_calls),
+            "int_fields": sum(len(_int_fields(st)) for st in mine),
+            "first_int_difference": first,
+            "rel_l2": float((vl - w["v"].float()).norm() / w["v"].float().norm()),
+            "finite": bool(torch.isfinite(vl).all())}
+        del mine, v
+    res["peak_gb"] = max(res[m]["peak_gb"] for m in ("update", "dispatch"))
+    res["update"]["qk_diff"] = [
+        max(float((qs - qw).abs().max()), float((ks - kw_).abs().max()))
+        for (qs, ks), (qw, kw_) in zip(qk["split"], qk["whole"])]
+    res["b3"] = b3_range_checks(call, mesh)
+    del p, x, states, call, qk, want
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_cell
     return res
@@ -2091,7 +2391,8 @@ def phase_sharding() -> tuple[dict, dict]:
     or a check of S2-S5 fails.  S5's unsharded step runs here first, its
     results kept in a file on the host for the ranks.  Returns the launch
     counts of the paths ``sharding`` (S1), S2, S3 (its Update and Dispatch
-    steps), S4, S4-tp and S5, each rank 0's, and rank 0's record."""
+    steps), S2-moe, S3-tp, S4, S4-tp and S5, each rank 0's, and rank 0's
+    record."""
     import tempfile
     import torch
     torch.cuda.empty_cache()
@@ -2119,11 +2420,34 @@ def phase_sharding() -> tuple[dict, dict]:
     faults += sharding_step_faults(ranks)
     if faults:
         raise AssertionError("sharding: " + "; ".join(faults))
-    s3 = {name: n + ranks[0]["S3"]["dispatch"]["launches"][name]
-          for name, n in ranks[0]["S3"]["update"]["launches"].items()}
-    return {"sharding": ranks[0]["launches"], "S2": ranks[0]["S2"]["launches"], "S3": s3,
+    both = lambda rec: {name: n + rec["dispatch"]["launches"][name]
+                        for name, n in rec["update"]["launches"].items()}
+    return {"sharding": ranks[0]["launches"], "S2": ranks[0]["S2"]["launches"],
+            "S2moe": ranks[0]["S2moe"]["launches"], "S3": both(ranks[0]["S3"]),
+            "S3tp": both(ranks[0]["S3tp"]),
             "S4": ranks[0]["S4"]["launches"], "S4tp": ranks[0]["S4tp"]["launches"],
             "S5": ranks[0]["S5"]["launches"]}, ranks[0]
+
+
+def s3tp_faults(r) -> list:
+    """The failed checks of one rank's S3-tp (the witness of an integer
+    difference is checked over the ranks in :func:`sharding_step_faults`)."""
+    rank, t3, faults = r["rank"], r["S3tp"], []
+    want = {name: S3["n_layers"] if name in P1_KERNELS else 0 for name in SOURCES}
+    if t3["dispatch"]["launches"] != want:
+        faults.append(f"rank {rank}: S3-tp Dispatch launches {t3['dispatch']['launches']}")
+    for mode in ("update", "dispatch"):
+        m = t3[mode]
+        if not (m["rel_l2"] <= S3TP_REL_L2 and m["finite"]):
+            faults.append(f"rank {rank}: S3-tp {mode} rel-L2 {m['rel_l2']:.2e} against the "
+                          "unsharded batch-2 step")
+        if m["tp_replicated"]:
+            faults.append(f"rank {rank}: S3-tp {mode} computed replicated: "
+                          f"{m['tp_replicated']}")
+    b3 = t3["b3"]
+    if not (b3["finite"] and b3["tol_share"] <= 1 and b3["summed_tol_share"] <= 1):
+        faults.append(f"rank {rank}: S3-tp B3 over its head range {b3}")
+    return faults
 
 
 def sharding_step_faults(ranks) -> list:
@@ -2146,9 +2470,18 @@ def sharding_step_faults(ranks) -> list:
             faults.append(f"rank {rank}: S2 loss/grad_norm differ from rank 0's")
         for path, launches in (("S2", s2["launches"]), ("S4", s4["launches"]),
                                ("S4-tp", r["S4tp"]["launches"]), ("S5", s5["launches"]),
-                               ("S3 update", s3["update"]["launches"])):
+                               ("S3 update", s3["update"]["launches"]),
+                               ("S2-moe", r["S2moe"]["launches"]),
+                               ("S3-tp update", r["S3tp"]["update"]["launches"])):
             if any(launches.values()):
                 faults.append(f"rank {rank}: {path} launched kernels: {launches}")
+        faults += s3tp_faults(r)
+        moe = r["S2moe"]
+        if not (moe["loss_rel"] <= S2MOE_REL and moe["grad_norm_rel"] <= S2MOE_REL
+                and moe["param_rel"] <= S2MOE_REL):
+            faults.append(f"rank {rank}: S2-moe loss/grad_norm/parameters {moe['loss_rel']:.2e}/"
+                          f"{moe['grad_norm_rel']:.2e}/{moe['param_rel']:.2e} off the "
+                          "unsharded step")
         want = {name: S3_LAUNCHES if name in P1_KERNELS else 0 for name in SOURCES}
         if s3["dispatch"]["launches"] != want:
             faults.append(f"rank {rank}: S3 Dispatch launches {s3['dispatch']['launches']}")
@@ -2173,6 +2506,12 @@ def sharding_step_faults(ranks) -> list:
             faults.append(f"rank {rank}: S5 loss/grad_norm differ from rank 0's")
     if not s3_rel <= S3_REL_L2:
         faults.append(f"S3: rel-L2 {s3_rel:.3e} against the unsharded batch-2 step")
+    firsts = {r["S3tp"]["update"]["first_int_difference"] for r in ranks} - {None}
+    if firsts:
+        layer = min(firsts)[0]
+        if not any(r["S3tp"]["update"]["qk_diff"][layer] > 0 for r in ranks):
+            faults.append(f"S3-tp: an integer field differs first at {min(firsts)} where no "
+                          "rank's Update Q/K differs from the unsharded step's")
     r0 = ranks[0]
     print(f"chip_smoke: S2 peak {r0['S2']['peak_gb']:.2f} GB a rank (whole gather "
           f"{S2_PEAK_BEFORE_GB}), max gathered "
@@ -2181,6 +2520,16 @@ def sharding_step_faults(ranks) -> list:
           f"{r0['S4tp'].get('tokens_equal')}; S5 step {r0['S5']['step_s']:.2f} s, peak "
           f"{[round(r['S5']['peak_gb'], 2) for r in ranks]} GB, gradients "
           f"{r0['S5']['grad_rel']:.2e}", file=sys.stderr, flush=True)
+    t3 = r0["S3tp"]
+    print(f"chip_smoke: S3-tp update {t3['update']['s']:.3f} s, dispatch "
+          f"{t3['dispatch']['s']:.3f} s, max gathered "
+          f"{t3['dispatch']['max_gathered_bytes'] / 1e9:.3f} GB, row collectives "
+          f"{t3['update']['row_collectives']} / {t3['dispatch']['row_collectives']}, peak "
+          f"{t3['peak_gb']:.2f} GB, rel-L2 {t3['dispatch']['rel_l2']:.2e}, first int difference "
+          f"{t3['update']['first_int_difference']}, B3 {t3['b3']['tol_share']:.2e} / summed "
+          f"{t3['b3']['summed_tol_share']:.2e} of tolerance; S2-moe step "
+          f"{r0['S2moe']['step_s']:.2f} s, loss {r0['S2moe']['loss_rel']:.1e}",
+          file=sys.stderr, flush=True)
     print(f"chip_smoke: S2 steps {[round(s['step_s'], 3) for s in ranks[0]['S2']['steps']]} s, "
           f"S3 rel-L2 {s3_rel:.3e}, S4 decode "
           f"{[round(d['s'], 3) for d in ranks[0]['S4']['decode']]} s", file=sys.stderr,
@@ -2361,14 +2710,15 @@ def phase_serve_bucketed() -> tuple[dict, tuple]:
 # test, each case checked on every rank against the single-device Dispatch;
 # a case is (label, strategy, kv_buckets, pair slack, mesh axis).  At
 # slack 1.5 pair_cap = kv_bps = 72 (the clamp is the identity), at 0.5
-# pair_cap = ceil(0.5 * 260 / 4) = 33 and the clamp binds.  Three cases
-# within the script's time limit: 1 and 3 buckets, slack 1.5 and 0.5, and
-# both axes still run (Dispatch never consults the strategy, so the
-# multi-granularity and hunyuan-1.5x plans were cut, with 3 buckets at
-# slack 1.5 and 1 bucket at 0.5, for the dryrun phase, S4-tp and S5).
+# pair_cap = ceil(0.5 * 260 / 4) = 33 and the clamp binds.  Two cases
+# within the script's time limit: the seq axis with 3 buckets at slack 0.5
+# (the clamp binds) and the head axis with 1 bucket (Dispatch never
+# consults the strategy, so the multi-granularity and hunyuan-1.5x plans
+# were cut, with 3 buckets at slack 1.5 and 1 bucket at 0.5, for the
+# dryrun phase, S4-tp and S5, and the seq axis at 1 bucket and slack 1.5
+# for S2-moe and S3-tp).
 MESH_LAYER = (2, 4)
-MESH_CASES = (("seq, flashomni, 1 bucket, slack 1.5", "flashomni", 1, 1.5, "seq"),
-              ("seq, flashomni, 3 buckets, slack 0.5", "flashomni", 3, 0.5, "seq"),
+MESH_CASES = (("seq, flashomni, 3 buckets, slack 0.5", "flashomni", 3, 0.5, "seq"),
               ("head, flashomni, 1 bucket", "flashomni", 1, 1.5, "head"))
 MESH_SEED = 2468
 # M1: P1's request (same seed, weights and noise) served across mesh (1, 2).
@@ -3298,8 +3648,8 @@ F32_FLOPS = 67e12                 # one H100 SXM at 700 W, f32 outside the tenso
 
 
 def dryrun_cells() -> None:
-    """The dry run's predictions of T1, S2, S3's Dispatch and the planning
-    cell, printed as one JSON line (``phase_dryrun`` runs this in a process
+    """The dry run's predictions of T1, S2, S3's Dispatch, S3-tp's Dispatch,
+    S5 and the planning cell, printed as one JSON line (``phase_dryrun`` runs this in a process
     of its own)."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
@@ -3322,6 +3672,16 @@ def dryrun_cells() -> None:
                               mesh_dim_names=("data", "model"))
             return D.record_cell(cfg, shape, mesh, R, dtype=torch.float32, **kw)
 
+    def s3tp_cell():
+        cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=S3["n_layers"])
+        n_tok = S3["n_vision"] + cfg.n_text_tokens
+        with D.fake_world(2):
+            mesh = DeviceMesh("cpu", torch.arange(2).reshape(S5_MESH),
+                              mesh_dim_names=("data", "model"))
+            return D.record_cell(cfg, ShapeSpec("dit", n_tok, S3["batch"], "dit"), mesh, R,
+                                 dtype=torch.float32, mode="dispatch",
+                                 ecfg=serving_engine_config())
+
     def s5_cell():
         cfg = get_config(S5["arch"])
         opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=LTRAIN_STEPS + 1)
@@ -3337,6 +3697,7 @@ def dryrun_cells() -> None:
            "S5": s5_cell(),
            "S2": cell(2, S2["n_layers"], S2["batch"], S2["seq_len"]),
            "S3": cell(2, S3["n_layers"], S3["batch"], S3["n_vision"], mode="dispatch"),
+           "S3tp": s3tp_cell(),
            "plan": cell(DRYRUN_PLAN["world"], DRYRUN_PLAN["n_layers"],
                         DRYRUN_PLAN["world"] * DRYRUN_PLAN["batch_per_rank"], T1["seq_len"]),
            "launches": _launches()}
@@ -3354,10 +3715,11 @@ def start_dryrun() -> tuple:
                              text=True), time.perf_counter())
 
 
-def phase_dryrun(started: tuple, t1: dict, s2: dict, s3: dict, s5: dict) -> dict:
+def phase_dryrun(started: tuple, t1: dict, s2: dict, s3: dict, s5: dict, s3tp: dict) -> dict:
     """The ``dryrun`` phase: the predictions of the process :func:`start_dryrun`
-    started, beside T1's, S2's, S3's and S5's measurements (``t1``, ``s2``,
-    ``s3``, ``s5``: their records, rank 0's for S2, S3 and S5)."""
+    started, beside T1's, S2's, S3's, S5's and S3-tp's measurements (``t1``,
+    ``s2``, ``s3``, ``s5``, ``s3tp``: their records, rank 0's for S2, S3, S5
+    and S3-tp)."""
     import statistics
     proc, t_start = started
     t0 = time.perf_counter()
@@ -3376,7 +3738,8 @@ def phase_dryrun(started: tuple, t1: dict, s2: dict, s3: dict, s5: dict) -> dict
     rows = {"T1 peak_gb": (gb("T1"), t1["peak_mem_gb"]),
             "S2 peak_gb": (gb("S2"), s2["peak_gb"]),
             "S2 bytes a step": (pred["S2"]["wire_bytes"], s2_peer),
-            "S5 peak_gb": (gb("S5"), s5["peak_gb"])}
+            "S5 peak_gb": (gb("S5"), s5["peak_gb"]),
+            "S3-tp Dispatch peak_gb": (gb("S3tp"), s3tp["dispatch"]["peak_gb"])}
     res = {"phase": "dryrun",
            "note": "predicted for one H100 (80 GB) by launch/dryrun on the host (meta "
                    "tensors, a fake world), beside this run's measurements on the card",
@@ -3397,7 +3760,11 @@ def phase_dryrun(started: tuple, t1: dict, s2: dict, s3: dict, s5: dict) -> dict
            "S5": {"collectives": pred["S5"]["collective_bytes"],
                   "argument_gb": pred["S5"]["argument_bytes"] / 1e9,
                   "measured_peer_bytes": s5["peer_bytes"]},
-           "trace_s": {c: pred[c]["trace_s"] for c in ("T1", "S2", "S3", "S5", "plan")},
+           "S3tp": {"predicted_kernels": pred["S3tp"]["kernels"],
+                    "collectives": pred["S3tp"]["collective_bytes"],
+                    "argument_gb": pred["S3tp"]["argument_bytes"] / 1e9,
+                    "measured_max_gathered": s3tp["dispatch"]["max_gathered_bytes"]},
+           "trace_s": {c: pred[c]["trace_s"] for c in ("T1", "S2", "S3", "S5", "S3tp", "plan")},
            "launches": pred["launches"], "seconds": time.perf_counter() - t0,
            "process_s": pred["seconds"], "started_s_before": t0 - t_start}
     emit(res)
@@ -3460,7 +3827,8 @@ def main() -> int:
               plans=("flashomni", "hunyuan-1.5x interior"), dtypes=("float32",),
               with_ops=False, iters=3, phase="kernels_33k")
         timed(phase_profile)
-        timed(phase_dryrun, dry, t1, shard_rank0["S2"], shard_rank0["S3"], shard_rank0["S5"])
+        timed(phase_dryrun, dry, t1, shard_rank0["S2"], shard_rank0["S3"], shard_rank0["S5"],
+              shard_rank0["S3tp"])
     except Exception:                     # report the failing phase, then fail
         traceback.print_exc()
         return 1

@@ -92,12 +92,15 @@ class TorchBackend:
             force_per_row=plan.shd_q_ids is not None)
 
     def gemm_o(self, o_tok, w, plan: DispatchPlan, bias: torch.Tensor, *, block: int,
-               spec: Optional[SparseAttentionSpec] = None) -> torch.Tensor:
+               spec: Optional[SparseAttentionSpec] = None, h_lo: int = 0) -> torch.Tensor:
         """o_tok (B, N, H, dh), w (H, dh, F), bias (B, N, F) -> (B, N, F); the
-        bucket clamp is already in ``plan.head_mask``."""
+        bucket clamp is already in ``plan.head_mask``.  ``o_tok`` and ``w``
+        hold the plan's heads ``[h_lo, h_lo + H)`` (a rank's share of a
+        ``model`` row)."""
         plan = plan.widen()
-        return sparse_gemm.gemm_o_from_plan(o_tok, w, plan.head_mask, plan.row_ids,
-                                            plan.row_cnt, bias, block=block)
+        mask = plan.head_mask[..., h_lo:h_lo + w.shape[0]]
+        return sparse_gemm.gemm_o_from_plan(o_tok, w, mask, plan.row_ids, plan.row_cnt, bias,
+                                            block=block)
 
 
 class KernelBackend:
@@ -141,22 +144,26 @@ class KernelBackend:
         return out.reshape(b, h, n, dh)
 
     def gemm_o(self, o_tok, w, plan: DispatchPlan, bias: torch.Tensor, *,
-               block: int,
-               spec: Optional[SparseAttentionSpec] = None) -> torch.Tensor:
+               block: int, spec: Optional[SparseAttentionSpec] = None,
+               h_lo: int = 0) -> torch.Tensor:
         """o_tok (B, N, H, dh), w (H, dh, F), bias (B, N, F) -> (B, N, F).
 
         The plan's ``head_cnt`` already folds the bucket clamp in, so the
-        uniform and the bucketed kernel give the same result."""
+        uniform and the bucketed kernel give the same result.  ``o_tok``
+        and ``w`` hold the plan's heads ``[h_lo, h_lo + H)`` (a rank's share
+        of a ``model`` row): then the uniform kernel runs over that head
+        range, the bucketed layout folding every head into its slots."""
         plan = plan.widen()
         o_heads, w, bias = o_tok.transpose(1, 2).contiguous(), w.contiguous(), bias.contiguous()
-        if spec is not None and spec.kv_buckets > 1 and plan.gmo_rows is not None:
+        whole = h_lo == 0 and w.shape[0] == plan.head_ids.shape[-1]
+        if whole and spec is not None and spec.kv_buckets > 1 and plan.gmo_rows is not None:
             geometry = bucket_geometry(plan.row_ids.shape[-1], w.shape[0], 1,
                                        spec.kv_buckets)
             return gemm_o_sparse_bucketed_kernel(
                 o_heads, w, bias, plan.gmo_rows, plan.gmo_src, plan.gmo_head_ids,
                 plan.gmo_head_cnt, geometry, block_rows=block)
         return gemm_o_sparse_kernel(o_heads, w, bias, plan.row_ids, plan.head_ids,
-                                    plan.head_cnt, block_rows=block)
+                                    plan.head_cnt, block_rows=block, h_lo=h_lo)
 
 
 class MeshBackend:
@@ -181,8 +188,8 @@ class MeshBackend:
         return mesh_attention(self.inner, self.cfg, q, k, v, o_reuse, plan, spec,
                               scale=scale, compact_q=compact_q)
 
-    def gemm_o(self, o_tok, w, plan, bias, *, block, spec=None):
-        return self.inner.gemm_o(o_tok, w, plan, bias, block=block, spec=spec)
+    def gemm_o(self, o_tok, w, plan, bias, *, block, spec=None, h_lo=0):
+        return self.inner.gemm_o(o_tok, w, plan, bias, block=block, spec=spec, h_lo=h_lo)
 
 
 _BACKENDS = {"torch": TorchBackend(), "kernels": KernelBackend()}

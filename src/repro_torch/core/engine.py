@@ -40,6 +40,25 @@ the LM families.  ``mesh_dp``/``mesh_sp`` > 1 runs Dispatch attention across a
 (:mod:`repro_torch.distributed.plan_shard`): with ``mesh_axis="seq"`` the
 plan carries the per-shard partition (``shd_*``) and only plan-live K/V
 blocks are exchanged, with ``"head"`` heads shard and nothing is exchanged.
+
+**A split ``model`` row** (a sharded step's tensor-parallel context,
+:mod:`repro_torch.distributed.tensor_parallel`): when ``AttnParams`` holds
+a rank's columns of ``wq``/``wk``/``wv`` and rows of ``wo`` (``H/m`` of the
+``heads``, from ``h0 = rank · H/m`` on), both phases compute that rank's
+heads.  Update: the dense attention and the strategy on the rank's heads
+(``StrategyContext.head_lo = h0``), the output partial and the GEMM-O bias
+partial summed over the row in one collective, then ``m_c``, ``m_s`` and
+``q_scores`` gathered over the row (one collective), so every rank packs
+the same symbols and builds the same plan from all heads; the TaylorSeer
+stack takes the summed bias (``"bias"``) or the gathered output
+(``"o_cache"``).  Dispatch: B1 on the rank's ``wq`` columns (its rows are
+the plan's, the same on every head), B2 on the rank's heads over the
+plan's head-indexed fields narrowed to them
+(:func:`~repro_torch.distributed.plan_shard.head_plan`; the uniform layout,
+as bucketed layout rows fold the heads), B3 over the head range
+``[h0, h0 + H/m)`` of the whole plan's lists, with the forecast bias passed
+on rank 0 of the row and zeros elsewhere, and the partials summed over the
+row in f32.
 """
 
 from __future__ import annotations
@@ -58,6 +77,7 @@ from repro_torch.core.plan import DispatchPlan, build_dispatch_plan, empty_plan_
 from repro_torch.core.strategy import SparsityStrategy, StrategyContext, get_strategy
 from repro_torch.core.symbols import (capacity_for, clamp_mask_topk, pack_bits, packed_len,
                                       unpack_bits)
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.tuning import select_kv_buckets
 from repro_torch.models.layers import rms_norm
 
@@ -362,6 +382,29 @@ def rope_positions(row_ids: torch.Tensor, pool: int, n_pos: int) -> torch.Tensor
     return pos.reshape(row_ids.shape[0], -1).clamp_(max=n_pos - 1)
 
 
+def _heads_of(params: AttnParams, heads: int) -> tuple[int, int]:
+    """``(h0, h)``: the first of the heads ``params`` holds and their count,
+    ``(0, heads)`` unless it holds a rank's share of a split model row."""
+    h = params.wq.shape[-1] // params.q_scale.shape[-1]
+    if h == heads:
+        return 0, heads
+    if h * tp.size() != heads:
+        raise ValueError(f"the attention weights hold {h} of {heads} heads on a model row of "
+                         f"{tp.size()}")
+    return tp.rank() * h, h
+
+
+def _gather_masks(syms, t: int):
+    """``(m_c, m_s, q_scores)`` of every head of the row from this rank's
+    (one collective: the masks travel as exact 0/1 floats)."""
+    b, h = syms.m_c.shape[:2]
+    flat = torch.cat([syms.m_c.to(torch.float32), syms.m_s.reshape(b, h, t * t).to(torch.float32),
+                      syms.q_scores.to(torch.float32)], dim=-1)
+    flat = tp.all_gather(flat, 1)
+    return (flat[..., :t] > 0.5, flat[..., t:t + t * t].reshape(b, -1, t, t) > 0.5,
+            flat[..., t + t * t:].to(syms.q_scores.dtype))
+
+
 def _qk(params: AttnParams, x: torch.Tensor, heads: int,
         freqs: Optional[torch.Tensor] = None):
     q = rms_norm(_project_heads(x, params.wq, heads), params.q_scale)
@@ -384,29 +427,42 @@ def update_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
     ``freqs`` the symbols and the plan come from the rotated Q/K."""
     n = x.shape[1]
     dm = x.shape[-1]
-    q, k = _qk(params, x, heads, freqs)
-    v = _project_heads(x, params.wv, heads)
+    h0, h = _heads_of(params, heads)
+    split = h != heads
+    q, k = _qk(params, x, h, freqs)
+    v = _project_heads(x, params.wv, h)
     o = dense_attention(q, k, v)                                   # (B,H,N,dh)
     ctx = StrategyContext(cfg=cfg, n_text=n_text, n_tokens=n, layer_idx=layer_idx,
-                          step_idx=step_idx, num_steps=num_steps)
+                          step_idx=step_idx, num_steps=num_steps, head_lo=h0)
     syms = get_strategy(cfg.strategy if strategy is None else strategy).emit(q, k, ctx)
 
     o_tok = o.transpose(1, 2)                                      # (B,N,H,dh)
-    wo_h = params.wo.reshape(heads, -1, dm)
+    wo_h = params.wo.reshape(h, -1, dm)
     out = torch.einsum("bnhd,hdf->bnf", o_tok, wo_h)
-
+    bias = None
     if cfg.cache_mode == "bias":
         bias = sparse_gemm.gemm_o_update_bias(
             o_tok, wo_h, syms.m_c.transpose(-1, -2), block=cfg.mask.pool)
+    m_c, m_s, q_scores = syms.m_c, syms.m_s, syms.q_scores
+    if split:
+        if bias is None:
+            out = tp.reduce(out)
+            o = tp.all_gather(o, 1)
+        else:
+            out, bias = tp.reduce(torch.stack([out, bias.to(out.dtype)])).unbind(0)
+        m_c, m_s, q_scores = _gather_masks(syms, m_c.shape[-1])
+        s_c, s_s = pack_bits(m_c), pack_bits(m_s.reshape(*m_s.shape[:-2], -1))
+    else:
+        s_c, s_s = syms.s_c, syms.s_s
+    if bias is not None:
         taylor = taylorseer.update(state.taylor, bias.to(cfg.cache_dtype))
     else:
         taylor = taylorseer.update(state.taylor, o.to(cfg.cache_dtype))
     # Rows are ranked for the plan's capacity truncation by the strategy's
     # clamp scores, summed over the heads where the row is live.
-    row_score = torch.where(syms.m_c, syms.q_scores.to(torch.float32), 0.0).sum(dim=-2)
-    plan = build_dispatch_plan(syms.m_c, syms.m_s, cfg, n, row_score=row_score)
-    return out, LayerState(s_c=syms.s_c, s_s=syms.s_s, taylor=taylor, k_since=0,
-                           plan=plan)
+    row_score = torch.where(m_c, q_scores.to(torch.float32), 0.0).sum(dim=-2)
+    plan = build_dispatch_plan(m_c, m_s, cfg, n, row_score=row_score)
+    return out, LayerState(s_c=s_c, s_s=s_s, taylor=taylor, k_since=0, plan=plan)
 
 
 def dispatch_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
@@ -426,6 +482,8 @@ def dispatch_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
     backend = get_backend(cfg)
     k_since = state.k_since + 1
     spec_c = cfg.caps(n)
+    h0, h = _heads_of(params, heads)
+    split = h != heads
 
     # --- GEMM-Q: skip row blocks cached in every head (Obs. 2). ---
     if cfg.use_gemm_q:
@@ -435,37 +493,50 @@ def dispatch_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
         q_flat = x @ params.wq
         compact = False
     n_q = q_flat.shape[1]
-    qh = rms_norm(q_flat.reshape(b, n_q, heads, -1).transpose(1, 2), params.q_scale)
-    k_h = rms_norm(_project_heads(x, params.wk, heads), params.k_scale)
+    qh = rms_norm(q_flat.reshape(b, n_q, h, -1).transpose(1, 2), params.q_scale)
+    k_h = rms_norm(_project_heads(x, params.wk, h), params.k_scale)
     if freqs is not None:
         # The phases of compact rows are gathered as the rows were, and
         # broadcast over the heads: (B, 1, Cr·pool, dh/2).
         q_freqs = (freqs[rope_positions(plan.row_ids, m.pool, len(freqs))][:, None]
                    if compact else freqs)
         qh, k_h = apply_rope(qh, q_freqs), apply_rope(k_h, freqs)
-    v_h = _project_heads(x, params.wv, heads)
+    v_h = _project_heads(x, params.wv, h)
 
-    # --- Attention over the frozen plan. ---
+    # --- Attention over the frozen plan (a split row: the rank's heads). ---
     dh = qh.shape[-1]
-    if cfg.cache_mode == "bias":
-        o_reuse = torch.zeros((b, heads, n, dh), dtype=qh.dtype, device=x.device)
+    taylor = state.taylor
+    if split:
+        from repro_torch.distributed.plan_shard import head_plan
+        attn_plan = head_plan(plan, slice(h0, h0 + h))
+        if cfg.cache_mode != "bias":
+            taylor = taylorseer.TaylorState(taylor.derivs[:, :, h0:h0 + h], taylor.n_updates)
     else:
-        o_reuse = taylorseer.forecast(state.taylor, k_since, m.interval).to(qh.dtype)
-    o = backend.attention(qh, k_h, v_h, o_reuse, plan, spec_c, compact_q=compact)
+        attn_plan = plan
+    if cfg.cache_mode == "bias":
+        o_reuse = torch.zeros((b, h, n, dh), dtype=qh.dtype, device=x.device)
+    else:
+        o_reuse = taylorseer.forecast(taylor, k_since, m.interval).to(qh.dtype)
+    o = backend.attention(qh, k_h, v_h, o_reuse, attn_plan, spec_c, compact_q=compact)
 
     # --- GEMM-O: live heads + forecast bias (Obs. 3, Eq. 4). ---
     o_tok = o.transpose(1, 2)
-    wo_h = params.wo.reshape(heads, dh, dm)
+    wo_h = params.wo.reshape(h, dh, dm)
     if cfg.cache_mode == "bias":
-        bias_f = taylorseer.forecast(state.taylor, k_since, m.interval).to(x.dtype)
+        if split and tp.rank() != 0:           # the row adds the bias once
+            bias_f = torch.zeros((b, n, dm), dtype=x.dtype, device=x.device)
+        else:
+            bias_f = taylorseer.forecast(state.taylor, k_since, m.interval).to(x.dtype)
         if cfg.use_gemm_o:
-            out = backend.gemm_o(o_tok, wo_h, plan, bias_f, block=m.pool, spec=spec_c)
+            out = backend.gemm_o(o_tok, wo_h, plan, bias_f, block=m.pool, spec=spec_c, h_lo=h0)
         else:
             # Dense GEMM over zero-filled cached heads + the forecast bias.
-            m_tok = torch.repeat_interleave(plan.m_ch, m.pool, dim=-2)[..., :n, :]
+            m_tok = torch.repeat_interleave(plan.m_ch[..., h0:h0 + h], m.pool, dim=-2)[..., :n, :]
             out = torch.einsum("bnhd,hdf->bnf",
                                torch.where(m_tok[..., None], o_tok, 0), wo_h) + bias_f
     else:
         out = torch.einsum("bnhd,hdf->bnf", o_tok, wo_h)
+    if split:
+        out = tp.reduce(out)
     return out, LayerState(s_c=state.s_c, s_s=state.s_s, taylor=state.taylor,
                            k_since=k_since, plan=plan_stored)

@@ -48,7 +48,11 @@ __all__ = [
 
 
 class StrategyContext(NamedTuple):
-    """Per-call context handed to ``emit`` (host values in the port)."""
+    """Per-call context handed to ``emit`` (host values in the port).
+    ``head_lo`` is the global index of the first head of Q/K: a rank of a
+    split ``model`` row emits over its own heads only, and every built-in
+    strategy emits each head on its own, but ``multi-granularity`` assigns
+    its children by global head index."""
 
     cfg: Any
     n_text: int
@@ -56,6 +60,7 @@ class StrategyContext(NamedTuple):
     layer_idx: Optional[int] = None
     step_idx: Optional[int] = None
     num_steps: Optional[int] = None
+    head_lo: int = 0
 
 
 class SymbolSet(NamedTuple):
@@ -213,11 +218,12 @@ class MultiGranularityStrategy:
             return None
         return (a,) if isinstance(a, int) else tuple(a)
 
-    def _assignment(self, heads: int) -> list[int]:
+    def _assignment(self, heads: int, lo: int = 0) -> list[int]:
+        """The child of each of the heads ``[lo, lo + heads)``."""
         a = self._template(None)
         if a is None:
-            return [h % len(self.children) for h in range(heads)]
-        return [a[h % len(a)] for h in range(heads)]
+            return [h % len(self.children) for h in range(lo, lo + heads)]
+        return [a[h % len(a)] for h in range(lo, lo + heads)]
 
     def per_layer(self, n_layers: int) -> list["MultiGranularityStrategy"]:
         """One strategy per layer with that layer's template pinned."""
@@ -229,7 +235,7 @@ class MultiGranularityStrategy:
     def emit(self, q, k, ctx: StrategyContext) -> SymbolSet:
         heads = q.shape[1]
         groups: dict[int, list[int]] = {}
-        for h, a in enumerate(self._assignment(heads)):
+        for h, a in enumerate(self._assignment(heads, ctx.head_lo)):
             groups.setdefault(a, []).append(h)
         # Each child emits over its own heads, clamped at its own capacity.
         parts = {a: self.children[a].emit(q[:, hs], k[:, hs], ctx)

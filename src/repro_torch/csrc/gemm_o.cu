@@ -9,7 +9,11 @@
 // O (B, H, N, dh), W (H, dh, F), out (B, N, F) already holding the bias (the
 // wrapper clones it once). Uniform (B3): slot c of batch b covers row block
 // row_ids[b,c] with heads head_ids[b,c,:head_cnt[b,c]] (row_ids/head_cnt
-// (B, Cr), head_ids (B, Cr, H)). Bucketed (B5): the plan sorted the slots by
+// (B, Cr), head_ids (B, Cr, Hp)). B3 takes a head range: the lists name
+// heads of the whole plan (Hp of them), while O and W hold heads
+// [h_lo, h_lo + H) (a rank's share of a model row), so a listed head outside
+// the range is skipped and head h is read at h - h_lo; (h_lo, Hp) = (0, H)
+// is every head. Bucketed (B5): the plan sorted the slots by
 // live-head count; slot r reads O at row block src[b,r], writes block
 // rows[b,r], with heads head_ids[b, row_off[r] : + head_cnt[b,r]] (rows/src/
 // head_cnt (B, Cr), head_ids (B, S), row_off (Cr,)). Both kernels run
@@ -30,8 +34,9 @@
 // the group nor the layout. Lists are ascending and free of repeats, as
 // every plan builds them. A slot with no head (padding or dead) stages
 // nothing and never stores, so its rows keep the bias; a group of such slots
-// exits before touching O, W or out. Live row ids are unique, so no two
-// blocks write the same element.
+// exits before touching O, W or out. A slot whose heads all lie outside the
+// range stages nothing either and leaves its rows at the bias. Live row ids
+// are unique, so no two blocks write the same element.
 #include "gemm_tile.cuh"
 
 namespace {
@@ -59,12 +64,12 @@ struct GroupLayout {
 
 // Called by every thread of the block, warp w passing slot w of the group
 // (slots past the group's G = 128 / bm are missing). o_b, ob: O and out at
-// batch b; n0: the first output column.
+// batch b; n0: the first output column; h_lo: the first head O and W hold.
 template <typename T, bool kVec>
 __device__ __forceinline__ void heads_group_tile(const T* __restrict__ o_b,
                                                  const T* __restrict__ w, T* __restrict__ ob,
-                                                 Slot mine, int H, int N, int dh, int F, int bm,
-                                                 int n0) {
+                                                 Slot mine, int H, int h_lo, int N, int dh,
+                                                 int F, int bm, int n0) {
   using L = fo::Tile<T>;
   static_assert(L::BM == 128, "GroupLayout holds 128 tile rows");
   GroupLayout& gl = *reinterpret_cast<GroupLayout*>(fo::dyn_smem() + L::kRing);
@@ -73,7 +78,7 @@ __device__ __forceinline__ void heads_group_tile(const T* __restrict__ o_b,
   unsigned* masks = reinterpret_cast<unsigned*>(ulist + H);
   const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  fo::mask_from_list(masks + wid * words, words, mine.heads, mine.cnt, H);
+  fo::mask_from_list(masks + wid * words, words, mine.heads, mine.cnt, H, h_lo);
   __syncthreads();
   if (wid == 0) {                 // the ascending union of the group's heads
     int u = 0;
@@ -129,16 +134,17 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(fo::kThreads, fo::Tile<T>::kBlocks)
 gemm_o_kernel(const T* __restrict__ o, const T* __restrict__ w, const int* __restrict__ row_ids,
               const int* __restrict__ head_ids, const int* __restrict__ head_cnt,
-              T* __restrict__ out, int H, int N, int dh, int F, int Cr, int bm) {
+              T* __restrict__ out, int H, int Hp, int h_lo, int N, int dh, int F, int Cr,
+              int bm) {
   const int b = blockIdx.z, G = fo::Tile<T>::BM / bm, s = threadIdx.x >> 5;
   const int c = blockIdx.y * G + s;
   Slot mine{nullptr, 0, 0, 0};
   if (s < G && c < Cr) {
     const int slot = b * Cr + c;
-    mine = Slot{head_ids + (size_t)slot * H, head_cnt[slot], row_ids[slot], row_ids[slot]};
+    mine = Slot{head_ids + (size_t)slot * Hp, head_cnt[slot], row_ids[slot], row_ids[slot]};
   }
-  heads_group_tile<T, kVec>(o + (size_t)b * H * N * dh, w, out + (size_t)b * N * F, mine, H, N,
-                            dh, F, bm, blockIdx.x * fo::Tile<T>::BN);
+  heads_group_tile<T, kVec>(o + (size_t)b * H * N * dh, w, out + (size_t)b * N * F, mine, H,
+                            h_lo, N, dh, F, bm, blockIdx.x * fo::Tile<T>::BN);
 }
 
 template <typename T, bool kVec>
@@ -155,8 +161,8 @@ gemm_o_bucketed_kernel(const T* __restrict__ o, const T* __restrict__ w,
     const int slot = b * Cr + r;
     mine = Slot{head_ids + (size_t)b * S + row_off[r], head_cnt[slot], src[slot], rows[slot]};
   }
-  heads_group_tile<T, kVec>(o + (size_t)b * H * N * dh, w, out + (size_t)b * N * F, mine, H, N,
-                            dh, F, bm, blockIdx.x * fo::Tile<T>::BN);
+  heads_group_tile<T, kVec>(o + (size_t)b * H * N * dh, w, out + (size_t)b * N * F, mine, H, 0,
+                            N, dh, F, bm, blockIdx.x * fo::Tile<T>::BN);
 }
 
 inline bool block_rows_built(int bm) { return bm == 16 || bm == 32 || bm == 64 || bm == 128; }
@@ -177,13 +183,15 @@ size_t smem_of(int H) {
 }  // namespace
 
 // vec: 1 when O, W and out start on 16-byte boundaries and their rows (dh
-// and F elements) are multiples of 16 bytes, else 0. Returns the launch's
-// error code (0 on success). ``out`` holds the bias on entry and the result
-// on exit.
+// and F elements) are multiples of 16 bytes, else 0. H: the heads O and W
+// hold, from h_lo on; Hp: the plan's heads (head_ids' row length). Returns
+// the launch's error code (0 on success). ``out`` holds the bias on entry
+// and the result on exit.
 extern "C" int fo_gemm_o(int dtype, int vec, const void* o, const void* w, const void* row_ids,
                          const void* head_ids, const void* head_cnt, void* out, int B, int H,
-                         int N, int dh, int F, int Cr, int bm, void* stream) {
+                         int Hp, int h_lo, int N, int dh, int F, int Cr, int bm, void* stream) {
   if (!block_rows_built(bm)) return static_cast<int>(cudaErrorInvalidValue);
+  if (h_lo < 0 || h_lo + H > Hp) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = fo::on_gemm_instance(dtype, vec, [&](auto t, auto v) {
     using T = typename decltype(t)::type;
     return fo::launch_with_smem(
@@ -191,7 +199,7 @@ extern "C" int fo_gemm_o(int dtype, int vec, const void* o, const void* w, const
         smem_of<T>(H), static_cast<cudaStream_t>(stream), static_cast<const T*>(o),
         static_cast<const T*>(w), static_cast<const int*>(row_ids),
         static_cast<const int*>(head_ids), static_cast<const int*>(head_cnt),
-        static_cast<T*>(out), H, N, dh, F, Cr, bm);
+        static_cast<T*>(out), H, Hp, h_lo, N, dh, F, Cr, bm);
   });
   return rc ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -131,14 +131,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 // ---- list masks ---------------------------------------------------------------
 
 // Warp-wide: the mask of a CSR list ids[0..n) (bit j of word j / 32 for
-// each listed id j < limit); n = 0 clears it.
+// each listed id with 0 <= j = ids[e] - lo < limit); n = 0 clears it.
 __device__ __forceinline__ void mask_from_list(unsigned* mask, int words,
-                                               const int* __restrict__ ids, int n, int limit) {
+                                               const int* __restrict__ ids, int n, int limit,
+                                               int lo = 0) {
   const int lane = threadIdx.x & 31;
   for (int i = lane; i < words; i += 32) mask[i] = 0u;
   __syncwarp();
   for (int e = lane; e < n; e += 32) {
-    const int j = ids[e];
+    const int j = ids[e] - lo;
     if ((unsigned)j < (unsigned)limit) atomicOr(&mask[j >> 5], 1u << (j & 31));
   }
   __syncwarp();

@@ -350,10 +350,27 @@ def mesh_attention(inner, cfg, q, k, v, o_reuse, plan, spec, *,
     return full.permute(0, 2, 3, 1, 4, 5).reshape(b, h, n, dh)
 
 
+# The plan fields B2 reads, each indexed (B, H, ...).
+_HEAD_FIELDS = ("q_ids", "q_cnt", "q_slots", "kv_ids", "kv_cnt", "pair_live", "kv_row_ids",
+                "kv_row_cnt")
+
+
+def head_plan(plan, heads: slice, batch: slice = slice(None)):
+    """The attention's share of ``plan`` at ``batch`` and ``heads``: B2's
+    head-indexed fields narrowed (contiguous), the GEMM-side fields
+    placeholders the attention backends never read, and no bucketed or
+    seq-mesh field (the bucketed layout rows fold the heads, so a head
+    share runs the uniform layout)."""
+    from repro_torch.core.plan import DispatchPlan
+    mine = lambda a: a[batch, heads].contiguous()
+    b_l = plan.q_ids[batch].shape[0]
+    return DispatchPlan(**{f: mine(getattr(plan, f)) for f in _HEAD_FIELDS},
+                        **_dummy_plan_tail(b_l, plan.q_ids.device))
+
+
 def _head_sharded(inner, cfg, q, k, v, o_reuse, plan, spec, *, scale, compact_q):
     """Head-parallel mode: heads shard over ``seq``; nothing is exchanged
     before attention, and the outputs are all-gathered after it."""
-    from repro_torch.core.plan import DispatchPlan
     from repro_torch.launch.mesh import make_engine_mesh
 
     b, h = q.shape[:2]
@@ -368,11 +385,7 @@ def _head_sharded(inner, cfg, q, k, v, o_reuse, plan, spec, *, scale, compact_q)
     bs = slice(mesh.d * b_l, (mesh.d + 1) * b_l)
     hs = slice(mesh.s * h_l, (mesh.s + 1) * h_l)
     mine = lambda a: a[bs, hs].contiguous()
-    pv = DispatchPlan(q_ids=mine(plan.q_ids), q_cnt=mine(plan.q_cnt),
-                      q_slots=mine(plan.q_slots), kv_ids=mine(plan.kv_ids),
-                      kv_cnt=mine(plan.kv_cnt), pair_live=mine(plan.pair_live),
-                      kv_row_ids=mine(plan.kv_row_ids), kv_row_cnt=mine(plan.kv_row_cnt),
-                      **_dummy_plan_tail(b_l, q.device))
+    pv = head_plan(plan, hs, bs)
     out_l = inner.attention(mine(q), mine(k), mine(v), mine(o_reuse), pv, spec,
                             scale=scale, compact_q=compact_q)      # (b_l, h_l, n, dh)
     full = _gather_out(out_l, mesh).reshape(cfg.mesh_dp, cfg.mesh_sp, b_l, h_l,

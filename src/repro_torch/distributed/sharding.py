@@ -222,13 +222,17 @@ def _redistribute_peers(x, pl: list):
     """:func:`redistribute` between the ranks of one host: every mesh dim
     that is not replicated is made whole from the peers' tensors, innermost
     first (a tensor dim sharded over several mesh dims nests in mesh-dim
-    order), then each rank keeps its slice of ``pl``."""
+    order), then each rank keeps its slice of ``pl``.  A mesh dim of one
+    rank is whole already: it moves nothing (sharding a tensor through CUDA
+    IPC with no peer to map it would leave its memory held, as the
+    producer's, until the process ends)."""
     from torch.distributed.tensor import DTensor, Replicate
     mesh = x.device_mesh
     src, local = list(x.placements), x.to_local()
     for i in reversed(range(mesh.ndim)):
         if src[i] != Replicate():
-            local = _undo_dim(local, mesh, i, src[i])
+            if mesh.size(i) > 1:
+                local = _undo_dim(local, mesh, i, src[i])
             src[i] = Replicate()
     whole = DTensor.from_local(local, mesh, src, run_check=False, shape=x.shape,
                                stride=x.stride())

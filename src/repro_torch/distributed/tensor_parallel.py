@@ -16,7 +16,10 @@ builders' parameter gather, one block at a time.
 * :func:`replicated`: the identity forward and the gradient over the row's
   size backward, for what every rank of the row computes whole (the MoE's
   load-balancing loss, a sublayer computed replicated): its gradient then
-  sums over the row as a partial one does.
+  sums over the row as a partial one does;
+* :func:`all_gather`: an activation's shards concatenated, no gradient
+  (the DiT's masks of each rank's heads, from which every rank builds the
+  same plan).
 
 With these, the gradient of every parameter that a rank computes with whole
 (a norm, the router, K/V's weights) is a partial sum over the row, and the
@@ -41,6 +44,11 @@ saved-tensor hook keeps only a handle to each gathered tensor that autograd
 would save, gathering it again in backward.  Under ``cfg.remat`` the block
 is taken inside the checkpointed region (:class:`~repro_torch.models.layers.
 BlockRef`), so the recompute gathers it again.
+
+**The ``dp`` group** (:func:`dp_group`, :func:`dp_sum`): the ranks over
+which a step splits its batch, carried by the active :class:`ParamGather`,
+for what the model computes over the global batch (the MoE's routing,
+:func:`repro_torch.models.layers.moe_route_global`).
 """
 
 from __future__ import annotations
@@ -56,8 +64,9 @@ import torch
 from repro_torch.distributed.sharding import ShardingRules, redistribute
 from repro_torch.tree import tree_flatten, tree_unflatten
 
-__all__ = ["size", "rank", "note", "model_parallel", "copy", "reduce", "gather", "replicated",
-           "row_max", "vocab_lookup", "mesh_dims", "ParamGather"]
+__all__ = ["size", "rank", "divides", "note", "model_parallel", "copy", "reduce", "gather",
+           "replicated", "all_gather", "row_max", "vocab_lookup", "dp_group", "dp_sum",
+           "mesh_dims", "ParamGather"]
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +192,37 @@ def block_source():
     return _CTX.get()[1]
 
 
+def dp_group() -> Optional[_Row]:
+    """The ranks over which the active step splits its batch (the rules'
+    ``dp`` mesh dims, this rank's place in them the batch's order), or ``None``
+    outside a sharded step or where ``dp`` holds one rank."""
+    src = block_source()
+    return None if src is None else src.dp
+
+
+class _DpSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return grp.sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grp.sum(g), None
+
+
+def dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ``dp`` group (:func:`dp_group`; ``x`` itself
+    outside one).  Its gradient is the sum over the group of the ranks'
+    gradients of the result: each rank's loss holds the same global term,
+    so the step's mean over ``dp`` of the parameter gradients gives that
+    term's gradient once."""
+    grp = dp_group()
+    if grp is None:
+        return x
+    return _DpSum.apply(x, grp) if torch.is_grad_enabled() and x.requires_grad else grp.sum(x)
+
+
 def size() -> int:
     """The size of the active model row (1 outside :func:`model_parallel`)."""
     row = _row()
@@ -193,6 +233,19 @@ def rank() -> int:
     """This rank's place in the active model row (0 outside one)."""
     row = _row()
     return 0 if row is None else row.rank
+
+
+def divides(n: int, what: str) -> bool:
+    """Whether ``n`` (heads, or ``d_ff``) splits over the active model row;
+    a row of more than one rank that it does not divide computes ``what``
+    replicated, which is noted (:func:`note`)."""
+    m = size()
+    if m == 1:
+        return False
+    if n % m:
+        note(f"{what}: {n} on a model row of {m}")
+        return False
+    return True
 
 
 def note(what: str) -> None:
@@ -283,6 +336,17 @@ def replicated(x: torch.Tensor) -> torch.Tensor:
     if row is None or not torch.is_grad_enabled():
         return x
     return _Scale.apply(x, 1.0 / row.size)
+
+
+def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The row's shards of ``x`` concatenated along ``dim``, without a
+    gradient and not counted as gathered parameters (an activation the
+    rank computed for its share of the row)."""
+    row = _row()
+    if row is None:
+        return x
+    with torch.no_grad():
+        return row.all_gather(x, dim)
 
 
 def row_max(x: torch.Tensor) -> torch.Tensor:
@@ -440,7 +504,9 @@ class ParamGather:
     leaf's gradient (over ``n_dp``, summed over the ``dp`` dims, and over
     the row where the leaf is computed whole under ``tp``) lands in
     :attr:`grads` as the rank's shard, in the tree's leaf order
-    (:meth:`take_grads`).
+    (:meth:`take_grads`).  :attr:`dp` is the group of ranks over which the
+    step splits its batch (:func:`dp_group`; ``None`` for one rank), for
+    what the model computes over the global batch (the MoE's routing).
     ``max_gathered_bytes`` is the most bytes of gathered parameters alive at
     once (a gathered tensor lives while its tensor object does)."""
 
@@ -452,6 +518,9 @@ class ParamGather:
         self.row = _Row(mesh, self.row_dims) if self.row_dims else None
         if self.row is not None and self.row.size == 1:
             self.row = None
+        self.dp = _Row(mesh, self.dp_dims) if self.dp_dims else None
+        if self.dp is not None and self.dp.size == 1:
+            self.dp = None
         self.leaves: list = []
         self.grads: list = []
         self._stacks: list = []

@@ -42,7 +42,8 @@ _SIGNATURES = {
     "fo_gemm_q": (_I, [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "fo_csr_attention": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P]),
-    "fo_gemm_o": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "fo_gemm_o": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P]),
     "fo_csr_attention_bucketed": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P]),
     "fo_gemm_o_bucketed": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,

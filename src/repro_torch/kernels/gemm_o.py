@@ -25,30 +25,38 @@ __all__ = ["gemm_o_sparse_kernel", "gemm_o_sparse_bucketed_kernel"]
 @kernel_region
 def gemm_o_sparse_kernel(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          row_ids: torch.Tensor, head_ids: torch.Tensor,
-                         head_cnt: torch.Tensor, *, block_rows: int) -> torch.Tensor:
+                         head_cnt: torch.Tensor, *, block_rows: int,
+                         h_lo: int = 0) -> torch.Tensor:
     """``out[b,row] = bias[b,row] + Σ_{live h} O[b,h,row] @ w[h]`` on live rows.
 
     o_heads (B, H, N, dh), w (H, dh, F), bias (B, N, F); row_ids and
-    head_cnt (B, Cr), head_ids (B, Cr, H) int32.  Slots with
+    head_cnt (B, Cr), head_ids (B, Cr, Hp) int32.  Slots with
     ``head_cnt == 0`` never store; rows no slot visits keep ``bias``.  The
     bias is cloned once into the output, which the kernel then updates in
-    place.  ``gemm_o_sparse_kernel.launches`` counts the CUDA launches.
+    place.  The head range: the lists name heads of the whole plan (``Hp``
+    of them) and ``o_heads``/``w`` hold heads ``[h_lo, h_lo + H)`` (a rank's
+    share of a ``model`` row), so a listed head outside the range adds
+    nothing and head ``h`` is read at ``h - h_lo``; ``h_lo = 0`` with
+    ``Hp = H`` is every head.  ``gemm_o_sparse_kernel.launches`` counts the
+    CUDA launches.
     """
     if o_heads.device.type == "cpu":
         return gemm_o_ref(o_heads, w, bias, row_ids, head_ids, head_cnt,
-                          block=block_rows)
+                          block=block_rows, h_lo=h_lo)
     lib = None if o_heads.is_meta else _build.load()
     b, h, n, dh = o_heads.shape
     f = w.shape[-1]
-    cr = row_ids.shape[-1]
+    cr, hp = row_ids.shape[-1], head_ids.shape[-1]
     if n % block_rows:
         raise ValueError(f"block_rows {block_rows} does not divide N {n}")
+    if not 0 <= h_lo <= hp - h:
+        raise ValueError(f"head range [{h_lo}, {h_lo + h}) lies outside the plan's {hp} heads")
     dev, dt = o_heads.device, o_heads.dtype
     _build.check("o_heads", o_heads, dev, dt, (b, h, n, dh))
     _build.check("w", w, dev, dt, (h, dh, f))
     _build.check("bias", bias, dev, dt, (b, n, f))
     _build.check("row_ids", row_ids, dev, torch.int32, (b, cr))
-    _build.check("head_ids", head_ids, dev, torch.int32, (b, cr, h))
+    _build.check("head_ids", head_ids, dev, torch.int32, (b, cr, hp))
     _build.check("head_cnt", head_cnt, dev, torch.int32, (b, cr))
     out = bias.clone()
     if lib is None:                     # meta: shapes only, nothing to launch
@@ -56,7 +64,7 @@ def gemm_o_sparse_kernel(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Ten
     vec = _build.aligned_rows((o_heads, dh), (w, f), (out, f))
     rc = lib.fo_gemm_o(_build.dtype_code(dt), int(vec), o_heads.data_ptr(), w.data_ptr(),
                        row_ids.data_ptr(), head_ids.data_ptr(), head_cnt.data_ptr(),
-                       out.data_ptr(), b, h, n, dh, f, cr, block_rows,
+                       out.data_ptr(), b, h, hp, h_lo, n, dh, f, cr, block_rows,
                        _build.stream_of(dev))
     _build.raise_on_error(lib, rc, "gemm_o_sparse_kernel")
     gemm_o_sparse_kernel.launches += 1

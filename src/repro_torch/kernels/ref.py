@@ -99,18 +99,22 @@ def attention_csr_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def gemm_o_ref(o_heads: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                row_ids: torch.Tensor, head_ids: torch.Tensor,
-               head_cnt: torch.Tensor, *, block: int) -> torch.Tensor:
+               head_cnt: torch.Tensor, *, block: int, h_lo: int = 0) -> torch.Tensor:
     """GEMM-O with head sparsity (Eq. 3): ``out[b, row] = bias[b, row] +
     Σ_{h ∈ head_ids[b,c,:head_cnt[b,c]]} O[b,h,row] @ w[h]`` over the rows of
     slots with ``head_cnt > 0``; every other row keeps ``bias``.
 
     o_heads (B, H, N, dh), w (H, dh, F), bias (B, N, F), row_ids/head_cnt
-    (B, Cr), head_ids (B, Cr, H) -> (B, N, F)."""
+    (B, Cr), head_ids (B, Cr, Hc) -> (B, N, F).  The lists may name heads
+    of a whole plan of which ``o_heads`` and ``w`` hold the range
+    ``[h_lo, h_lo + H)`` (a rank's share of a ``model`` row): a listed head
+    outside it is skipped and head ``h`` is read at ``h - h_lo``."""
     b, h, n, dh = o_heads.shape
     cr = row_ids.shape[-1]
     hc = head_ids.shape[-1]
     h_live = torch.arange(hc, device=w.device) < head_cnt[..., None]
-    hid = torch.where(h_live, head_ids.long(), h)
+    hid = head_ids.long() - h_lo
+    hid = torch.where(h_live & (hid >= 0) & (hid < h), hid, h)
     hmask = torch.zeros((b, cr, h + 1), dtype=torch.bool, device=w.device)
     hmask.scatter_(-1, hid, True)
     hmask = hmask[..., :h]                                            # (B, Cr, H)

@@ -31,13 +31,24 @@ itself and runs the model on plain local tensors:
     gradient tree.
 
 **The ``model`` axis.**  The decoder-only transformers (families ``dense``
-and ``moe``) split it as the reference's specs do (Megatron-style, see
-:mod:`repro_torch.models.transformer` and
+and ``moe``) and the DiT split it as the reference's specs do
+(Megatron-style, see :mod:`repro_torch.models.transformer`,
+:mod:`repro_torch.models.dit` and
 :mod:`~repro_torch.distributed.tensor_parallel`): a block keeps its ``tp``
-shards after the gather, which gathers the ``fsdp`` dims only.  Every other
-family (the DiT's head-parallel engine, ssm, hybrid, encdec, vlm) still
-gathers its ``tp`` dims too and computes the ``model`` axis replicated:
-every rank of a row repeats the same products, with the same results.
+shards after the gather, which gathers the ``fsdp`` dims only.  The DiT's
+head-parallel engine runs a rank's heads (B1 on its ``wq`` columns, B2 on
+its heads, B3 over its head range, the partials summed over the row; see
+:mod:`repro_torch.core.engine`), its MLP column- then row-parallel.  The
+families ssm, hybrid, encdec and vlm still gather their ``tp`` dims too and
+compute the ``model`` axis replicated: every rank of a row repeats the same
+products, with the same results.
+
+**The ``dp`` group.**  Every builder's :class:`~repro_torch.distributed.
+tensor_parallel.ParamGather` carries the group of ranks over which the
+batch is split, for what the model computes over the global batch: the
+MoE routes each rank's tokens as part of the global batch (capacity, slot
+positions and load-balancing loss; :func:`repro_torch.models.layers.
+moe_route_global`), as the reference's GSPMD step does.
 
 Every move goes through
 :func:`~repro_torch.distributed.sharding.redistribute` (on a ``gloo``
@@ -202,8 +213,9 @@ def _dp_dims(mesh, rules: ShardingRules) -> tuple:
 
 def _splits_model(cfg: ArchConfig, mesh, rules: ShardingRules) -> bool:
     """Whether the step splits the ``model`` axis: a decoder-only
-    transformer on a mesh whose ``tp`` dims hold more than one rank."""
-    return cfg.family in ("dense", "moe") and math.prod(
+    transformer or the DiT on a mesh whose ``tp`` dims hold more than one
+    rank."""
+    return cfg.family in ("dense", "moe", "dit") and math.prod(
         mesh.size(i) for i in mesh_dims(mesh, rules, "tp")) > 1
 
 
@@ -455,8 +467,15 @@ def build_dit_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRules
     new_states)``: ``states`` one :class:`LayerState` a layer, laid out by
     ``dit.engine_state_specs``; ``v`` ``(dp, sp, None)``.  Each rank runs
     ``dit.denoise_step`` on its ``dp`` slice with the bf16 weights gathered
-    a block at a time (whole: the head-parallel engine is not split over
-    ``model`` yet); in ``mode="dispatch"`` that goes through the engine's
+    a block at a time.  On a ``model`` row of more than one rank a block
+    keeps its ``tp`` shards and each rank computes its share of the heads
+    and of the MLP (:mod:`repro_torch.models.dit`); the symbols and the
+    plan are built from every head's masks on every rank, so the states
+    stay replicated over ``model``, as ``dit.engine_state_specs`` lays them
+    out.  With ``kv_buckets > 1`` a split row runs the uniform B2/B3 on its
+    heads (the bucketed layout rows fold the heads; the plan's
+    ``kv_row_cnt``/``head_cnt`` carry the bucket clamp, so the result is
+    the same).  In ``mode="dispatch"`` that goes through the engine's
     backend, so the kernels (B1-B3) launch on the card."""
     from repro_torch.models import dit as ditmod
     ecfg = default_dit_engine_config() if ecfg is None else ecfg
@@ -472,13 +491,14 @@ def build_dit_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRules
     in_compute = _compute_placements(in_specs, mesh, rules)
     v_pl = placements(PartitionSpec(rules.physical("dp"), rules.physical("sp"), None), mesh)
     v_local = _compute_placements(("dp", None, None), mesh, rules)
+    split = _splits_model(cfg, mesh, rules)
 
     @torch.no_grad()
     def step(params, states, inputs):
         _check_layout("dit_step", (params, [_state_tree(s) for s in states], inputs),
                       (p_pl, [st_tree_pl] * len(states), in_pl), mesh)
         stats = _Stats(_device_of(params))
-        gath = ParamGather(mesh, rules, tp=False)
+        gath = ParamGather(mesh, rules, tp=split)
         tree = gath.prepare(params, ditmod.BLOCK_GROUPS)
         local_states = [
             _state_from_tree(tree_map(_to_local, _state_tree(s), st_compute, is_leaf=_is_pl), s)

@@ -14,6 +14,22 @@ state shares, each the reference's without its leading layer entry.
 :mod:`repro_torch.launch.steps` lays the state out by them; the
 reference's ``constrain`` hints are dropped, since a step runs on each
 rank's local tensors.
+
+**Tensor parallelism.**  Inside a sharded step that splits the ``model``
+axis (:mod:`~repro_torch.distributed.tensor_parallel`), a block's ``tp``
+leaves are the rank's shards: ``wq``/``wk``/``wv`` columns and ``wo`` rows
+of its ``H/m`` heads, which the engine computes
+(:mod:`repro_torch.core.engine`: Update and Dispatch sum their output
+partials over the row; dense mode sums the ``wo`` partial here), and
+``mlp_wi`` columns and ``mlp_wo`` rows, the MLP column- then row-parallel
+and summed over the row.  Each branch's input passes *f* (``tp.copy``) so
+its gradient meets the other ranks'.  What every rank computes whole
+takes a gradient over the row's size (``tp.replicated``: the modulations,
+``final_norm`` and ``final_proj``), so that it sums over the row as a
+partial one does; ``t_mlp2`` (``tp`` on its columns) is gathered whole.  A
+head count or ``d_ff`` that the row does not divide is gathered and
+computed replicated (``tp.note`` records it).  Outside such a step every
+operator is the identity.
 """
 
 from __future__ import annotations
@@ -28,6 +44,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import engine as E
 from repro_torch.core.attention import dense_attention
 from repro_torch.core.engine import AttnParams, EngineConfig, LayerState
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import block, rms_norm
 
 __all__ = ["init_params", "param_specs", "init_engine_states", "engine_state_specs",
@@ -157,17 +174,38 @@ def _modulate(x, shift, scale):
     return x * (1 + scale[:, None]) + shift[:, None]
 
 
+def _attn_weights(p: dict, cfg: ArchConfig, dtype) -> AttnParams:
+    """The block's attention weights as this rank computes with them: its
+    heads' shards on a row the head count divides, else whole."""
+    wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
+    if tp.size() > 1 and not tp.divides(cfg.n_heads, "attention heads"):
+        wq, wk, wv, wo = (tp.gather(wq, -1), tp.gather(wk, -1), tp.gather(wv, -1),
+                          tp.gather(wo, -2))
+    return AttnParams(wq=wq.to(dtype), wk=wk.to(dtype), wv=wv.to(dtype), wo=wo.to(dtype),
+                      q_scale=p["q_scale"], k_scale=p["k_scale"])
+
+
+def _mlp(p: dict, cfg: ArchConfig, xm: torch.Tensor, dtype) -> torch.Tensor:
+    """The block's MLP: column-parallel ``mlp_wi``, row-parallel ``mlp_wo``
+    summed over the row when the row divides ``d_ff``, else whole."""
+    wi, wo = p["mlp_wi"], p["mlp_wo"]
+    split = tp.divides(cfg.d_ff, "MLP d_ff")
+    if tp.size() > 1 and not split:
+        wi, wo = tp.gather(wi, -1), tp.gather(wo, -2)
+    y = F.gelu(tp.copy(xm) @ wi.to(dtype), approximate="tanh")   # jax.nn.gelu's default
+    y = y @ wo.to(dtype)
+    return tp.reduce(y) if split else tp.replicated(y)
+
+
 def _block(cfg: ArchConfig, ecfg: EngineConfig, p: dict, state: LayerState,
            x: torch.Tensor, t_emb: torch.Tensor, *, mode: str, n_text: int,
            strategy=None, layer_idx=None, step_idx=None, num_steps=None):
     dtype = x.dtype
     ones = torch.ones((cfg.d_model,), device=x.device)
-    mod = F.silu(t_emb) @ p["adaln"].to(dtype) + p["adaln_b"].to(dtype)
+    mod = tp.replicated(F.silu(t_emb) @ p["adaln"].to(dtype) + p["adaln_b"].to(dtype))
     sh_a, sc_a, g_a, sh_m, sc_m, g_m = mod.chunk(6, dim=-1)
-    xa = _modulate(rms_norm(x, ones, cfg.norm_eps), sh_a, sc_a)
-    attn_p = AttnParams(wq=p["wq"].to(dtype), wk=p["wk"].to(dtype),
-                        wv=p["wv"].to(dtype), wo=p["wo"].to(dtype),
-                        q_scale=p["q_scale"], k_scale=p["k_scale"])
+    xa = tp.copy(_modulate(rms_norm(x, ones, cfg.norm_eps), sh_a, sc_a))
+    attn_p = _attn_weights(p, cfg, dtype)
     if mode == "update":
         o, new_state = E.update_layer(attn_p, xa, state, ecfg, n_text=n_text,
                                       heads=cfg.n_heads, strategy=strategy,
@@ -177,18 +215,18 @@ def _block(cfg: ArchConfig, ecfg: EngineConfig, p: dict, state: LayerState,
         o, new_state = E.dispatch_layer(attn_p, xa, state, ecfg, n_text=n_text,
                                         heads=cfg.n_heads)
     elif mode == "dense":   # engine off (baseline)
-        q, k = E._qk(attn_p, xa, cfg.n_heads)
-        v = E._project_heads(xa, attn_p.wv, cfg.n_heads)
+        h = attn_p.wq.shape[-1] // cfg.hd
+        q, k = E._qk(attn_p, xa, h)
+        v = E._project_heads(xa, attn_p.wv, h)
         oh = dense_attention(q, k, v)
         o = oh.transpose(1, 2).reshape(*xa.shape[:2], -1) @ attn_p.wo
+        o = tp.reduce(o) if h != cfg.n_heads else tp.replicated(o)
         new_state = state
     else:
         raise ValueError(f"unknown denoise mode {mode!r}")
     x = x + g_a[:, None] * o.to(dtype)
     xm = _modulate(rms_norm(x, ones, cfg.norm_eps), sh_m, sc_m)
-    y = F.gelu(xm @ p["mlp_wi"].to(dtype), approximate="tanh")   # jax.nn.gelu's default
-    y = y @ p["mlp_wo"].to(dtype)
-    return x + g_m[:, None] * y, new_state
+    return x + g_m[:, None] * _mlp(p, cfg, xm, dtype), new_state
 
 
 def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
@@ -223,7 +261,7 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
     n_text = text_emb.shape[1]
     x = torch.cat([text_emb.to(dtype), x_vision.to(dtype)], dim=1)
     t_emb = timestep_embedding(t * 1000.0, 256).to(dtype) @ params["t_mlp1"].to(dtype)
-    t_emb = (F.silu(t_emb) @ params["t_mlp2"].to(dtype)).to(dtype)
+    t_emb = (F.silu(t_emb) @ tp.gather(params["t_mlp2"], -1).to(dtype)).to(dtype)
 
     for li in range(cfg.n_layers):
         strategy = None
@@ -233,10 +271,10 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
                        n_text=n_text, strategy=strategy, layer_idx=li, step_idx=step_idx,
                        num_steps=num_steps)
         states[li] = st
-    mod = F.silu(t_emb) @ params["final_mod"].to(dtype)
+    mod = tp.replicated(F.silu(t_emb) @ params["final_mod"].to(dtype))
     sh, sc = mod.chunk(2, dim=-1)
-    x = _modulate(rms_norm(x, params["final_norm"], cfg.norm_eps), sh, sc)
-    v = x[:, n_text:] @ params["final_proj"].to(dtype)
+    x = _modulate(rms_norm(x, tp.replicated(params["final_norm"]), cfg.norm_eps), sh, sc)
+    v = x[:, n_text:] @ tp.replicated(params["final_proj"]).to(dtype)
     return v, states
 
 

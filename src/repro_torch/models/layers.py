@@ -32,8 +32,8 @@ from repro_torch.tree import tree_map
 __all__ = [
     "block", "BlockRef", "init_dense", "init_rmsnorm", "rms_norm", "rope_table", "apply_rope",
     "gqa_attention", "local_attention", "decode_attention", "init_attention",
-    "attention_specs", "init_mlp", "mlp", "init_moe", "moe_route", "moe_mlp", "softmax_xent",
-    "causal_conv",
+    "attention_specs", "init_mlp", "mlp", "init_moe", "moe_route", "moe_route_global", "moe_mlp",
+    "softmax_xent", "causal_conv",
 ]
 
 _NEG_INF = -1e30
@@ -283,7 +283,16 @@ def moe_mlp(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.
     with a zero gate, as in the reference.  ``combine``, when given, is
     applied to the combined f32 output before its cast (the sum over the
     model row when the experts' ``d_ff`` is split across it).  Returns
-    ``(y, aux)``."""
+    ``(y, aux)``.
+
+    Inside a sharded step whose batch is split over ``dp``
+    (:func:`~repro_torch.distributed.tensor_parallel.dp_group`), the tokens
+    are routed as the reference's global ``moe_mlp`` routes the whole batch
+    (:func:`_moe_mlp_global`)."""
+    grp = tp.dp_group()
+    if grp is not None:
+        return _moe_mlp_global(p, x, grp, top_k=top_k, capacity_factor=capacity_factor,
+                               combine=combine)
     b, s, d = x.shape
     e = p["router"].shape[-1]
     n = b * s
@@ -292,12 +301,20 @@ def moe_mlp(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.
     cap = int(capacity_factor * n * top_k / e) + 1
     gates, eids, flat_pos, keep = moe_route(probs, top_k, cap)
     flat_e = eids.reshape(-1)
+    y = _experts(p, xf, gates, flat_e, flat_pos, keep, e, cap, top_k, combine)
+    aux = _load_balance_loss(probs, eids, e)
+    return y.reshape(b, s, d).to(x.dtype), aux
 
-    # Dispatch: (E, C, d) expert buffers.
+
+def _experts(p: dict, xf, gates, flat_e, slot, keep, e: int, cap: int, top_k: int, combine):
+    """Dispatch the kept ``(token, k)`` slots into ``(E, cap, d)`` buffers at
+    ``slot``, run every expert over its buffer and combine the gated
+    outputs: ``(N, d)`` f32."""
+    n, d = xf.shape
     ei = torch.where(keep, flat_e, e - 1)
-    pi = torch.where(keep, flat_pos, cap - 1)
+    pi = torch.where(keep, slot, cap - 1)
     vals = torch.where(keep[:, None], xf.repeat_interleave(top_k, dim=0), 0)
-    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e, cap, d), dtype=xf.dtype, device=xf.device)
     buf.index_put_((ei, pi), vals, accumulate=True)
     bw, wg = _promote(buf, p["wg"])
     h = F.silu(torch.bmm(bw, wg)) * torch.bmm(bw, p["wi"].to(bw.dtype))
@@ -305,11 +322,58 @@ def moe_mlp(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.
 
     # Combine: gather back and weight by gate.
     w = (gates.reshape(-1) * keep.to(gates.dtype))[:, None]
-    contrib = yb[flat_e, flat_pos.clamp(max=cap - 1)] * w
+    contrib = yb[flat_e, slot.clamp(max=cap - 1)] * w
     y = contrib.to(torch.float32).reshape(n, top_k, d).sum(dim=1)
-    if combine is not None:
-        y = combine(y)
-    aux = _load_balance_loss(probs, eids, e)
+    return y if combine is None else combine(y)
+
+
+def moe_route_global(probs: torch.Tensor, top_k: int, capacity_factor: float, grp):
+    """:func:`moe_route` of this rank's ``probs`` (N, E) as part of the
+    global batch, whose order is batch-major: the ranks of ``grp`` (the
+    ``dp`` group) hold its slices in rank order.  Returns ``(gates, eids,
+    local_pos, keep, c_loc)``.
+
+    The capacity comes from the global token count.  A slot's position in
+    its expert's buffer is its local running count ``local_pos`` plus the
+    slots that the group's earlier ranks sent to that expert (one all-gather
+    of ``(E,)`` counts), and it is kept below the capacity, so the kept
+    slots are the reference's.  The rank's buffer holds only its own kept
+    slots, at ``local_pos``: expert ``e`` keeps at most ``min(count_e,
+    cap - offset_e)`` of them, and ``c_loc`` is the largest of those (at
+    least 1).  On ``meta`` tensors (the dry run) ``c_loc`` is the capacity
+    over the group's size, the balanced share."""
+    e = probs.shape[-1]
+    cap = int(capacity_factor * probs.shape[0] * grp.size * top_k / e) + 1
+    gates, eids, local_pos, _ = moe_route(probs, top_k, cap)
+    flat_e = eids.reshape(-1)
+    count = F.one_hot(flat_e, e).sum(dim=0)                          # (E,) int64
+    offset = grp.all_gather(count[None], 0)[:grp.rank].sum(dim=0)
+    keep = offset[flat_e] + local_pos < cap
+    if count.is_meta:
+        return gates, eids, local_pos, keep, -(-cap // grp.size)
+    c_loc = max(int(torch.minimum(count, (cap - offset).clamp(min=0)).max()), 1)
+    return gates, eids, local_pos, keep, c_loc
+
+
+def _moe_mlp_global(p: dict, x: torch.Tensor, grp, *, top_k: int, capacity_factor: float,
+                    combine):
+    """:func:`moe_mlp` of this rank's tokens routed as part of the global
+    batch (:func:`moe_route_global`); a dropped slot is treated as before,
+    at ``(E-1, c_loc-1)``.  The load-balancing loss takes its two means
+    over the global batch: the local sums of the top-1 one-hot and of
+    ``probs``, summed over the group in one collective (its gradient reaches
+    the local ``probs`` as :func:`~repro_torch.distributed.tensor_parallel.
+    dp_sum` says)."""
+    b, s, d = x.shape
+    e = p["router"].shape[-1]
+    n = b * s
+    xf = x.reshape(n, d)
+    probs = torch.softmax(torch.matmul(*_promote(xf, p["router"])).to(torch.float32), dim=-1)
+    gates, eids, local_pos, keep, c_loc = moe_route_global(probs, top_k, capacity_factor, grp)
+    y = _experts(p, xf, gates, eids.reshape(-1), local_pos, keep, e, c_loc, top_k, combine)
+    sums = torch.cat([F.one_hot(eids[:, 0], e).to(torch.float32).sum(dim=0), probs.sum(dim=0)])
+    sums = tp.dp_sum(sums) / (n * grp.size)
+    aux = e * (sums[:e] * sums[e:]).sum()
     return y.reshape(b, s, d).to(x.dtype), aux
 
 

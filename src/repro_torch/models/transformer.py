@@ -217,23 +217,11 @@ def param_specs(cfg: ArchConfig) -> dict:
 # Forward (train / prefill shared body)
 # ---------------------------------------------------------------------------
 
-def _split(n: int, what: str) -> bool:
-    """Whether ``n`` (heads, or ``d_ff``) splits over the model row; a row
-    that it does not divide computes ``what`` replicated (noted)."""
-    m = tp.size()
-    if m == 1:
-        return False
-    if n % m:
-        tp.note(f"{what}: {n} on a model row of {m}")
-        return False
-    return True
-
-
 def _attn_weights(p, cfg: ArchConfig) -> tuple:
     """``(wq, wk, wv, wo, split)`` as this rank computes with them: K/V's
     weights whole, ``wq``/``wo`` the rank's heads when ``split``, else
     whole."""
-    split = _split(cfg.n_heads, "attention heads")
+    split = tp.divides(cfg.n_heads, "attention heads")
     wq, wo = p["wq"], p["wo"]
     if tp.size() > 1 and not split:
         wq, wo = tp.gather(wq, -1), tp.gather(wo, -2)
@@ -297,14 +285,14 @@ def _mlp_apply(p, h, cfg: ArchConfig):
     reference's zero, which adds nothing).  On a model row ``wi``/``wg`` are
     column-parallel and ``wo`` row-parallel, the router replicated."""
     if cfg.moe:
-        split = _split(cfg.moe.d_ff, "MoE d_ff")
+        split = tp.divides(cfg.moe.d_ff, "MoE d_ff")
         if tp.size() > 1 and not split:
             p = dict(p, wi=tp.gather(p["wi"], -1), wg=tp.gather(p["wg"], -1),
                      wo=tp.gather(p["wo"], -2))
         y, aux = L.moe_mlp(p, h, top_k=cfg.moe.top_k,
                            combine=tp.reduce if split else tp.replicated)
         return y, tp.replicated(aux)
-    split = _split(cfg.d_ff, "MLP d_ff")
+    split = tp.divides(cfg.d_ff, "MLP d_ff")
     if tp.size() > 1 and not split:
         p = {"wi": tp.gather(p["wi"], -1), "wg": tp.gather(p["wg"], -1),
              "wo": tp.gather(p["wo"], -2)}

@@ -151,6 +151,41 @@ def test_gemm_o_kernel_matches_plain(dev, dtype, bm):
     _close(got, gemm_o_ref(*args, block=bm), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm", [16, 64, 128])
+@pytest.mark.parametrize("h_lo,h_l", [(0, 2), (2, 2), (1, 3), (0, 4)])
+def test_gemm_o_kernel_over_a_head_range(dev, dtype, bm, h_lo, h_l):
+    """B3 over heads [h_lo, h_lo + h_l) of a 4-head plan (a rank's share
+    of a model row) against its plain version, and (0, 4) ``torch.equal``
+    to the call without a range; the two halves, the bias on the first,
+    summed against the whole."""
+    g = _gen(300 + bm)
+    b, h, n, dh, f = 2, 4, 1024, 64, 200
+    t = n // bm
+    m_ch = torch.rand((b, t, h), generator=g) < 0.4
+    row_ids, row_cnt = active_indices(m_ch.any(-1), t)
+    hm = torch.gather(m_ch, 1, row_ids.long()[..., None].expand(b, t, h))
+    hm &= (torch.arange(t) < row_cnt[:, None])[..., None]   # padded slots: no heads
+    head_ids, head_cnt = active_indices(hm, h)
+    o = torch.randn((b, h, n, dh), generator=g).to(dtype)
+    w = (torch.randn((h, dh, f), generator=g) * (h * dh) ** -0.5).to(dtype)
+    bias = torch.randn((b, n, f), generator=g).to(dtype)
+    o, w, bias, row_ids, head_ids, head_cnt = (a.to(dev) for a in (o, w, bias, row_ids,
+                                                                    head_ids, head_cnt))
+    lists = (row_ids, head_ids, head_cnt)
+    part = lambda lo, hl, bias_: (o[:, lo:lo + hl].contiguous(), w[lo:lo + hl].contiguous(),
+                                  bias_, *lists)
+    got = TK.gemm_o_sparse_kernel(*part(h_lo, h_l, bias), block_rows=bm, h_lo=h_lo)
+    _close(got, gemm_o_ref(*part(h_lo, h_l, bias), block=bm, h_lo=h_lo), dtype)
+    whole = TK.gemm_o_sparse_kernel(o, w, bias, *lists, block_rows=bm)
+    if (h_lo, h_l) == (0, h):
+        assert torch.equal(got, whole)
+    halves = (TK.gemm_o_sparse_kernel(*part(0, 2, bias), block_rows=bm, h_lo=0)
+              + TK.gemm_o_sparse_kernel(*part(2, 2, torch.zeros_like(bias)), block_rows=bm,
+                                        h_lo=2))
+    _close(halves, whole, dtype)
+
+
 def _bucketed_plan(seed, b, h, n, bq, bkv, pool, kv_buckets):
     """A bucketed plan with head skew (a diagonal head among near-full ones),
     an all-cached (b, h) and clamping buckets, ids widened to int32."""

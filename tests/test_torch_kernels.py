@@ -162,3 +162,49 @@ def test_gemm_o_plain_matches_pallas_and_ref(plan, dtype):
                                jnp.asarray(plan["head_ids"][b]),
                                jnp.asarray(plan["head_cnt"][b]), block=POOL)
         _check(got[b], want, dtype)
+
+
+def _heads_in(plan, lo: int, hi: int):
+    """The plan's GEMM-O head lists cut to heads ``[lo, hi)`` and renumbered
+    from ``lo`` (what one device's lists say of a head range)."""
+    ids, cnt = plan["head_ids"], plan["head_cnt"]
+    out_ids = np.zeros((*ids.shape[:-1], hi - lo), np.int32)
+    out_cnt = np.zeros_like(cnt)
+    for b, c in np.ndindex(cnt.shape):
+        keep = [h - lo for h in ids[b, c, :cnt[b, c]] if lo <= h < hi]
+        out_ids[b, c, :len(keep)] = keep
+        out_cnt[b, c] = len(keep)
+    return out_ids, out_cnt
+
+
+def test_gemm_o_plain_over_a_head_range(plan):
+    """B3's plain version over each head of the row (O and W that head's,
+    the lists the whole plan's) against ``ref.gemm_o_ref`` on the sliced
+    heads with the lists cut to them; the full range ``torch.equal`` to
+    the call without one; the ranges' results, the bias on the first only,
+    summed to the whole within f32 tolerance."""
+    dtype = "float32"
+    jo, to = _pair(_rand(12, B, H, N, DH), dtype)
+    jw, tw = _pair(_rand(13, H, DH, D, std=(H * DH) ** -0.5), dtype)
+    jb, tb = _pair(_rand(14, B, N, D), dtype)
+    args = [_t(plan[f]) for f in ("row_ids", "head_ids", "head_cnt")]
+    whole = TK.gemm_o_sparse_kernel(to, tw, tb, *args, block_rows=POOL)
+    assert torch.equal(TK.gemm_o_sparse_kernel(to, tw, tb, *args, block_rows=POOL, h_lo=0),
+                       whole)
+    parts = []
+    for lo in range(H):
+        bias = tb if lo == 0 else torch.zeros_like(tb)
+        got = TK.gemm_o_sparse_kernel(to[:, lo:lo + 1].contiguous(), tw[lo:lo + 1], bias,
+                                      *args, block_rows=POOL, h_lo=lo)
+        ids, cnt = _heads_in(plan, lo, lo + 1)
+        for b in range(B):
+            want = jref.gemm_o_ref(jo[b, lo:lo + 1], jw[lo:lo + 1], jnp.asarray(bias[b].numpy()),
+                                   jnp.asarray(plan["row_ids"][b]),
+                                   jnp.asarray(plan["row_cnt"][b]), jnp.asarray(ids[b]),
+                                   jnp.asarray(cnt[b]), block=POOL)
+            _check(got[b], want, dtype)
+        parts.append(got)
+    _check(sum(parts), whole.numpy(), dtype)
+    with pytest.raises(ValueError, match="head range"):
+        TK.gemm_o_sparse_kernel(to.to("meta"), tw.to("meta"), tb.to("meta"),
+                                *(a.to("meta") for a in args), block_rows=POOL, h_lo=1)

@@ -166,6 +166,10 @@ def world_rank(rank: int) -> dict:
     moves = ((nested, [Replicate(), Shard(0)]), (nested, [Shard(1), Replicate()]),
              (partial, [Shard(0), Replicate()]), (partial, [Replicate(), Replicate()]))
     own = [x.redistribute(mesh, pl).to_local() for x, pl in moves]
+    # A mesh dim of one rank: sharded over it, a tensor is whole already.
+    row = DeviceMesh("cpu", torch.arange(8).reshape(1, 8), mesh_dim_names=("data", "model"))
+    one = distribute_tensor(torch.arange(64.0).reshape(8, 8), row, [Shard(0), Shard(1)])
+    own_one = one.redistribute(row, [Replicate(), Replicate()]).to_local()
     staged, one_host = TS._staged, TS._one_host
     TS._staged = lambda m: True
     try:
@@ -175,6 +179,13 @@ def world_rank(rank: int) -> dict:
         via_peers = reshard_state(reshard_state(state, spec, mesh, rules), spec, small, rules)
         out["peer_moves"] = [bool(torch.equal(TS.redistribute(x, pl).to_local(), want))
                              for (x, pl), want in zip(moves, own)]
+        undo, undone = TS._undo_dim, []
+        TS._undo_dim = lambda local, m, dim, p: undone.append(dim) or undo(local, m, dim, p)
+        try:
+            got = TS.redistribute(one, [Replicate(), Replicate()]).to_local()
+        finally:
+            TS._undo_dim = undo
+        out["size1_move"] = (bool(torch.equal(got, own_one)), undone)
     finally:
         TS._staged, TS._one_host = staged, one_host
     if out["in_small"]:
@@ -240,9 +251,10 @@ def test_reshard_state_round_trips_bit_for_bit(world):
 def test_peer_moves_equal_dtensors_own(world):
     """Moves between the ranks of one host (nested shards made whole
     innermost first, partial sums in mesh order) give DTensor's own
-    results."""
+    results; a mesh dim of one rank moves nothing."""
     for r in world:
         assert r["peer_moves"] == [True] * 4
+        assert r["size1_move"] == (True, [1])
 
 
 def test_constrain_redistributes_a_dtensor_in_a_context(world):

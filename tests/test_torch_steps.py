@@ -6,20 +6,35 @@ weights (the port's ``init_params`` from a seed) and the batches are numpy
 arrays handed to both packages.
 
   * **train**: 2 FSDP steps of flux-mmdit, gemma3-1b, llama3-405b and
-    mixtral-8x22b (smoke, f32; the three LMs split the ``model`` axis:
-    1, 2 and 2 K/V heads, and mixtral's MoE), gemma3-1b also with
-    ``cfg.remat``, against the unsharded port step (``adamw_update`` on the
-    whole tree) and against the reference's ``build_train_step`` fn (jitted
-    over a (1, 1) CPU mesh): loss, grad_norm and every parameter within
-    1e-4; ``cast_params_bf16=True`` against the reference's within 2e-2;
-    the gradients of every leaf replicated over ``model`` (norms, router),
+    mixtral-8x22b (smoke, f32, every batch split over data; all four split
+    the ``model`` axis: the DiT's 2 heads and its MLP, the LMs' 1, 2 and 2
+    K/V heads, and mixtral's MoE, which routes the global batch),
+    gemma3-1b also with ``cfg.remat``, against the unsharded port step
+    (``adamw_update`` on the whole tree) and against the reference's
+    ``build_train_step`` fn (jitted over a (1, 1) CPU mesh): loss,
+    grad_norm and every parameter within 1e-4; ``cast_params_bf16=True``
+    against the reference's within 2e-2; the gradients of every leaf
+    replicated over ``model`` (norms, router, the DiT's modulations),
     read from AdamW's first moment, equal on the two ranks of each row;
+  * **MoE routing over dp**: mixtral smoke's ``moe_mlp`` shape on each
+    rank's slice of a batch of 4 under the step's ``dp`` group: each rank's
+    per-expert kept counts equal to the reference ``moe_mlp``'s routing of
+    the concatenated batch, its aux loss within 1e-6 and its output within
+    1e-5 of the reference's, and its expert buffer no longer than its own
+    largest kept count;
   * **DiT step**: Update then Dispatch on flux-mmdit smoke (the serving
-    launcher's engine config, batch 2 over data): each rank's ``v`` and its
-    states ``torch.equal`` to the unsharded ``denoise_step`` on its own
-    batch-1 slice, the gathered ``v`` within 1e-5 of the reference's
-    ``build_dit_step`` fn on the XLA backend, and the kernels' plain
-    versions called once a layer at Dispatch (none at Update);
+    launcher's engine config, batch 2 over data, its 2 heads split 1 a
+    rank over model): each rank's symbols and every integer plan field
+    ``torch.equal`` to the unsharded ``denoise_step`` on its own batch-1
+    slice, its ``v`` and the f32 state fields within 1e-5 of their largest
+    magnitude there (the row's sum adds in another order) and the bf16
+    TaylorSeer stack within one unit in its last place (that f32 sum
+    rounded once), the
+    gathered ``v`` within 1e-5 of the reference's ``build_dit_step`` fn on
+    the XLA backend, each rank's gathered block holding only its ``tp``
+    shards of the six split leaves, nothing computed replicated, and the
+    kernels' plain versions called once a layer at Dispatch (none at
+    Update);
   * **prefill / decode**: gemma3-1b, llama3-405b, mixtral-8x22b and
     whisper-large-v3 smoke, batch 4 over data: greedy tokens equal to the
     unsharded port's, logits within 1e-4 of the reference builders' fns
@@ -67,6 +82,11 @@ SERVE_B, PROMPT, MAX_LEN, DECODE_STEPS = 4, 32, 64, 4
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 DIT_TOL = dict(rtol=1e-5, atol=1e-5)
+DIT_SLICE_REL = 1e-5             # of the unsharded slice's largest magnitude
+DIT_SLICE_BF16_ULPS = 1          # a bf16 state field: its f32 source rounded once
+MOE_B, MOE_S, MOE_SEED = 4, 16, 23
+MOE_AUX_TOL = dict(rtol=1e-6, atol=1e-6)
+MOE_Y_TOL = dict(rtol=1e-5, atol=1e-5)
 DISPATCH_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel")
 XENT_TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -101,14 +121,6 @@ def _tp_leaves_local(tree, pls) -> bool:
     return True
 
 
-def rules_for_arch(arch: str, rules):
-    """The rules of ``arch``'s cases: the MoE routes the batch its rank
-    computes (capacity and load-balancing loss), where the reference's
-    GSPMD step routes the global batch, so mixtral replicates the batch over
-    data (``dp=()``) and shards only its parameters there (ROADMAP C.13)."""
-    return dataclasses.replace(rules, dp=()) if arch == "mixtral-8x22b" else rules
-
-
 def xent_rank(mesh) -> dict:
     """The vocab-parallel softmax_xent against the whole-vocab one: each
     rank's row holds the vocab split over ``model`` (padding columns past
@@ -132,6 +144,41 @@ def xent_rank(mesh) -> dict:
     cols = min(vocab, (r + 1) * v_loc) - r * v_loc
     want_mine[:, :cols] = want_g[:, r * v_loc:r * v_loc + cols]
     return {"loss": (float(got), float(want)), "grad": (got_g, want_mine)}
+
+
+def _moe_inputs() -> dict:
+    """Mixtral smoke's MoE weights and a batch whose tokens lean on few
+    experts (a shared offset), so that the global capacity drops slots."""
+    from repro_torch.configs.registry import get_smoke
+    cfg = get_smoke("mixtral-8x22b")
+    rng = np.random.default_rng(MOE_SEED)
+    d, f, e = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts
+    n = lambda *shape, std: (rng.standard_normal(shape) * std).astype(np.float32)
+    p = {"router": n(d, e, std=d ** -0.5), "wi": n(e, d, f, std=d ** -0.5),
+         "wg": n(e, d, f, std=d ** -0.5), "wo": n(e, f, d, std=f ** -0.5)}
+    x = n(MOE_B, MOE_S, d, std=1.0) + n(1, 1, d, std=1.0)
+    return {"p": p, "x": x, "top_k": cfg.moe.top_k}
+
+
+def moe_rank(mesh, moe: dict) -> dict:
+    """Each rank's slice of the batch through ``moe_mlp`` and
+    ``moe_route_global`` under a step's ``dp`` group (data)."""
+    import torch.nn.functional as F
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R
+    from repro_torch.distributed.tensor_parallel import ParamGather
+    from repro_torch.models import layers as L
+    p = {k: torch.from_numpy(v) for k, v in moe["p"].items()}
+    d, n_d = mesh.get_coordinate()[0], mesh.size(0)
+    b_l = MOE_B // n_d
+    x = torch.from_numpy(moe["x"][d * b_l:(d + 1) * b_l])
+    gath = ParamGather(mesh, R, tp=False)
+    with gath.active():
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]) @ p["router"], dim=-1)
+        _, eids, _, keep, c_loc = L.moe_route_global(probs, moe["top_k"], 1.25, gath.dp)
+        y, aux = L.moe_mlp(p, x, top_k=moe["top_k"])
+    e = p["router"].shape[-1]
+    kept = F.one_hot(eids.reshape(-1)[keep], e).sum(dim=0)
+    return {"kept": kept.numpy(), "c_loc": c_loc, "aux": float(aux), "y": y.numpy()}
 
 
 def _train_batch(arch: str, seed: int) -> dict:
@@ -171,15 +218,38 @@ def _torch(tree):
     return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
 
 
-def _states_equal(a: list, b: list) -> bool:
+def _bf16_ulps(p: torch.Tensor, q: torch.Tensor) -> float:
+    """The largest difference of bf16 ``p`` from ``q`` in units of ``q``'s
+    last place (2^-7 of its binade; the least normal one at zero)."""
+    qf = q.float()
+    binade = torch.floor(torch.log2(qf.abs().clamp(min=torch.finfo(torch.bfloat16).tiny)))
+    return float(((p.float() - qf).abs() / torch.exp2(binade - 7)).max())
+
+
+def _states_compare(a: list, b: list) -> tuple:
+    """``(ints_equal, float_rel, bf16_ulps)``: whether the counters, the
+    symbols and every integer plan field of ``a`` are ``torch.equal`` to
+    ``b``'s; the largest difference of an f32 field (the row score) over
+    that field's largest magnitude in ``b``; and the largest difference of
+    a bf16 field (the TaylorSeer stack in the serving cache dtype) in its
+    last place (:func:`_bf16_ulps`)."""
+    ints, rel, ulps = True, 0.0, 0.0
     for x, y in zip(a, b):
         pairs = [(x.s_c, y.s_c), (x.s_s, y.s_s), (x.taylor.derivs, y.taylor.derivs)]
         pairs += [(getattr(x.plan, f), getattr(y.plan, f)) for f in x.plan._fields]
         if x.k_since != y.k_since or x.taylor.n_updates != y.taylor.n_updates:
-            return False
-        if not all((p is None and q is None) or torch.equal(p, q) for p, q in pairs):
-            return False
-    return True
+            ints = False
+        for p, q in pairs:
+            if p is None or q is None:
+                ints = ints and p is None and q is None
+            elif q.dtype == torch.bfloat16:
+                ulps = max(ulps, _bf16_ulps(p, q))
+            elif p.dtype.is_floating_point:
+                scale = max(float(q.float().abs().max()), 1e-30)
+                rel = max(rel, float((p.float() - q.float()).abs().max()) / scale)
+            else:
+                ints = ints and torch.equal(p, q)
+    return ints, rel, ulps
 
 
 def steps_rank(rank: int, inputs: dict) -> dict:
@@ -207,7 +277,7 @@ def steps_rank(rank: int, inputs: dict) -> dict:
     gc.disable()                  # a step's gather must not outlive it, cycle or not
     for arch, cast, remat in TRAIN_CASES:
         cfg = dataclasses.replace(get_smoke(arch), remat=remat)
-        model, rules = get_model(cfg), rules_for_arch(arch, R)
+        model, rules = get_model(cfg), R
         fn, _, in_pl, out_pl = ST.build_train_step(
             cfg, ShapeSpec("t", TRAIN_SEQ[arch], TRAIN_B, "train"), mesh, rules,
             opt_cfg=AdamWConfig(**OPT), cast_params_bf16=cast, dtype=torch.float32)
@@ -239,6 +309,7 @@ def steps_rank(rank: int, inputs: dict) -> dict:
         del fn, p, o, b, m
     out["gathers_alive"] = sum(isinstance(x, ParamGather) for x in gc.get_objects())
     gc.enable()
+    out["moe"] = moe_rank(mesh, inputs["moe"])
 
     # The DiT step: Update, then Dispatch on the states it returned.
     cfg, ecfg = get_smoke("flux-mmdit"), serving_engine_config()
@@ -264,14 +335,24 @@ def steps_rank(rank: int, inputs: dict) -> dict:
     one = dit.init_engine_states(cfg, ecfg, 1, n_tok, "cpu")
     sl = slice(d, d + 1)
     dit_out = {}
+    block_shapes = {}
+    kept_block = ParamGather.block
+
+    def recording_block(self, group, idx):
+        got = kept_block(self, group, idx)
+        block_shapes.update({k: tuple(t.shape) for k, t in got.items()})
+        return got
+
     for mode in ("update", "dispatch"):
         fn, _, _, out_pl = ST.build_dit_step(cfg, shape, mesh, R, mode=mode, ecfg=ecfg,
                                              dtype=torch.float32)
         for name in DISPATCH_KERNELS:
             setattr(backend, name, counting(name))
+        ParamGather.block = recording_block
         try:
             v, states = fn(p, states, xd)
         finally:
+            ParamGather.block = kept_block
             for name in DISPATCH_KERNELS:
                 setattr(backend, name, kept[name])
         gathered = (fn.stats["max_gathered_bytes"], gather_bound(params, dit.BLOCK_GROUPS))
@@ -279,15 +360,19 @@ def steps_rank(rank: int, inputs: dict) -> dict:
                                    x["text_emb"][sl], x["t"][sl], mode=mode, dtype=torch.float32)
         local = [ST._state_from_tree(tree_map(ST._to_local, ST._state_tree(s), compute,
                                               is_leaf=ST._is_pl), s) for s in states]
-        dit_out[mode] = {"v": whole(v), "v_equal": torch.equal(v.to_local(), v1),
-                         "states_equal": _states_equal(local, one),
+        v_rel = float((v.to_local() - v1).abs().max()) / float(v1.abs().max())
+        ints_equal, float_rel, bf16_ulps = _states_compare(local, one)
+        dit_out[mode] = {"v": whole(v), "v_rel": v_rel, "ints_equal": ints_equal,
+                         "float_rel": float_rel, "bf16_ulps": bf16_ulps,
                          "v_placements": list(v.placements) == out_pl[0],
-                         "calls": dict(calls), "gathered": gathered}
+                         "calls": dict(calls), "gathered": gathered,
+                         "block_shapes": dict(block_shapes),
+                         "tp_replicated": fn.stats["tp_replicated"]}
     out["dit"] = dit_out
 
     for arch in SERVE_ARCHS:
         cfg = get_smoke(arch)
-        model, rules = get_model(cfg), rules_for_arch(arch, R)
+        model, rules = get_model(cfg), R
         params = _torch(inputs["params"][arch])
         p = reshard_state(params, model.param_specs(), mesh, rules)
         pre, _, _, _ = ST.build_prefill_step(cfg, ShapeSpec("p", PROMPT, SERVE_B, "prefill"),
@@ -344,7 +429,7 @@ def inputs():
     return {"params": params,
             "train_batches": {a: [_train_batch(a, 100 + i) for i in range(TRAIN_STEPS)]
                               for a in TRAIN_ARCHS},
-            "dit_inputs": _dit_inputs(get_smoke("flux-mmdit")),
+            "dit_inputs": _dit_inputs(get_smoke("flux-mmdit")), "moe": _moe_inputs(),
             "serve_batches": {a: _serve_batch(get_smoke(a)) for a in SERVE_ARCHS}}
 
 
@@ -447,6 +532,29 @@ def _jit(mesh, built):
         lambda *args: jax.device_put(args, in_sh)
 
 
+def _moe_reference(moe: dict) -> dict:
+    """The reference ``moe_mlp`` on the whole batch, and the slots its
+    routing keeps (its own lines: top-k, running positions, ``pos < cap``)
+    counted per expert on each data rank's share of the slots."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import moe_mlp
+    p = {k: jnp.asarray(v) for k, v in moe["p"].items()}
+    x, k = jnp.asarray(moe["x"]), moe["top_k"]
+    y, aux = jax.jit(lambda p, x: moe_mlp(p, x, top_k=k))(p, x)
+    n, e = MOE_B * MOE_S, p["router"].shape[-1]
+    probs = jax.nn.softmax((x.reshape(n, -1) @ p["router"]).astype(jnp.float32), axis=-1)
+    flat_e = jax.lax.top_k(probs, k)[1].reshape(-1)
+    onehot = jax.nn.one_hot(flat_e, e, dtype=jnp.int32)
+    pos = jnp.sum((jnp.cumsum(onehot, axis=0) - 1) * onehot, axis=-1)
+    keep = np.asarray(pos < int(1.25 * n * k / e) + 1)
+    flat_e = np.asarray(flat_e)
+    share = n * k // MESH[0]
+    mine = lambda a, r: a[r * share:(r + 1) * share]
+    kept = [np.bincount(mine(flat_e, r)[mine(keep, r)], minlength=e) for r in range(MESH[0])]
+    return {"y": np.asarray(y), "aux": float(aux), "kept": kept, "dropped": int((~keep).sum())}
+
+
 def _references(inputs, local) -> dict:
     """The reference builders' fns on a (1, 1) CPU mesh, on the same inputs
     (decode fed the unsharded port's greedy tokens)."""
@@ -489,6 +597,7 @@ def _references(inputs, local) -> dict:
                                                         mesh, R, mode=mode, ecfg=jecfg))
             v, states = step(*place(params, states, inputs["dit_inputs"]))
             ref["dit"][mode] = np.asarray(v)
+        ref["moe"] = _moe_reference(inputs["moe"])
 
         for arch in SERVE_ARCHS:
             jcfg, jp = j_get_smoke(arch), inputs["params"][arch]
@@ -538,15 +647,41 @@ def test_train_step_with_bf16_params_matches_the_reference(runs):
 
 
 def test_dit_step_is_each_ranks_slice_and_matches_the_reference(runs):
+    from repro_torch.configs.registry import get_smoke
+    cfg = get_smoke("flux-mmdit")
+    d, m, f = cfg.d_model, MESH[1], cfg.d_ff
+    hd_m = cfg.n_heads * cfg.hd // m
+    shards = {"wq": (d, hd_m), "wk": (d, hd_m), "wv": (d, hd_m), "wo": (hd_m, d),
+              "mlp_wi": (d, f // m), "mlp_wo": (f // m, d)}
     world, _, ref = runs
     for r in world:
         for mode in ("update", "dispatch"):
             rec = r["dit"][mode]
-            assert rec["v_equal"] and rec["states_equal"] and rec["v_placements"], mode
+            assert rec["ints_equal"] and rec["v_placements"], mode
+            assert rec["v_rel"] <= DIT_SLICE_REL and rec["float_rel"] <= DIT_SLICE_REL, mode
+            assert rec["bf16_ulps"] <= DIT_SLICE_BF16_ULPS, mode
             _close(rec["v"], ref["dit"][mode], **DIT_TOL)
+            assert {k: rec["block_shapes"][k] for k in shards} == shards, mode
+            assert rec["tp_replicated"] == [], mode
         # The plain versions ran once a layer at Dispatch, never at Update.
         assert r["dit"]["update"]["calls"] == dict.fromkeys(DISPATCH_KERNELS, 0)
         assert r["dit"]["dispatch"]["calls"] == dict.fromkeys(DISPATCH_KERNELS, 3)
+
+
+def test_moe_routes_the_global_batch_over_dp(runs):
+    """Each rank keeps the slots the reference keeps of its share of the
+    concatenated batch, and its expert buffer holds only those."""
+    world, _, ref = runs
+    want = ref["moe"]
+    assert want["dropped"] > 0                   # the capacity binds
+    b_l = MOE_B // MESH[0]
+    for rank, r in enumerate(world):
+        d = rank // MESH[1]
+        got = r["moe"]
+        np.testing.assert_array_equal(got["kept"], want["kept"][d])
+        assert got["c_loc"] == max(int(got["kept"].max()), 1)
+        _close(np.float32(got["aux"]), np.float32(want["aux"]), **MOE_AUX_TOL)
+        _close(got["y"], want["y"][d * b_l:(d + 1) * b_l], **MOE_Y_TOL)
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)

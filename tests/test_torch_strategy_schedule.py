@@ -110,6 +110,26 @@ def _same_schedule(want, got):
     assert got.kinds() == want.kinds()
 
 
+@pytest.mark.parametrize("name", TS.available_strategies())
+def test_each_head_emits_alone_on_a_split_row(name):
+    """A rank of a split ``model`` row emits over its own heads with
+    ``head_lo`` their first global index: every registered strategy (the
+    multi-granularity ones assign children by global head) gives the
+    heads what one device gives them over all heads."""
+    n, n_text, heads, m = 256, 32, 6, 3
+    q, k = (torch.from_numpy(a) for a in _qk(9, 2, heads, n))
+    cfg = _cfgs()[1]
+    ctx = lambda lo: TS.StrategyContext(cfg=cfg, n_text=n_text, n_tokens=n, step_idx=1,
+                                        num_steps=4, head_lo=lo)
+    strat = TS.get_strategy(name)
+    whole = strat.emit(q, k, ctx(0))
+    h = heads // m
+    for lo in range(0, heads, h):
+        part = strat.emit(q[:, lo:lo + h], k[:, lo:lo + h], ctx(lo))
+        for f in ("s_c", "s_s", "m_c", "m_s", "q_scores", "kv_scores"):
+            assert torch.equal(getattr(part, f), getattr(whole, f)[:, lo:lo + h]), (f, lo)
+
+
 @pytest.mark.parametrize("steps,layers", [(8, 3), (12, 38)])
 def test_hunyuan_schedule_matches(steps, layers):
     jcfg, tcfg = _cfgs()
