@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Twenty-three paths run, each with the launch counts set to 0 just before it
+Twenty-seven paths run, each with the launch counts set to 0 just before it
 and read just after: T1 (training flux-mmdit at full width and 2 blocks,
 the engine off: no kernel may launch), L-train (training gemma3-1b at full
 width with remat on and off: no kernel), L1-L6 (the LMs gemma3-1b,
@@ -20,7 +20,10 @@ Dispatch: GEMM-Q, CSR attention, GEMM-O, counted in each rank), S4
 S4-tp (S4 with the model axis split over the two ranks: no kernel), S5
 (gemma3-1b trained at full width with the model axis split over two
 ranks: no kernel), S3-tp (S3's cell with the model axis split over the
-two ranks: GEMM-Q, CSR attention, GEMM-O on each rank's heads),
+two ranks: GEMM-Q, CSR attention, GEMM-O on each rank's heads), S6-tp
+(recurrentgemma-2b, mamba2-370m and whisper-large-v3 trained at full
+width with the model axis split over two ranks, and llama-3.2-vision-11b
+served so: no kernel; four paths),
 P1
 (``flashomni``, uniform layout: GEMM-Q, CSR attention, GEMM-O), P2
 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2 buckets:
@@ -67,8 +70,9 @@ final line):
                 promotion, cost certificates, plan validator, source lint;
                 zero findings), the plan validator on the seeded plans of the
                 ``kernels`` cell (1-3 buckets) and of ``kernels_33k``, on the
-                38 plans of one full-width flux-mmdit Update step built with
-                ``validate_plans=True``, and the six smoke samplers again with
+                12 plans of one full-width flux-mmdit Update step at 12 of
+                its 38 blocks built with ``validate_plans=True``, and the
+                six smoke samplers again with
                 the hook on; the findings (any fails) and the seconds;
   5. train    — the training path (``repro_torch.launch.train``): the
                 dense attention's grad branch at one full-width layer (B 1,
@@ -84,8 +88,8 @@ final line):
                 restart, step 3 bit-equal before and after it, no kernel
                 launched; parameters, step seconds (loss and gradients,
                 update), checkpoint bytes and seconds, restore seconds, peak
-                memory; then L-train: gemma3-1b as published (26 layers,
-                d_model 1152, vocab 262 144, ``remat=True``), one step at
+                memory; then L-train: gemma3-1b at full width (7 of its
+                26 layers, d_model 1152, vocab 262 144, ``remat=True``), one step at
                 batch 1 and 4096 tokens through ``make_step_fn`` with remat
                 on and off on the same weights and batch (a warm-up, then
                 the median of 3): step seconds, peak memory, the loss, and
@@ -98,13 +102,15 @@ final line):
                 that wrap the 32-slot rings, prefill, with the stub frames
                 or patches where the family takes them; each within 1e-4 of
                 the CPU relative to the largest magnitude); then six
-                published configs at full width in f32: L1 gemma3-1b (26
-                layers, d_model 1152, vocab 262 144, window 512), L2
-                granite-moe-3b-a800m (32 layers, 40 experts top-8), L3
-                mamba2-370m (48 SSD layers), L4 recurrentgemma-2b (26
-                layers, window 2048), L5 whisper-large-v3 (32 + 32 layers,
-                1500 frames) and L6 llama-3.2-vision-11b (40 layers, 8 gated
-                cross-attention, 1600 patches): ``serve_lm`` at the
+                published configs at full width in f32, each at about a
+                quarter of its depth: L1 gemma3-1b (7 of 26 layers,
+                d_model 1152, vocab 262 144, window 512), L2
+                granite-moe-3b-a800m (8 of 32 layers, 40 experts top-8), L3
+                mamba2-370m (12 of 48 SSD layers), L4 recurrentgemma-2b (8
+                of 26 layers, window 2048), L5 whisper-large-v3 (8 + 8 of
+                32 + 32 layers, 1500 frames) and L6 llama-3.2-vision-11b
+                (10 of 40 layers, 2 gated cross-attention, 1600 patches):
+                ``serve_lm`` at the
                 reference's defaults (greedy tokens), ms a decode token
                 (median of 10), device-busy ms, idle share and aten ops a
                 step, one prefill (4096 tokens; L5 1500 frames + 448
@@ -193,17 +199,17 @@ final line):
                 batch-1 slice run alone, rel-L2 3e-4 against the batch-2
                 step, B1-B3 launched twice a rank at Dispatch and never at
                 Update, B2's first call against its plain version.  S4,
-                gemma3-1b at full width in bf16, batch 2: the prefill
+                gemma3-1b at full width (7 of 26 layers) in bf16, batch 2: the prefill
                 builder on 256 tokens, then 4 greedy steps of the decode
                 builder: tokens equal to the unsharded model's, logits
                 within 2e-2 of their largest magnitude; no kernel.  S4-tp,
                 S4 on mesh (1, 2): the model axis split, held as S4 is.
-                S5, gemma3-1b at full width (26 layers, f32, remat on),
-                1 x 4096 tokens, one train step on mesh (1, 2) with the
-                model axis split: loss, grad_norm and every gradient
-                (AdamW's first moment) within 1e-4 of the unsharded step,
-                run first in this process and kept on the host; step s by
-                part, peer bytes, peak a rank; no kernel.  S2-moe,
+                S5, gemma3-1b at full width (7 of 26 layers, f32, remat
+                on), 1 x 4096 tokens, one train step on mesh (1, 2) with
+                the model axis split: loss, grad_norm and every gradient
+                (AdamW's first moment, gathered whole) within 1e-4 of the
+                unsharded step, run afterwards on rank 0; step s by part,
+                peer bytes, peak a rank; no kernel.  S2-moe,
                 mixtral-8x22b smoke trained one step on mesh (2, 1), its
                 batch split over data, so the MoE routes the global batch
                 across the ranks: loss, grad_norm and parameters within
@@ -218,7 +224,17 @@ final line):
                 and the two ranks' B3 partials summed against one B3 over
                 every head (1e-4); Update and Dispatch seconds, row
                 collectives a step, ``max_gathered_bytes``, peak a rank.
-                Every step gathers one block at a time
+                S6-tp, on mesh (1, 2) with the model axis split at full
+                width and depth: recurrentgemma-2b and mamba2-370m (1 x
+                4096 tokens) and whisper-large-v3 (1500 frames + 448
+                tokens), one f32 train step each with remat on, held as S5
+                is; llama-3.2-vision-11b in bf16, the prefill builder on
+                2048 tokens + 1600 patches and 4 greedy decode steps:
+                tokens equal to the unsharded model's, logits no farther
+                from the unsharded f32 run's than 1.5x the unsharded bf16
+                run's own distance; step s by part, row collectives,
+                ``max_gathered_bytes``, ``tp_replicated`` (empty), peak a
+                rank; no kernel.  Every step gathers one block at a time
                 (``max_gathered_bytes``);
                 S2's and S3's peaks are printed beside 14.35 / 6.68 GB,
                 their peaks when every leaf was gathered whole;
@@ -262,9 +278,11 @@ final line):
                 f32 peak, S2's peak a rank and wire bytes a step (world 2,
                 mesh (2, 1)) against S2's peak and the bytes a rank copied
                 from its peer, S3's Dispatch holding B1-B3 once a layer at
-                capacity as S3 launched them, S5's and S3-tp's Dispatch
-                peak a rank (world 2, mesh (1, 2)) against S5's and
-                S3-tp's (each prediction within 2x of its measurement); then the planning cell, flux-mmdit at all
+                capacity as S3 launched them, S5's, S3-tp's Dispatch and
+                each S6-tp cell's peak a rank (world 2, mesh (1, 2))
+                against its measurement (each prediction within 2x of its
+                measurement; a vlm cell's the larger of its prefill's and
+                decode's); then the planning cell, flux-mmdit at all
                 38 blocks trained as T1 is, FSDP over 4 ranks, batch 1 a
                 rank: its peak a rank and whether it fits 80 GB.
 
@@ -913,19 +931,24 @@ def phase_small():
     emit({"phase": "small", "runs": small_runs(), "ok": True})
 
 
+# The analysis phase's Update step runs 12 of flux-mmdit's 38 blocks (cut to
+# make room for S6-tp): one plan checked a layer.
+ANALYSIS_LAYERS = 12
+
+
 def phase_analysis():
     """The invariant analyzer on the card: ``run_analysis`` at its geometry
     (every pass, the kernels launched), the plan validator on the seeded
     plans of the ``kernels`` cell (flux shapes, 1-3 buckets) and of
-    ``kernels_33k`` (H1's shapes), on the 38 plans of one full-width
-    flux-mmdit Update step built with ``validate_plans=True``, and the six
+    ``kernels_33k`` (H1's shapes), on the plans of one full-width
+    flux-mmdit Update step at ANALYSIS_LAYERS blocks built with
+    ``validate_plans=True``, and the six
     smoke samplers again with the hook on.  Any finding fails."""
     import torch
     from repro_torch.analysis import run_analysis
     from repro_torch.analysis.op_walk import kernel_regions
     from repro_torch.analysis.passes import _N, _engine_cfg, trace_pair
     from repro_torch.analysis.plan_check import check_plan, hook_validate
-    from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import resolve_schedule
     from repro_torch.core.strategy import MultiGranularityStrategy, SlidingWindowStrategy
     from repro_torch.launch.serve import serving_engine_config
@@ -962,7 +985,7 @@ def phase_analysis():
         torch.cuda.empty_cache()
     res["kernel_cell_plans"] = checked
     # One full-width flux-mmdit Update step with the hook on: one check per layer.
-    cfg = get_config(FLUX["arch"])
+    cfg = cell_config({"arch": FLUX["arch"], "n_layers": ANALYSIS_LAYERS})
     ecfg = dataclasses.replace(serving_engine_config(), validate_plans=True)
     params, xe, text, t = profile_inputs(cfg, FLUX["batch"], FLUX["n_vision"])
     states = dit.init_engine_states(cfg, ecfg, FLUX["batch"],
@@ -1076,14 +1099,15 @@ def train_smoke_vs_cpu(compress) -> dict:
             "ok": bool(rel <= TRAIN_REL and len(runs[DEVICE].metrics) == TRAIN_SMOKE["steps"])}
 
 
-# L-train: gemma3-1b as published (26 layers, d_model 1152, vocab 262 144,
-# remat on) trained one step at batch 1 and 4096 tokens through
+# L-train: gemma3-1b at its published width (d_model 1152, vocab 262 144,
+# remat on) and 7 of its 26 layers (cut to make room for S6-tp)
+# trained one step at batch 1 and 4096 tokens through
 # launch/train.make_step_fn (not the restartable loop: a checkpoint of its
 # 16 GB of f32 state would cost tens of seconds), with remat on and with
 # it off (dataclasses.replace(cfg, remat=False)) on the same weights and
 # batch: a warm-up step, then the median of LTRAIN_STEPS; the loss and every
 # gradient of the two within LTRAIN_REL of the largest magnitude.
-LTRAIN = dict(arch="gemma3-1b", batch=1, seq_len=4096)
+LTRAIN = dict(arch="gemma3-1b", n_layers=7, batch=1, seq_len=4096)
 LTRAIN_STEPS = 3
 LTRAIN_REL = 1e-5
 
@@ -1137,12 +1161,11 @@ def ltrain() -> tuple[dict, dict, list]:
     returns its row and its launches."""
     import math
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import DataConfig, make_batch
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.models.registry import get_model, param_count
     from repro_torch.optim.optimizer import adamw_init
-    cfg = get_config(LTRAIN["arch"])
+    cfg = cell_config(LTRAIN)
     off = dataclasses.replace(cfg, remat=False)
     torch.cuda.empty_cache()
     reset_launches()
@@ -1262,7 +1285,9 @@ def phase_train() -> tuple[dict, dict]:
 # LM_SMOKE_STEPS decode steps, which wrap their 32-slot rings; prefill; the
 # stub frames or patches where the family takes them), each within LM_REL
 # of the CPU: the largest difference over the largest magnitude.  Then six
-# published configs at full width in f32 (LM_PATHS): serve_lm at the
+# published configs at full width in f32 (LM_PATHS), each at about a
+# quarter of its depth (LM_LAYERS, cut to make room for S6-tp):
+# serve_lm at the
 # reference's defaults (batch 2, prompt 32, 16 tokens, 64 slots), ms a
 # decode token (median of LM_TIMED_STEPS, CUDA events), one prefill of
 # batch 1 (LM_PREFILL_TOKENS, where gemma's local layers and
@@ -1279,6 +1304,10 @@ LM_SMOKE_TOKENS, LM_SMOKE_STEPS = 80, 40
 LM_PATHS = (("L1", "gemma3-1b"), ("L2", "granite-moe-3b-a800m"), ("L3", "mamba2-370m"),
             ("L4", "recurrentgemma-2b"), ("L5", "whisper-large-v3"),
             ("L6", "llama-3.2-vision-11b"))
+# Of 26, 32, 48, 26, 32 (+ 32 encoder) and 40 published layers: about a
+# quarter, in whole local:global cycles, recurrent periods and
+# cross-attention cycles.
+LM_LAYERS = {"L1": 7, "L2": 8, "L3": 12, "L4": 8, "L5": 8, "L6": 10}
 LM_PREFILL_TOKENS = 4096
 LM_PREFILL = {"L5": 448, "L6": 2048}
 LM_DECODE_CHECK = ("L1", "L3", "L4")
@@ -1388,25 +1417,24 @@ def decode_work(model, params, cfg, median_ms) -> dict:
 
 
 def lm_path(label, arch) -> tuple[dict, dict, list]:
-    """One of LM_PATHS: ``serve_lm`` at full width, then the decode timing,
-    the prefill and (LM_DECODE_CHECK) decode against forward on the same
-    seeded weights; the launch counts are set to 0 just before and read just
-    after."""
+    """One of LM_PATHS: ``serve_lm`` at full width and LM_LAYERS' depth, then
+    the decode timing, the prefill and (LM_DECODE_CHECK) decode against
+    forward on the same seeded weights; the launch counts are set to 0 just
+    before and read just after."""
     import math
     import statistics
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.launch.serve import serve_lm
     from repro_torch.models.registry import get_model
     from repro_torch.tree import tree_leaves
-    cfg = get_config(arch)
+    cfg = cell_config({"arch": arch, "n_layers": LM_LAYERS[label]})
     model = get_model(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    tokens = serve_lm(arch, smoke=False, seed=0, device=DEVICE)
+    tokens = serve_lm(cfg, seed=0, device=DEVICE)
     serve_s = time.perf_counter() - t0
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)                                # serve_lm's weights again
@@ -1592,10 +1620,9 @@ SHARD_ITERS = 5
 SHARD_JOIN_S = 300
 
 
-def sharding_rank(rank: int, s5_ref: str) -> dict:
+def sharding_rank(rank: int) -> dict:
     """One rank of the ``sharding`` phase: its launch counts are set to 0 at
-    its start and read at its end (and around each of S2-S5).  ``s5_ref``
-    is the file of S5's unsharded step (:func:`s5_reference`)."""
+    its start and read at its end (and around each of S2-S6)."""
     import statistics
     import torch
     import torch.distributed as dist
@@ -1692,8 +1719,10 @@ def sharding_rank(rank: int, s5_ref: str) -> dict:
     row = DeviceMesh(DEVICE, torch.arange(world).reshape(S5_MESH),
                      mesh_dim_names=("data", "model"))
     out["S4tp"] = s4_rank(row)
-    out["S5"] = s5_rank(row, s5_ref)
+    out["S5"] = train_cell_rank(row, S5)
     out["S3tp"] = s3tp_rank(row)
+    out["S6tp"] = {cell["arch"]: train_cell_rank(row, cell) for cell in S6_TRAIN}
+    out["S6tp"][S6_VLM["arch"]] = s6vlm_rank(row)
     return out
 
 
@@ -1718,17 +1747,18 @@ def sharding_rank(rank: int, s5_ref: str) -> dict:
 # gemma3-1b at full width in bf16 (the reference's serving parameters),
 # batch 2, build_prefill_step on S4["prompt"] tokens, then
 # S4["decode_steps"] greedy steps of build_decode_step at the following
-# positions, rules from rules_for; the greedy tokens equal to the unsharded
+# positions, rules from rules_for (S4, S4-tp and S5 at 7 of gemma3-1b's 26
+# layers, cut to make room for S6-tp); the greedy tokens equal to the unsharded
 # Model.prefill / decode_step's on the same weights, logits within S4_REL of
 # their largest magnitude.  S2 and S4 launch no kernel.  S4-tp: S4 on mesh
 # (1, 2), the model axis split (tensor parallel over both ranks), held as
-# S4 is.  S5: gemma3-1b at full width (26 layers, f32, remat on as
-# L-train's "on" case), L-train's batch (1 x 4096 tokens), trained one
-# step of build_train_step on mesh (1, 2) (the model axis split), against
-# make_step_fn's unsharded step run first in the parent and kept on the
-# host (s5_reference): loss and grad_norm within S5_REL relative, AdamW's
-# first moment (the clipped gradient times 1 - b1) within S5_REL of its
-# largest magnitude on every rank's shard; no kernel.  S2's and S3's peaks
+# S4 is.  S5: gemma3-1b at full width (f32, remat on as L-train's "on"
+# case), L-train's batch (1 x 4096 tokens), trained one step of
+# build_train_step on mesh (1, 2) (the model axis split), against
+# make_step_fn's unsharded step run afterwards on rank 0
+# (train_cell_rank): loss and grad_norm within S5_REL relative, AdamW's
+# first moment (the clipped gradient times 1 - b1), gathered whole from the
+# ranks' shards, within S5_REL of its largest magnitude; no kernel.  S2's and S3's peaks
 # a rank are printed beside their peaks with every parameter gathered
 # whole (S2_PEAK_BEFORE_GB, S3_PEAK_BEFORE_GB, on the H100 at 700 W).
 # S2-moe (ROADMAP C.13): mixtral-8x22b smoke (f32), one step of
@@ -1753,12 +1783,33 @@ S2_REL = 1e-4
 S3 = dict(n_layers=2, batch=2, n_vision=4096)
 S3_REL_L2 = 3e-4
 S3_LAUNCHES = 2
-S4 = dict(arch="gemma3-1b", batch=2, prompt=256, decode_steps=4)
+S4 = dict(arch="gemma3-1b", n_layers=7, batch=2, prompt=256, decode_steps=4)
 S4_REL = 2e-2
-S5 = dict(arch="gemma3-1b", batch=1, seq_len=4096)
+S5 = dict(arch="gemma3-1b", n_layers=7, batch=1, seq_len=4096)
 S5_MESH = (1, 2)
 S5_REL = 1e-4
 S2_PEAK_BEFORE_GB, S3_PEAK_BEFORE_GB = 14.35, 6.68
+# S6-tp (ROADMAP C.12): the ssm, hybrid and encdec families with the model
+# axis split at full width and depth on mesh (1, 2): S6_TRAIN, one f32 train
+# step each with remat on at batch 1 (whisper-large-v3: its 1500 frames and
+# 448 tokens), against make_step_fn's unsharded step run afterwards on rank 0
+# (train_cell_rank) and held as S5 is (S5_REL); S6_VLM, llama-3.2-vision-11b
+# in bf16: the prefill builder on L6's 2048 tokens and 1600 patches, then
+# S6_VLM["decode_steps"] greedy steps of the decode builder, against the
+# unsharded model on rank 0 (its f32 train state, about 134 GB, fits no
+# card): the greedy tokens equal to the unsharded bf16 run's, and the logits
+# no farther from the unsharded f32 run's (fed the same tokens) than
+# S6_VLM_RATIO times the unsharded bf16 run's own distance from them.  S4's
+# gate (S4_REL of the largest magnitude against the bf16 run) lies below
+# bf16's own error at this width and depth: the unsharded bf16 run reads
+# 4.5e-2 off the f32 run (PERF.md section 6).  No kernel launches; each
+# cell's peak a rank is held within DRYRUN_RATIO of the dry run's
+# prediction (phase_dryrun).
+S6_TRAIN = (dict(arch="recurrentgemma-2b", batch=1, seq_len=4096),
+            dict(arch="mamba2-370m", batch=1, seq_len=4096),
+            dict(arch="whisper-large-v3", batch=1, seq_len=448))
+S6_VLM = dict(arch="llama-3.2-vision-11b", batch=1, prompt=2048, decode_steps=4)
+S6_VLM_RATIO = 1.5
 S2MOE = dict(arch="mixtral-8x22b", batch=2, seq_len=64)
 S2MOE_REL = 1e-4
 S3TP_REL_L2 = 1e-4
@@ -1773,6 +1824,14 @@ def _launches() -> dict:
 def _peak_gb() -> float:
     import torch
     return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _own(tree, mesh):
+    """A tree of DTensors whose local tensors own their memory (a narrowing
+    reshard is a view of the whole tensor, which would stay alive)."""
+    from repro_torch.launch.steps import _dtensor
+    from repro_torch.tree import tree_map
+    return tree_map(lambda d: _dtensor(d.to_local().clone(), mesh, d.placements, d.shape), tree)
 
 
 def _whole(x):
@@ -2096,7 +2155,6 @@ def s3tp_rank(mesh) -> dict:
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.registry import get_config
     from repro_torch.core import engine as E
-    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.distributed.sharding import DEFAULT_RULES as R
     from repro_torch.kernels import reset_launches
     from repro_torch.launch import steps as ST
@@ -2113,15 +2171,7 @@ def s3tp_rank(mesh) -> dict:
     torch.cuda.empty_cache()
     h = cfg.n_heads // mesh.size(1)
     hs = slice(mesh.get_coordinate()[1] * h, (mesh.get_coordinate()[1] + 1) * h)
-    row_calls = {"sum": 0, "all_gather": 0}
-    kept_row = {k: getattr(TP._Row, k) for k in row_calls}
     kept_qk, qk = E._qk, {"split": [], "whole": []}
-
-    def counted(name):
-        def call(self, *a, **kw):
-            row_calls[name] += 1
-            return kept_row[name](self, *a, **kw)
-        return call
 
     def keep_qk(into, heads):
         def call(*a, **kw):
@@ -2143,15 +2193,13 @@ def s3tp_rank(mesh) -> dict:
         two = list(two)
         want[mode] = {"v": v2.cpu(), "ints": [[a.cpu() for a in _int_fields(st)] for st in two]}
     del two, v2
-    # The step's inputs own their memory (a narrowing reshard is a view of
-    # the whole tensor), so only they are alive on the card at its call.
-    own = lambda tree: tree_map(lambda d: ST._dtensor(d.to_local().clone(), mesh, d.placements,
-                                                      d.shape), tree)
-    p = own(reshard_state(params, dit.param_specs(cfg), mesh, R))
-    x = own(reshard_state({"x_vision": xe, "text_emb": text, "t": t}, dit_inputs_logical(cfg),
-                          mesh, R))
+    # The step's inputs own their memory, so only they are alive on the card
+    # at its call.
+    p = _own(reshard_state(params, dit.param_specs(cfg), mesh, R), mesh)
+    x = _own(reshard_state({"x_vision": xe, "text_emb": text, "t": t}, dit_inputs_logical(cfg),
+                           mesh, R), mesh)
     spec = dit.engine_state_specs(cfg, ecfg)
-    states = [ST._state_from_tree(own(ST._state_tree(st)), st) for st in ST.place_states(
+    states = [ST._state_from_tree(_own(ST._state_tree(st), mesh), st) for st in ST.place_states(
         dit.init_engine_states(cfg, ecfg, b, n_tok, DEVICE), spec, mesh, R)]
     del params, xe, text, t
     torch.cuda.empty_cache()
@@ -2165,9 +2213,6 @@ def s3tp_rank(mesh) -> dict:
     for mode in ("update", "dispatch"):
         fn = ST.build_dit_step(cfg, shape, mesh, R, mode=mode, ecfg=ecfg,
                                dtype=torch.float32)[0]
-        for k in row_calls:
-            row_calls[k] = 0
-            setattr(TP._Row, k, counted(k))
         E._qk = keep_qk("split", slice(None)) if mode == "update" else kept_qk
         reset_launches()
         torch.cuda.synchronize()
@@ -2175,13 +2220,12 @@ def s3tp_rank(mesh) -> dict:
         torch.cuda.reset_peak_memory_stats()
         entry = torch.cuda.memory_allocated() / 1e9
         try:
-            t0 = time.perf_counter()
-            (v, states), call = first_b3_call(lambda: fn(p, states, x))
-            sec = time.perf_counter() - t0
+            with counting_row_collectives() as row_calls:
+                t0 = time.perf_counter()
+                (v, states), call = first_b3_call(lambda: fn(p, states, x))
+                sec = time.perf_counter() - t0
         finally:
             E._qk = kept_qk
-            for k, f in kept_row.items():
-                setattr(TP._Row, k, f)
         peak, launches = _peak_gb(), _launches()
         mine, w = local(states), want[mode]
         first = next(((li, fi) for li, (a_st, w_st) in enumerate(zip(mine, w["ints"]))
@@ -2213,7 +2257,6 @@ def s4_rank(mesh) -> dict:
     import torch
     from torch.distributed.tensor import DTensor
     from repro_torch.configs.base import SHAPES, ShapeSpec
-    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import reset_launches
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import rules_for
@@ -2221,7 +2264,7 @@ def s4_rank(mesh) -> dict:
     from repro_torch.models.registry import get_model
     from repro_torch.runtime.elastic import reshard_state
     from repro_torch.tree import tree_map
-    cfg = get_config(S4["arch"])
+    cfg = cell_config(S4)
     model = get_model(cfg)
     b, n, k = S4["batch"], S4["prompt"], S4["decode_steps"]
     pre_rules = rules_for(cfg, SHAPES["prefill_32k"], multi_pod=False)
@@ -2280,15 +2323,23 @@ def s4_rank(mesh) -> dict:
     return res
 
 
-def _s5_setup():
-    """S5's config, weights (seed 0), batch (L-train's) and optimizer."""
-    import torch
+def cell_config(cell: dict):
+    """A cell's config: its arch as published, at ``cell["n_layers"]`` where
+    the cell cuts its depth."""
     from repro_torch.configs.registry import get_config
+    cfg = get_config(cell["arch"])
+    return dataclasses.replace(cfg, n_layers=cell["n_layers"]) if "n_layers" in cell else cfg
+
+
+def _train_cell_setup(cell: dict):
+    """A train cell's config (as published, remat on), weights (seed 0),
+    batch (``make_batch``'s first, as L-train's) and optimizer (L-train's)."""
+    import torch
     from repro_torch.data.synthetic import DataConfig, make_batch
     from repro_torch.models.registry import get_model
     from repro_torch.optim.optimizer import AdamWConfig
-    cfg = get_config(S5["arch"])
-    dcfg = DataConfig(seed=0, batch=S5["batch"], seq_len=S5["seq_len"])
+    cfg = cell_config(cell)
+    dcfg = DataConfig(seed=0, batch=cell["batch"], seq_len=cell["seq_len"])
     g = torch.Generator(device=DEVICE)
     g.manual_seed(0)
     params = get_model(cfg).init_params(g, DEVICE)
@@ -2296,20 +2347,17 @@ def _s5_setup():
     return cfg, dcfg, params, make_batch(cfg, dcfg, 0, device=DEVICE), opt
 
 
-def s5_reference(path: Path) -> dict:
-    """S5's unsharded step in this process (``make_step_fn``, as L-train
-    runs it): its loss, grad_norm and AdamW first moment written to
-    ``path`` on the host, everything freed on the card; returns its
-    seconds and peak."""
+def unsharded_train_step(cell: dict) -> dict:
+    """A train cell's unsharded step in this process (``make_step_fn``, as
+    L-train runs it): its loss, grad_norm, AdamW first moment (on the
+    card), seconds and peak."""
     import torch
     from repro_torch.launch.train import make_step_fn
     from repro_torch.models.registry import get_model
     from repro_torch.optim.optimizer import adamw_init
     from repro_torch.tree import tree_leaves
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cfg, dcfg, params, _, opt = _s5_setup()
+    cfg, dcfg, params, _, opt = _train_cell_setup(cell)
     step_fn = make_step_fn(get_model(cfg), opt, dcfg, cfg, dtype=torch.float32, device=DEVICE)
     state = (params, adamw_init(params))
     del params
@@ -2317,22 +2365,42 @@ def s5_reference(path: Path) -> dict:
     t_step = time.perf_counter()
     state, met = step_fn(state, 0)
     torch.cuda.synchronize()
-    rec = {"step_s": time.perf_counter() - t_step, "peak_gb": _peak_gb(),
-           "loss": met["loss"], "grad_norm": met["grad_norm"]}
-    torch.save({"loss": met["loss"], "grad_norm": met["grad_norm"],
-                "mu": [t.cpu() for t in tree_leaves(state[1]["mu"])]}, path)
-    del state, step_fn
-    torch.cuda.empty_cache()
-    rec["seconds"] = time.perf_counter() - t0
-    return rec
+    return {"step_s": time.perf_counter() - t_step, "peak_gb": _peak_gb(),
+            "loss": met["loss"], "grad_norm": met["grad_norm"],
+            "mu": tree_leaves(state[1]["mu"])}
 
 
-def s5_rank(mesh, ref_path: str) -> dict:
-    """S5 on one rank: one sharded train step of gemma3-1b at full width
-    with the model axis split, held to the unsharded step's record."""
+@contextlib.contextmanager
+def counting_row_collectives():
+    """Counts of the model row's sums and gathers within the block (the
+    dict yielded, by kind)."""
+    from repro_torch.distributed import tensor_parallel as TP
+    calls = {"sum": 0, "all_gather": 0}
+    kept = {k: getattr(TP._Row, k) for k in calls}
+
+    def counted(name):
+        def call(self, *a, **kw):
+            calls[name] += 1
+            return kept[name](self, *a, **kw)
+        return call
+
+    for k in calls:
+        setattr(TP._Row, k, counted(k))
+    try:
+        yield calls
+    finally:
+        for k, f in kept.items():
+            setattr(TP._Row, k, f)
+
+
+def train_cell_rank(mesh, cell: dict) -> dict:
+    """One sharded train step of a train cell (S5, S6-tp) on one rank with
+    the model axis split; then rank 0 runs the unsharded step
+    (:func:`unsharded_train_step`, the other rank's memory freed) and holds
+    the sharded one to it: the loss, the grad_norm and AdamW's first moment,
+    gathered whole from the ranks' shards."""
     import torch
     import torch.distributed as dist
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed.sharding import DEFAULT_RULES as R
     from repro_torch.kernels import reset_launches
@@ -2344,12 +2412,14 @@ def s5_rank(mesh, ref_path: str) -> dict:
     from repro_torch.tree import tree_leaves
     t_cell = time.perf_counter()
     torch.cuda.empty_cache()
-    cfg, _, params, batch, opt = _s5_setup()
+    cfg, _, params, batch, opt = _train_cell_setup(cell)
     model = get_model(cfg)
-    fn = build_train_step(cfg, ShapeSpec("S5", S5["seq_len"], S5["batch"], "train"), mesh, R,
-                          opt_cfg=opt, dtype=torch.float32)[0]
-    p = reshard_state(params, model.param_specs(), mesh, R)
-    o = reshard_state(adamw_init(params), adamw_state_specs(model.param_specs()), mesh, R)
+    fn = build_train_step(cfg, ShapeSpec("cell", cell["seq_len"], cell["batch"], "train"), mesh,
+                          R, opt_cfg=opt, dtype=torch.float32)[0]
+    # The step's inputs own their memory, so only they are alive on the card.
+    p = _own(reshard_state(params, model.param_specs(), mesh, R), mesh)
+    o = _own(reshard_state(adamw_init(params), adamw_state_specs(model.param_specs()), mesh, R),
+             mesh)
     b = reshard_state(batch, train_batch_logical(cfg), mesh, R)
     del params, batch
     torch.cuda.synchronize()
@@ -2357,28 +2427,152 @@ def s5_rank(mesh, ref_path: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     dist.barrier()
-    t0 = time.perf_counter()
-    p, o, m = fn(p, o, b)
-    torch.cuda.synchronize()
+    with counting_row_collectives() as row_calls:
+        t0 = time.perf_counter()
+        p, o, m = fn(p, o, b)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
     res = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers, "remat": cfg.remat,
-                      "n_params": param_count(cfg), "mesh": list(S5_MESH), **S5},
-           "step_s": time.perf_counter() - t0, **fn.stats, "peak_gb": _peak_gb(),
-           "launches": _launches(), "loss": float(m["loss"].to_local()),
+                      "n_params": param_count(cfg), "mesh": list(mesh.mesh.shape), **cell},
+           "step_s": step_s, **fn.stats, "row_collectives": dict(row_calls),
+           "peak_gb": _peak_gb(), "launches": _launches(), "loss": float(m["loss"].to_local()),
            "grad_norm": float(m["grad_norm"].to_local()),
            "local_bytes": sum(x.to_local().nbytes for x in tree_leaves(p))}
-    ref = torch.load(ref_path, mmap=True, weights_only=True)
-    res["loss_rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
-    res["grad_norm_rel"] = abs(res["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
-    diff = scale = 0.0
-    for x, want in zip(tree_leaves(o["mu"]), ref["mu"]):
-        shape, off = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
-        want = want[tuple(slice(a, a + n) for a, n in zip(off, shape))].to(DEVICE)
-        diff = max(diff, float((x.to_local() - want).abs().max()))
-        scale = max(scale, float(want.abs().max()))
-    del ref, p, o, b, m
+    mu = [_whole(x) for x in tree_leaves(o["mu"])]
+    del p, o, b, m
+    if dist.get_rank():
+        mu = None
     torch.cuda.empty_cache()
-    res["grad_abs"] = diff
-    res["grad_rel"] = diff / max(scale, 1e-30)
+    dist.barrier()
+    if mu is not None:
+        ref = unsharded_train_step(cell)
+        res["reference"] = {k: ref[k] for k in ("step_s", "peak_gb", "loss", "grad_norm")}
+        res["loss_rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+        res["grad_norm_rel"] = abs(res["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+        diff = scale = 0.0
+        for x, want in zip(mu, ref["mu"]):
+            diff = max(diff, float((x - want).abs().max()))
+            scale = max(scale, float(want.abs().max()))
+        res["grad_abs"] = diff
+        res["grad_rel"] = diff / max(scale, 1e-30)
+        del ref, mu
+        torch.cuda.empty_cache()
+    dist.barrier()
+    res["seconds"] = time.perf_counter() - t_cell
+    return res
+
+
+def s6vlm_rank(mesh) -> dict:
+    """S6-tp's vlm cell on one rank: the sharded prefill and decode of
+    llama-3.2-vision-11b at full width in bf16 with the model axis split;
+    rank 0 then runs the unsharded ones in bf16 and in f32.  The f32 weights are drawn on one
+    rank at a time (33.5 GB each) and cast to bf16; only the rank's shards
+    stay on the card through the sharded steps."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.base import SHAPES, ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.launch.specs import prefill_batch_logical
+    from repro_torch.models.registry import get_model
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(S6_VLM["arch"])
+    model = get_model(cfg)
+    b, n, k = S6_VLM["batch"], S6_VLM["prompt"], S6_VLM["decode_steps"]
+    pre_rules = rules_for(cfg, SHAPES["prefill_32k"], multi_pod=False)
+    dec_rules = rules_for(cfg, SHAPES["decode_32k"], multi_pod=False)
+    t_cell = time.perf_counter()
+    torch.cuda.empty_cache()
+    rank, params = dist.get_rank(), None
+
+    def weights(dt=torch.bfloat16):
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(0)
+        out = tree_map(lambda w: w.to(dt), model.init_params(g, DEVICE))
+        torch.cuda.empty_cache()
+        return out
+
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            params = weights()
+        dist.barrier()
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, n), generator=g, device=DEVICE,
+                                     dtype=torch.int32),
+             "patches": torch.randn((b, cfg.num_image_tokens, cfg.d_model), generator=g,
+                                    device=DEVICE).to(torch.bfloat16)}
+    pre = ST.build_prefill_step(cfg, ShapeSpec("S6", n, b, "prefill"), mesh, pre_rules)[0]
+    dec, _, dec_pl, _ = ST.build_decode_step(cfg, ShapeSpec("S6", n + k, b, "decode"), mesh,
+                                             dec_rules)
+    # Only the steps' inputs, owning their memory, are alive on the card;
+    # rank 0 draws the whole weights again for its unsharded run.
+    p = _own(reshard_state(params, model.param_specs(), mesh, pre_rules), mesh)
+    x = reshard_state(batch, prefill_batch_logical(cfg), mesh, pre_rules)
+    cache = reshard_state(model.init_cache(b, n + k, device=DEVICE), model.cache_specs(), mesh,
+                          dec_rules)
+    params = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    dist.barrier()
+    res = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers, "mesh": list(mesh.mesh.shape),
+                      **S6_VLM, "patches": cfg.num_image_tokens}}
+    with counting_row_collectives() as row_calls:
+        t0 = time.perf_counter()
+        logits = pre(p, x)
+        res["prefill"] = {"s": time.perf_counter() - t0, **pre.stats,
+                          "row_collectives": dict(row_calls)}
+    got_logits, got_tokens, res["decode"] = [_whole(logits)], [], []
+    for i in range(k):
+        tok = DTensor.from_local(logits.to_local().argmax(-1).to(torch.int32), mesh, dec_pl[2],
+                                 run_check=False)
+        got_tokens.append(_whole(tok))
+        with counting_row_collectives() as row_calls:
+            t0 = time.perf_counter()
+            logits, cache = dec(p, cache, tok, n + i)
+            res["decode"].append({"s": time.perf_counter() - t0, **dec.stats,
+                                  "row_collectives": dict(row_calls)})
+        got_logits.append(_whole(logits))
+    res["launches"] = _launches()
+    res["peak_gb"] = _peak_gb()
+    res["local_bytes"] = sum(d.to_local().nbytes for d in tree_leaves(p))
+    del p, x, cache, logits
+    torch.cuda.empty_cache()
+    if rank == 0:
+        want, want_tokens = {}, []
+        for dt in (torch.bfloat16, torch.float32):     # greedy in bf16; f32 fed its tokens
+            params = weights(dt)
+            inputs = {key: v.to(dt) if v.is_floating_point() else v for key, v in batch.items()}
+            with torch.no_grad():
+                out = [model.prefill(params, inputs, dtype=dt)]
+                cache = model.init_cache(b, n + k, dt, device=DEVICE)
+                for i in range(k):
+                    if dt == torch.bfloat16:
+                        want_tokens.append(out[-1].argmax(-1).to(torch.int32))
+                    logits, cache = model.decode_step(params, cache, want_tokens[i], n + i,
+                                                      dtype=dt)
+                    out.append(logits)
+            want[dt] = [t.float().cpu() for t in out]
+            del params, cache, out, logits
+            torch.cuda.empty_cache()
+        res["tokens_equal"] = all(torch.equal(a, c) for a, c in zip(got_tokens, want_tokens))
+        res["first_differing_step"] = next(
+            (i for i, (a, c) in enumerate(zip(got_tokens, want_tokens)) if not torch.equal(a, c)),
+            None)
+        w16, w32 = want[torch.bfloat16], want[torch.float32]
+        res["logits_rel"] = max(rel_err(a, c) for a, c in zip(got_logits, w16))
+        res["logits_vs_f32"] = max(rel_err(a, c) for a, c in zip(got_logits, w32))
+        res["bf16_vs_f32"] = max(rel_err(a, c) for a, c in zip(w16, w32))
+        res["tokens"] = [t.tolist() for t in got_tokens]
+        del want
+    del batch
+    torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_cell
     return res
 
@@ -2388,22 +2582,16 @@ def phase_sharding() -> tuple[dict, dict]:
     a rank fails, the collective matmul lies beyond SHARD_ATOL of the local
     product, the resharded parameters are not ``torch.equal`` to the
     unsharded ones on the surviving rank, a kernel launched in S1, S2 or S4,
-    or a check of S2-S5 fails.  S5's unsharded step runs here first, its
-    results kept in a file on the host for the ranks.  Returns the launch
-    counts of the paths ``sharding`` (S1), S2, S3 (its Update and Dispatch
-    steps), S2-moe, S3-tp, S4, S4-tp and S5, each rank 0's, and rank 0's
+    or a check of S2-S6 fails.  Returns the launch counts of the paths
+    ``sharding`` (S1), S2, S3 (its Update and Dispatch steps), S2-moe,
+    S3-tp, S4, S4-tp, S5 and each S6-tp cell, each rank 0's, and rank 0's
     record."""
-    import tempfile
     import torch
     torch.cuda.empty_cache()
     from repro_torch.launch.mesh import run_local_mesh
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_s5_") as tmp:
-        ref_path = Path(tmp) / "s5_reference.pt"
-        s5_ref = s5_reference(ref_path)
-        ranks = run_local_mesh(sharding_rank, *SHARD_MESH, str(ref_path),
-                               timeout=SHARD_JOIN_S)
-    res = {"phase": "sharding", "transport": "gloo", "ranks": ranks, "S5_reference": s5_ref,
+    ranks = run_local_mesh(sharding_rank, *SHARD_MESH, timeout=SHARD_JOIN_S)
+    res = {"phase": "sharding", "transport": "gloo", "ranks": ranks,
            "seconds": time.perf_counter() - t0}
     emit(res)
     faults = []
@@ -2426,7 +2614,9 @@ def phase_sharding() -> tuple[dict, dict]:
             "S2moe": ranks[0]["S2moe"]["launches"], "S3": both(ranks[0]["S3"]),
             "S3tp": both(ranks[0]["S3tp"]),
             "S4": ranks[0]["S4"]["launches"], "S4tp": ranks[0]["S4tp"]["launches"],
-            "S5": ranks[0]["S5"]["launches"]}, ranks[0]
+            "S5": ranks[0]["S5"]["launches"],
+            **{f"S6tp {arch}": rec["launches"] for arch, rec in ranks[0]["S6tp"].items()}}, \
+        ranks[0]
 
 
 def s3tp_faults(r) -> list:
@@ -2450,8 +2640,60 @@ def s3tp_faults(r) -> list:
     return faults
 
 
+def s6tp_faults(ranks) -> list:
+    """The failed checks of S6-tp: each train cell held as S5 is (and every
+    rank's loss and grad_norm rank 0's), the vlm's serving steps as S4-tp
+    is; no kernel launched, nothing computed replicated.  A summary line a
+    cell goes to stderr."""
+    faults = []
+    for r in ranks:
+        for arch, rec in r["S6tp"].items():
+            steps = [rec] if "loss" in rec else [rec["prefill"], *rec["decode"]]
+            label = f"rank {r['rank']}: S6-tp {arch}"
+            if any(rec["launches"].values()):
+                faults.append(f"{label} launched kernels: {rec['launches']}")
+            if any(st["tp_replicated"] for st in steps):
+                faults.append(f"{label} computed replicated: "
+                              f"{[st['tp_replicated'] for st in steps]}")
+            if "loss" in rec:
+                if "loss_rel" in rec and not (rec["loss_rel"] <= S5_REL
+                                              and rec["grad_norm_rel"] <= S5_REL
+                                              and rec["grad_rel"] <= S5_REL):
+                    faults.append(f"{label} loss/grad_norm/gradients {rec['loss_rel']:.2e}/"
+                                  f"{rec['grad_norm_rel']:.2e}/{rec['grad_rel']:.2e} off the "
+                                  "unsharded step")
+                first = ranks[0]["S6tp"][arch]
+                if (rec["loss"], rec["grad_norm"]) != (first["loss"], first["grad_norm"]):
+                    faults.append(f"{label} loss/grad_norm differ from rank 0's")
+            elif "tokens_equal" in rec and not (
+                    rec["tokens_equal"]
+                    and rec["logits_vs_f32"] <= S6_VLM_RATIO * rec["bf16_vs_f32"]):
+                faults.append(f"{label}: tokens equal {rec['tokens_equal']} (first differing "
+                              f"step {rec['first_differing_step']}), logits "
+                              f"{rec['logits_vs_f32']:.2e} off the f32 run against the "
+                              f"unsharded bf16 run's {rec['bf16_vs_f32']:.2e}")
+    for arch, rec in ranks[0]["S6tp"].items():
+        peaks = [round(r["S6tp"][arch]["peak_gb"], 2) for r in ranks]
+        if "loss" in rec:
+            print(f"chip_smoke: S6-tp {arch} step {rec['step_s']:.2f} s (model "
+                  f"{rec['compute_s']:.2f}), row collectives {rec['row_collectives']}, max "
+                  f"gathered {rec['max_gathered_bytes'] / 1e9:.3f} GB, peak {peaks} GB, loss "
+                  f"{rec['loss_rel']:.1e}, gradients {rec['grad_rel']:.2e}", file=sys.stderr,
+                  flush=True)
+        else:
+            print(f"chip_smoke: S6-tp {arch} prefill {rec['prefill']['s']:.2f} s, decode "
+                  f"{[round(d['s'], 2) for d in rec['decode']]} s, row collectives "
+                  f"{rec['prefill']['row_collectives']} / {rec['decode'][-1]['row_collectives']}, "
+                  f"peak {peaks} GB, tokens equal {rec.get('tokens_equal')}, logits "
+                  f"{rec.get('logits_rel', float('nan')):.2e} off the unsharded bf16 run, "
+                  f"{rec.get('logits_vs_f32', float('nan')):.2e} off the f32 run (the bf16 "
+                  f"run {rec.get('bf16_vs_f32', float('nan')):.2e})", file=sys.stderr,
+                  flush=True)
+    return faults
+
+
 def sharding_step_faults(ranks) -> list:
-    """The failed checks of S2-S5 (a summary line goes to stderr)."""
+    """The failed checks of S2-S6 (a summary line goes to stderr)."""
     import math
     faults = []
     s3_sq = [sum(r["S3"][m][k] for r in ranks) for m in ("dispatch",)
@@ -2497,8 +2739,8 @@ def sharding_step_faults(ranks) -> list:
                 faults.append(f"{label}: tokens equal {rec['tokens_equal']} (first differing "
                               f"step {rec['first_differing_step']}), logits "
                               f"{rec['logits_rel']:.2e}")
-        if not (s5["loss_rel"] <= S5_REL and s5["grad_norm_rel"] <= S5_REL
-                and s5["grad_rel"] <= S5_REL):
+        if "loss_rel" in s5 and not (s5["loss_rel"] <= S5_REL and s5["grad_norm_rel"] <= S5_REL
+                                     and s5["grad_rel"] <= S5_REL):
             faults.append(f"rank {rank}: S5 loss/grad_norm/gradients {s5['loss_rel']:.2e}/"
                           f"{s5['grad_norm_rel']:.2e}/{s5['grad_rel']:.2e} off the unsharded "
                           "step")
@@ -2506,6 +2748,7 @@ def sharding_step_faults(ranks) -> list:
             faults.append(f"rank {rank}: S5 loss/grad_norm differ from rank 0's")
     if not s3_rel <= S3_REL_L2:
         faults.append(f"S3: rel-L2 {s3_rel:.3e} against the unsharded batch-2 step")
+    faults += s6tp_faults(ranks)
     firsts = {r["S3tp"]["update"]["first_int_difference"] for r in ranks} - {None}
     if firsts:
         layer = min(firsts)[0]
@@ -3649,15 +3892,16 @@ F32_FLOPS = 67e12                 # one H100 SXM at 700 W, f32 outside the tenso
 
 def dryrun_cells() -> None:
     """The dry run's predictions of T1, S2, S3's Dispatch, S3-tp's Dispatch,
-    S5 and the planning cell, printed as one JSON line (``phase_dryrun`` runs this in a process
-    of its own)."""
+    S5, S6-tp's cells and the planning cell, printed as one JSON line
+    (``phase_dryrun`` runs this in a process of its own)."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
-    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.base import SHAPES, ShapeSpec
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed.sharding import DEFAULT_RULES as R
     from repro_torch.kernels import reset_launches
     from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import rules_for
     from repro_torch.launch.serve import serving_engine_config
     from repro_torch.optim.optimizer import AdamWConfig
 
@@ -3682,19 +3926,33 @@ def dryrun_cells() -> None:
                                  dtype=torch.float32, mode="dispatch",
                                  ecfg=serving_engine_config())
 
-    def s5_cell():
-        cfg = get_config(S5["arch"])
-        opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=LTRAIN_STEPS + 1)
+    def row_cell(cfg, shape, rules=R, **kw):
+        """One rank's step of a cell on mesh (1, 2), the model row split."""
         with D.fake_world(2):
             mesh = DeviceMesh("cpu", torch.arange(2).reshape(S5_MESH),
                               mesh_dim_names=("data", "model"))
-            return D.record_cell(cfg, ShapeSpec("S5", S5["seq_len"], S5["batch"], "train"),
-                                 mesh, R, dtype=torch.float32, opt_cfg=opt)
+            return D.record_cell(cfg, shape, mesh, rules, **kw)
+
+    def train_cell(cell):
+        opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=LTRAIN_STEPS + 1)
+        return row_cell(cell_config(cell),
+                        ShapeSpec("cell", cell["seq_len"], cell["batch"], "train"),
+                        dtype=torch.float32, opt_cfg=opt)
+
+    def s6vlm_cells():
+        cfg = get_config(S6_VLM["arch"])
+        b, n, k = S6_VLM["batch"], S6_VLM["prompt"], S6_VLM["decode_steps"]
+        return {"prefill": row_cell(cfg, ShapeSpec("S6", n, b, "prefill"),
+                                    rules_for(cfg, SHAPES["prefill_32k"], multi_pod=False)),
+                "decode": row_cell(cfg, ShapeSpec("S6", n + k, b, "decode"),
+                                   rules_for(cfg, SHAPES["decode_32k"], multi_pod=False))}
 
     t0 = time.perf_counter()
     reset_launches()
     out = {"T1": cell(1, T1["n_layers"], T1["batch"], T1["seq_len"]),
-           "S5": s5_cell(),
+           "S5": train_cell(S5),
+           "S6tp": {**{cell["arch"]: train_cell(cell) for cell in S6_TRAIN},
+                    S6_VLM["arch"]: s6vlm_cells()},
            "S2": cell(2, S2["n_layers"], S2["batch"], S2["seq_len"]),
            "S3": cell(2, S3["n_layers"], S3["batch"], S3["n_vision"], mode="dispatch"),
            "S3tp": s3tp_cell(),
@@ -3715,11 +3973,13 @@ def start_dryrun() -> tuple:
                              text=True), time.perf_counter())
 
 
-def phase_dryrun(started: tuple, t1: dict, s2: dict, s3: dict, s5: dict, s3tp: dict) -> dict:
+def phase_dryrun(started: tuple, t1: dict, s2: dict, s3: dict, s5: dict, s3tp: dict,
+                 s6tp: dict) -> dict:
     """The ``dryrun`` phase: the predictions of the process :func:`start_dryrun`
-    started, beside T1's, S2's, S3's, S5's and S3-tp's measurements (``t1``,
-    ``s2``, ``s3``, ``s5``, ``s3tp``: their records, rank 0's for S2, S3, S5
-    and S3-tp)."""
+    started, beside T1's, S2's, S3's, S5's, S3-tp's and S6-tp's measurements
+    (``t1``, ``s2``, ``s3``, ``s5``, ``s3tp``, ``s6tp``: their records, rank
+    0's for S2-S6).  A vlm cell's prediction is the larger of its prefill's
+    and its decode step's peaks, as one process ran both."""
     import statistics
     proc, t_start = started
     t0 = time.perf_counter()
@@ -3740,6 +4000,11 @@ def phase_dryrun(started: tuple, t1: dict, s2: dict, s3: dict, s5: dict, s3tp: d
             "S2 bytes a step": (pred["S2"]["wire_bytes"], s2_peer),
             "S5 peak_gb": (gb("S5"), s5["peak_gb"]),
             "S3-tp Dispatch peak_gb": (gb("S3tp"), s3tp["dispatch"]["peak_gb"])}
+    for arch, rec in s6tp.items():
+        cell = pred["S6tp"][arch]
+        want = max(c["peak_bytes"] for c in cell.values()) if "prefill" in cell \
+            else cell["peak_bytes"]
+        rows[f"S6-tp {arch} peak_gb"] = (want / 1e9, rec["peak_gb"])
     res = {"phase": "dryrun",
            "note": "predicted for one H100 (80 GB) by launch/dryrun on the host (meta "
                    "tensors, a fake world), beside this run's measurements on the card",
@@ -3760,6 +4025,13 @@ def phase_dryrun(started: tuple, t1: dict, s2: dict, s3: dict, s5: dict, s3tp: d
            "S5": {"collectives": pred["S5"]["collective_bytes"],
                   "argument_gb": pred["S5"]["argument_bytes"] / 1e9,
                   "measured_peer_bytes": s5["peer_bytes"]},
+           "S6tp": {arch: {k: cell[k] for k in ("collective_bytes", "argument_bytes",
+                                                 "flops_per_device", "trace_s")}
+                    if "prefill" not in cell else
+                    {mode: {k: c[k] for k in ("collective_bytes", "argument_bytes",
+                                              "flops_per_device", "trace_s")}
+                     for mode, c in cell.items()}
+                    for arch, cell in pred["S6tp"].items()},
            "S3tp": {"predicted_kernels": pred["S3tp"]["kernels"],
                     "collectives": pred["S3tp"]["collective_bytes"],
                     "argument_gb": pred["S3tp"]["argument_bytes"] / 1e9,
@@ -3828,7 +4100,7 @@ def main() -> int:
               with_ops=False, iters=3, phase="kernels_33k")
         timed(phase_profile)
         timed(phase_dryrun, dry, t1, shard_rank0["S2"], shard_rank0["S3"], shard_rank0["S5"],
-              shard_rank0["S3tp"])
+              shard_rank0["S3tp"], shard_rank0["S6tp"])
     except Exception:                     # report the failing phase, then fail
         traceback.print_exc()
         return 1

@@ -19,7 +19,8 @@ builders' parameter gather, one block at a time.
   sums over the row as a partial one does;
 * :func:`all_gather`: an activation's shards concatenated, no gradient
   (the DiT's masks of each rank's heads, from which every rank builds the
-  same plan).
+  same plan; a decode cache laid out ``tp`` that a rank needs whole), and
+  :func:`shard`, the rank's shard of a tensor (such a cache written back).
 
 With these, the gradient of every parameter that a rank computes with whole
 (a norm, the router, K/V's weights) is a partial sum over the row, and the
@@ -65,7 +66,7 @@ from repro_torch.distributed.sharding import ShardingRules, redistribute
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 __all__ = ["size", "rank", "divides", "note", "model_parallel", "copy", "reduce", "gather",
-           "replicated", "all_gather", "row_max", "vocab_lookup", "dp_group", "dp_sum",
+           "replicated", "all_gather", "shard", "row_max", "vocab_lookup", "dp_group", "dp_sum",
            "mesh_dims", "ParamGather"]
 
 
@@ -347,6 +348,14 @@ def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
         return x
     with torch.no_grad():
         return row.all_gather(x, dim)
+
+
+def shard(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's shard of ``x`` along ``dim`` (no gradient; ``x`` itself
+    outside a row): what a decode step writes back to a cache laid out
+    ``tp`` after computing it whole."""
+    row = _row()
+    return x if row is None else row.shard(x, dim)
 
 
 def row_max(x: torch.Tensor) -> torch.Tensor:

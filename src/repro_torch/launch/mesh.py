@@ -63,14 +63,14 @@ def mesh_shape_for(n_devices: int, cap_shape: tuple[int, ...]) -> tuple[int, ...
     return tuple(reversed(shape))
 
 
-def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None):
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """The named production ``DeviceMesh`` over the initialised world: axes
     ``(data, model)``, or ``(pod, data, model)`` with ``multi_pod``, at
     :func:`mesh_shape_for` of the world size within the cap ``(16, 16)`` or
     ``(2, 16, 16)``; ranks ``0 .. n-1`` in row-major order, the reference's
-    ``devices[:n].reshape(shape)``, on ``device_type``: by default the card
-    where one exists, else the CPU (the dry run's ``meta`` tensors ask for
-    the CPU, where they live on every host).
+    ``devices[:n].reshape(shape)``, on ``device_type``: the card by default
+    (raising where there is none), the CPU when the caller asks for it (the
+    dry run's ``meta`` tensors do, as they live on every host).
     Collective: every rank of the world calls it (the ranks past ``n`` hold
     no place in the mesh)."""
     from torch.distributed.device_mesh import DeviceMesh
@@ -79,8 +79,9 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = N
     cap = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     shape = mesh_shape_for(dist.get_world_size(), cap)
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_production_mesh: no CUDA device; pass device_type='cpu' to "
+                           "lay the mesh over the CPU")
     return DeviceMesh(device_type, torch.arange(math.prod(shape)).reshape(shape),
                       mesh_dim_names=axes)
 

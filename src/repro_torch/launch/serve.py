@@ -60,6 +60,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.masks import MaskConfig
@@ -215,9 +216,9 @@ def check_params_fit(cfg, free_bytes: int) -> None:
             f"{free_bytes / 1e9:.1f} GB free")
 
 
-def serve_lm(arch: str, *, smoke: bool = True, batch: int = 2, prompt_len: int = 32,
-             gen_len: int = 16, max_len: int = 64, seed: int = 0, device="cuda",
-             params: dict = None, prompt: torch.Tensor = None) -> torch.Tensor:
+def serve_lm(arch: "str | ArchConfig", *, smoke: bool = True, batch: int = 2,
+             prompt_len: int = 32, gen_len: int = 16, max_len: int = 64, seed: int = 0,
+             device="cuda", params: dict = None, prompt: torch.Tensor = None) -> torch.Tensor:
     """The reference's LM serving loop (serve.py:147-173) for every family
     but ``dit``: the prompt goes through ``decode_step`` token by token (a
     teacher-forced prefill), then ``gen_len`` tokens are decoded greedily
@@ -226,11 +227,16 @@ def serve_lm(arch: str, *, smoke: bool = True, batch: int = 2, prompt_len: int =
     decode against cross K/V that nothing fills (zeros; ROADMAP C.11).  The
     weights come from a ``torch.Generator`` seeded ``seed`` and the prompt
     from one seeded ``seed + 1`` unless ``params`` or ``prompt`` (B, S) is
-    given.  With ``smoke=False`` on the card, an arch whose f32 parameters do
-    not fit the free memory is refused before anything is allocated.
+    given.  ``arch`` names an arch (its smoke config, or with ``smoke=False``
+    its published one) or is an :class:`ArchConfig` itself (``smoke`` then
+    unread).  With ``smoke=False`` on the card, an arch whose f32 parameters
+    do not fit the free memory is refused before anything is allocated.
     Returns the generated tokens (B, gen_len) int32 and prints one line."""
     device = resolve_device(device)
-    cfg = get_smoke(arch) if smoke else get_config(arch)
+    if isinstance(arch, ArchConfig):
+        cfg = arch
+    else:
+        cfg = get_smoke(arch) if smoke else get_config(arch)
     if cfg.family not in LM_FAMILIES:
         raise ValueError(f"{cfg.name} is a {cfg.family!r} model; serve_lm runs {LM_FAMILIES}")
     if device.type == "cuda" and params is None:

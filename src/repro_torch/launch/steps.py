@@ -30,18 +30,27 @@ itself and runs the model on plain local tensors:
     does).  AdamW runs on each rank's shards with the norm of the whole
     gradient tree.
 
-**The ``model`` axis.**  The decoder-only transformers (families ``dense``
-and ``moe``) and the DiT split it as the reference's specs do
-(Megatron-style, see :mod:`repro_torch.models.transformer`,
-:mod:`repro_torch.models.dit` and
-:mod:`~repro_torch.distributed.tensor_parallel`): a block keeps its ``tp``
-shards after the gather, which gathers the ``fsdp`` dims only.  The DiT's
-head-parallel engine runs a rank's heads (B1 on its ``wq`` columns, B2 on
-its heads, B3 over its head range, the partials summed over the row; see
-:mod:`repro_torch.core.engine`), its MLP column- then row-parallel.  The
-families ssm, hybrid, encdec and vlm still gather their ``tp`` dims too and
-compute the ``model`` axis replicated: every rank of a row repeats the same
-products, with the same results.
+**The ``model`` axis.**  Every family splits it as the reference's specs
+do (Megatron-style, see :mod:`~repro_torch.distributed.tensor_parallel`):
+a block keeps its ``tp`` shards after the gather, which gathers the
+``fsdp`` dims only, and the decode step computes in the cache's ``tp``
+layout (the recurrent states of ssm and hybrid stay the rank's heads or
+channels).  The decoder-only transformers (``dense``, ``moe``;
+:mod:`repro_torch.models.transformer`) split attention by heads and the
+MLP (or each expert) column- then row-parallel; the vlm's self blocks are
+theirs, its gated cross layer splits by heads
+(:mod:`repro_torch.models.vision`); the hybrid's recurrent blocks split by
+channel, its local attention and MLP as the transformer's
+(:mod:`repro_torch.models.rglru`); the encdec's three attentions split by
+heads, its biased MLP column- then row-parallel
+(:mod:`repro_torch.models.encdec`); the ssm splits by SSD heads, its packed
+``in_proj``/``conv`` gathered over the row and cut to the rank's columns
+(:mod:`repro_torch.models.ssm`).  The DiT's head-parallel engine runs a
+rank's heads (B1 on its ``wq`` columns, B2 on its heads, B3 over its head
+range, the partials summed over the row; see
+:mod:`repro_torch.core.engine`), its MLP column- then row-parallel.  A
+head count, ``d_ff`` or channel count the row does not divide is computed
+replicated and named in ``fn.stats["tp_replicated"]``.
 
 **The ``dp`` group.**  Every builder's :class:`~repro_torch.distributed.
 tensor_parallel.ParamGather` carries the group of ranks over which the
@@ -170,16 +179,19 @@ def _is_pl(x) -> bool:
     return isinstance(x, list) and bool(x) and all(isinstance(p, Placement) for p in x)
 
 
-def _compute_spec(spec: tuple) -> tuple:
-    """The layout a step computes in: the batch dim keeps ``dp``, every
-    other dim whole."""
-    return tuple(e if e == "dp" else None for e in spec)
+def _compute_spec(spec: tuple, keep: tuple = ("dp",)) -> tuple:
+    """The layout a step computes in: the dims named in ``keep`` (the batch
+    dim's ``dp``; a split row's ``tp``) keep their axis, every other dim
+    whole."""
+    return tuple(e if e in keep else None for e in spec)
 
 
-def _compute_placements(spec_tree: Any, mesh, rules: ShardingRules) -> Any:
+def _compute_placements(spec_tree: Any, mesh, rules: ShardingRules,
+                        keep: tuple = ("dp",)) -> Any:
     logical = lambda x: isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
                                                      for e in x)
-    return named_sharding_tree(tree_map(_compute_spec, spec_tree, is_leaf=logical), mesh, rules)
+    return named_sharding_tree(tree_map(lambda s: _compute_spec(s, keep), spec_tree,
+                                        is_leaf=logical), mesh, rules)
 
 
 def _to_local(x, pl) -> torch.Tensor:
@@ -211,12 +223,10 @@ def _dp_dims(mesh, rules: ShardingRules) -> tuple:
     return mesh_dims(mesh, rules, "dp")
 
 
-def _splits_model(cfg: ArchConfig, mesh, rules: ShardingRules) -> bool:
-    """Whether the step splits the ``model`` axis: a decoder-only
-    transformer or the DiT on a mesh whose ``tp`` dims hold more than one
-    rank."""
-    return cfg.family in ("dense", "moe", "dit") and math.prod(
-        mesh.size(i) for i in mesh_dims(mesh, rules, "tp")) > 1
+def _splits_model(mesh, rules: ShardingRules) -> bool:
+    """Whether the step splits the ``model`` axis: the mesh's ``tp`` dims
+    hold more than one rank (every family splits it)."""
+    return math.prod(mesh.size(i) for i in mesh_dims(mesh, rules, "tp")) > 1
 
 
 def _sync(device: torch.device) -> None:
@@ -300,7 +310,7 @@ def build_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRul
     m_pl = {"loss": scalar, "grad_norm": scalar}
     dp = _dp_dims(mesh, rules)
     n_dp = math.prod(mesh.size(i) for i in dp)
-    split = _splits_model(cfg, mesh, rules)
+    split = _splits_model(mesh, rules)
     partial_on = lambda dims: [Partial("sum") if i in dims else Replicate()
                                for i in range(mesh.ndim)]
 
@@ -378,7 +388,7 @@ def build_prefill_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingR
     b_compute = _compute_placements(b_specs, mesh, rules)
     out_pl = placements(PartitionSpec(rules.physical("dp"), None), mesh)
     logits_local = _compute_placements(("dp", None), mesh, rules)
-    split = _splits_model(cfg, mesh, rules)
+    split = _splits_model(mesh, rules)
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -408,20 +418,22 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRu
     """``fn(params, cache, token, pos) -> (logits, cache)``: one token for
     the batch at write position ``pos`` (an int, or a 0-dim tensor), the
     cache laid out by ``cache_specs`` (its K/V written in place where the
-    step computes in the cache's own layout), the logits ``(dp, None)``.
+    step computes in the cache's own layout; on a split row it computes
+    with the ``tp`` dims still sharded), the logits ``(dp, None)``.
     Parameters in bf16."""
     model = get_model(cfg)
     b, s = shape.global_batch, shape.seq_len
     c_specs = model.cache_specs()
     p_pl = named_sharding_tree(model.param_specs(), mesh, rules)
     c_pl = named_sharding_tree(c_specs, mesh, rules)
-    c_compute = _compute_placements(c_specs, mesh, rules)
+    split = _splits_model(mesh, rules)
+    c_compute = _compute_placements(c_specs, mesh, rules,
+                                    keep=("dp", "tp") if split else ("dp",))
     t_pl = placements(PartitionSpec(rules.physical("dp")), mesh)
     t_compute = _compute_placements(("dp",), mesh, rules)
     s_pl = placements(PartitionSpec(), mesh)
     logits_pl = placements(PartitionSpec(rules.physical("dp"), None), mesh)
     logits_local = _compute_placements(("dp", None), mesh, rules)
-    split = _splits_model(cfg, mesh, rules)
 
     @torch.no_grad()
     def decode_step(params, cache, token, pos):
@@ -491,7 +503,7 @@ def build_dit_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRules
     in_compute = _compute_placements(in_specs, mesh, rules)
     v_pl = placements(PartitionSpec(rules.physical("dp"), rules.physical("sp"), None), mesh)
     v_local = _compute_placements(("dp", None, None), mesh, rules)
-    split = _splits_model(cfg, mesh, rules)
+    split = _splits_model(mesh, rules)
 
     @torch.no_grad()
     def step(params, states, inputs):

@@ -19,6 +19,23 @@ reference's ``jax.checkpoint`` of its scan bodies does
 ``param_specs`` and ``cache_specs`` are the reference's logical sharding
 specs, leaf for leaf with ``init_params`` and ``init_cache`` (read by
 :mod:`repro_torch.launch.steps`).
+
+**Tensor parallelism** (a sharded step that splits the ``model`` row; see
+:mod:`repro_torch.models.transformer`, whose helpers the attention goes
+through).  The encoder's and the decoder's self-attention and the decoder's
+cross attention (:func:`_mha`) split ``wq``/``wo`` by heads, ``wo``
+row-parallel and summed over the row; K/V are projected on the rank's own
+K/V heads where they divide the row (their ``wk``/``wv`` shards), else
+whole.  Decode projects the self K/V whole, as the cache holds every head,
+and reads the rank's heads of both caches.  The MLP's ``wi``/``bi`` are
+column-parallel and ``wo`` row-parallel; ``bo`` is added once, after the
+sum.  The LayerNorms are whole, each sublayer's input (and the encoder's
+output norm's) passing *f* (``tp.copy``) first; the tied ``tok_embed`` is a
+vocab-parallel lookup and head, with the vocab-parallel loss; the position
+tables and ``bo``, added whole on every rank, take their gradients over the
+row's size.  A head count or ``d_ff`` the row does not divide is gathered
+and computed replicated (``tp.note``): whisper-large-v3's 20 heads on a row
+of 16.  Outside such a step the code computes as before, bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -66,10 +84,14 @@ def _init_vanilla_mlp(generator, d: int, ff: int, stack: tuple = (), *, device) 
             "bo": torch.zeros((*stack, d), device=device)}
 
 
-def _vanilla_mlp(p, x):
+def _vanilla_mlp(p, x, cfg: ArchConfig):
     dtype = x.dtype
+    split = tp.divides(cfg.d_ff, "MLP d_ff")
+    if tp.size() > 1 and not split:
+        p = dict(p, wi=tp.gather(p["wi"], -1), bi=tp.gather(p["bi"], -1),
+                 wo=tp.gather(p["wo"], -2))
     h = F.gelu(x @ p["wi"].to(dtype) + p["bi"].to(dtype), approximate="tanh")
-    return h @ p["wo"].to(dtype) + p["bo"].to(dtype)
+    return T._attn_out(h, p["wo"], split, dtype) + tp.replicated(p["bo"]).to(dtype)
 
 
 def _init_block(cfg: ArchConfig, generator, stack: tuple, cross: bool, device) -> dict:
@@ -121,55 +143,74 @@ def param_specs(cfg: ArchConfig) -> dict:
             "ln_enc": ln0, "ln_dec": ln0}
 
 
+def _mha_weights(p, cfg: ArchConfig) -> tuple:
+    """``(wq, wk, wv, wo, split)``: on a model row that divides the K/V
+    heads, the rank's shards of all four (its K/V heads are the ones its
+    query heads read), else the transformer's (K/V whole)."""
+    m = tp.size()
+    if m > 1 and cfg.n_kv_heads % m == 0 and tp.divides(cfg.n_heads, "attention heads"):
+        return p["wq"], p["wk"], p["wv"], p["wo"], True
+    return T._attn_weights(p, cfg)
+
+
 def _mha(p, x, kv_src, cfg: ArchConfig, *, causal: bool):
     b, s, _ = x.shape
     dtype = x.dtype
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"].to(dtype)).reshape(b, s, h, hd)
-    k = (kv_src @ p["wk"].to(dtype)).reshape(b, kv_src.shape[1], hkv, hd)
-    v = (kv_src @ p["wv"].to(dtype)).reshape(b, kv_src.shape[1], hkv, hd)
+    hd = cfg.hd
+    wq, wk, wv, wo, split = _mha_weights(p, cfg)
+    q = (x @ wq.to(dtype)).reshape(b, s, -1, hd)
+    k = (kv_src @ wk.to(dtype)).reshape(b, kv_src.shape[1], -1, hd)
+    v = (kv_src @ wv.to(dtype)).reshape(b, kv_src.shape[1], -1, hd)
+    if k.shape[2] == cfg.n_kv_heads:
+        k, v = T._kv_for(k, v, cfg, q.shape[2])
     o = L.gqa_attention(q, k, v, causal=causal)
-    return o.reshape(b, s, h * hd) @ p["wo"].to(dtype)
+    return T._attn_out(o.reshape(b, s, -1), wo, split, dtype)
 
 
 def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor, *,
            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """frames: (B, encoder_len, d_model), the precomputed frontend output."""
-    x = frames.to(dtype) + params["pos_enc"].to(dtype)
+    x = frames.to(dtype) + tp.replicated(params["pos_enc"]).to(dtype)
     for i in range(cfg.n_layers):
         x = T.remat(cfg, _enc_block, L.BlockRef(params["enc"], i), x, cfg)
-    return _ln(x, params["ln_enc"])
+    return _ln(tp.copy(x), params["ln_enc"])
 
 
 def _enc_block(p, x, cfg: ArchConfig):
-    xa = _ln(x, p["ln1"])
+    xa = _ln(tp.copy(x), p["ln1"])
     x = x + _mha(p["attn"], xa, xa, cfg, causal=False)
-    return x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
+    return x + _vanilla_mlp(p["mlp"], _ln(tp.copy(x), p["ln2"]), cfg)
 
 
 def _dec_block(p, x, enc_out, cfg: ArchConfig):
-    xa = _ln(x, p["ln1"])
+    xa = _ln(tp.copy(x), p["ln1"])
     x = x + _mha(p["attn"], xa, xa, cfg, causal=True)
-    x = x + _mha(p["xattn"], _ln(x, p["lnx"]), enc_out, cfg, causal=False)
-    return x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
+    x = x + _mha(p["xattn"], _ln(tp.copy(x), p["lnx"]), enc_out, cfg, causal=False)
+    return x + _vanilla_mlp(p["mlp"], _ln(tp.copy(x), p["ln2"]), cfg)
 
 
 def _decoder_hidden(params, cfg: ArchConfig, tokens, enc_out, dtype):
-    x = params["tok_embed"][tokens].to(dtype) + params["pos_dec"][:tokens.shape[1]].to(dtype)
+    x = (tp.vocab_lookup(params["tok_embed"], tokens).to(dtype)
+         + tp.replicated(params["pos_dec"][:tokens.shape[1]]).to(dtype))
     for i in range(cfg.n_layers):
         x = T.remat(cfg, _dec_block, L.BlockRef(params["dec"], i), x, enc_out, cfg)
     return x
 
 
 def _head(params, cfg: ArchConfig, x):
-    x = _ln(x, params["ln_dec"])
+    """``ln_dec`` and the tied head; on a model row, this rank's shard of
+    the padded vocabulary."""
+    x = _ln(tp.copy(x), params["ln_dec"])
     logits = x @ params["tok_embed"].T.to(x.dtype)
+    if tp.size() > 1:
+        return logits
     return logits[..., :cfg.vocab] if cfg.vocab_padded != cfg.vocab else logits
 
 
 def decode_train(params: dict, cfg: ArchConfig, tokens: torch.Tensor, enc_out: torch.Tensor,
                  *, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The decoder's logits (B, S, vocab) over ``tokens`` against ``enc_out``."""
+    """The decoder's logits (B, S, vocab) over ``tokens`` against ``enc_out``
+    (on a model row, the rank's shard of the padded vocabulary)."""
     return _head(params, cfg, _decoder_hidden(params, cfg, tokens, enc_out, dtype))
 
 
@@ -184,7 +225,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *,
 def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     logits, _ = forward(params, cfg, batch, dtype=dtype)
-    return L.softmax_xent(logits, batch["labels"])
+    return T._xent(logits, cfg, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -221,9 +262,10 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     advanced by one."""
     pos = int(pos)
     b = token.shape[0]
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hkv, hd = cfg.n_kv_heads, cfg.hd
     row = min(pos, params["pos_dec"].shape[0] - 1)         # dynamic_index_in_dim clamps
-    x = params["tok_embed"][token[:, None]].to(dtype) + params["pos_dec"][row:row + 1].to(dtype)
+    x = (tp.vocab_lookup(params["tok_embed"], token[:, None]).to(dtype)
+         + params["pos_dec"][row:row + 1].to(dtype))
     length = cache["self"]["k"].shape[2]
     slot = min(pos, length - 1)
     self_len = torch.full((b,), min(pos + 1, length), dtype=torch.int32, device=x.device)
@@ -233,17 +275,20 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
         p = L.block(params["dec"], i)
         kc, vc = cache["self"]["k"][i], cache["self"]["v"][i]
         xa = _ln(x, p["ln1"])
-        q = (xa @ p["attn"]["wq"].to(dtype)).reshape(b, 1, h, hd)
-        kc[:, slot] = (xa @ p["attn"]["wk"].to(dtype)).reshape(b, hkv, hd).to(kc.dtype)
-        vc[:, slot] = (xa @ p["attn"]["wv"].to(dtype)).reshape(b, hkv, hd).to(vc.dtype)
-        o = L.decode_attention(q, kc, vc, self_len)
-        x = x + o.reshape(b, 1, h * hd) @ p["attn"]["wo"].to(dtype)
-        qx = (_ln(x, p["lnx"]) @ p["xattn"]["wq"].to(dtype)).reshape(b, 1, h, hd)
-        ox = L.decode_attention(qx, cache["cross"]["k"][i], cache["cross"]["v"][i], cross_len)
-        x = x + ox.reshape(b, 1, h * hd) @ p["xattn"]["wo"].to(dtype)
-        x = x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]))
-        del p                        # one block's parameters alive at a time
-    return _head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
+        wq, wk, wv, wo, split = T._attn_weights(p["attn"], cfg)
+        q = (xa @ wq.to(dtype)).reshape(b, 1, -1, hd)
+        kc[:, slot] = (xa @ wk.to(dtype)).reshape(b, hkv, hd).to(kc.dtype)
+        vc[:, slot] = (xa @ wv.to(dtype)).reshape(b, hkv, hd).to(vc.dtype)
+        o = L.decode_attention(q, *T._kv_for(kc, vc, cfg, q.shape[2]), self_len)
+        x = x + T._attn_out(o.reshape(b, 1, -1), wo, split, dtype)
+        wq, _, _, wo, split = T._attn_weights(p["xattn"], cfg, kv=False)
+        qx = (_ln(x, p["lnx"]) @ wq.to(dtype)).reshape(b, 1, -1, hd)
+        kv = T._kv_for(cache["cross"]["k"][i], cache["cross"]["v"][i], cfg, qx.shape[2])
+        ox = L.decode_attention(qx, *kv, cross_len)
+        x = x + T._attn_out(ox.reshape(b, 1, -1), wo, split, dtype)
+        x = x + _vanilla_mlp(p["mlp"], _ln(x, p["ln2"]), cfg)
+        del p, wq, wk, wv, wo        # one block's parameters alive at a time
+    return T._whole_logits(params, cfg, x, _head)[:, 0], dict(cache, len=cache["len"] + 1)
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, *,
@@ -252,4 +297,4 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, *,
     goes through the head)."""
     enc_out = encode(params, cfg, batch["frames"], dtype=dtype)
     x = _decoder_hidden(params, cfg, batch["tokens"], enc_out, dtype)
-    return _head(params, cfg, x[:, -1])
+    return T._whole_logits(params, cfg, x[:, -1], _head)

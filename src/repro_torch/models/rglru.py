@@ -20,6 +20,22 @@ whose docstring maps the policy).  ``param_specs`` and
 ``cache_specs`` are the reference's logical sharding specs, leaf for leaf
 with ``init_params`` and ``init_cache`` (read by
 :mod:`repro_torch.launch.steps`).
+
+**Tensor parallelism** (a sharded step that splits the ``model`` row; see
+:mod:`repro_torch.models.transformer`).  The RG-LRU is diagonal per
+channel, so a recurrent block splits by channel: ``w_in_x``, ``w_in_y``,
+``w_gate_x`` and ``w_gate_a`` are column-parallel, ``conv`` and ``lam`` the
+rank's channels, ``w_out`` row-parallel and summed over the row; the decode
+state ``rec_h``/``rec_conv`` (and ``tail_*``) stays the rank's channels, as
+``cache_specs`` lays it out.  The local-attention layer and its MLP go
+through the transformer's helpers (``_attn_weights``, ``_kv_for``,
+``_attn_out``, ``_mlp_apply``): ``wq``/``wo`` by heads, K/V whole, the MLP
+column- then row-parallel; the ring cache stays whole.  Each sublayer's
+input passes *f* (``tp.copy``) before its norm; the embedding, the tied
+head and the loss are vocab-parallel.  A head count, ``d_ff`` or channel
+count the row does not divide is gathered and computed replicated
+(``tp.note``): recurrentgemma-2b's 10 heads on a row of 16.  Outside such a
+step the code computes as before, bit for bit.
 """
 
 from __future__ import annotations
@@ -30,9 +46,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_map
 
 __all__ = ["init_params", "param_specs", "forward", "train_loss", "init_cache",
            "cache_specs", "prefill", "decode_step", "rg_lru", "rg_lru_step", "n_cycles"]
@@ -152,37 +168,57 @@ def param_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
+_COLUMNS = ("w_in_x", "w_in_y", "w_gate_x", "w_gate_a", "conv", "lam")
+
+
+def _rec_weights(cfg: ArchConfig, p) -> tuple:
+    """``(p, split)``: the recurrent block's leaves as this rank computes
+    with them, its channels when ``split``; on a model row that does not
+    divide the channels, every channel-split leaf gathered whole."""
+    split = tp.divides(cfg.d_model, "RG-LRU channels")
+    if tp.size() > 1 and not split:
+        p = dict(p, w_out=tp.gather(p["w_out"], -2),
+                 **{k: tp.gather(p[k], -1) for k in _COLUMNS})
+    return p, split
+
+
 def _rec_apply(cfg: ArchConfig, p, x):
     dtype = x.dtype
-    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    p, split = _rec_weights(cfg, p)
+    xn = L.rms_norm(tp.copy(x), p["ln"], cfg.norm_eps)
     y = F.gelu(xn @ p["w_in_y"].to(dtype), approximate="tanh")
     xr = L.causal_conv(xn @ p["w_in_x"].to(dtype), p["conv"].to(dtype))
     h = rg_lru(xr, xn @ p["w_gate_x"].to(dtype), xn @ p["w_gate_a"].to(dtype), p["lam"])
-    return x + (h * y) @ p["w_out"].to(dtype)
+    return x + T._attn_out(h * y, p["w_out"], split, dtype)
 
 
 def _qkv(cfg: ArchConfig, p, xa, cos, sin):
+    """``(q, k, v, wo, split)``: the queries of this rank's heads, K/V
+    whole, rotated."""
     b, s, _ = xa.shape
     dtype = xa.dtype
-    q = (xa @ p["wq"].to(dtype)).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (xa @ p["wk"].to(dtype)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (xa @ p["wv"].to(dtype)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
+    wq, wk, wv, wo, split = T._attn_weights(p, cfg)
+    q = (xa @ wq.to(dtype)).reshape(b, s, -1, cfg.hd)
+    k = (xa @ wk.to(dtype)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = (xa @ wv.to(dtype)).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v, wo, split
 
 
 def _mlp_out(cfg: ArchConfig, p, x):
-    xm = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp(tree_map(lambda w: w.to(x.dtype), p["mlp"]), xm)
+    y, _ = T._mlp_apply(p["mlp"], L.rms_norm(tp.copy(x), p["ln2"], cfg.norm_eps), cfg)
+    return x + y
 
 
 def _attn_apply_blk(cfg: ArchConfig, p, x, cos, sin):
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin)
+    q, k, v, wo, split = _qkv(cfg, p["attn"], L.rms_norm(tp.copy(x), p["ln1"], cfg.norm_eps),
+                              cos, sin)
+    k, v = T._kv_for(k, v, cfg, q.shape[2])
     if cfg.window and s > 2 * cfg.window:
         o = L.local_attention(q, k, v, window=cfg.window)
     else:
         o = L.gqa_attention(q, k, v, causal=True, window=cfg.window)
-    x = x + o.reshape(b, s, -1) @ p["attn"]["wo"].to(x.dtype)
+    x = x + T._attn_out(o.reshape(b, s, -1), wo, split, x.dtype)
     return _mlp_out(cfg, p, x)
 
 
@@ -209,7 +245,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
 def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     logits, _ = forward(params, cfg, batch["tokens"], dtype=dtype)
-    return L.softmax_xent(logits, batch["labels"])
+    return T._xent(logits, cfg, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -252,28 +288,36 @@ def cache_specs(cfg: ArchConfig) -> dict:
 
 
 def _rec_step(cfg: ArchConfig, p, x, h_state, conv_state):
-    """One token through a recurrent block; returns (x, new h, new conv window)."""
+    """One token through a recurrent block; returns (x, new h, new conv
+    window), the states the rank's channels (gathered whole and cut back
+    on a row that computes the block replicated)."""
     dtype = x.dtype
+    p, split = _rec_weights(cfg, p)
+    if tp.size() > 1 and not split:
+        h_state, conv_state = tp.all_gather(h_state, -1), tp.all_gather(conv_state, -1)
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
     y = F.gelu(xn @ p["w_in_y"].to(dtype), approximate="tanh")
     hist = torch.cat([conv_state, xn @ p["w_in_x"].to(dtype)], dim=1)      # (B,K,D)
     xr = (hist * p["conv"].to(dtype)).sum(dim=1)[:, None]
     h, new_h = rg_lru_step(h_state[:, None], xr, xn @ p["w_gate_x"].to(dtype),
                            xn @ p["w_gate_a"].to(dtype), p["lam"])
-    return x + (h * y) @ p["w_out"].to(dtype), new_h[:, 0], hist[:, 1:]
+    new_h, hist = new_h[:, 0], hist[:, 1:]
+    if tp.size() > 1 and not split:
+        new_h, hist = tp.shard(new_h, -1), tp.shard(hist, -1)
+    return x + T._attn_out(h * y, p["w_out"], split, dtype), new_h, hist
 
 
 def _attn_step(cfg: ArchConfig, p, x, kv, pos: int, cos, sin):
-    """One token through an attention layer, writing its K/V into ring slot
-    ``pos % w``; the live slots are ``min(pos + 1, w)``."""
+    """One token through an attention layer, writing its K/V (whole) into
+    ring slot ``pos % w``; the live slots are ``min(pos + 1, w)``."""
     b = x.shape[0]
-    q, k, v = _qkv(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin)
+    q, k, v, wo, split = _qkv(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin)
     w = kv["k"].shape[1]
     kv["k"][:, pos % w] = k[:, 0].to(kv["k"].dtype)
     kv["v"][:, pos % w] = v[:, 0].to(kv["v"].dtype)
     cache_len = torch.full((b,), min(pos + 1, w), dtype=torch.int32, device=x.device)
-    o = L.decode_attention(q, kv["k"], kv["v"], cache_len)
-    x = x + o.reshape(b, 1, -1) @ p["attn"]["wo"].to(x.dtype)
+    o = L.decode_attention(q, *T._kv_for(kv["k"], kv["v"], cfg, q.shape[2]), cache_len)
+    x = x + T._attn_out(o.reshape(b, 1, -1), wo, split, x.dtype)
     return _mlp_out(cfg, p, x)
 
 
@@ -296,11 +340,11 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     for t in range(cache["tail_h"].shape[0] if "tail_h" in cache else 0):
         x, cache["tail_h"][t], cache["tail_conv"][t] = _rec_step(
             cfg, L.block(params["tail"], t), x, cache["tail_h"][t], cache["tail_conv"][t])
-    return T._head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
+    return T._whole_logits(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Last-token logits (B, vocab) of the full forward (only the last row
     goes through the head)."""
-    return T._head(params, cfg, _hidden(params, cfg, tokens, dtype)[:, -1])
+    return T._whole_logits(params, cfg, _hidden(params, cfg, tokens, dtype)[:, -1])

@@ -26,6 +26,27 @@ whose docstring maps the policy).  ``param_specs`` and
 ``cache_specs`` are the reference's logical sharding specs, leaf for leaf
 with ``init_params`` and ``init_cache`` (read by
 :mod:`repro_torch.launch.steps`).
+
+**Tensor parallelism** (a sharded step that splits the ``model`` row; see
+:mod:`repro_torch.models.transformer`).  A block splits by SSD heads.
+``in_proj`` ``(d_model, 2·d_inner + 2n + H)`` and ``conv`` ``(K, d_inner +
+2n)`` are *packed*, so a contiguous ``tp`` shard of them does not fall on
+heads: both are gathered over the row (``tp.gather``, whose backward sums
+the row's partial gradients and cuts them to the shard; 18 MB a block at
+mamba2-370m's width) and the rank computes with its columns ``[z_r | x_r |
+B | C | dt_r]`` and ``[x_r | B | C]``, B and C whole on every rank (one
+group).  ``a_log``, ``dt_bias``, ``d_skip``, ``norm`` and ``out_proj``'s
+rows fall on heads as they are sharded; ``out_proj`` is row-parallel and
+summed over the row.  The gated RMSNorm normalises over all of
+``d_inner``: its mean square is the row's sum of the ranks' sums of
+squares (one f32 ``(B, S, 1)`` sum a block, whose gradient sums over the
+row too).  Decode splits the SSD state by heads, as ``cache_specs`` lays it
+out; the packed conv window in the cache has the ``in_proj`` misalignment,
+so it is gathered over the row and the rank's contiguous shard written
+back.  The block's input passes *f* (``tp.copy``) before its norm; the
+embedding, the head and the loss are vocab-parallel.  A head count the row
+does not divide is gathered and computed replicated (``tp.note``).
+Outside such a step the code computes as before, bit for bit.
 """
 
 from __future__ import annotations
@@ -36,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -160,38 +182,81 @@ def param_specs(cfg: ArchConfig) -> dict:
             "final_norm": (None,), "lm_head": ("fsdp", "tp")}
 
 
-def _split_proj(cfg: ArchConfig, proj):
+_HEAD_LEAVES = ("a_log", "dt_bias", "d_skip", "norm")
+
+
+def _local(cfg: ArchConfig, p) -> tuple:
+    """``(p, di, hl, split)``: the block's leaves as this rank computes with
+    them, its ``d_inner`` and heads.  On a model row that divides the heads
+    (``split``), ``in_proj`` and ``conv`` gathered over the row and cut to
+    the rank's columns ``[z_r | x_r | B | C | dt_r]`` and ``[x_r | B | C]``;
+    on one that does not, every ``tp`` leaf gathered whole."""
     d_inner, h, n = _dims(cfg)
-    return proj[..., :d_inner], proj[..., d_inner:2 * d_inner + 2 * n], proj[..., -h:]
+    m = tp.size()
+    split = tp.divides(h, "SSD heads")
+    if m == 1:
+        return p, d_inner, h, split
+    if not split:
+        return dict(p, in_proj=tp.gather(p["in_proj"], -1), conv=tp.gather(p["conv"], -1),
+                    out_proj=tp.gather(p["out_proj"], -2),
+                    **{k: tp.gather(p[k], -1) for k in _HEAD_LEAVES}), d_inner, h, split
+    di, hl, r = d_inner // m, h // m, tp.rank()
+    w, c = tp.gather(p["in_proj"], -1), tp.gather(p["conv"], -1)
+    z, x = slice(r * di, (r + 1) * di), slice(d_inner + r * di, d_inner + (r + 1) * di)
+    bc, dt = slice(2 * d_inner, 2 * d_inner + 2 * n), slice(2 * d_inner + 2 * n + r * hl,
+                                                            2 * d_inner + 2 * n + (r + 1) * hl)
+    w = torch.cat([w[..., z], w[..., x], w[..., bc], w[..., dt]], dim=-1)
+    c = torch.cat([c[..., r * di:(r + 1) * di], c[..., d_inner:]], dim=-1)
+    return dict(p, in_proj=w, conv=c), di, hl, split
 
 
-def _mix(cfg: ArchConfig, p, res, xs, z, y):
+def _split_proj(proj, di: int, n: int, hl: int):
+    """``(z, xBC, dt)`` of ``in_proj``'s output ``[z | x | B | C | dt]``
+    (``di`` channels of z and x, ``hl`` heads)."""
+    return proj[..., :di], proj[..., di:2 * di + 2 * n], proj[..., -hl:]
+
+
+def _row_rms_norm(x, scale, d: int, eps: float) -> torch.Tensor:
+    """:func:`layers.rms_norm` over a ``d``-wide dim of which ``x`` holds
+    the rank's share: the mean square from the row's sum of squares, whose
+    gradient is summed over the row as well (each rank's share of the
+    output depends on every rank's input)."""
+    xf = x.to(torch.float32)
+    ss = tp.copy(tp.reduce(xf.square().sum(dim=-1, keepdim=True)))
+    return (xf * torch.rsqrt(ss / d + eps) * scale).to(x.dtype)
+
+
+def _mix(cfg: ArchConfig, p, res, xs, z, y, split: bool):
     """The skip term, the gated RMSNorm and out_proj around the SSD's ``y``
     (f32, (B, S, H, P)); returns the block's output in ``res``' dtype."""
     d_inner = _dims(cfg)[0]
     y = y + xs.to(torch.float32) * p["d_skip"][:, None]
-    y = y.reshape(*res.shape[:2], d_inner).to(res.dtype)
-    y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)             # gated norm
-    return res + y @ p["out_proj"].to(res.dtype)
+    y = y.reshape(*res.shape[:2], -1).to(res.dtype)
+    if split:
+        y = _row_rms_norm(y * F.silu(z), p["norm"], d_inner, cfg.norm_eps)
+    else:
+        y = L.rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)          # gated norm
+    return res + T._attn_out(y, p["out_proj"], split, res.dtype)
 
 
 def _block_apply(cfg: ArchConfig, p, x, *, chunk: int = 128):
-    d_inner, h, n = _dims(cfg)
+    n = cfg.ssm_state
     dtype = x.dtype
-    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    z, xbc, dt = _split_proj(cfg, xn @ p["in_proj"].to(dtype))
+    p, di, hl, split = _local(cfg, p)
+    xn = L.rms_norm(tp.copy(x), p["ln"], cfg.norm_eps)
+    z, xbc, dt = _split_proj(xn @ p["in_proj"].to(dtype), di, n, hl)
     xbc = F.silu(L.causal_conv(xbc, p["conv"].to(dtype)))
-    xs = xbc[..., :d_inner].reshape(*x.shape[:2], h, HEAD_DIM)
-    b = xbc[..., d_inner:d_inner + n]
-    c = xbc[..., d_inner + n:]
+    xs = xbc[..., :di].reshape(*x.shape[:2], hl, HEAD_DIM)
+    b = xbc[..., di:di + n]
+    c = xbc[..., di + n:]
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
     y = ssd_chunked(xs.to(torch.float32), dt, p["a_log"], b.to(torch.float32),
                     c.to(torch.float32), chunk=chunk)
-    return _mix(cfg, p, x, xs, z, y)
+    return _mix(cfg, p, x, xs, z, y, split)
 
 
 def _hidden(params, cfg: ArchConfig, tokens, dtype, chunk):
-    x = params["embed"][tokens].to(dtype)
+    x = tp.vocab_lookup(params["embed"], tokens).to(dtype)
     for i in range(cfg.n_layers):
         x = T.remat(cfg, _block_apply, cfg, L.BlockRef(params["blocks"], i), x, chunk=chunk)
     return x
@@ -208,7 +273,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
 def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     logits, _ = forward(params, cfg, batch["tokens"], dtype=dtype)
-    return L.softmax_xent(logits, batch["labels"])
+    return T._xent(logits, cfg, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -235,20 +300,53 @@ def cache_specs(cfg: ArchConfig) -> dict:
             "conv": (None, "dp", None, "tp"), "len": ("dp",)}
 
 
+def _conv_window(cfg: ArchConfig, conv, di: int, split: bool):
+    """The packed conv window ``(B, K-1, ·)`` as the rank computes with it:
+    on a model row, the cache's contiguous shard gathered whole and, when
+    ``split``, cut to the rank's ``[x_r | B | C]``."""
+    if tp.size() == 1:
+        return conv
+    d_inner = _dims(cfg)[0]
+    whole = tp.all_gather(conv, -1)
+    if not split:
+        return whole
+    r = tp.rank()
+    return torch.cat([whole[..., r * di:(r + 1) * di], whole[..., d_inner:]], dim=-1)
+
+
+def _conv_shard(cfg: ArchConfig, window, di: int, split: bool):
+    """The rank's contiguous shard of the packed conv window that
+    :func:`_conv_window` took (its ``x`` channels gathered over the row when
+    ``split``; B and C are every rank's)."""
+    if tp.size() == 1:
+        return window
+    if split:
+        window = torch.cat([tp.all_gather(window[..., :di], -1), window[..., di:]], dim=-1)
+    return tp.shard(window, -1)
+
+
 def _decode_block(cfg: ArchConfig, p, x, ssm, conv):
-    """One token through one block; returns (x, new ssm state, new conv window)."""
-    d_inner, h, n = _dims(cfg)
+    """One token through one block; returns (x, new ssm state, new conv
+    window), the state the rank's heads (gathered whole and cut back on a
+    row that computes the block replicated)."""
+    n = cfg.ssm_state
     dtype = x.dtype
+    p, di, hl, split = _local(cfg, p)
+    if tp.size() > 1 and not split:
+        ssm = tp.all_gather(ssm, 1)
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    z, xbc, dt = _split_proj(cfg, xn @ p["in_proj"].to(dtype))
-    hist = torch.cat([conv, xbc], dim=1)                  # (B, K, C)
+    z, xbc, dt = _split_proj(xn @ p["in_proj"].to(dtype), di, n, hl)
+    hist = torch.cat([_conv_window(cfg, conv, di, split), xbc], dim=1)    # (B, K, C)
     xbc = F.silu((hist * p["conv"].to(dtype)).sum(dim=1))
-    xs = xbc[:, :d_inner].reshape(-1, h, HEAD_DIM)
+    xs = xbc[:, :di].reshape(-1, hl, HEAD_DIM)
     dtq = F.softplus(dt[:, 0].to(torch.float32) + p["dt_bias"])
     y, new_ssm = ssd_recurrent_step(ssm, xs.to(torch.float32), dtq, p["a_log"],
-                                    xbc[:, d_inner:d_inner + n].to(torch.float32),
-                                    xbc[:, d_inner + n:].to(torch.float32))
-    return _mix(cfg, p, x, xs[:, None], z, y[:, None]), new_ssm, hist[:, 1:]
+                                    xbc[:, di:di + n].to(torch.float32),
+                                    xbc[:, di + n:].to(torch.float32))
+    if tp.size() > 1 and not split:
+        new_ssm = tp.shard(new_ssm, 1)
+    return (_mix(cfg, p, x, xs[:, None], z, y[:, None], split), new_ssm,
+            _conv_shard(cfg, hist[:, 1:], di, split))
 
 
 def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor, pos, *,
@@ -257,15 +355,15 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     cache)``: the cache's state tensors are written in place, as a donated
     buffer would be, and the returned dict holds them with ``len`` advanced
     by one.  ``pos`` does not enter the recurrence."""
-    x = params["embed"][token[:, None]].to(dtype)
+    x = tp.vocab_lookup(params["embed"], token[:, None]).to(dtype)
     for i in range(cfg.n_layers):
         x, cache["ssm"][i], cache["conv"][i] = _decode_block(
             cfg, L.block(params["blocks"], i), x, cache["ssm"][i], cache["conv"][i])
-    return T._head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
+    return T._whole_logits(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Last-token logits (B, vocab) of the full forward (only the last row
     goes through the head)."""
-    return T._head(params, cfg, _hidden(params, cfg, tokens, dtype, 128)[:, -1])
+    return T._whole_logits(params, cfg, _hidden(params, cfg, tokens, dtype, 128)[:, -1])

@@ -217,14 +217,17 @@ def param_specs(cfg: ArchConfig) -> dict:
 # Forward (train / prefill shared body)
 # ---------------------------------------------------------------------------
 
-def _attn_weights(p, cfg: ArchConfig) -> tuple:
+def _attn_weights(p, cfg: ArchConfig, *, kv: bool = True) -> tuple:
     """``(wq, wk, wv, wo, split)`` as this rank computes with them: K/V's
-    weights whole, ``wq``/``wo`` the rank's heads when ``split``, else
+    weights whole (``None`` without ``kv``: a decode step that reads its
+    K/V from a cache), ``wq``/``wo`` the rank's heads when ``split``, else
     whole."""
     split = tp.divides(cfg.n_heads, "attention heads")
     wq, wo = p["wq"], p["wo"]
     if tp.size() > 1 and not split:
         wq, wo = tp.gather(wq, -1), tp.gather(wo, -2)
+    if not kv:
+        return wq, None, None, wo, split
     return wq, tp.gather(p["wk"], -1), tp.gather(p["wv"], -1), wo, split
 
 
@@ -256,7 +259,8 @@ def _row_parallel(x, w, dtype):
 
 
 def _attn_out(o, wo, split: bool, dtype):
-    """The output projection: row-parallel and summed over the row, or
+    """The output projection (or any row-parallel one: ``o``'s last dim the
+    rank's share of ``wo``'s rows): row-parallel and summed over the row, or
     computed whole on every rank."""
     return _row_parallel(o, wo, dtype) if split else tp.replicated(o @ wo.to(dtype))
 
@@ -327,10 +331,11 @@ def _head(params, cfg: ArchConfig, x):
     return logits[..., :cfg.vocab] if cfg.vocab_padded != cfg.vocab else logits
 
 
-def _whole_logits(params, cfg: ArchConfig, x):
-    """:func:`_head`'s logits over the whole vocabulary (on a model row the
-    shards gathered, as the reference's ``out_sh`` replicates the vocab)."""
-    logits = _head(params, cfg, x)
+def _whole_logits(params, cfg: ArchConfig, x, head=None):
+    """``head``'s (by default :func:`_head`'s) logits over the whole
+    vocabulary (on a model row the shards gathered, as the reference's
+    ``out_sh`` replicates the vocab)."""
+    logits = (head or _head)(params, cfg, x)
     if tp.size() > 1:
         logits = tp.gather(logits, -1)[..., :cfg.vocab]
     return logits
@@ -357,11 +362,16 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     return _head(params, cfg, x), aux
 
 
+def _xent(logits, cfg: ArchConfig, labels) -> torch.Tensor:
+    """:func:`layers.softmax_xent` of a head's logits: vocab-parallel on a
+    model row (``logits`` the rank's shard of the padded vocabulary)."""
+    return L.softmax_xent(logits, labels, vocab=cfg.vocab if tp.size() > 1 else None)
+
+
 def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     logits, aux = forward(params, cfg, batch["tokens"], dtype=dtype)
-    vocab = cfg.vocab if tp.size() > 1 else None
-    return L.softmax_xent(logits, batch["labels"], vocab=vocab) + 1e-2 * aux
+    return _xent(logits, cfg, batch["labels"]) + 1e-2 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,21 @@ whose docstring maps the policy).  ``param_specs`` and
 ``cache_specs`` are the reference's logical sharding specs, leaf for leaf
 with ``init_params`` and ``init_cache`` (read by
 :mod:`repro_torch.launch.steps`).
+
+**Tensor parallelism** (a sharded step that splits the ``model`` row; see
+:mod:`repro_torch.models.transformer`, whose helpers every layer here goes
+through).  The self blocks, the vocab-parallel embedding, the head and the
+loss split as the decoder-only transformer's.  The gated cross layer: its
+input passes *f* (``tp.copy``) before ``lnx``; ``wq`` is column-parallel by
+heads (``q_norm``/``k_norm`` act per head dim and stay whole); the image K/V
+are projected with ``wk``/``wv`` whole and each rank's query heads read the
+K/V heads they group with; ``wo`` is row-parallel and summed over the row,
+and ``tanh(gate)`` scales that sum once (``gate`` takes its gradient over
+the row's size, as everything computed whole on every rank does).  Decode
+reads the cross K/V cache whole (heads replicated over ``model``) the same
+way.  A head count the row does not divide is gathered and computed
+replicated (``tp.note``).  Outside such a step the code computes as before,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -74,16 +90,19 @@ def param_specs(cfg: ArchConfig) -> dict:
             "final_norm": (None,), "lm_head": ("fsdp", "tp")}
 
 
-def _gated(p, x, o):
-    """``x + tanh(gate) · (o @ wo)``: the cross layer's residual."""
+def _gated(p, x, o, wo, split: bool):
+    """``x + tanh(gate) · (o @ wo)``: the cross layer's residual (``o @ wo``
+    summed over the row first when ``split``)."""
     dtype = x.dtype
-    return x + torch.tanh(p["gate"]).to(dtype) * (o @ p["xattn"]["wo"].to(dtype))
+    return x + (torch.tanh(tp.replicated(p["gate"])).to(dtype)
+                * T._attn_out(o, wo, split, dtype))
 
 
-def _cross_q(p, x, cfg: ArchConfig):
+def _cross_q(p, x, cfg: ArchConfig, wq):
+    """The normed queries of this rank's heads (``wq``'s columns)."""
     b, s, _ = x.shape
-    xa = L.rms_norm(x, p["lnx"], cfg.norm_eps)
-    q = (xa @ p["xattn"]["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.hd)
+    xa = L.rms_norm(tp.copy(x), p["lnx"], cfg.norm_eps)
+    q = (xa @ wq.to(x.dtype)).reshape(b, s, -1, cfg.hd)
     return L.rms_norm(q, p["xattn"]["q_norm"], cfg.norm_eps)
 
 
@@ -91,18 +110,19 @@ def _cross_apply(p, x, img, cfg: ArchConfig):
     b, s, _ = x.shape
     dtype = x.dtype
     hkv, hd = cfg.n_kv_heads, cfg.hd
-    q = _cross_q(p, x, cfg)
-    k = (img @ p["xattn"]["wk"].to(dtype)).reshape(b, img.shape[1], hkv, hd)
-    v = (img @ p["xattn"]["wv"].to(dtype)).reshape(b, img.shape[1], hkv, hd)
+    wq, wk, wv, wo, split = T._attn_weights(p["xattn"], cfg)
+    q = _cross_q(p, x, cfg, wq)
+    k = (img @ wk.to(dtype)).reshape(b, img.shape[1], hkv, hd)
+    v = (img @ wv.to(dtype)).reshape(b, img.shape[1], hkv, hd)
     k = L.rms_norm(k, p["xattn"]["k_norm"], cfg.norm_eps)
-    o = L.gqa_attention(q, k, v, causal=False)
-    return _gated(p, x, o.reshape(b, s, -1))
+    o = L.gqa_attention(q, *T._kv_for(k, v, cfg, q.shape[2]), causal=False)
+    return _gated(p, x, o.reshape(b, s, -1), wo, split)
 
 
 def _hidden(params, cfg: ArchConfig, batch, dtype):
     tokens = batch["tokens"]
     img = batch["patches"].to(dtype)
-    x = params["embed"][tokens].to(dtype)
+    x = tp.vocab_lookup(params["embed"], tokens).to(dtype)
     cos, sin = L.rope_table(torch.arange(tokens.shape[1], device=tokens.device), cfg.hd,
                             cfg.rope_theta)
     n_cyc, n_self = _groups(cfg)
@@ -124,7 +144,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *,
 def train_loss(params: dict, cfg: ArchConfig, batch: dict, *,
                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     logits, _ = forward(params, cfg, batch, dtype=dtype)
-    return L.softmax_xent(logits, batch["labels"])
+    return T._xent(logits, cfg, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -159,26 +179,27 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     vocab), cache)`` with ``len`` advanced by one."""
     pos = int(pos)
     b = token.shape[0]
-    x = params["embed"][token[:, None]].to(dtype)
+    x = tp.vocab_lookup(params["embed"], token[:, None]).to(dtype)
     cos, sin = L.rope_table(torch.tensor([pos], device=x.device), cfg.hd, cfg.rope_theta)
     img_len = torch.full((b,), cache["cross"]["k"].shape[2], dtype=torch.int32,
                          device=x.device)
     n_cyc, n_self = _groups(cfg)
     for c in range(n_cyc):
         p = L.block(params["cross"], c)
-        o = L.decode_attention(_cross_q(p, x, cfg), cache["cross"]["k"][c],
-                               cache["cross"]["v"][c], img_len)
-        x = _gated(p, x, o.reshape(b, 1, -1))
-        del p                        # one block's parameters alive at a time
+        wq, _, _, wo, split = T._attn_weights(p["xattn"], cfg, kv=False)
+        q = _cross_q(p, x, cfg, wq)
+        kv = T._kv_for(cache["cross"]["k"][c], cache["cross"]["v"][c], cfg, q.shape[2])
+        x = _gated(p, x, L.decode_attention(q, *kv, img_len).reshape(b, 1, -1), wo, split)
+        del p, wq, wo                # one block's parameters alive at a time
         for j in range(n_self):
             kv = {"k": cache["selfs"]["k"][c, j], "v": cache["selfs"]["v"][c, j]}
             x = T._decode_block(L.block(params["selfs"], (c, j)), x, kv, cfg, window=None,
                                 pos=pos, cos=cos, sin=sin)
-    return T._head(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
+    return T._whole_logits(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, *,
             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Last-token logits (B, vocab) of the full forward (only the last row
     goes through the head)."""
-    return T._head(params, cfg, _hidden(params, cfg, batch, dtype)[:, -1])
+    return T._whole_logits(params, cfg, _hidden(params, cfg, batch, dtype)[:, -1])

@@ -488,13 +488,29 @@ def _case(name, cfg):
     return ecfg, _requests(cfg, steps, **kw)
 
 
+@pytest.fixture(scope="module")
+def sequential_runs(model):
+    """``run_sequential`` of a :data:`CASES` entry, computed once for all
+    of its ``grouped`` modes (the requests are rebuilt from their seed)."""
+    _, params, pe = model
+    cfg, runs = get_smoke("flux-mmdit"), {}
+
+    def run(case):
+        if case not in runs:
+            ecfg, reqs = _case(case, cfg)
+            runs[case] = run_sequential(params, cfg, ecfg, reqs, patch_embed=_t(pe),
+                                        keep_plans=True)
+        return runs[case]
+    return run
+
+
 @pytest.mark.parametrize("grouped", ["auto", True, False])
 @pytest.mark.parametrize("case", list(CASES))
-def test_continuous_batcher_matches_sample(model, case, grouped):
+def test_continuous_batcher_matches_sample(model, sequential_runs, case, grouped):
     _, params, pe = model
     cfg = get_smoke("flux-mmdit")
     ecfg, reqs = _case(case, cfg)
-    seq = run_sequential(params, cfg, ecfg, reqs, patch_embed=_t(pe), keep_plans=True)
+    seq = sequential_runs(case)
     bat = ContinuousBatcher(params, cfg, ecfg, patch_embed=_t(pe), lanes=3, grouped=grouped,
                             keep_plans=True)
     bat.submit_all(reqs)

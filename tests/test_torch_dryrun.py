@@ -17,6 +17,12 @@ model.
   * the smoke gemma3-1b train cell (3 layers) at 4096 tokens over a fake world of 2 on
     mesh (1, 2): splitting the ``model`` axis predicts a lower peak than
     computing it replicated, and bills the row's all-reduces;
+  * the smoke train cells of mamba2, recurrentgemma, whisper and
+    llama-3.2-vision (64 tokens) over a fake world of 2 on mesh (1, 2): with
+    the ``model`` axis split, their weight products (``aten.mm``/``addmm``,
+    forward and backward) take at most 0.56 of the FLOPs they take computed
+    replicated (a half, plus what every rank computes whole: the ssm's B
+    and C columns, the vlm's K/V), and the peak is no higher;
   * the flux-mmdit smoke DiT cell records in both modes; Dispatch holds
     B1-B3 once a layer, each billed at the plan's capacity;
   * ``sharded_dispatch_report``'s payload equals the formula from the
@@ -206,6 +212,30 @@ def test_split_model_axis_lowers_the_predicted_peak_and_bills_the_row(monkeypatc
     row = fields[True]["collective_bytes"]
     assert row["all_reduce"] > fields[False]["collective_bytes"].get("all_reduce", 0)
     assert row["all_reduce_count"] >= 2 * cfg.n_layers      # g after attention and MLP
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b", "whisper-large-v3",
+                                  "llama-3.2-vision-11b"])
+def test_split_families_run_their_products_on_the_ranks_width(monkeypatch, arch):
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed.sharding import DEFAULT_RULES
+    from repro_torch.launch import steps as ST
+    cfg = registry.get_smoke(arch)
+    shape = ShapeSpec("train", 64, 2, "train")
+    mm, peak = {}, {}
+    for split in (True, False):
+        monkeypatch.setattr(ST, "_splits_model", lambda *a, split=split: split)
+        with D.fake_world(2):
+            mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
+                              mesh_dim_names=("data", "model"))
+            _, (fn, in_shapes, in_pl, _) = D.build_cell(cfg, shape, mesh, DEFAULT_RULES,
+                                                        dtype=torch.float32)
+            rec, _ = D.trace_step(fn, D.meta_args(in_shapes, in_pl, mesh))
+        mm[split] = sum(op_cost(n).flops for n in rec.nodes
+                        if n.name in ("aten.mm", "aten.addmm"))
+        peak[split] = peak_bytes_of(rec)
+    assert 0 < mm[True] <= 0.56 * mm[False]
+    assert peak[True] <= peak[False]
 
 
 def test_smoke_dit_cell_records_both_modes_with_kernels_at_capacity():

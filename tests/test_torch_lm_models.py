@@ -232,7 +232,7 @@ def test_serve_lm_greedy_tokens_match_the_reference(arch, capsys):
 
 def test_serve_lm_draws_from_its_seed_and_the_cli_picks_the_kind(capsys, monkeypatch):
     a = TS.serve_lm("mixtral-8x22b", seed=3, device="cpu")
-    b = TS.serve_lm("mixtral-8x22b", seed=3, device="cpu")
+    b = TS.serve_lm(get_smoke("mixtral-8x22b"), seed=3, device="cpu")   # a config itself
     assert torch.equal(a, b) and a.shape == (2, 16)
     for argv in (["--arch", "gemma3-1b"], ["--kind", "lm", "--arch", "gemma3-1b"]):
         monkeypatch.setattr("sys.argv", ["serve", *argv, "--device", "cpu"])

@@ -16,7 +16,8 @@
     also on the two paths a ``gloo`` world of card tensors takes (staged
     through the host, and between the ranks of one host, whose moves of
     nested shards and partial sums equal DTensor's own); ``constrain`` inside a rules context redistributes a DTensor and leaves
-    a plain tensor alone; ``make_production_mesh`` over the world.
+    a plain tensor alone; ``make_production_mesh`` over the world on the
+    CPU when asked, and raising by default where there is no card.
 
 The spawned ranks run a module-level function of this file, which imports
 neither JAX nor the reference at module level, so a rank imports torch
@@ -206,8 +207,14 @@ def world_rank(rank: int) -> dict:
     out["constrained"] = (_names(c.placements), tuple(c.to_local().shape),
                           bool(torch.equal(c.full_tensor(), dt.full_tensor())))
     out["outside"] = TC.constrain(dt, "dp", "tp") is dt
-    prod = make_production_mesh()
+    prod = make_production_mesh(device_type="cpu")
     out["production"] = (prod.mesh.tolist(), prod.mesh_dim_names)
+    out["default_mesh"] = None
+    if not torch.cuda.is_available():
+        try:
+            make_production_mesh()
+        except RuntimeError as e:
+            out["default_mesh"] = str(e)
     return out
 
 
@@ -262,3 +269,10 @@ def test_constrain_redistributes_a_dtensor_in_a_context(world):
         assert r["constrained"] == ([("Shard", 0), ("Shard", 1)], (1, 2), True)
         assert r["outside"]
         assert r["production"] == ([list(range(8))], ("data", "model"))
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks a host without a card")
+def test_production_mesh_is_the_cards_by_default(world):
+    """No fallback to the CPU: without a card the default mesh raises."""
+    for r in world:
+        assert r["default_mesh"] is not None and "no CUDA device" in r["default_mesh"]
