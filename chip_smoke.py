@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Twenty-seven paths run, each with the launch counts set to 0 just before it
+Twenty-eight paths run, each with the launch counts set to 0 just before it
 and read just after: T1 (training flux-mmdit at full width and 2 blocks,
 the engine off: no kernel may launch), L-train (training gemma3-1b at full
 width with remat on and off: no kernel), L1-L6 (the LMs gemma3-1b,
@@ -17,7 +17,9 @@ no kernel), S3
 (a 2-block flux-mmdit denoise step sharded over two ranks, Update then
 Dispatch: GEMM-Q, CSR attention, GEMM-O, counted in each rank), S4
 (gemma3-1b's prefill and decode steps sharded over two ranks: no kernel),
-S4-tp (S4 with the model axis split over the two ranks: no kernel), S5
+S4-tp (S4 with the model axis split over the two ranks: no kernel), S4-sp
+(S4 at batch 1 with the cache's sequence split over the two ranks: no
+kernel), S5
 (gemma3-1b trained at full width with the model axis split over two
 ranks: no kernel), S3-tp (S3's cell with the model axis split over the
 two ranks: GEMM-Q, CSR attention, GEMM-O on each rank's heads), S6-tp
@@ -29,9 +31,9 @@ P1
 (``sliding-window`` with ``kv_buckets=0``, which resolves to 2 buckets:
 GEMM-Q, bucketed CSR attention, bucketed GEMM-O), ``ops`` (the
 unified kernel entry on one full-width layer: the symbols attention and the
-Taylor reuse, beside the other five), M1 (P1's request across a (1, 2)
-mesh of two ranks on the card: GEMM-Q, CSR attention on each shard,
-GEMM-O, counted in each rank), C1 (batched serving: GEMM-Q, CSR attention,
+Taylor reuse, beside the other five), M1 (P1's request cut to 4 steps
+across a (1, 2) mesh of two ranks on the card: GEMM-Q, CSR attention on
+each shard, GEMM-O, counted in each rank), C1 (batched serving: GEMM-Q, CSR attention,
 GEMM-O, in each of its three modes) and H1 (hunyuan-video-dit at the
 paper's 33K tokens: GEMM-Q, CSR attention, GEMM-O).  Every dense baseline
 run launches no kernel.
@@ -172,11 +174,13 @@ final line):
                 ``o_reuse`` the token shard) against its plain version on
                 the same card tensors, the a2a payload, the live blocks sent
                 and the dense all-gather's (blocks and bytes), peaks per
-                rank.  M1: P1's request through ``serve_diffusion(mesh=(1,
-                2))`` on two ranks: every integer plan field equal to P1's,
-                latents within rel-L2 1e-6 of P1's, B1-B3 launched 152 times
-                on each rank, B2's first call on each rank against its plain
-                version, latency beside P1's (not a speed number);
+                rank.  M1: P1's request cut to 4 steps (3 Update, 1
+                Dispatch) through ``serve_diffusion(mesh=(1, 2))`` on two
+                ranks, against the same request served on one device first:
+                every integer plan field equal, latents within rel-L2 1e-6,
+                B1-B3 launched 38 times on each rank, B2's first call on
+                each rank against its plain version, latency beside the
+                one-device run's (not a speed number);
  14. sharding — ``distributed/{sharding, collective_matmul}`` and
                 ``runtime/elastic`` on two ``gloo`` ranks sharing the card:
                 ``ag_matmul_overlapped`` at flux width (x (1, 4608, 3072) split
@@ -204,6 +208,11 @@ final line):
                 builder: tokens equal to the unsharded model's, logits
                 within 2e-2 of their largest magnitude; no kernel.  S4-tp,
                 S4 on mesh (1, 2): the model axis split, held as S4 is.
+                S4-sp, S4 at batch 1 under long_500k's rules on mesh (2,
+                1): a 514-slot cache split 257 a rank over the data axis,
+                the decode writing across the ranks' boundary, held as S4
+                is.  S4-tp, S4-sp and S6-tp's vlm move no cache byte in
+                any decode call (each rank keeps its sp shard).
                 S5, gemma3-1b at full width (7 of 26 layers, f32, remat
                 on), 1 x 4096 tokens, one train step on mesh (1, 2) with
                 the model axis split: loss, grad_norm and every gradient
@@ -1716,6 +1725,7 @@ def sharding_rank(rank: int) -> dict:
     out["S2moe"] = s2moe_rank(mesh)
     out["S3"] = s3_rank(mesh)
     out["S4"] = s4_rank(mesh)
+    out["S4sp"] = s4_rank(mesh, S4SP)
     row = DeviceMesh(DEVICE, torch.arange(world).reshape(S5_MESH),
                      mesh_dim_names=("data", "model"))
     out["S4tp"] = s4_rank(row)
@@ -1785,6 +1795,12 @@ S3_REL_L2 = 3e-4
 S3_LAUNCHES = 2
 S4 = dict(arch="gemma3-1b", n_layers=7, batch=2, prompt=256, decode_steps=4)
 S4_REL = 2e-2
+# S4-sp: S4 at batch 1 on mesh (2, 1) under long_500k's rules (dp=(), sp over
+# data and model: the sp group is the two ranks of the data axis, not the
+# model row), the prefill under the same rules; a cache of 2 * 256 + 2 = 514
+# slots (the ring layers 512), 257 a rank, so the decode positions 256-259
+# write across the ranks' boundary.  Held as S4 is; no cache byte moves.
+S4SP = dict(S4, batch=1, slots=514, rules="long_500k")
 S5 = dict(arch="gemma3-1b", n_layers=7, batch=1, seq_len=4096)
 S5_MESH = (1, 2)
 S5_REL = 1e-4
@@ -2251,8 +2267,9 @@ def s3tp_rank(mesh) -> dict:
     return res
 
 
-def s4_rank(mesh) -> dict:
-    """S4 on one rank: the sharded prefill and decode; rank 0 then runs the
+def s4_rank(mesh, cell: dict = S4) -> dict:
+    """S4 (or S4-sp, ``cell``) on one rank: the sharded prefill and decode,
+    each decode call's row collectives counted; rank 0 then runs the
     unsharded ones."""
     import torch
     from torch.distributed.tensor import DTensor
@@ -2264,11 +2281,13 @@ def s4_rank(mesh) -> dict:
     from repro_torch.models.registry import get_model
     from repro_torch.runtime.elastic import reshard_state
     from repro_torch.tree import tree_map
-    cfg = cell_config(S4)
+    cfg = cell_config(cell)
     model = get_model(cfg)
-    b, n, k = S4["batch"], S4["prompt"], S4["decode_steps"]
-    pre_rules = rules_for(cfg, SHAPES["prefill_32k"], multi_pod=False)
-    dec_rules = rules_for(cfg, SHAPES["decode_32k"], multi_pod=False)
+    b, n, k = cell["batch"], cell["prompt"], cell["decode_steps"]
+    slots = cell.get("slots", n + k)
+    dec_rules = rules_for(cfg, SHAPES[cell.get("rules", "decode_32k")], multi_pod=False)
+    pre_rules = (dec_rules if "rules" in cell
+                 else rules_for(cfg, SHAPES["prefill_32k"], multi_pod=False))
     t_cell = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2277,24 +2296,28 @@ def s4_rank(mesh) -> dict:
     params = tree_map(lambda w: w.to(torch.bfloat16), model.init_params(g, DEVICE))
     tokens = torch.randint(0, cfg.vocab, (b, n), generator=g, device=DEVICE, dtype=torch.int32)
     pre = ST.build_prefill_step(cfg, ShapeSpec("S4", n, b, "prefill"), mesh, pre_rules)[0]
-    dec, _, dec_pl, _ = ST.build_decode_step(cfg, ShapeSpec("S4", n + k, b, "decode"), mesh,
+    dec, _, dec_pl, _ = ST.build_decode_step(cfg, ShapeSpec("S4", slots, b, "decode"), mesh,
                                              dec_rules)
     p = reshard_state(params, model.param_specs(), mesh, pre_rules)
     batch = reshard_state({"tokens": tokens}, prefill_batch_logical(cfg), mesh, pre_rules)
-    cache = reshard_state(model.init_cache(b, n + k, device=DEVICE), model.cache_specs(), mesh,
+    cache = reshard_state(model.init_cache(b, slots, device=DEVICE), model.cache_specs(), mesh,
                           dec_rules)
+    res_cache = {"slots": slots, "local_slots": _local_slots(cache)}
     reset_launches()
     t0 = time.perf_counter()
     logits = pre(p, batch)
-    res = {"prefill": {"s": time.perf_counter() - t0, **pre.stats}, "decode": []}
+    res = {"prefill": {"s": time.perf_counter() - t0, **pre.stats}, "decode": [],
+           "cache": res_cache}
     got_logits, got_tokens = [_whole(logits)], []
     for i in range(k):
         tok = DTensor.from_local(logits.to_local().argmax(-1).to(torch.int32), mesh, dec_pl[2],
                                  run_check=False)
         got_tokens.append(_whole(tok))
-        t0 = time.perf_counter()
-        logits, cache = dec(p, cache, tok, n + i)
-        res["decode"].append({"s": time.perf_counter() - t0, **dec.stats})
+        with counting_row_collectives() as row_calls:
+            t0 = time.perf_counter()
+            logits, cache = dec(p, cache, tok, n + i)
+            res["decode"].append({"s": time.perf_counter() - t0, **dec.stats,
+                                  "row_collectives": dict(row_calls)})
         got_logits.append(_whole(logits))
     res["launches"] = _launches()
     res["peak_gb"] = _peak_gb()
@@ -2303,7 +2326,7 @@ def s4_rank(mesh) -> dict:
     if torch.distributed.get_rank() == 0:
         with torch.no_grad():
             want = [model.prefill(params, {"tokens": tokens})]
-            cache = model.init_cache(b, n + k, device=DEVICE)
+            cache = model.init_cache(b, slots, device=DEVICE)
             want_tokens = []
             for i in range(k):
                 want_tokens.append(want[-1].argmax(-1).to(torch.int32))
@@ -2321,6 +2344,13 @@ def s4_rank(mesh) -> dict:
     res["seconds"] = time.perf_counter() - t_cell
     res["mesh"] = list(mesh.mesh.shape)
     return res
+
+
+def _local_slots(cache) -> dict:
+    """Each cache leaf's global and local slot counts (dim -3 of a K/V
+    leaf), by its top-level key."""
+    return {key: [tuple(v["k"].shape)[-3], tuple(v["k"].to_local().shape)[-3]]
+            for key, v in cache.items() if isinstance(v, dict) and "k" in v}
 
 
 def cell_config(cell: dict):
@@ -2584,8 +2614,8 @@ def phase_sharding() -> tuple[dict, dict]:
     unsharded ones on the surviving rank, a kernel launched in S1, S2 or S4,
     or a check of S2-S6 fails.  Returns the launch counts of the paths
     ``sharding`` (S1), S2, S3 (its Update and Dispatch steps), S2-moe,
-    S3-tp, S4, S4-tp, S5 and each S6-tp cell, each rank 0's, and rank 0's
-    record."""
+    S3-tp, S4, S4-tp, S4-sp, S5 and each S6-tp cell, each rank 0's, and
+    rank 0's record."""
     import torch
     torch.cuda.empty_cache()
     from repro_torch.launch.mesh import run_local_mesh
@@ -2614,6 +2644,7 @@ def phase_sharding() -> tuple[dict, dict]:
             "S2moe": ranks[0]["S2moe"]["launches"], "S3": both(ranks[0]["S3"]),
             "S3tp": both(ranks[0]["S3tp"]),
             "S4": ranks[0]["S4"]["launches"], "S4tp": ranks[0]["S4tp"]["launches"],
+            "S4sp": ranks[0]["S4sp"]["launches"],
             "S5": ranks[0]["S5"]["launches"],
             **{f"S6tp {arch}": rec["launches"] for arch, rec in ranks[0]["S6tp"].items()}}, \
         ranks[0]
@@ -2684,6 +2715,8 @@ def s6tp_faults(ranks) -> list:
             print(f"chip_smoke: S6-tp {arch} prefill {rec['prefill']['s']:.2f} s, decode "
                   f"{[round(d['s'], 2) for d in rec['decode']]} s, row collectives "
                   f"{rec['prefill']['row_collectives']} / {rec['decode'][-1]['row_collectives']}, "
+                  f"decode peer {[round(d['peer_bytes'] / 1e9, 4) for d in rec['decode']]} GB, "
+                  f"cache moved {[d['cache_moved_bytes'] for d in rec['decode']]} B, "
                   f"peak {peaks} GB, tokens equal {rec.get('tokens_equal')}, logits "
                   f"{rec.get('logits_rel', float('nan')):.2e} off the unsharded bf16 run, "
                   f"{rec.get('logits_vs_f32', float('nan')):.2e} off the f32 run (the bf16 "
@@ -2711,7 +2744,8 @@ def sharding_step_faults(ranks) -> list:
         if metric(s2) != metric(ref):
             faults.append(f"rank {rank}: S2 loss/grad_norm differ from rank 0's")
         for path, launches in (("S2", s2["launches"]), ("S4", s4["launches"]),
-                               ("S4-tp", r["S4tp"]["launches"]), ("S5", s5["launches"]),
+                               ("S4-tp", r["S4tp"]["launches"]),
+                               ("S4-sp", r["S4sp"]["launches"]), ("S5", s5["launches"]),
                                ("S3 update", s3["update"]["launches"]),
                                ("S2-moe", r["S2moe"]["launches"]),
                                ("S3-tp update", r["S3tp"]["update"]["launches"])):
@@ -2733,12 +2767,20 @@ def sharding_step_faults(ranks) -> list:
                 faults.append(f"rank {rank}: S3 {mode} differs from its slice alone")
         if not b2_agrees(s3["b2_vs_plain"]):
             faults.append(f"rank {rank}: S3 B2 against its plain version: {s3['b2_vs_plain']}")
-        for label, rec in (("S4", s4), ("S4-tp", r["S4tp"])):
+        for label, rec in (("S4", s4), ("S4-tp", r["S4tp"]), ("S4-sp", r["S4sp"])):
             if "tokens_equal" in rec and not (rec["tokens_equal"]
                                               and rec["logits_rel"] <= S4_REL):
                 faults.append(f"{label}: tokens equal {rec['tokens_equal']} (first differing "
                               f"step {rec['first_differing_step']}), logits "
                               f"{rec['logits_rel']:.2e}")
+        for label, rec in (("S4-tp", r["S4tp"]), ("S4-sp", r["S4sp"]),
+                           ("S6-tp vlm", r["S6tp"][S6_VLM["arch"]])):
+            moved = [d["cache_moved_bytes"] for d in rec["decode"]]
+            if any(moved):
+                faults.append(f"rank {rank}: {label} decode moved cache bytes {moved}")
+        split = r["S4sp"]["cache"]["local_slots"]
+        if not all(loc < whole for whole, loc in split.values()):
+            faults.append(f"rank {rank}: S4-sp cache not split over sp: {split}")
         if "loss_rel" in s5 and not (s5["loss_rel"] <= S5_REL and s5["grad_norm_rel"] <= S5_REL
                                      and s5["grad_rel"] <= S5_REL):
             faults.append(f"rank {rank}: S5 loss/grad_norm/gradients {s5['loss_rel']:.2e}/"
@@ -2777,18 +2819,26 @@ def sharding_step_faults(ranks) -> list:
           f"S3 rel-L2 {s3_rel:.3e}, S4 decode "
           f"{[round(d['s'], 3) for d in ranks[0]['S4']['decode']]} s", file=sys.stderr,
           flush=True)
+    for label, key in (("S4-tp", "S4tp"), ("S4-sp", "S4sp")):
+        rec = r0[key]
+        print(f"chip_smoke: {label} decode {[round(d['s'], 3) for d in rec['decode']]} s, peer "
+              f"{[round(d['peer_bytes'] / 1e9, 4) for d in rec['decode']]} GB, cache moved "
+              f"{[d['cache_moved_bytes'] for d in rec['decode']]} B, row collectives "
+              f"{rec['decode'][-1]['row_collectives']}, cache slots {rec['cache']}, tokens "
+              f"equal {rec.get('tokens_equal')}, logits {rec.get('logits_rel', float('nan')):.2e}",
+              file=sys.stderr, flush=True)
     return faults
 
 
-def dispatch_steps(sched, dense=False) -> int:
+def dispatch_steps(sched, dense=False, steps=STEPS, dispatch=DISPATCH_STEPS) -> int:
     """The schedule's Dispatch steps; fails unless a served path's schedule
-    has ``STEPS`` steps and ``DISPATCH_STEPS`` of them Dispatch, or none
-    under ``force_dense``."""
+    has ``steps`` steps and ``dispatch`` of them Dispatch, or none under
+    ``force_dense``."""
     from repro_torch.core.schedule import MODE_DISPATCH
-    n, want = int((sched.mode == MODE_DISPATCH).sum()), 0 if dense else DISPATCH_STEPS
-    if sched.mode.shape[0] != STEPS or n != want:
+    n, want = int((sched.mode == MODE_DISPATCH).sum()), 0 if dense else dispatch
+    if sched.mode.shape[0] != steps or n != want:
         raise AssertionError(f"resolved schedule has {sched.mode.shape[0]} steps, {n} "
-                             f"Dispatch; expected {STEPS} steps, {want} Dispatch")
+                             f"Dispatch; expected {steps} steps, {want} Dispatch")
     return n
 
 
@@ -2895,11 +2945,11 @@ def fidelity(out, dense) -> dict:
             "psnr_db": 10 * math.log10(peak * peak / max(mse, 1e-12))}
 
 
-def phase_serve() -> tuple[dict, tuple, list]:
-    """P1; also returns its request's last plan of every layer (for M1)."""
-    res, launches, results = serve_path("serve", P1_KERNELS, REQUESTS, keep_plans=True, **FLUX)
+def phase_serve() -> tuple[dict, tuple]:
+    """P1."""
+    res, launches, results = serve_path("serve", P1_KERNELS, REQUESTS, **FLUX)
     emit(res)
-    return launches, (res["requests"][0]["latency_s"], results[0]["out"]), results[0]["plans"]
+    return launches, (res["requests"][0]["latency_s"], results[0]["out"])
 
 
 def phase_serve_bucketed() -> tuple[dict, tuple]:
@@ -2964,8 +3014,13 @@ MESH_LAYER = (2, 4)
 MESH_CASES = (("seq, flashomni, 3 buckets, slack 0.5", "flashomni", 3, 0.5, "seq"),
               ("head, flashomni, 1 bucket", "flashomni", 1, 1.5, "head"))
 MESH_SEED = 2468
-# M1: P1's request (same seed, weights and noise) served across mesh (1, 2).
+# M1: P1's request (same seed, weights and noise) at M1_STEPS steps served
+# across mesh (1, 2), against the same request served on one device first.
+# Cut from P1's 8 steps (whose Dispatch steps took 16-18 s each on the two
+# ranks) to pay for S4-sp and the sp decode's collectives: 3 Update steps
+# and 1 Dispatch step, 38 launches of B1-B3 a rank.
 M1_MESH = (1, 2)
+M1_STEPS, M1_DISPATCH_STEPS = 4, 1
 M1_REL_L2 = 1e-6
 MESH_JOIN_S = 400
 
@@ -3100,7 +3155,8 @@ def mesh_layer_rank(rank: int) -> list:
 
 
 def m1_rank(rank: int) -> dict:
-    """One rank of M1: P1's request through ``serve_diffusion(mesh=(1, 2))``,
+    """One rank of M1: P1's request at ``M1_STEPS`` steps through
+    ``serve_diffusion(mesh=(1, 2))``,
     launch counts set to 0 just before and read just after; B2's first call
     (layer 0 of the first Dispatch step, at this shard's shapes) against its
     plain version; rank 0 also returns its latents and its last plan of
@@ -3113,7 +3169,7 @@ def m1_rank(rank: int) -> dict:
     reset_launches()
     res, call = first_b2_call(lambda: serve_diffusion(
         FLUX["arch"], smoke=False, n_vision=FLUX["n_vision"], batch=FLUX["batch"],
-        num_requests=1, num_steps=STEPS, mesh=M1_MESH, device=DEVICE, verbose=False,
+        num_requests=1, num_steps=M1_STEPS, mesh=M1_MESH, device=DEVICE, verbose=False,
         keep_plans=True))
     launches = {fn.__name__: fn.launches for fn in KERNELS}
     r = res[0]
@@ -3129,7 +3185,7 @@ def m1_rank(rank: int) -> dict:
     return out
 
 
-def phase_mesh(p1: tuple, p1_plans: list) -> dict:
+def phase_mesh() -> dict:
     """The ``mesh`` phase: the layer cell on mesh (2, 4), then M1 on mesh
     (1, 2), every rank a process of its own on the one card over ``gloo``
     (NCCL refuses two ranks on one card).  The kernels are built here,
@@ -3137,15 +3193,15 @@ def phase_mesh(p1: tuple, p1_plans: list) -> dict:
     is not ``torch.equal`` to a rank's single-device Dispatch, B2 did not
     launch on every rank, B2 at a shard's shapes (a case's, or M1's first
     Dispatch layer's) disagrees with its plain version on the same card
-    tensors, an M1 integer plan field differs from P1's, or M1's latents lie
-    beyond ``M1_REL_L2`` of P1's.  M1's latency is not a
-    speed number: its two ranks share one card and exchange through the
-    host.  ``p1``: P1's (latency, latents); ``p1_plans``: its last plans."""
+    tensors, an M1 integer plan field differs from the one-device run's of
+    the same request, or M1's latents lie beyond ``M1_REL_L2`` of its.
+    M1's latency is not a speed number: its two ranks share one card and
+    exchange through the host."""
     import torch
     from repro_torch.core.engine import resolve_schedule
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import run_local_mesh
-    from repro_torch.launch.serve import get_config, serving_engine_config
+    from repro_torch.launch.serve import get_config, serve_diffusion, serving_engine_config
     _build.load()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3174,19 +3230,24 @@ def phase_mesh(p1: tuple, p1_plans: list) -> dict:
         raise AssertionError(f"mesh layer cell: cases {bad} differ from one device, "
                              "disagree on the plan, did not launch B2 on every rank or "
                              "B2 disagrees with its plain version at a shard's shapes")
+    one = serve_diffusion(FLUX["arch"], smoke=False, n_vision=FLUX["n_vision"],
+                          batch=FLUX["batch"], num_requests=1, num_steps=M1_STEPS,
+                          device=DEVICE, verbose=False, keep_plans=True)[0]
+    one_latency, one_out, one_plans = one["latency"], one["out"].cpu(), one["plans"]
+    del one
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     m1 = run_local_mesh(m1_rank, *M1_MESH, timeout=MESH_JOIN_S)
     m1_s = time.perf_counter() - t0
     cfg = get_config(FLUX["arch"])
-    want = cfg.n_layers * dispatch_steps(resolve_schedule(serving_engine_config(), STEPS,
-                                                          cfg.n_layers))
+    want = cfg.n_layers * dispatch_steps(resolve_schedule(serving_engine_config(), M1_STEPS,
+                                                          cfg.n_layers),
+                                         steps=M1_STEPS, dispatch=M1_DISPATCH_STEPS)
     latents, plans = m1[0].pop("latents"), m1[0].pop("plans")
-    p1_latency, p1_out = p1
-    ref = p1_out.cpu().double()
+    ref = one_out.double()
     rel = float((latents.double() - ref).norm() / ref.norm())
     differ, row_score_equal = [], True
-    for li, (a, b) in enumerate(zip(p1_plans, plans)):
+    for li, (a, b) in enumerate(zip(one_plans, plans)):
         for f, va in zip(a._fields, a):
             if va is None:
                 continue
@@ -3196,11 +3257,11 @@ def phase_mesh(p1: tuple, p1_plans: list) -> dict:
             elif not torch.equal(va.cpu(), vb):
                 differ.append([li, f])
     res["m1"] = {"mesh": M1_MESH, "transport": "gloo", **FLUX, "layers": cfg.n_layers,
-                 "steps": STEPS, "wall_s": m1_s, "ranks": m1,
-                 "p1_latency_s": p1_latency,
+                 "steps": M1_STEPS, "wall_s": m1_s, "ranks": m1,
+                 "one_device_latency_s": one_latency,
                  "latency_note": "not a speed number: two ranks share one card and the "
                                  "exchange goes through the host",
-                 "latents_rel_l2_vs_p1": rel, "latents_bit_equal": rel == 0.0,
+                 "latents_rel_l2_vs_one_device": rel, "latents_bit_equal": rel == 0.0,
                  "plan_layers": len(plans), "plan_fields_differ": differ,
                  "shd_fields": sorted(f for f in plans[0]._fields
                                       if f.startswith("shd_") and getattr(plans[0], f) is not None),
@@ -3215,7 +3276,7 @@ def phase_mesh(p1: tuple, p1_plans: list) -> dict:
             raise AssertionError(f"M1 rank {r['rank']}: B2 at the shard's shapes disagrees "
                                  f"with its plain version: {r['b2_vs_plain']}")
     if differ or len(plans) != cfg.n_layers or not rel <= M1_REL_L2:
-        raise AssertionError(f"M1: {len(differ)} plan fields differ from P1's, rel-L2 "
+        raise AssertionError(f"M1: {len(differ)} plan fields differ from one device's, rel-L2 "
                              f"{rel:.3e} (limit {M1_REL_L2})")
     return m1[0]["launches"]
 
@@ -4081,15 +4142,14 @@ def main() -> int:
         by_path.update(launches)
         by_path.update(timed(phase_lm))
         by_path["long_context"] = timed(phase_long_context)
-        by_path["P1"], served["P1"], p1_plans = timed(phase_serve)
+        by_path["P1"], served["P1"] = timed(phase_serve)
         by_path["P2"], served["P2"] = timed(phase_serve_bucketed)
         by_path["ops"] = timed(phase_ops)
         timed(phase_twin, **FULL)
         timed(phase_rope, **FULL)
-        by_path["M1"] = timed(phase_mesh, served["P1"], p1_plans)
+        by_path["M1"] = timed(phase_mesh)
         launches, shard_rank0 = timed(phase_sharding)
         by_path.update(launches)
-        del p1_plans
         timed(phase_dense, served)
         del served
         by_path["C1"] = timed(phase_serve_batched)

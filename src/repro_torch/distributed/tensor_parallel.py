@@ -50,6 +50,13 @@ BlockRef`), so the recompute gathers it again.
 which a step splits its batch, carried by the active :class:`ParamGather`,
 for what the model computes over the global batch (the MoE's routing,
 :func:`repro_torch.models.layers.moe_route_global`).
+
+**The ``sp`` group** (:func:`sp_group`): the ranks over which a decode step
+splits its caches' sequence, carried by the decode step's
+:class:`ParamGather`, with each such cache's global slot count.  Each rank
+keeps its slots; the models write the new token's K/V on the rank that holds
+its slot and attend over every rank's slots by merging the ranks' partial
+attentions (:func:`repro_torch.models.transformer._cache_attention`).
 """
 
 from __future__ import annotations
@@ -67,7 +74,7 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 __all__ = ["size", "rank", "divides", "note", "model_parallel", "copy", "reduce", "gather",
            "replicated", "all_gather", "shard", "row_max", "vocab_lookup", "dp_group", "dp_sum",
-           "mesh_dims", "ParamGather"]
+           "sp_group", "mesh_dims", "ParamGather"]
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +206,40 @@ def dp_group() -> Optional[_Row]:
     outside a sharded step or where ``dp`` holds one rank."""
     src = block_source()
     return None if src is None else src.dp
+
+
+class _SeqGroup(_Row):
+    """The ranks over which a decode step splits its caches' sequence (the
+    rules' ``sp`` mesh dims, major first, as DTensor nests shards), and the
+    global slot count of each cache it splits, by the cache's top-level key."""
+
+    def __init__(self, mesh, dims: tuple, lengths: dict):
+        super().__init__(mesh, dims)
+        self.lengths = dict(lengths)
+
+    def span(self, key: str) -> Optional[tuple[int, int]]:
+        """``(S, lo)``: cache ``key``'s global slot count and this rank's
+        first slot (``None`` for a cache the step does not split).  The rank
+        holds the shard that DTensor lays out (torch's chunking, nested over
+        the dims), which an ``S`` the group does not divide leaves uneven or
+        empty."""
+        from torch.distributed.tensor import Shard
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+        if key not in self.lengths:
+            return None
+        s = self.lengths[key]
+        _, (lo,) = compute_local_shape_and_global_offset((s,), self.mesh,
+                                                         self.placements(Shard(0)))
+        return s, lo
+
+
+def sp_group() -> Optional[_SeqGroup]:
+    """The ranks over which the active decode step splits its caches'
+    sequence (:meth:`_SeqGroup.span` gives a cache's global length and this
+    rank's first slot), or ``None`` outside a sharded decode step or where
+    ``sp`` holds one rank."""
+    src = block_source()
+    return None if src is None else src.sp
 
 
 class _DpSum(torch.autograd.Function):
@@ -516,11 +557,15 @@ class ParamGather:
     (:meth:`take_grads`).  :attr:`dp` is the group of ranks over which the
     step splits its batch (:func:`dp_group`; ``None`` for one rank), for
     what the model computes over the global batch (the MoE's routing).
+    ``sp_lengths`` (a decode step's: each ``sp``-split cache's global slot
+    count by its top-level key) makes :attr:`sp` the group of ranks over which
+    the caches' sequence is split (:func:`sp_group`; ``None`` without it or
+    for one rank).
     ``max_gathered_bytes`` is the most bytes of gathered parameters alive at
     once (a gathered tensor lives while its tensor object does)."""
 
     def __init__(self, mesh, rules: ShardingRules, *, tp: bool, cast_bf16: bool = False,
-                 train: bool = False, n_dp: int = 1):
+                 train: bool = False, n_dp: int = 1, sp_lengths: Optional[dict] = None):
         self.mesh, self.cast_bf16, self.train, self.n_dp = mesh, cast_bf16, train, n_dp
         self.row_dims = mesh_dims(mesh, rules, "tp") if tp else ()
         self.dp_dims = mesh_dims(mesh, rules, "dp")
@@ -530,6 +575,10 @@ class ParamGather:
         self.dp = _Row(mesh, self.dp_dims) if self.dp_dims else None
         if self.dp is not None and self.dp.size == 1:
             self.dp = None
+        sp_dims = mesh_dims(mesh, rules, "sp") if sp_lengths is not None else ()
+        self.sp = _SeqGroup(mesh, sp_dims, sp_lengths) if sp_dims else None
+        if self.sp is not None and self.sp.size == 1:
+            self.sp = None
         self.leaves: list = []
         self.grads: list = []
         self._stacks: list = []

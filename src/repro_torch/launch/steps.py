@@ -33,12 +33,12 @@ itself and runs the model on plain local tensors:
 **The ``model`` axis.**  Every family splits it as the reference's specs
 do (Megatron-style, see :mod:`~repro_torch.distributed.tensor_parallel`):
 a block keeps its ``tp`` shards after the gather, which gathers the
-``fsdp`` dims only, and the decode step computes in the cache's ``tp``
-layout (the recurrent states of ssm and hybrid stay the rank's heads or
-channels).  The decoder-only transformers (``dense``, ``moe``;
-:mod:`repro_torch.models.transformer`) split attention by heads and the
-MLP (or each expert) column- then row-parallel; the vlm's self blocks are
-theirs, its gated cross layer splits by heads
+``fsdp`` dims only, and the decode step computes in the cache's own layout
+(the recurrent states of ssm and hybrid stay the rank's heads or channels;
+see **the ``sp`` shard** below).  The decoder-only transformers (``dense``,
+``moe``; :mod:`repro_torch.models.transformer`) split attention by heads
+and the MLP (or each expert) column- then row-parallel; the vlm's self
+blocks are theirs, its gated cross layer splits by heads
 (:mod:`repro_torch.models.vision`); the hybrid's recurrent blocks split by
 channel, its local attention and MLP as the transformer's
 (:mod:`repro_torch.models.rglru`); the encdec's three attentions split by
@@ -58,6 +58,19 @@ batch is split, for what the model computes over the global batch: the
 MoE routes each rank's tokens as part of the global batch (capacity, slot
 positions and load-balancing loss; :func:`repro_torch.models.layers.
 moe_route_global`), as the reference's GSPMD step does.
+
+**The ``sp`` shard.**  The decode step keeps each rank's shard of every
+cache whose sequence its spec puts on ``sp`` (over ``model`` in
+``rules_for``'s decode rules, over ``data`` and ``model`` in the batch-1
+``long_500k`` ones), as the reference's GSPMD step does: the step's
+:class:`~repro_torch.distributed.tensor_parallel.ParamGather` carries the
+``sp`` group and each such cache's global length, the new token's K/V are
+written on the rank that holds its slot (the slot and the live length from
+the global length), and each rank attends every query head to its own
+slots, the partial outputs merged by their log-sum-exps over the group
+(:func:`repro_torch.models.transformer._cache_attention`).  The cross
+caches (``dp`` only) and the ssm's states hold no ``sp`` dim.  Nothing of
+the cache moves: ``fn.stats["cache_moved_bytes"]`` is 0.
 
 Every move goes through
 :func:`~repro_torch.distributed.sharding.redistribute` (on a ``gloo``
@@ -80,9 +93,10 @@ per-block gradient reduction: ``compute_s``) and laying the results out
 (``scatter_s``; for the train step also ``update_s``), the bytes it moved:
 staged through the host (``staged_bytes``) and copied from the peers on
 one host (``peer_bytes``), the most bytes of gathered parameters alive at
-once (``max_gathered_bytes``) and the layers a split ``model`` row computed
+once (``max_gathered_bytes``), the layers a split ``model`` row computed
 replicated (``tp_replicated``: a head count or ``d_ff`` the row does not
-divide).
+divide) and, for the decode step, the bytes of cache it gathered or
+scattered (``cache_moved_bytes``).
 """
 
 from __future__ import annotations
@@ -186,12 +200,15 @@ def _compute_spec(spec: tuple, keep: tuple = ("dp",)) -> tuple:
     return tuple(e if e in keep else None for e in spec)
 
 
+def _logical(x) -> bool:
+    """``x`` is one tensor's logical spec (a leaf of a spec tree)."""
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+
+
 def _compute_placements(spec_tree: Any, mesh, rules: ShardingRules,
                         keep: tuple = ("dp",)) -> Any:
-    logical = lambda x: isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
-                                                     for e in x)
     return named_sharding_tree(tree_map(lambda s: _compute_spec(s, keep), spec_tree,
-                                        is_leaf=logical), mesh, rules)
+                                        is_leaf=_logical), mesh, rules)
 
 
 def _to_local(x, pl) -> torch.Tensor:
@@ -413,22 +430,38 @@ def build_prefill_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingR
     return prefill_step, in_shapes, (p_pl, b_pl), out_pl
 
 
+def _sp_lengths(cache, c_specs: dict) -> dict:
+    """The global slot count of each cache whose spec puts its sequence on
+    ``sp``, by its top-level key, read from the cache's DTensors (so an
+    ``sp`` group that does not divide a length is laid out as given)."""
+    out = {}
+    for key, spec in c_specs.items():
+        for x, leaf in zip(tree_leaves(cache[key]), tree_leaves(spec, is_leaf=_logical)):
+            if "sp" in leaf:
+                out[key] = x.shape[leaf.index("sp")]
+    return out
+
+
 def build_decode_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRules, *,
                       dtype: torch.dtype = torch.bfloat16):
     """``fn(params, cache, token, pos) -> (logits, cache)``: one token for
     the batch at write position ``pos`` (an int, or a 0-dim tensor), the
-    cache laid out by ``cache_specs`` (its K/V written in place where the
-    step computes in the cache's own layout; on a split row it computes
-    with the ``tp`` dims still sharded), the logits ``(dp, None)``.
-    Parameters in bf16."""
+    cache laid out by ``cache_specs`` and computed in that layout, so
+    nothing of it moves: its ``dp``, ``tp`` and ``sp`` shards stay on their
+    ranks (on a split row the ``tp`` dims stay sharded; a cache whose
+    sequence is split over ``sp`` keeps each rank's slots, the new token's
+    K/V written on the rank that holds its slot and the attention merged
+    over the ``sp`` group, :func:`repro_torch.models.transformer.
+    _cache_attention`), its K/V written in place.  The logits ``(dp,
+    None)``.  Parameters in bf16.  ``fn.stats["cache_moved_bytes"]`` is the
+    bytes of cache the call gathered or scattered."""
     model = get_model(cfg)
     b, s = shape.global_batch, shape.seq_len
     c_specs = model.cache_specs()
     p_pl = named_sharding_tree(model.param_specs(), mesh, rules)
     c_pl = named_sharding_tree(c_specs, mesh, rules)
     split = _splits_model(mesh, rules)
-    c_compute = _compute_placements(c_specs, mesh, rules,
-                                    keep=("dp", "tp") if split else ("dp",))
+    c_compute = _compute_placements(c_specs, mesh, rules, keep=("dp", "tp", "sp"))
     t_pl = placements(PartitionSpec(rules.physical("dp")), mesh)
     t_compute = _compute_placements(("dp",), mesh, rules)
     s_pl = placements(PartitionSpec(), mesh)
@@ -439,9 +472,14 @@ def build_decode_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRu
     def decode_step(params, cache, token, pos):
         _check_layout("decode_step", (params, cache, token), (p_pl, c_pl, t_pl), mesh)
         stats = _Stats(_device_of(params))
-        gath = ParamGather(mesh, rules, tp=split)
+        gath = ParamGather(mesh, rules, tp=split, sp_lengths=_sp_lengths(cache, c_specs))
         tree = gath.prepare(params, model.block_groups())
         local_cache = tree_map(_to_local, cache, c_compute, is_leaf=_is_pl)
+        stats.out["cache_moved_bytes"] = 2 * sum(
+            t.numel() * t.element_size()
+            for x, t, pl in zip(tree_leaves(cache), tree_leaves(local_cache),
+                                tree_leaves(c_compute, is_leaf=_is_pl))
+            if not _same_layout(x.placements, pl, mesh))
         tok = _to_local(token, t_compute)
         stats.lap("gather_s")
         with activation_rules(rules), gath.active():

@@ -258,15 +258,17 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     """One decoder token at position ``pos`` (an int) against the cached
     cross K/V.  The self K/V go to slot ``min(pos, max_len - 1)`` (past
     ``max_len`` the last slot is overwritten, as in the reference) and are
-    written in place; returns ``(logits (B, vocab), cache)`` with ``len``
-    advanced by one."""
+    written in place (inside a decode step that splits the self cache's
+    sequence over ``sp``, on the rank that holds the slot); returns
+    ``(logits (B, vocab), cache)`` with ``len`` advanced by one."""
     pos = int(pos)
     b = token.shape[0]
     hkv, hd = cfg.n_kv_heads, cfg.hd
     row = min(pos, params["pos_dec"].shape[0] - 1)         # dynamic_index_in_dim clamps
     x = (tp.vocab_lookup(params["tok_embed"], token[:, None]).to(dtype)
          + params["pos_dec"][row:row + 1].to(dtype))
-    length = cache["self"]["k"].shape[2]
+    span = T._cache_span("self")
+    length, lo = (cache["self"]["k"].shape[2], None) if span is None else span
     slot = min(pos, length - 1)
     self_len = torch.full((b,), min(pos + 1, length), dtype=torch.int32, device=x.device)
     cross_len = torch.full((b,), cache["cross"]["k"].shape[2], dtype=torch.int32,
@@ -277,9 +279,10 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
         xa = _ln(x, p["ln1"])
         wq, wk, wv, wo, split = T._attn_weights(p["attn"], cfg)
         q = (xa @ wq.to(dtype)).reshape(b, 1, -1, hd)
-        kc[:, slot] = (xa @ wk.to(dtype)).reshape(b, hkv, hd).to(kc.dtype)
-        vc[:, slot] = (xa @ wv.to(dtype)).reshape(b, hkv, hd).to(vc.dtype)
-        o = L.decode_attention(q, *T._kv_for(kc, vc, cfg, q.shape[2]), self_len)
+        kv = {"k": kc, "v": vc}
+        T._cache_write(kv, slot, lo, (xa @ wk.to(dtype)).reshape(b, hkv, hd),
+                       (xa @ wv.to(dtype)).reshape(b, hkv, hd))
+        o = T._cache_attention(q, kv, cfg, self_len, lo)
         x = x + T._attn_out(o.reshape(b, 1, -1), wo, split, dtype)
         wq, _, _, wo, split = T._attn_weights(p["xattn"], cfg, kv=False)
         qx = (_ln(x, p["lnx"]) @ wq.to(dtype)).reshape(b, 1, -1, hd)

@@ -31,7 +31,8 @@ from repro_torch.tree import tree_map
 
 __all__ = [
     "block", "BlockRef", "init_dense", "init_rmsnorm", "rms_norm", "rope_table", "apply_rope",
-    "gqa_attention", "local_attention", "decode_attention", "init_attention",
+    "gqa_attention", "local_attention", "decode_attention", "decode_attention_partial",
+    "merge_decode_partials", "init_attention",
     "attention_specs", "init_mlp", "mlp", "init_moe", "moe_route", "moe_route_global", "moe_mlp",
     "softmax_xent", "causal_conv",
 ]
@@ -240,6 +241,56 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: Optional[int] = 
     p = torch.softmax(torch.where(mask[:, None, None, :], sc, _NEG_INF), dim=-1)
     out = torch.matmul(p, v_cache.transpose(1, 2).to(torch.float32))
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def decode_attention_partial(q, k_cache, v_cache, cache_len, lo: int, *,
+                             window: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_attention` over one shard of a cache split along its
+    sequence: ``k_cache``/``v_cache`` (B,S_r,Hkv,dh) hold the global slots
+    ``[lo, lo + S_r)``, masked by their global index as the whole cache's
+    are.  Returns ``(o, lse)``: the f32 output of the shard's live slots
+    (B,H,dh) and the log-sum-exp of their scores (B,H); a row with no live
+    slot gives zeros and ``-inf``, which :func:`merge_decode_partials` weighs
+    as nothing."""
+    b, _, h, dh = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    if s == 0:
+        return (torch.zeros((b, h, dh), dtype=torch.float32, device=q.device),
+                torch.full((b, h), float("-inf"), dtype=torch.float32, device=q.device))
+    qh = q.reshape(b, hkv, g, dh) * dh ** -0.5
+    sc = torch.matmul(*_promote(qh, k_cache.permute(0, 2, 3, 1))).to(torch.float32)
+    pos = lo + torch.arange(s, device=q.device)
+    mask = pos[None, :] < cache_len[:, None]                  # (B,S_r)
+    if window is not None:
+        mask &= pos[None, :] >= cache_len[:, None] - window
+    sc = torch.where(mask[:, None, None, :], sc, float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    m = torch.where(m == float("-inf"), torch.zeros((), dtype=m.dtype, device=m.device), m)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1)                                         # (B,Hkv,G)
+    o = torch.matmul(p, v_cache.transpose(1, 2).to(torch.float32))
+    live = l > 0
+    o = o / torch.where(live, l, torch.ones((), dtype=l.dtype, device=l.device))[..., None]
+    lse = torch.where(live, m[..., 0] + torch.log(l), float("-inf"))
+    return o.reshape(b, h, dh), lse.reshape(b, h)
+
+
+def merge_decode_partials(o: torch.Tensor, lse: torch.Tensor, lse_max: torch.Tensor,
+                          total) -> torch.Tensor:
+    """The attention over a whole cache from the partials of its shards
+    (:func:`decode_attention_partial`): ``o`` (..., B,H,dh) f32 and ``lse``
+    (..., B,H), ``lse_max`` (B,H) the largest ``lse`` over the shards and
+    ``total`` the sum over the shards (a group's sum over its ranks, each
+    holding its own partial; or the sum over a stacked dim 0).  Each shard's
+    output weighs ``exp(lse - lse_max)``; a shard with no live slot
+    (``-inf``) weighs nothing.  Returns (B,H,dh) f32; every shard gets the
+    same bits where ``total`` gives each the same sum."""
+    m = torch.where(lse_max == float("-inf"),
+                    torch.zeros((), dtype=lse_max.dtype, device=lse_max.device), lse_max)
+    w = torch.exp(lse - m)[..., None]
+    t = total(torch.cat([w * o, w], dim=-1))
+    return t[..., :-1] / t[..., -1:]
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -307,16 +307,16 @@ def _rec_step(cfg: ArchConfig, p, x, h_state, conv_state):
     return x + T._attn_out(h * y, p["w_out"], split, dtype), new_h, hist
 
 
-def _attn_step(cfg: ArchConfig, p, x, kv, pos: int, cos, sin):
+def _attn_step(cfg: ArchConfig, p, x, kv, pos: int, cos, sin, span=None):
     """One token through an attention layer, writing its K/V (whole) into
-    ring slot ``pos % w``; the live slots are ``min(pos + 1, w)``."""
+    ring slot ``pos % w``; the live slots are ``min(pos + 1, w)``
+    (``span``: the ``(w, lo)`` of a ring split over the ``sp`` group)."""
     b = x.shape[0]
     q, k, v, wo, split = _qkv(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), cos, sin)
-    w = kv["k"].shape[1]
-    kv["k"][:, pos % w] = k[:, 0].to(kv["k"].dtype)
-    kv["v"][:, pos % w] = v[:, 0].to(kv["v"].dtype)
+    w, lo = (kv["k"].shape[1], None) if span is None else span
+    T._cache_write(kv, pos % w, lo, k[:, 0], v[:, 0])
     cache_len = torch.full((b,), min(pos + 1, w), dtype=torch.int32, device=x.device)
-    o = L.decode_attention(q, *T._kv_for(kv["k"], kv["v"], cfg, q.shape[2]), cache_len)
+    o = T._cache_attention(q, kv, cfg, cache_len, lo)
     x = x + T._attn_out(o.reshape(b, 1, -1), wo, split, x.dtype)
     return _mlp_out(cfg, p, x)
 
@@ -330,13 +330,14 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     pos = int(pos)
     x = T._embed(params, cfg, token[:, None], dtype)
     cos, sin = L.rope_table(torch.tensor([pos], device=x.device), cfg.hd, cfg.rope_theta)
+    span = T._cache_span("attn")
     for c in range(n_cycles(cfg)):
         for j in range(2):
             x, cache["rec_h"][c, j], cache["rec_conv"][c, j] = _rec_step(
                 cfg, L.block(params["rec"], (c, j)), x, cache["rec_h"][c, j],
                 cache["rec_conv"][c, j])
         kv = {"k": cache["attn"]["k"][c], "v": cache["attn"]["v"][c]}
-        x = _attn_step(cfg, L.block(params["attn"], c), x, kv, pos, cos, sin)
+        x = _attn_step(cfg, L.block(params["attn"], c), x, kv, pos, cos, sin, span)
     for t in range(cache["tail_h"].shape[0] if "tail_h" in cache else 0):
         x, cache["tail_h"][t], cache["tail_conv"][t] = _rec_step(
             cfg, L.block(params["tail"], t), x, cache["tail_h"][t], cache["tail_conv"][t])

@@ -416,8 +416,50 @@ def cache_specs(cfg: ArchConfig) -> dict:
     return specs
 
 
-def _decode_block(p, x, kv, cfg: ArchConfig, *, window, pos: int, cos, sin):
-    """One-token decode through one block, writing its K/V into ``kv``."""
+def _cache_span(key: str) -> Optional[tuple[int, int]]:
+    """``(S, lo)`` of cache ``key`` split over the active decode step's
+    ``sp`` group (its global slot count and this rank's first slot), or
+    ``None`` where the rank holds the whole cache."""
+    grp = tp.sp_group()
+    return None if grp is None else grp.span(key)
+
+
+def _cache_write(kv: dict, slot: int, lo: Optional[int], k, v) -> None:
+    """The new token's K/V (B, Hkv, hd) into global slot ``slot`` of a cache
+    whose local tensors hold the slots from ``lo`` (``None``: the whole
+    cache): only the rank that holds the slot writes it."""
+    i = slot - (lo or 0)
+    if 0 <= i < kv["k"].shape[1]:
+        kv["k"][:, i] = k.to(kv["k"].dtype)
+        kv["v"][:, i] = v.to(kv["v"].dtype)
+
+
+def _cache_attention(q, kv: dict, cfg: ArchConfig, cache_len, lo: Optional[int]):
+    """Decode attention of this rank's query heads ``q`` (B, 1, h, hd) over
+    a K/V cache: the whole cache (``lo`` None), or this rank's slots from
+    ``lo`` of a cache split over the ``sp`` group.  There every rank attends
+    every head to its own slots (``q`` gathered over the model row first),
+    the ranks' log-sum-exps are gathered over the group for their maximum,
+    the ranks' weighted partial outputs summed over it (the group's sum
+    gives every rank the same bits, and carries one partial's bytes where a
+    gather of the partials would carry the group's), and the rank keeps its
+    own heads."""
+    h = q.shape[2]
+    if lo is None:
+        return L.decode_attention(q, *_kv_for(kv["k"], kv["v"], cfg, h), cache_len)
+    grp = tp.sp_group()
+    q_all = q if h == cfg.n_heads else tp.all_gather(q, 2)
+    o, lse = L.decode_attention_partial(q_all, kv["k"], kv["v"], cache_len, lo)
+    o = L.merge_decode_partials(o, lse, grp.all_gather(lse[None], 0).amax(dim=0), grp.sum)
+    if h != cfg.n_heads:
+        o = o[:, tp.rank() * h:(tp.rank() + 1) * h]
+    return o[:, None].to(q.dtype)
+
+
+def _decode_block(p, x, kv, cfg: ArchConfig, *, window, pos: int, cos, sin, span=None):
+    """One-token decode through one block, writing its K/V into ``kv``
+    (``span``: the ``(S, lo)`` of a cache split over the ``sp`` group,
+    :func:`_cache_span`)."""
     b, dtype = x.shape[0], x.dtype
     hkv, hd = cfg.n_kv_heads, cfg.hd
     wq, wk, wv, wo, split = _attn_weights(p["attn"], cfg)
@@ -428,16 +470,15 @@ def _decode_block(p, x, kv, cfg: ArchConfig, *, window, pos: int, cos, sin):
     v = (xa @ wv.to(dtype)).reshape(b, 1, hkv, hd)
     q = L.apply_rope(L.rms_norm(q, p["attn"]["q_norm"], cfg.norm_eps), cos, sin)
     k = L.apply_rope(L.rms_norm(k, p["attn"]["k_norm"], cfg.norm_eps), cos, sin)
-    length = kv["k"].shape[1]
+    length, lo = (kv["k"].shape[1], None) if span is None else span
     # Local layers: a ring buffer.  Global layers: past max_len the last
     # slot is overwritten (the reference's behaviour).
     slot = pos % length if window is not None else min(pos, length - 1)
-    kv["k"][:, slot] = k[:, 0].to(kv["k"].dtype)
-    kv["v"][:, slot] = v[:, 0].to(kv["v"].dtype)
+    _cache_write(kv, slot, lo, k[:, 0], v[:, 0])
     cache_len = torch.full((b,), min(pos + 1, length), dtype=torch.int32, device=x.device)
     # Ring-buffer slots are within-window by construction; keys carry their
     # absolute-position RoPE so scores stay relative-correct across wraps.
-    o = L.decode_attention(q, *_kv_for(kv["k"], kv["v"], cfg, h), cache_len)
+    o = _cache_attention(q, kv, cfg, cache_len, lo)
     x = x + _attn_out(o.reshape(b, 1, h * hd), wo, split, dtype)
     y, _ = _mlp_apply(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
     return x + y
@@ -448,14 +489,17 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     """One new token for the whole batch at the (uniform) write position
     ``pos`` (an int).  Returns ``(logits (B, vocab), cache)``: the cache's
     K/V tensors are written in place, as a donated buffer would be, and the
-    returned dict holds them with ``len`` advanced by one."""
+    returned dict holds them with ``len`` advanced by one.  Inside a decode
+    step that splits the caches' sequence over ``sp``, each rank's caches
+    hold its slots (:func:`_cache_attention`)."""
     pos = int(pos)
     x = _embed(params, cfg, token[:, None], dtype)
     cos, sin = L.rope_table(torch.tensor([pos], device=x.device), cfg.hd, cfg.rope_theta)
+    spans = {group: _cache_span(group) for group in cache}
     for group, idx, window in _layers(cfg):
         kv = {"k": cache[group]["k"][idx], "v": cache[group]["v"][idx]}
         x = _decode_block(L.block(params[group], idx), x, kv, cfg, window=window, pos=pos,
-                          cos=cos, sin=sin)
+                          cos=cos, sin=sin, span=spans[group])
     new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
     return _whole_logits(params, cfg, x)[:, 0], new_cache

@@ -184,6 +184,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
     img_len = torch.full((b,), cache["cross"]["k"].shape[2], dtype=torch.int32,
                          device=x.device)
     n_cyc, n_self = _groups(cfg)
+    span = T._cache_span("selfs")
     for c in range(n_cyc):
         p = L.block(params["cross"], c)
         wq, _, _, wo, split = T._attn_weights(p["xattn"], cfg, kv=False)
@@ -194,7 +195,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict, token: torch.Tensor,
         for j in range(n_self):
             kv = {"k": cache["selfs"]["k"][c, j], "v": cache["selfs"]["v"][c, j]}
             x = T._decode_block(L.block(params["selfs"], (c, j)), x, kv, cfg, window=None,
-                                pos=pos, cos=cos, sin=sin)
+                                pos=pos, cos=cos, sin=sin, span=span)
     return T._whole_logits(params, cfg, x)[:, 0], dict(cache, len=cache["len"] + 1)
 
 

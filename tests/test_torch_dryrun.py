@@ -23,6 +23,11 @@ model.
     forward and backward) take at most 0.56 of the FLOPs they take computed
     replicated (a half, plus what every rank computes whole: the ssm's B
     and C columns, the vlm's K/V), and the peak is no higher;
+  * gemma3-1b's ``decode_32k`` cell on the production mesh (16, 16) keeps
+    each rank's ``sp`` shard of the cache: the step moves no cache byte,
+    its all-gathers carry less in all than gathering the cache over the
+    ``sp`` group alone would, and its peak lies less than one layer's K/V,
+    whole over the group, above its arguments;
   * the flux-mmdit smoke DiT cell records in both modes; Dispatch holds
     B1-B3 once a layer, each billed at the plan's capacity;
   * ``sharded_dispatch_report``'s payload equals the formula from the
@@ -236,6 +241,33 @@ def test_split_families_run_their_products_on_the_ranks_width(monkeypatch, arch)
         peak[split] = peak_bytes_of(rec)
     assert 0 < mm[True] <= 0.56 * mm[False]
     assert peak[True] <= peak[False]
+
+
+def test_decode_cell_keeps_the_cache_sequence_shard_on_its_rank():
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import make_production_mesh, rules_for
+    from repro_torch.models.registry import get_model
+    from repro_torch.tree import tree_leaves
+    cfg, shape = registry.get_config("gemma3-1b"), SHAPES["decode_32k"]
+    with D.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        rules = rules_for(cfg, shape, multi_pod=False)
+        _, (fn, in_shapes, in_pl, _) = D.build_cell(cfg, shape, mesh, rules)
+        args = D.meta_args(in_shapes, in_pl, mesh)
+        rec, _ = D.trace_step(fn, args[:3] + (shape.seq_len - 1,))
+        moved = fn.stats["cache_moved_bytes"]
+        n_sp = mesh.size(mesh.mesh_dim_names.index("model"))
+    fields = D.cost_fields(rec)
+    # One rank's batch (the cache's dp shard): every K/V slot of the cache
+    # whole over the sp group, and one global layer's K and V.
+    cache = get_model(cfg).init_cache(shape.global_batch // mesh.size(0), shape.seq_len,
+                                      device="meta")
+    kv_bytes = lambda t: t.numel() * t.element_size()
+    whole = sum(kv_bytes(t) for key, c in cache.items() if key != "len" for t in tree_leaves(c))
+    layer = 2 * kv_bytes(cache["globals"]["k"][0])
+    assert n_sp == 16 and moved == 0
+    assert fields["collective_bytes"]["all_gather"] < whole
+    assert fields["peak_bytes"] - fields["argument_bytes"] < layer
 
 
 def test_smoke_dit_cell_records_both_modes_with_kernels_at_capacity():

@@ -4,7 +4,9 @@
 RoPE (the prefill and the decode broadcast), the chunked GQA attention
 (causal, windowed, with a query offset, with a short last chunk), the banded
 local attention on both sides of ``s = 2·window`` and against the windowed
-GQA attention, the decode attention, the gated MLP, the capacity-routed MoE
+GQA attention, the decode attention (and its partials over the shards of a
+cache split along its sequence, merged, against it on the whole cache), the
+gated MLP, the capacity-routed MoE
 with planted router ties and a capacity overflow (expert ids, buffer
 positions and the keep mask exact; the reference's routing lines,
 layers.py:300-308, run here on the same probabilities) and the z-loss cross
@@ -144,6 +146,36 @@ def test_decode_attention_with_no_live_slot_averages_like_the_reference():
     got = TL.decode_attention(_t(q), _t(kc), _t(vc), _t(cache_len))
     _close(got, want)
     _close(got[0, 0, 0], vc[0, :, 0].mean(axis=0))
+
+
+# Shards of a 12-slot cache (their slot counts, in order) and the decode
+# window: even, uneven, with empty shards (no slot, and slots past every
+# row's live length), and windowed.
+PARTIAL_CASES = {"even": ((6, 6), None), "uneven": ((5, 4, 3), None),
+                 "empty": ((0, 3, 9, 0), None), "window": ((4, 4, 4), 3)}
+
+
+@pytest.mark.parametrize("case", PARTIAL_CASES)
+def test_decode_attention_partials_merged_match_the_whole_cache(case):
+    sizes, window = PARTIAL_CASES[case]
+    rng = _rng(7)
+    q = _t(_normal(rng, 3, 1, 4, 16))
+    kc, vc = _t(_normal(rng, 3, 12, 2, 16)), _t(_normal(rng, 3, 12, 2, 16))
+    cache_len = _t(np.array([1, 7, 12], np.int32))       # row 0: one live slot, in shard 0
+    want = TL.decode_attention(q, kc, vc, cache_len, window=window)
+    starts = np.cumsum((0,) + sizes[:-1])
+    parts = [TL.decode_attention_partial(q, kc[:, lo:lo + n], vc[:, lo:lo + n], cache_len,
+                                         int(lo), window=window)
+             for lo, n in zip(starts, sizes)]
+    o, lse = torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+    assert torch.isfinite(o).all() and not torch.isnan(lse).any()
+    # Row 0's one live slot is slot 0: every other shard holds none there.
+    holds_slot0 = torch.tensor([lo == 0 and n > 0 for lo, n in zip(starts, sizes)])
+    assert (lse[~holds_slot0, 0] == float("-inf")).all()
+    assert torch.isfinite(lse[holds_slot0, 0]).all()
+    got = TL.merge_decode_partials(o, lse, lse.amax(dim=0), lambda t: t.sum(dim=0))
+    assert torch.isfinite(got).all()
+    _close(got[:, None], want)
 
 
 # --- MLP, MoE, loss ----------------------------------------------------------------

@@ -39,6 +39,18 @@ arrays handed to both packages.
     whisper-large-v3 smoke, batch 4 over data: greedy tokens equal to the
     unsharded port's, logits within 1e-4 of the reference builders' fns
     (f32 weights and caches);
+  * **decode on the cache's ``sp`` shard**: gemma3-1b (global and ring
+    layers) and whisper-large-v3 (the self cache) under ``rules_for``'s
+    decode rules (``sp`` the model axis, batch 4 over data), and gemma3-1b
+    under its ``long_500k`` rules (batch 1, ``sp`` over both axes, a cache
+    of 13 slots laid out 4, 3, 3, 3): greedy decode from position 0 (the
+    other shards hold no live slot) across the shards' boundaries (and
+    past the cache's end: the ring wraps, the global slot clamps), tokens
+    equal to the unsharded port's, logits within 1e-4 of it and of the
+    reference's ``build_decode_step`` fn jitted with the same rules, every
+    rank's logits the same bits, each rank's cache its own shard and no
+    cache byte moved (:data:`SP_CASES`, shared with
+    ``test_torch_tp_families``);
   * every step gathers its parameters a block at a time: its
     ``max_gathered_bytes`` is at most one block whole plus the leaves
     outside the blocks, and each rank holds only its own shard of every
@@ -89,6 +101,13 @@ MOE_AUX_TOL = dict(rtol=1e-6, atol=1e-6)
 MOE_Y_TOL = dict(rtol=1e-5, atol=1e-5)
 DISPATCH_KERNELS = ("gemm_q_sparse_kernel", "flashomni_attention_csr", "gemm_o_sparse_kernel")
 XENT_TOL = dict(rtol=1e-6, atol=1e-6)
+# name: (arch, batch, cache slots, first position, decode steps) of a decode
+# on the caches' sp shard under rules_for's rules for that batch: batch 4
+# the decode rules (sp over model, 2 ranks), batch 1 long_500k's (sp over
+# data and model, 4 ranks).
+SP_CASES = {"gemma3-1b": ("gemma3-1b", 4, 6, 0, 7),
+            "whisper-large-v3": ("whisper-large-v3", 4, 6, 0, 4),
+            "gemma3-1b-long": ("gemma3-1b", 1, 13, 0, 9)}
 
 
 def gather_bound(params: dict, groups: tuple, dtype=None) -> int:
@@ -144,6 +163,110 @@ def xent_rank(mesh) -> dict:
     cols = min(vocab, (r + 1) * v_loc) - r * v_loc
     want_mine[:, :cols] = want_g[:, r * v_loc:r * v_loc + cols]
     return {"loss": (float(got), float(want)), "grad": (got_g, want_mine)}
+
+
+def _sp_rules(case: tuple, j: bool = False):
+    """``(cfg, shape, rules)`` of an SP case, in the port's or (``j``) the
+    reference's package."""
+    arch, b, slots = case[:3]
+    if j:
+        from repro.configs.base import ShapeSpec as J
+        from repro.configs.registry import get_smoke
+        from repro.launch.mesh import rules_for
+        shape = J("d", slots, b, "decode")
+    else:
+        from repro_torch.configs.registry import get_smoke
+        from repro_torch.launch.mesh import rules_for
+        shape = ShapeSpec("d", slots, b, "decode")
+    cfg = get_smoke(arch)
+    return cfg, shape, rules_for(cfg, shape, multi_pod=False)
+
+
+def sp_first_tokens(case: tuple, seed: int) -> np.ndarray:
+    from repro_torch.configs.registry import get_smoke
+    return np.random.default_rng(seed).integers(0, get_smoke(case[0]).vocab,
+                                                (case[1],)).astype(np.int32)
+
+
+def sp_decode_rank(mesh, case: tuple, params: dict, first: np.ndarray) -> dict:
+    """Greedy decode of an SP case through ``build_decode_step`` on this
+    rank: the gathered tokens and logits, each step's moved cache bytes,
+    and whether every cache leaf's local tensor is its own shard."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.distributed.sharding import redistribute
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.registry import get_model
+    from repro_torch.runtime.elastic import reshard_state
+    _, b, slots, p0, n = case
+    cfg, shape, rules = _sp_rules(case)
+    model = get_model(cfg)
+    whole = lambda x: redistribute(x, [Replicate()] * mesh.ndim).to_local()
+    dec, _, pl, _ = ST.build_decode_step(cfg, shape, mesh, rules, dtype=torch.float32)
+    p = reshard_state(_torch(params), model.param_specs(), mesh, rules)
+    cache = reshard_state(model.init_cache(b, slots, torch.float32, device="cpu"),
+                          model.cache_specs(), mesh, rules)
+    tok = reshard_state({"t": torch.from_numpy(first)}, {"t": ("dp",)}, mesh, rules)["t"]
+    rec = {"tokens": [], "decode": [], "moved": []}
+    for pos in range(p0, p0 + n):
+        rec["tokens"].append(whole(tok))
+        logits, cache = dec(p, cache, tok, pos)
+        rec["decode"].append(whole(logits))
+        rec["moved"].append(dec.stats["cache_moved_bytes"])
+        tok = ST._dtensor(logits.to_local().argmax(-1).to(torch.int32), mesh, pl[2], (b,))
+    rec["local_shards"] = _tp_leaves_local(cache, pl[1])
+    return rec
+
+
+@torch.no_grad()
+def unsharded_sp_decode(case: tuple, params: dict, first: np.ndarray) -> dict:
+    """The port's greedy decode of an SP case on one device."""
+    from repro_torch.models.registry import get_model
+    _, b, slots, p0, n = case
+    model = get_model(_sp_rules(case)[0])
+    params = _torch(params)
+    cache = model.init_cache(b, slots, torch.float32, device="cpu")
+    tok, rec = torch.from_numpy(first), {"tokens": [], "decode": []}
+    for pos in range(p0, p0 + n):
+        rec["tokens"].append(tok)
+        logits, cache = model.decode_step(params, cache, tok, pos, dtype=torch.float32)
+        rec["decode"].append(logits)
+        tok = logits.argmax(-1).to(torch.int32)
+    return rec
+
+
+def reference_sp_decode(case: tuple, params: dict, tokens: list) -> list:
+    """The reference's ``build_decode_step`` fn of an SP case, jitted with
+    the same rules over a (1, 1) CPU mesh, fed ``tokens``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.launch import steps as JST
+    from repro.models.registry import get_model as j_get_model
+    _, b, slots, p0, _ = case
+    jcfg, shape, rules = _sp_rules(case, j=True)
+    mesh = Mesh(np.array(jax.devices("cpu")[:1]).reshape(1, 1), ("data", "model"))
+    out = []
+    with mesh:
+        dec, place = _jit(mesh, JST.build_decode_step(jcfg, shape, mesh, rules))
+        cache = j_get_model(jcfg).init_cache(b, slots, jnp.float32)
+        for pos, tok in enumerate(tokens, start=p0):
+            logits, cache = dec(*place(params, cache, tok.numpy(), jnp.int32(pos)))
+            out.append(np.asarray(logits))
+    return out
+
+
+def check_sp_decode(world: list, case: str, local: dict, ref: list) -> None:
+    """An SP case's records (each rank's ``["sp"][case]``) held to the
+    unsharded port's and the reference's."""
+    got, want = world[0]["sp"][case], local
+    for r in world:
+        rec = r["sp"][case]
+        assert rec["local_shards"] and not any(rec["moved"]), rec["moved"]
+        assert all(torch.equal(a, c) for a, c in zip(rec["decode"], got["decode"]))
+    for i, (tok, logits) in enumerate(zip(got["tokens"], got["decode"])):
+        assert torch.equal(tok, want["tokens"][i]), i
+        _close(logits, want["decode"][i].numpy(), **TOL)
+        _close(logits, ref[i], **TOL)
 
 
 def _moe_inputs() -> dict:
@@ -396,6 +519,9 @@ def steps_rank(rank: int, inputs: dict) -> dict:
             rec["gathered"].append((dec.stats["max_gathered_bytes"], bound))
             tok = logits.to_local().argmax(-1).to(torch.int32)
         out["serve"][arch] = rec
+    out["sp"] = {case: sp_decode_rank(mesh, spec, inputs["params"][spec[0]],
+                                      inputs["sp_first"][case])
+                 for case, spec in SP_CASES.items()}
     out["xent"] = xent_rank(mesh)
 
     # Rank 1 hands in one parameter laid out otherwise than the step says.
@@ -430,7 +556,9 @@ def inputs():
             "train_batches": {a: [_train_batch(a, 100 + i) for i in range(TRAIN_STEPS)]
                               for a in TRAIN_ARCHS},
             "dit_inputs": _dit_inputs(get_smoke("flux-mmdit")), "moe": _moe_inputs(),
-            "serve_batches": {a: _serve_batch(get_smoke(a)) for a in SERVE_ARCHS}}
+            "serve_batches": {a: _serve_batch(get_smoke(a)) for a in SERVE_ARCHS},
+            "sp_first": {case: sp_first_tokens(spec, 40 + i)
+                         for i, (case, spec) in enumerate(SP_CASES.items())}}
 
 
 @pytest.fixture(scope="module")
@@ -449,9 +577,15 @@ def runs(inputs):
     thread.start()
     try:
         local = {"train": {a: _unsharded_train(a, inputs) for a in TRAIN_ARCHS},
-                 "serve": {a: _unsharded_serve(a, inputs) for a in SERVE_ARCHS}}
+                 "serve": {a: _unsharded_serve(a, inputs) for a in SERVE_ARCHS},
+                 "sp": {case: unsharded_sp_decode(spec, inputs["params"][spec[0]],
+                                                  inputs["sp_first"][case])
+                        for case, spec in SP_CASES.items()}}
         with _f32_reference():
             ref = _references(inputs, local)
+            ref["sp"] = {case: reference_sp_decode(spec, inputs["params"][spec[0]],
+                                                   local["sp"][case]["tokens"])
+                         for case, spec in SP_CASES.items()}
     finally:
         thread.join()
     if "error" in box:
@@ -694,6 +828,12 @@ def test_prefill_and_decode_match_unsharded_and_the_reference(runs, arch):
         _close(got["decode"][pos], jref["decode"][pos], **TOL)
     assert torch.equal(got["decode"][-1].argmax(-1), want["decode"][-1].argmax(-1))
     _close(got["prefill"], jref["prefill"], **TOL)
+
+
+@pytest.mark.parametrize("case", SP_CASES)
+def test_decode_keeps_the_cache_sequence_shard_and_matches(runs, case):
+    world, local, ref = runs
+    check_sp_decode(world, case, local["sp"][case], ref["sp"][case])
 
 
 @pytest.mark.parametrize("arch, cast, remat", TRAIN_CASES)

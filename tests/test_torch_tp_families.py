@@ -18,6 +18,11 @@ arrays handed to both packages.
   * **prefill / decode**: the prefill builder on 16 tokens, then 2 greedy
     steps of the decode builder: tokens equal to the unsharded port's,
     logits within 1e-4 of the reference builders' fns;
+  * **decode on the cache's ``sp`` shard**: recurrentgemma (its attention
+    layers' ring) and llama-3.2-vision (its self blocks' caches) under
+    ``rules_for``'s decode rules, from position 0 across the shards'
+    boundary (the ring wraps), held as ``test_torch_steps``' SP cases are
+    (:data:`SP_CASES`);
   * **a row that does not divide the heads**: recurrentgemma smoke with 3
     heads (``dataclasses.replace``) names its attention in
     ``tp_replicated`` and still matches the unsharded port in all three;
@@ -43,7 +48,9 @@ import torch
 
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.launch.mesh import run_local_mesh
-from test_torch_steps import _close, _f32_reference, _jit, _torch, _tp_leaves_local
+from test_torch_steps import (_close, _f32_reference, _jit, _torch, _tp_leaves_local,
+                              check_sp_decode, reference_sp_decode, sp_decode_rank,
+                              sp_first_tokens, unsharded_sp_decode)
 
 MESH = (2, 2)
 JOIN_S = 300
@@ -57,6 +64,10 @@ OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 TOL = dict(rtol=1e-4, atol=1e-4)
 PACKED_TOL = dict(rtol=1e-5, atol=1e-5)
 PACKED = dict(d_model=128, ssm_state=14)      # 4 heads; in_proj 544 = 4 x 136 < d_inner 256
+# Decode on the caches' sp shard (test_torch_steps.SP_CASES' layout): the
+# decode rules, batch 4, 6 slots (3 a rank).
+SP_CASES = {"recurrentgemma-2b": ("recurrentgemma-2b", 4, 6, 0, 7),
+            "llama-3.2-vision-11b": ("llama-3.2-vision-11b", 4, 6, 0, 4)}
 
 
 def _cfg(case: str):
@@ -204,6 +215,8 @@ def families_rank(rank: int, inputs: dict) -> dict:
         del pre, dec, p, cache, logits, batch
     gc.enable()
     ParamGather.block = kept_block
+    out["sp"] = {case: sp_decode_rank(mesh, spec, inputs["params"][case], inputs["sp_first"][case])
+                 for case, spec in SP_CASES.items()}
     out["packed"] = packed_ssm_rank(row4)
     dist.barrier()
     return out
@@ -238,7 +251,10 @@ def _inputs_for(case: str, seed: int) -> dict:
 @pytest.fixture(scope="module")
 def inputs():
     per = {case: _inputs_for(case, seed) for seed, case in enumerate(CASES)}
-    return {k: {case: per[case][k] for case in CASES} for k in ("params", "train", "serve")}
+    out = {k: {case: per[case][k] for case in CASES} for k in ("params", "train", "serve")}
+    out["sp_first"] = {case: sp_first_tokens(spec, 50 + i)
+                       for i, (case, spec) in enumerate(SP_CASES.items())}
+    return out
 
 
 def _unsharded(case: str, inputs: dict) -> dict:
@@ -316,8 +332,14 @@ def runs(inputs):
     thread.start()
     try:
         local = {case: _unsharded(case, inputs) for case in CASES}
+        local["sp"] = {case: unsharded_sp_decode(spec, inputs["params"][case],
+                                                 inputs["sp_first"][case])
+                       for case, spec in SP_CASES.items()}
         with _f32_reference():
             ref = {a: _reference(a, inputs, local[a]["tokens"]) for a in ARCHS}
+            ref["sp"] = {case: reference_sp_decode(spec, inputs["params"][case],
+                                                   local["sp"][case]["tokens"])
+                         for case, spec in SP_CASES.items()}
     finally:
         thread.join()
     if "error" in box:
@@ -356,6 +378,12 @@ def test_split_row_matches_unsharded_and_the_reference(runs, case):
     for r in world:
         assert r[case]["tp_replicated"] == dict.fromkeys(("train", "prefill", "decode"),
                                                          replicated)
+
+
+@pytest.mark.parametrize("case", SP_CASES)
+def test_decode_keeps_the_cache_sequence_shard_and_matches(runs, case):
+    world, local, ref = runs
+    check_sp_decode(world, case, local["sp"][case], ref["sp"][case])
 
 
 def test_ssm_packed_split_ending_inside_z_matches_the_whole_block(runs):
