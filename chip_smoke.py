@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Twenty-eight paths run, each with the launch counts set to 0 just before it
+Twenty-nine paths run, each with the launch counts set to 0 just before it
 and read just after: T1 (training flux-mmdit at full width and 2 blocks,
 the engine off: no kernel may launch), L-train (training gemma3-1b at full
 width with remat on and off: no kernel), L1-L6 (the LMs gemma3-1b,
@@ -22,7 +22,9 @@ S4-tp (S4 with the model axis split over the two ranks: no kernel), S4-sp
 kernel), S5
 (gemma3-1b trained at full width with the model axis split over two
 ranks: no kernel), S3-tp (S3's cell with the model axis split over the
-two ranks: GEMM-Q, CSR attention, GEMM-O on each rank's heads), S6-tp
+two ranks: GEMM-Q, CSR attention, GEMM-O on each rank's heads), S3-sp
+(S3's cell at batch 1 with the sequence split over the two ranks:
+GEMM-Q, CSR attention, GEMM-O on each rank's rows), S6-tp
 (recurrentgemma-2b, mamba2-370m and whisper-large-v3 trained at full
 width with the model axis split over two ranks, and llama-3.2-vision-11b
 served so: no kernel; four paths),
@@ -233,6 +235,14 @@ final line):
                 and the two ranks' B3 partials summed against one B3 over
                 every head (1e-4); Update and Dispatch seconds, row
                 collectives a step, ``max_gathered_bytes``, peak a rank.
+                S3-sp, S3's cell at batch 1 on mesh (2, 1) under
+                ``rules_for``'s DiT rules (``sp`` over the two data
+                ranks, each computing its own pool rows of the sequence):
+                held as S3-tp is, against the unsharded batch-1 step, ``v``
+                within rel-L2 3e-4, B2's first call at the shard's shapes
+                against its plain version (1e-4), the ranks' rows tiling
+                the sequence once; each rank's rows, Update and Dispatch
+                seconds, peak, bytes from its peer and boundary moves.
                 S6-tp, on mesh (1, 2) with the model axis split at full
                 width and depth: recurrentgemma-2b and mamba2-370m (1 x
                 4096 tokens) and whisper-large-v3 (1500 frames + 448
@@ -1724,6 +1734,7 @@ def sharding_rank(rank: int) -> dict:
     out["S2"] = s2_rank(mesh)
     out["S2moe"] = s2moe_rank(mesh)
     out["S3"] = s3_rank(mesh)
+    out["S3sp"] = s3sp_rank(mesh)
     out["S4"] = s4_rank(mesh)
     out["S4sp"] = s4_rank(mesh, S4SP)
     row = DeviceMesh(DEVICE, torch.arange(world).reshape(S5_MESH),
@@ -1787,7 +1798,13 @@ def sharding_rank(rank: int) -> dict:
 # layer replicated; B3's first call against its plain version over the same
 # head range, and the two ranks' B3 partials summed against one B3 over all
 # 24 heads (S3TP_B3_TOL).  Its time is not a speed: the row's collectives go
-# through CUDA IPC and gloo on one card (ROADMAP C.12).
+# through CUDA IPC and gloo on one card (ROADMAP C.12).  S3-sp (S3SP): S3's
+# cell at batch 1 on mesh (2, 1) under rules_for's DiT rules, sp over the
+# two data ranks (each computes 72 of the 144 pool rows; K/V all-gathered
+# over sp; B1-B3 on the rank's share of the plan), Update then Dispatch,
+# held to the unsharded batch-1 step as S3-tp is (v within S3SP_REL_L2;
+# the integer fields or the witness), B2's first call at the shard's shapes
+# against its plain version, B1-B3 once a layer a rank at Dispatch.
 S2 = dict(n_layers=2, batch=2, seq_len=4096, steps=2)
 S2_REL = 1e-4
 S3 = dict(n_layers=2, batch=2, n_vision=4096)
@@ -1830,6 +1847,8 @@ S2MOE = dict(arch="mixtral-8x22b", batch=2, seq_len=64)
 S2MOE_REL = 1e-4
 S3TP_REL_L2 = 1e-4
 S3TP_B3_TOL = 1e-4
+S3SP = dict(S3, batch=1)
+S3SP_REL_L2 = 3e-4
 
 
 def _launches() -> dict:
@@ -2017,6 +2036,104 @@ def s3_rank(mesh) -> dict:
             "finite": bool(torch.isfinite(v).all())}
         one, two = list(one), list(two)
     del run, p, x, states, params, one, two
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_cell
+    return res
+
+
+def s3sp_rank(mesh) -> dict:
+    """S3-sp on one rank: the unsharded batch-1 Update and Dispatch steps
+    first (what the checks need kept on the host), then S3's cell at batch
+    1 under ``rules_for``'s DiT rules, ``sp`` over the data ranks: each rank
+    computes its own pool rows of the sequence."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import engine as E
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.launch.specs import dit_inputs_logical
+    from repro_torch.models import dit
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config("flux-mmdit"), n_layers=S3SP["n_layers"])
+    ecfg = serving_engine_config()
+    b, n_tok, pool = S3SP["batch"], S3SP["n_vision"] + cfg.n_text_tokens, ecfg.mask.pool
+    shape = ShapeSpec("S3sp", n_tok, b, "serve")
+    rules = rules_for(cfg, shape, multi_pod=False)
+    t_cell = time.perf_counter()
+    torch.cuda.empty_cache()
+    kept_qk, qk = E._qk, {"split": [], "whole": []}
+
+    def keep_qk(into):
+        def call(*a, **kw):
+            q, k = kept_qk(*a, **kw)
+            qk[into].append((q.cpu(), k.cpu()))
+            return q, k
+        return call
+
+    params, xe, text, t = profile_inputs(cfg, b, S3SP["n_vision"])
+    params = tree_map(lambda w: w.to(torch.bfloat16), params)
+    want, one = {}, dit.init_engine_states(cfg, ecfg, b, n_tok, DEVICE)
+    for mode in ("update", "dispatch"):
+        E._qk = keep_qk("whole") if mode == "update" else kept_qk
+        try:
+            v1, one = dit.denoise_step(params, cfg, ecfg, one, xe, text, t, mode=mode,
+                                       dtype=torch.float32)
+        finally:
+            E._qk = kept_qk
+        one = list(one)
+        want[mode] = {"v": v1.cpu(), "ints": [[a.cpu() for a in _int_fields(st)] for st in one]}
+    del one, v1
+    p = _own(reshard_state(params, dit.param_specs(cfg), mesh, rules), mesh)
+    x = _own(reshard_state({"x_vision": xe, "text_emb": text, "t": t}, dit_inputs_logical(cfg),
+                           mesh, rules), mesh)
+    spec = dit.engine_state_specs(cfg, ecfg)
+    states = [ST._state_from_tree(_own(ST._state_tree(st), mesh), st) for st in ST.place_states(
+        dit.init_engine_states(cfg, ecfg, b, n_tok, DEVICE), spec, mesh, rules)]
+    del params, xe, text, t
+    torch.cuda.empty_cache()
+    local = lambda sts: [ST._state_from_tree(tree_map(lambda d: d.to_local(),
+                                                      ST._state_tree(s)), s) for s in sts]
+    res, call = {"mesh": list(mesh.mesh.shape), "n_rows": -(-n_tok // pool)}, None
+    for mode in ("update", "dispatch"):
+        fn = ST.build_dit_step(cfg, shape, mesh, rules, mode=mode, ecfg=ecfg,
+                               dtype=torch.float32)[0]
+        E._qk = keep_qk("split") if mode == "update" else kept_qk
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            (v, states), first_call = first_b2_call(lambda: fn(p, states, x))
+            sec = time.perf_counter() - t0
+        finally:
+            E._qk = kept_qk
+        call = first_call or call
+        peak, launches = _peak_gb(), _launches()
+        mine, w = local(states), want[mode]
+        first = next(((li, fi) for li, (a_st, w_st) in enumerate(zip(mine, w["ints"]))
+                      for fi, (a, c) in enumerate(zip(_int_fields(a_st), w_st))
+                      if not torch.equal(a.cpu(), c)), None)
+        vw = _whole(v).float().cpu()
+        res[mode] = {
+            "s": sec, **fn.stats, "peak_gb": peak, "launches": launches,
+            "tokens": [fn.stats["sp_rows"][0] * pool, min(fn.stats["sp_rows"][1] * pool, n_tok)],
+            "int_fields": sum(len(_int_fields(st)) for st in mine),
+            "first_int_difference": first,
+            "rel_l2": float((vw - w["v"].float()).norm() / w["v"].float().norm()),
+            "finite": bool(torch.isfinite(vw).all())}
+        del mine, v
+    res["peak_gb"] = max(res[m]["peak_gb"] for m in ("update", "dispatch"))
+    lo, hi = res["update"]["tokens"]
+    res["update"]["qk_diff"] = [
+        max(float((qs - qw[:, :, lo:hi]).abs().max()), float((ks - kw_[:, :, lo:hi]).abs().max()))
+        for (qs, ks), (qw, kw_) in zip(qk["split"], qk["whole"])]
+    res["b2_vs_plain"] = b2_vs_plain(call) if call is not None else None
+    del p, x, states, call, qk, want
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_cell
     return res
@@ -2614,7 +2731,7 @@ def phase_sharding() -> tuple[dict, dict]:
     unsharded ones on the surviving rank, a kernel launched in S1, S2 or S4,
     or a check of S2-S6 fails.  Returns the launch counts of the paths
     ``sharding`` (S1), S2, S3 (its Update and Dispatch steps), S2-moe,
-    S3-tp, S4, S4-tp, S4-sp, S5 and each S6-tp cell, each rank 0's, and
+    S3-tp, S3-sp, S4, S4-tp, S4-sp, S5 and each S6-tp cell, each rank 0's, and
     rank 0's record."""
     import torch
     torch.cuda.empty_cache()
@@ -2642,7 +2759,7 @@ def phase_sharding() -> tuple[dict, dict]:
                         for name, n in rec["update"]["launches"].items()}
     return {"sharding": ranks[0]["launches"], "S2": ranks[0]["S2"]["launches"],
             "S2moe": ranks[0]["S2moe"]["launches"], "S3": both(ranks[0]["S3"]),
-            "S3tp": both(ranks[0]["S3tp"]),
+            "S3tp": both(ranks[0]["S3tp"]), "S3sp": both(ranks[0]["S3sp"]),
             "S4": ranks[0]["S4"]["launches"], "S4tp": ranks[0]["S4tp"]["launches"],
             "S4sp": ranks[0]["S4sp"]["launches"],
             "S5": ranks[0]["S5"]["launches"],
@@ -2668,6 +2785,60 @@ def s3tp_faults(r) -> list:
     b3 = t3["b3"]
     if not (b3["finite"] and b3["tol_share"] <= 1 and b3["summed_tol_share"] <= 1):
         faults.append(f"rank {rank}: S3-tp B3 over its head range {b3}")
+    return faults
+
+
+def s3sp_faults(ranks) -> list:
+    """The failed checks of S3-sp over the ranks (a summary line a rank goes
+    to stderr): B1-B3 once a layer a rank at Dispatch and none at Update, v
+    within S3SP_REL_L2 of the unsharded batch-1 step, every integer field
+    equal to its (else a Q/K difference at the first differing layer), B2's
+    first call at the shard's shapes against its plain version, the ranks'
+    rows tiling the sequence once."""
+    faults, rows = [], []
+    for r in ranks:
+        rank, t3 = r["rank"], r["S3sp"]
+        want = {name: S3SP["n_layers"] if name in P1_KERNELS else 0 for name in SOURCES}
+        if t3["dispatch"]["launches"] != want:
+            faults.append(f"rank {rank}: S3-sp Dispatch launches {t3['dispatch']['launches']}")
+        if any(t3["update"]["launches"].values()):
+            faults.append(f"rank {rank}: S3-sp Update launched kernels: "
+                          f"{t3['update']['launches']}")
+        for mode in ("update", "dispatch"):
+            m = t3[mode]
+            if not (m["rel_l2"] <= S3SP_REL_L2 and m["finite"]):
+                faults.append(f"rank {rank}: S3-sp {mode} rel-L2 {m['rel_l2']:.2e} against the "
+                              "unsharded batch-1 step")
+            if m["sp_replicated"] or m["tp_replicated"]:
+                faults.append(f"rank {rank}: S3-sp {mode} computed replicated: "
+                              f"{m['sp_replicated']} {m['tp_replicated']}")
+        b2 = t3["b2_vs_plain"]
+        lo, hi = t3["dispatch"]["tokens"]
+        if not (b2_agrees(b2) and b2["o_reuse"][1] == hi - lo):
+            faults.append(f"rank {rank}: S3-sp B2 at the shard's shapes against its plain "
+                          f"version: {b2}")
+        rows.append(tuple(t3["dispatch"]["sp_rows"]))
+        print(f"chip_smoke: S3-sp rank {rank}: rows {t3['dispatch']['sp_rows']} (tokens "
+              f"{t3['dispatch']['tokens']}), update {t3['update']['s']:.3f} s / dispatch "
+              f"{t3['dispatch']['s']:.3f} s, peak {t3['update']['peak_gb']:.2f} / "
+              f"{t3['dispatch']['peak_gb']:.2f} GB, from the peer "
+              f"{t3['update']['peer_bytes'] / 1e9:.4f} / {t3['dispatch']['peer_bytes'] / 1e9:.4f} "
+              f"GB, boundary moves {t3['update']['sp_moved_bytes']} / "
+              f"{t3['dispatch']['sp_moved_bytes']} B, rel-L2 {t3['update']['rel_l2']:.2e} / "
+              f"{t3['dispatch']['rel_l2']:.2e}, first int difference "
+              f"{t3['update']['first_int_difference']}, B2 "
+              f"{b2['tol_share'] if b2 else None} of tolerance", file=sys.stderr, flush=True)
+    n_rows = ranks[0]["S3sp"]["n_rows"]
+    if sorted(rows)[0][0] != 0 or sorted(rows)[-1][1] != n_rows or any(
+            a[1] != b[0] for a, b in zip(sorted(rows), sorted(rows)[1:])):
+        faults.append(f"S3-sp: the ranks' rows {rows} do not tile the {n_rows} rows once")
+    firsts = {r["S3sp"]["update"]["first_int_difference"] for r in ranks} - {None}
+    firsts |= {r["S3sp"]["dispatch"]["first_int_difference"] for r in ranks} - {None}
+    if firsts:
+        layer = min(firsts)[0]
+        if not any(r["S3sp"]["update"]["qk_diff"][layer] > 0 for r in ranks):
+            faults.append(f"S3-sp: an integer field differs first at {min(firsts)} where no "
+                          "rank's Update Q/K differs from the unsharded step's")
     return faults
 
 
@@ -2791,6 +2962,7 @@ def sharding_step_faults(ranks) -> list:
     if not s3_rel <= S3_REL_L2:
         faults.append(f"S3: rel-L2 {s3_rel:.3e} against the unsharded batch-2 step")
     faults += s6tp_faults(ranks)
+    faults += s3sp_faults(ranks)
     firsts = {r["S3tp"]["update"]["first_int_difference"] for r in ranks} - {None}
     if firsts:
         layer = min(firsts)[0]

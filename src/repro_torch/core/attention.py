@@ -53,7 +53,8 @@ def dense_attention(q, k, v, *, scale: Optional[float] = None, mask=None):
     lead = tuple(np.broadcast_shapes(q.shape[:-2], k.shape[:-2], v.shape[:-2]))
     n_q, n_kv, d_v = q.shape[-2], k.shape[-2], v.shape[-1]
     # (rest, heads, N, d): every leading dim but the last folds into ``rest``.
-    fold = lambda t, *tail: t.expand(*lead, *tail).reshape(-1, *(lead[-1:] or (1,)), *tail)
+    rest = int(np.prod(lead[:-1], dtype=np.int64))
+    fold = lambda t, *tail: t.expand(*lead, *tail).reshape(rest, *(lead[-1:] or (1,)), *tail)
     q4, k4 = fold(q, n_q, q.shape[-1]), fold(k, n_kv, k.shape[-1])
     v4 = fold(v, n_kv, d_v).to(torch.float32)
     m4 = None if mask is None else fold(mask, n_q, n_kv)

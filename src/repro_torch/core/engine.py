@@ -43,22 +43,34 @@ blocks are exchanged, with ``"head"`` heads shard and nothing is exchanged.
 
 **A split ``model`` row** (a sharded step's tensor-parallel context,
 :mod:`repro_torch.distributed.tensor_parallel`): when ``AttnParams`` holds
-a rank's columns of ``wq``/``wk``/``wv`` and rows of ``wo`` (``H/m`` of the
-``heads``, from ``h0 = rank · H/m`` on), both phases compute that rank's
-heads.  Update: the dense attention and the strategy on the rank's heads
-(``StrategyContext.head_lo = h0``), the output partial and the GEMM-O bias
-partial summed over the row in one collective, then ``m_c``, ``m_s`` and
-``q_scores`` gathered over the row (one collective), so every rank packs
-the same symbols and builds the same plan from all heads; the TaylorSeer
-stack takes the summed bias (``"bias"``) or the gathered output
-(``"o_cache"``).  Dispatch: B1 on the rank's ``wq`` columns (its rows are
-the plan's, the same on every head), B2 on the rank's heads over the
-plan's head-indexed fields narrowed to them
+a rank's columns of ``wq``/``wk``/``wv`` and rows of ``wo`` (its share of
+the ``heads`` split as ``torch.tensor_split`` splits them, ``h`` from
+``h0`` on: ``H/m`` from ``rank · H/m`` where the row divides them), both
+phases compute that rank's heads.  Update: the dense attention and the
+strategy on the rank's heads (``StrategyContext.head_lo = h0``), the
+output partial and the GEMM-O bias partial summed over the row in one
+collective, then ``m_c``, ``m_s`` and ``q_scores`` gathered over the row
+(one collective), so every rank packs the same symbols and builds the same
+plan from all heads; the TaylorSeer stack takes the summed bias
+(``"bias"``) or the gathered output (``"o_cache"``).  Dispatch: B1 on the
+rank's ``wq`` columns (its rows are the plan's, the same on every head), B2
+on the rank's heads over the plan's head-indexed fields narrowed to them
 (:func:`~repro_torch.distributed.plan_shard.head_plan`; the uniform layout,
 as bucketed layout rows fold the heads), B3 over the head range
-``[h0, h0 + H/m)`` of the whole plan's lists, with the forecast bias passed
+``[h0, h0 + h)`` of the whole plan's lists, with the forecast bias passed
 on rank 0 of the row and zeros elsewhere, and the partials summed over the
 row in f32.
+
+**A sequence shard** (a DiT step that splits its sequence over ``sp``,
+:func:`~repro_torch.distributed.tensor_parallel.seq_share`): ``x`` holds
+the rank's own pool rows, and so do the outputs and the TaylorSeer stack.
+Update projects Q/K/V on those rows, all-gathers K and V over the group
+for the rank's queries' dense attention and Q for the strategy, so every
+rank packs the same symbols and builds the same plan over the whole
+sequence; the GEMM-O bias is the rank's rows'.  Dispatch runs B1-B3 on the
+rank's share of the frozen plan
+(:func:`~repro_torch.distributed.plan_shard.seq_plan`, the uniform
+layout), B2 over the all-gathered K/V.  Both splits may act at once.
 """
 
 from __future__ import annotations
@@ -354,7 +366,7 @@ def plan_from_state(state: LayerState, cfg: EngineConfig, n_tokens: int) -> Disp
 def _project_heads(x: torch.Tensor, w: torch.Tensor, heads: int) -> torch.Tensor:
     """(B, N, dm) @ (dm, H*dh) -> (B, H, N, dh) (a transposed view)."""
     b, n = x.shape[:2]
-    return (x @ w).reshape(b, n, heads, -1).transpose(1, 2)
+    return (x @ w).reshape(b, n, heads, w.shape[-1] // heads).transpose(1, 2)
 
 
 def rope_freqs(n: int, dim: int, theta: float = 10000.0, *, device="cuda") -> torch.Tensor:
@@ -384,23 +396,27 @@ def rope_positions(row_ids: torch.Tensor, pool: int, n_pos: int) -> torch.Tensor
 
 def _heads_of(params: AttnParams, heads: int) -> tuple[int, int]:
     """``(h0, h)``: the first of the heads ``params`` holds and their count,
-    ``(0, heads)`` unless it holds a rank's share of a split model row."""
+    ``(0, heads)`` unless it holds a rank's share of a split model row
+    (:func:`~repro_torch.distributed.tensor_parallel.head_share`: the row's
+    heads split as ``torch.tensor_split`` splits them, unevenly where the
+    row does not divide them)."""
     h = params.wq.shape[-1] // params.q_scale.shape[-1]
     if h == heads:
         return 0, heads
-    if h * tp.size() != heads:
+    share = tp.head_share(heads)
+    if share is None or share[1] != h:
         raise ValueError(f"the attention weights hold {h} of {heads} heads on a model row of "
                          f"{tp.size()}")
-    return tp.rank() * h, h
+    return share
 
 
-def _gather_masks(syms, t: int):
+def _gather_masks(syms, t: int, heads: int):
     """``(m_c, m_s, q_scores)`` of every head of the row from this rank's
     (one collective: the masks travel as exact 0/1 floats)."""
     b, h = syms.m_c.shape[:2]
     flat = torch.cat([syms.m_c.to(torch.float32), syms.m_s.reshape(b, h, t * t).to(torch.float32),
                       syms.q_scores.to(torch.float32)], dim=-1)
-    flat = tp.all_gather(flat, 1)
+    flat = tp.all_gather(flat, 1, tp.head_sizes(heads))
     return (flat[..., :t] > 0.5, flat[..., t:t + t * t].reshape(b, -1, t, t) > 0.5,
             flat[..., t + t * t:].to(syms.q_scores.dtype))
 
@@ -414,6 +430,16 @@ def _qk(params: AttnParams, x: torch.Tensor, heads: int,
     return q, k
 
 
+def _seq_of(freqs: Optional[torch.Tensor]):
+    """The active sequence split (``None`` outside one) and ``freqs`` at
+    this rank's tokens."""
+    share = tp.seq_share()
+    if share is None or freqs is None:
+        return share, freqs
+    lo, hi = share.mine
+    return share, freqs[lo:hi]
+
+
 def update_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
                  cfg: EngineConfig, *, n_text: int = 0, heads: int,
                  freqs: Optional[torch.Tensor] = None,
@@ -425,32 +451,41 @@ def update_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
     ``strategy`` (a registry name or object) overrides ``cfg.strategy``; the
     schedule passes each layer's entry of its strategy table here.  With
     ``freqs`` the symbols and the plan come from the rotated Q/K."""
-    n = x.shape[1]
+    share, freqs_x = _seq_of(freqs)
+    n = x.shape[1] if share is None else share.n
     dm = x.shape[-1]
     h0, h = _heads_of(params, heads)
     split = h != heads
-    q, k = _qk(params, x, h, freqs)
+    q, k = _qk(params, x, h, freqs_x)
     v = _project_heads(x, params.wv, h)
+    q_all = q
+    if share is not None:
+        # The rank's query rows attend over the whole K/V; the strategy
+        # reads the whole Q and K, so every rank builds the same symbols.
+        q_all, k, v = share.gather(q, 2), share.gather(k, 2), share.gather(v, 2)
     o = dense_attention(q, k, v)                                   # (B,H,N,dh)
     ctx = StrategyContext(cfg=cfg, n_text=n_text, n_tokens=n, layer_idx=layer_idx,
                           step_idx=step_idx, num_steps=num_steps, head_lo=h0)
-    syms = get_strategy(cfg.strategy if strategy is None else strategy).emit(q, k, ctx)
+    syms = get_strategy(cfg.strategy if strategy is None else strategy).emit(q_all, k, ctx)
+    del q_all, k, v
 
     o_tok = o.transpose(1, 2)                                      # (B,N,H,dh)
     wo_h = params.wo.reshape(h, -1, dm)
     out = torch.einsum("bnhd,hdf->bnf", o_tok, wo_h)
     bias = None
     if cfg.cache_mode == "bias":
-        bias = sparse_gemm.gemm_o_update_bias(
-            o_tok, wo_h, syms.m_c.transpose(-1, -2), block=cfg.mask.pool)
+        m_ch = syms.m_c.transpose(-1, -2)
+        if share is not None:
+            m_ch = m_ch[:, share.my_rows[0]:share.my_rows[1]]
+        bias = sparse_gemm.gemm_o_update_bias(o_tok, wo_h, m_ch, block=cfg.mask.pool)
     m_c, m_s, q_scores = syms.m_c, syms.m_s, syms.q_scores
     if split:
         if bias is None:
             out = tp.reduce(out)
-            o = tp.all_gather(o, 1)
+            o = tp.all_gather(o, 1, tp.head_sizes(heads))
         else:
             out, bias = tp.reduce(torch.stack([out, bias.to(out.dtype)])).unbind(0)
-        m_c, m_s, q_scores = _gather_masks(syms, m_c.shape[-1])
+        m_c, m_s, q_scores = _gather_masks(syms, m_c.shape[-1], heads)
         s_c, s_s = pack_bits(m_c), pack_bits(m_s.reshape(*m_s.shape[:-2], -1))
     else:
         s_c, s_s = syms.s_c, syms.s_s
@@ -475,33 +510,46 @@ def dispatch_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
     symmetry with :func:`update_layer`; the plan already encodes it.
     ``freqs`` (N, dh//2) rotates Q and K before the attention; compact
     GEMM-Q rows are rotated at the positions of the row blocks they hold."""
-    b, n, dm = x.shape
+    b, n_loc, dm = x.shape
     m = cfg.mask
     plan_stored = state.plan if plan is None else plan
     plan = plan_stored.widen()                 # int16 id fields -> int32 for kernels/RoPE
     backend = get_backend(cfg)
     k_since = state.k_since + 1
+    share, freqs_x = _seq_of(freqs)
+    n = n_loc if share is None else share.n
     spec_c = cfg.caps(n)
     h0, h = _heads_of(params, heads)
     split = h != heads
+    row0 = 0
+    if share is not None:
+        # The rank's pool rows of the frozen plan, renumbered (count and
+        # slice only); the KV lists stay global.
+        from repro_torch.distributed.plan_shard import seq_plan
+        row0 = share.my_rows[0]
+        plan = seq_plan(plan, share.my_rows, m.pool // m.block_q)
+    run = n_loc > 0                            # a rank with no rows launches nothing
 
     # --- GEMM-Q: skip row blocks cached in every head (Obs. 2). ---
-    if cfg.use_gemm_q:
+    if cfg.use_gemm_q and run:
         q_flat = backend.gemm_q(x, params.wq, plan, block=m.pool)  # (B, Cr·pool, H·dh)
         compact = backend.compact_q
     else:
         q_flat = x @ params.wq
         compact = False
     n_q = q_flat.shape[1]
-    qh = rms_norm(q_flat.reshape(b, n_q, h, -1).transpose(1, 2), params.q_scale)
+    qh = rms_norm(q_flat.reshape(b, n_q, h, params.q_scale.shape[-1]).transpose(1, 2),
+                  params.q_scale)
     k_h = rms_norm(_project_heads(x, params.wk, h), params.k_scale)
     if freqs is not None:
         # The phases of compact rows are gathered as the rows were, and
         # broadcast over the heads: (B, 1, Cr·pool, dh/2).
-        q_freqs = (freqs[rope_positions(plan.row_ids, m.pool, len(freqs))][:, None]
-                   if compact else freqs)
-        qh, k_h = apply_rope(qh, q_freqs), apply_rope(k_h, freqs)
+        q_freqs = (freqs[rope_positions(plan.row_ids + row0, m.pool, len(freqs))][:, None]
+                   if compact else freqs_x)
+        qh, k_h = apply_rope(qh, q_freqs), apply_rope(k_h, freqs_x)
     v_h = _project_heads(x, params.wv, h)
+    if share is not None:
+        k_h, v_h = share.gather(k_h, 2), share.gather(v_h, 2)
 
     # --- Attention over the frozen plan (a split row: the rank's heads). ---
     dh = qh.shape[-1]
@@ -514,24 +562,27 @@ def dispatch_layer(params: AttnParams, x: torch.Tensor, state: LayerState,
     else:
         attn_plan = plan
     if cfg.cache_mode == "bias":
-        o_reuse = torch.zeros((b, h, n, dh), dtype=qh.dtype, device=x.device)
+        o_reuse = torch.zeros((b, h, n_loc, dh), dtype=qh.dtype, device=x.device)
     else:
         o_reuse = taylorseer.forecast(taylor, k_since, m.interval).to(qh.dtype)
-    o = backend.attention(qh, k_h, v_h, o_reuse, attn_plan, spec_c, compact_q=compact)
+    o = (backend.attention(qh, k_h, v_h, o_reuse, attn_plan, spec_c, compact_q=compact)
+         if run else o_reuse)
+    del k_h, v_h
 
     # --- GEMM-O: live heads + forecast bias (Obs. 3, Eq. 4). ---
     o_tok = o.transpose(1, 2)
     wo_h = params.wo.reshape(h, dh, dm)
     if cfg.cache_mode == "bias":
         if split and tp.rank() != 0:           # the row adds the bias once
-            bias_f = torch.zeros((b, n, dm), dtype=x.dtype, device=x.device)
+            bias_f = torch.zeros((b, n_loc, dm), dtype=x.dtype, device=x.device)
         else:
             bias_f = taylorseer.forecast(state.taylor, k_since, m.interval).to(x.dtype)
-        if cfg.use_gemm_o:
+        if cfg.use_gemm_o and run:
             out = backend.gemm_o(o_tok, wo_h, plan, bias_f, block=m.pool, spec=spec_c, h_lo=h0)
         else:
             # Dense GEMM over zero-filled cached heads + the forecast bias.
-            m_tok = torch.repeat_interleave(plan.m_ch[..., h0:h0 + h], m.pool, dim=-2)[..., :n, :]
+            m_tok = torch.repeat_interleave(plan.m_ch[..., h0:h0 + h], m.pool,
+                                            dim=-2)[..., :n_loc, :]
             out = torch.einsum("bnhd,hdf->bnf",
                                torch.where(m_tok[..., None], o_tok, 0), wo_h) + bias_f
     else:

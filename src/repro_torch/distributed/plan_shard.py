@@ -86,6 +86,8 @@ __all__ = [
     "exchange_blocks",
     "dense_exchange_blocks",
     "mesh_attention",
+    "head_plan",
+    "seq_plan",
 ]
 
 _I32 = torch.int32
@@ -366,6 +368,69 @@ def head_plan(plan, heads: slice, batch: slice = slice(None)):
     b_l = plan.q_ids[batch].shape[0]
     return DispatchPlan(**{f: mine(getattr(plan, f)) for f in _HEAD_FIELDS},
                         **_dummy_plan_tail(b_l, plan.q_ids.device))
+
+
+def _run_of(ids: torch.Tensor, cnt: torch.Tensor, lo: int, hi: int):
+    """``(start, count)``: where the live ids in ``[lo, hi)`` begin in the
+    ascending lists ``ids`` (..., C) of ``cnt`` live entries, and how many
+    there are (a count, no search)."""
+    live = torch.arange(ids.shape[-1], device=ids.device) < cnt[..., None]
+    start = ((ids < lo) & live).sum(dim=-1)
+    return start, (((ids < hi) & live).sum(dim=-1) - start).to(_I32)
+
+
+def _take(a: torch.Tensor, start: torch.Tensor, width: int) -> torch.Tensor:
+    """``a[..., start + j, ...]`` for ``j < width`` along dim ``start.ndim``
+    (``start`` indexes the leading dims of ``a``), clamped to the last entry."""
+    d = start.ndim
+    idx = (start[..., None] + torch.arange(width, device=a.device)).clamp_(max=a.shape[d] - 1)
+    idx = idx.reshape(*idx.shape, *([1] * (a.ndim - d - 1))).expand(
+        *a.shape[:d], width, *a.shape[d + 1:])
+    return torch.gather(a, d, idx)
+
+
+def seq_plan(plan, rows: tuple[int, int], factor: int):
+    """The share of ``plan`` (ids widened) of the pool rows ``[r0, r1)``,
+    renumbered to them, for a rank that computes only those rows of the
+    sequence (a DiT step's ``sp`` shard, :class:`~repro_torch.distributed.
+    tensor_parallel._SeqShare`): every field a Dispatch stage reads, at
+    static capacities ``min(Cr, r1 - r0)`` and ``min(Cq, (r1 - r0) · factor)``
+    (``factor`` q blocks a pool row).
+
+    The rank's live rows are a contiguous run of the ascending ``row_ids``
+    and its live q blocks one of each ``q_ids`` list, so this counts and
+    slices only (no sort, top-k or unpack): GEMM-Q's rows and GEMM-O's
+    ``row_ids``/``head_ids``/``head_cnt``/``head_mask`` from the run's first
+    slot, the compact ``q_slots`` renumbered from it; B2's ``q_ids`` (local
+    q blocks), ``q_cnt``, ``q_slots`` and the query side of
+    ``kv_row_ids``/``kv_row_cnt``/``pair_live``, whose KV ids stay global
+    (the rank's queries attend over the whole K/V); ``m_ch`` at its rows.
+    Slots past a run's count never store (``head_cnt`` 0).  No bucketed or
+    seq-mesh field: a sequence shard runs the uniform B2/B3, whose lists
+    carry the bucket clamp."""
+    from repro_torch.core.plan import DispatchPlan
+    r0, r1 = rows
+    nr = r1 - r0
+    c0, cnt = _run_of(plan.row_ids, plan.row_cnt, r0, r1)
+    cr = min(plan.row_ids.shape[-1], nr)
+    slot_live = torch.arange(cr, device=cnt.device) < cnt[:, None]                    # (B, cr)
+    row_ids = (_take(plan.row_ids, c0, cr) - r0).clamp_(0, max(nr - 1, 0))
+    head_cnt = torch.where(slot_live, _take(plan.head_cnt, c0, cr), 0)
+    head_mask = _take(plan.head_mask, c0, cr) & slot_live[..., None]
+    s0, q_cnt = _run_of(plan.q_ids, plan.q_cnt, r0 * factor, r1 * factor)
+    cq = min(plan.q_ids.shape[-1], nr * factor)
+    q_live = torch.arange(cq, device=cnt.device) < q_cnt[..., None]                 # (B, H, cq)
+    q_ids = (_take(plan.q_ids, s0, cq) - r0 * factor).clamp_(0, max(nr * factor - 1, 0))
+    q_slots = (_take(plan.q_slots, s0, cq) - c0[:, None, None] * factor).clamp_(
+        0, max(cr * factor - 1, 0)).to(_I32)
+    return DispatchPlan(
+        q_ids=q_ids, q_cnt=q_cnt, q_slots=q_slots, kv_ids=plan.kv_ids, kv_cnt=plan.kv_cnt,
+        pair_live=_take(plan.pair_live, s0, cq) & q_live[..., None],
+        kv_row_ids=_take(plan.kv_row_ids, s0, cq),
+        kv_row_cnt=torch.where(q_live, _take(plan.kv_row_cnt, s0, cq), 0),
+        row_ids=row_ids, row_cnt=cnt, head_ids=_take(plan.head_ids, c0, cr),
+        head_cnt=head_cnt, head_mask=head_mask, m_ch=plan.m_ch[:, r0:r1],
+        row_score=plan.row_score[:, r0:r1], occ_hist=plan.occ_hist)
 
 
 def _head_sharded(inner, cfg, q, k, v, o_reuse, plan, spec, *, scale, compact_q):

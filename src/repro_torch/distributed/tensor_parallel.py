@@ -11,8 +11,10 @@ builders' parameter gather, one block at a time.
   products' partial sums, in f32), the identity backward;
 * :func:`gather`: a tensor's ``tp`` shards concatenated along one dim
   forward, the sum over the row cut to the rank's shard backward (the K/V
-  projections, which every rank computes whole, and the layers whose head
-  count does not divide the row);
+  projections, which every rank computes whole, the attention weights of a
+  head count the row does not divide, cut to the rank's whole heads by
+  :func:`heads` as :func:`head_sizes` splits them, and the layers computed
+  replicated);
 * :func:`replicated`: the identity forward and the gradient over the row's
   size backward, for what every rank of the row computes whole (the MoE's
   load-balancing loss, a sublayer computed replicated): its gradient then
@@ -57,6 +59,17 @@ splits its caches' sequence, carried by the decode step's
 keeps its slots; the models write the new token's K/V on the rank that holds
 its slot and attend over every rank's slots by merging the ranks' partial
 attentions (:func:`repro_torch.models.transformer._cache_attention`).
+
+**The DiT's sequence split** (:func:`seq_share`): the ranks of a DiT step's
+``sp`` group each compute their own whole pool rows of the sequence
+(:class:`_SeqShare`), carried by the step's :class:`ParamGather`; K/V are
+all-gathered over the group, and a tensor laid out by the specs moves
+between their layout and the rows' by the tokens at the boundaries alone.
+
+**Uneven heads** (:func:`head_sizes`, :func:`head_share`, :func:`heads`): a
+head count the row does not divide splits as ``torch.tensor_split`` splits
+it, the rank's whole heads cut from its attention weights gathered over the
+row; only a row of more ranks than heads computes them replicated.
 """
 
 from __future__ import annotations
@@ -72,9 +85,10 @@ import torch
 from repro_torch.distributed.sharding import ShardingRules, redistribute
 from repro_torch.tree import tree_flatten, tree_unflatten
 
-__all__ = ["size", "rank", "divides", "note", "model_parallel", "copy", "reduce", "gather",
-           "replicated", "all_gather", "shard", "row_max", "vocab_lookup", "dp_group", "dp_sum",
-           "sp_group", "mesh_dims", "ParamGather"]
+__all__ = ["size", "rank", "divides", "head_sizes", "head_share", "heads", "note",
+           "model_parallel", "copy", "reduce", "gather", "replicated", "all_gather", "shard",
+           "row_max", "vocab_lookup", "dp_group", "dp_sum", "sp_group", "seq_share", "mesh_dims",
+           "ParamGather"]
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +167,34 @@ class _Row:
         return redistribute(_dtensor(x.contiguous(), self.mesh, self.placements(Shard(dim)),
                                      shape), self.placements(Replicate())).to_local()
 
+    def all_gather_sizes(self, x: torch.Tensor, dim: int, sizes: list) -> torch.Tensor:
+        """The row's pieces of ``x`` concatenated along ``dim``, where rank
+        ``j`` holds ``sizes[j]`` of that dim: each padded to the largest and
+        gathered (one collective), then the padding dropped."""
+        dim = dim % x.ndim
+        longest = max(sizes)
+        if sizes[self.rank] < longest:
+            pad = list(x.shape)
+            pad[dim] = longest - sizes[self.rank]
+            x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+        whole = self.all_gather(x, dim)
+        if all(n == longest for n in sizes[:-1]):
+            return whole.narrow(dim, 0, sum(sizes))
+        keep = torch.cat([torch.arange(j * longest, j * longest + n) for j, n in enumerate(sizes)])
+        return whole.index_select(dim, keep.to(whole.device))
+
     def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's shard of ``x`` along ``dim``."""
         n = x.shape[dim] // self.size
         return x.narrow(dim, self.rank * n, n).contiguous()
+
+    def group(self):
+        """The process group of the row's ranks, in the row's rank order
+        (several mesh dims flattened, major first)."""
+        if len(self.dims) == 1:
+            return self.mesh.get_group(self.dims[0])
+        names = tuple(self.mesh.mesh_dim_names[i] for i in self.dims)
+        return self.mesh[names]._flatten().get_group()
 
 
 # The active model row (``None``: a row of one rank) and parameter gather.
@@ -223,14 +261,120 @@ class _SeqGroup(_Row):
         holds the shard that DTensor lays out (torch's chunking, nested over
         the dims), which an ``S`` the group does not divide leaves uneven or
         empty."""
-        from torch.distributed.tensor import Shard
-        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
         if key not in self.lengths:
             return None
         s = self.lengths[key]
-        _, (lo,) = compute_local_shape_and_global_offset((s,), self.mesh,
-                                                         self.placements(Shard(0)))
-        return s, lo
+        return s, self.spans(s)[self.rank][0]
+
+    def spans(self, n: int) -> list[tuple[int, int]]:
+        """Every rank's ``(lo, hi)`` of a dim of length ``n`` that DTensor
+        lays out over the group (torch's chunking, nested over the dims), in
+        the group's rank order.  An empty shard sits where the one before it
+        ends, so the spans tile ``[0, n)`` in order."""
+        from torch.distributed.tensor import Shard
+        from torch.distributed.tensor._utils import _compute_local_shape_and_global_offset
+        coord, sizes = list(self.mesh.get_coordinate()), [self.mesh.size(i) for i in self.dims]
+        out, end = [], 0
+        for j in range(self.size):
+            rest = j
+            for i, s in reversed(list(zip(self.dims, sizes))):
+                coord[i], rest = rest % s, rest // s
+            (length,), (lo,) = _compute_local_shape_and_global_offset(
+                (n,), tuple(self.mesh.shape), coord, self.placements(Shard(0)))
+            lo = lo if length else end
+            out.append((lo, lo + length))
+            end = lo + length
+        return out
+
+
+class _SeqShare:
+    """A DiT step's split of its concatenated sequence ``[text; vision]``
+    of ``n`` tokens over the ``sp`` group ``grp``, in whole ``pool``-token
+    rows: each pool row goes to the rank whose share of the reference's
+    ``("dp", "sp", None)`` layout of the sequence (:attr:`layout`, torch's
+    chunking) holds the row's first token, so a rank's rows differ from its
+    share by less than a row at each end, the text rows sit on the first
+    rank(s) and no row is computed twice.  :attr:`rows` and :attr:`tokens`
+    are every rank's ``[lo, hi)`` pool rows and tokens, in the group's rank
+    order.  :meth:`gather` makes the whole sequence of an activation from the
+    ranks' rows (the K/V the rank's queries attend to); :meth:`exchange` moves
+    a tensor between two of these splits, only the tokens that change ranks
+    crossing (:attr:`moved_bytes` counts what this rank received)."""
+
+    def __init__(self, grp: _SeqGroup, n: int, pool: int):
+        self.grp, self.n, self.pool = grp, n, pool
+        self.layout = grp.spans(n)
+        self.rows = [(-(-lo // pool), -(-hi // pool)) for lo, hi in self.layout]
+        self.tokens = [(r0 * pool, min(r1 * pool, n)) for r0, r1 in self.rows]
+        self.moved_bytes = 0
+
+    @property
+    def rank(self) -> int:
+        return self.grp.rank
+
+    @property
+    def mine(self) -> tuple[int, int]:
+        """This rank's ``[lo, hi)`` tokens."""
+        return self.tokens[self.rank]
+
+    @property
+    def my_rows(self) -> tuple[int, int]:
+        """This rank's ``[lo, hi)`` pool rows."""
+        return self.rows[self.rank]
+
+    def vision(self, n_text: int) -> list[tuple[int, int]]:
+        """Every rank's ``[lo, hi)`` of the vision tokens (the sequence after
+        its ``n_text`` text tokens) within its rows."""
+        nv = self.n - n_text
+        return [(min(max(lo - n_text, 0), nv), min(max(hi - n_text, 0), nv))
+                for lo, hi in self.tokens]
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole sequence along ``dim`` of ``x``, this rank's tokens of
+        it (one collective, no gradient)."""
+        with torch.no_grad():
+            return self.grp.all_gather_sizes(x, dim, [hi - lo for lo, hi in self.tokens])
+
+    def exchange(self, x: torch.Tensor, dim: int, src: list, dst: list) -> torch.Tensor:
+        """``x``, this rank's ``src`` span along ``dim``, as its ``dst``
+        span: each rank sends every other rank the tokens of its span that
+        the other's new span holds (one all-to-all over the group, none when
+        no token changes ranks; staged through the host on a ``gloo`` group
+        of card tensors)."""
+        import torch.distributed as dist
+        me = self.rank
+        overlap = lambda a, b: max(0, min(a[1], b[1]) - max(a[0], b[0]))
+        if all(overlap(src[j], dst[j]) == dst[j][1] - dst[j][0] for j in range(len(dst))):
+            lo = dst[me][0] - src[me][0]
+            return x.narrow(dim, lo, dst[me][1] - dst[me][0])
+        xt = x.movedim(dim, 0)
+        send, send_n, recv_n = [], [], []
+        for j, d in enumerate(dst):
+            k = overlap(src[me], d)
+            send_n.append(0 if j == me else k)
+            if k and j != me:
+                send.append(xt[max(d[0], src[me][0]) - src[me][0]:][:k])
+            recv_n.append(0 if j == me else overlap(src[j], dst[me]))
+        send = (torch.cat(send) if send else xt[:0]).contiguous()
+        grp = self.grp.group()
+        staged = send.is_cuda and dist.get_backend(grp) == "gloo"
+        buf = send.cpu() if staged else send
+        got = buf.new_empty((sum(recv_n), *xt.shape[1:]))
+        dist.all_to_all_single(got, buf, recv_n, send_n, group=grp)
+        got = got.to(x.device) if staged else got
+        self.moved_bytes += got.numel() * got.element_size()
+        parts, at = [], 0
+        for j, k in enumerate(recv_n):
+            if j == me:
+                own = overlap(src[me], dst[me])
+                if own:
+                    lo = max(src[me][0], dst[me][0]) - src[me][0]
+                    parts.append(xt[lo:lo + own])
+            elif k:
+                parts.append(got[at:at + k])
+                at += k
+        out = torch.cat(parts) if parts else xt[:0]
+        return out.movedim(0, dim).contiguous()
 
 
 def sp_group() -> Optional[_SeqGroup]:
@@ -240,6 +384,14 @@ def sp_group() -> Optional[_SeqGroup]:
     ``sp`` holds one rank."""
     src = block_source()
     return None if src is None else src.sp
+
+
+def seq_share() -> Optional[_SeqShare]:
+    """The active DiT step's split of its sequence over ``sp`` (each rank
+    computes its own pool rows), or ``None`` outside such a step or where
+    ``sp`` holds one rank."""
+    src = block_source()
+    return None if src is None else src.seq
 
 
 class _DpSum(torch.autograd.Function):
@@ -288,6 +440,42 @@ def divides(n: int, what: str) -> bool:
         note(f"{what}: {n} on a model row of {m}")
         return False
     return True
+
+
+def head_sizes(n: int) -> list[int]:
+    """Every rank's count of ``n`` heads split over the active row as
+    ``torch.tensor_split`` splits them: the first ``n % m`` ranks one
+    more (24 heads on 16 ranks: 2 on 8, 1 on 8)."""
+    m = size()
+    return [n // m + (j < n % m) for j in range(m)]
+
+
+def head_share(n: int, what: str = "attention heads") -> Optional[tuple[int, int]]:
+    """``(h0, h)``: this rank's first head of ``n`` and its count
+    (:func:`head_sizes`), or ``None`` on a row of one rank, and on a row of
+    more ranks than heads, which computes ``what`` replicated (noted)."""
+    m = size()
+    if m == 1:
+        return None
+    if n < m:
+        note(f"{what}: {n} on a model row of {m}")
+        return None
+    sizes = head_sizes(n)
+    return sum(sizes[:rank()]), sizes[rank()]
+
+
+def heads(w: torch.Tensor, dim: int, n: int, hd: int) -> torch.Tensor:
+    """The columns (or rows: ``dim``) of weight ``w``, a ``tp`` shard of
+    ``n`` heads of ``hd``, that this rank's heads (:func:`head_share`) use:
+    its shard itself where the row divides ``n``, else the row's shards
+    gathered (:func:`gather`) and cut to the rank's heads, or whole where
+    the row holds more ranks than heads."""
+    share = head_share(n)
+    if size() == 1 or (share is not None and n % size() == 0):
+        return w
+    whole = gather(w, dim)
+    return whole if share is None else whole.narrow(dim, share[0] * hd,
+                                                    share[1] * hd).contiguous()
 
 
 def note(what: str) -> None:
@@ -380,15 +568,16 @@ def replicated(x: torch.Tensor) -> torch.Tensor:
     return _Scale.apply(x, 1.0 / row.size)
 
 
-def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, sizes: Optional[list] = None) -> torch.Tensor:
     """The row's shards of ``x`` concatenated along ``dim``, without a
     gradient and not counted as gathered parameters (an activation the
-    rank computed for its share of the row)."""
+    rank computed for its share of the row); ``sizes``: each rank's length
+    of that dim, where they differ (its heads, :func:`head_sizes`)."""
     row = _row()
     if row is None:
         return x
     with torch.no_grad():
-        return row.all_gather(x, dim)
+        return row.all_gather(x, dim) if sizes is None else row.all_gather_sizes(x, dim, sizes)
 
 
 def shard(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -561,11 +750,15 @@ class ParamGather:
     count by its top-level key) makes :attr:`sp` the group of ranks over which
     the caches' sequence is split (:func:`sp_group`; ``None`` without it or
     for one rank).
+    ``seq`` (a DiT step's: ``(n, pool)``, its sequence's token count and
+    pool) makes :attr:`seq` that sequence's split over the ``sp`` ranks
+    (:func:`seq_share`; ``None`` without it or for one rank).
     ``max_gathered_bytes`` is the most bytes of gathered parameters alive at
     once (a gathered tensor lives while its tensor object does)."""
 
     def __init__(self, mesh, rules: ShardingRules, *, tp: bool, cast_bf16: bool = False,
-                 train: bool = False, n_dp: int = 1, sp_lengths: Optional[dict] = None):
+                 train: bool = False, n_dp: int = 1, sp_lengths: Optional[dict] = None,
+                 seq: Optional[tuple[int, int]] = None):
         self.mesh, self.cast_bf16, self.train, self.n_dp = mesh, cast_bf16, train, n_dp
         self.row_dims = mesh_dims(mesh, rules, "tp") if tp else ()
         self.dp_dims = mesh_dims(mesh, rules, "dp")
@@ -579,6 +772,10 @@ class ParamGather:
         self.sp = _SeqGroup(mesh, sp_dims, sp_lengths) if sp_dims else None
         if self.sp is not None and self.sp.size == 1:
             self.sp = None
+        seq_dims = mesh_dims(mesh, rules, "sp") if seq is not None else ()
+        self.seq = None
+        if seq_dims and math.prod(mesh.size(i) for i in seq_dims) > 1:
+            self.seq = _SeqShare(_SeqGroup(mesh, seq_dims, {}), *seq)
         self.leaves: list = []
         self.grads: list = []
         self._stacks: list = []

@@ -49,8 +49,11 @@ heads, its biased MLP column- then row-parallel
 rank's heads (B1 on its ``wq`` columns, B2 on its heads, B3 over its head
 range, the partials summed over the row; see
 :mod:`repro_torch.core.engine`), its MLP column- then row-parallel.  A
-head count, ``d_ff`` or channel count the row does not divide is computed
-replicated and named in ``fn.stats["tp_replicated"]``.
+head count the row does not divide is split unevenly, as
+``torch.tensor_split`` splits it (:func:`~repro_torch.distributed.
+tensor_parallel.heads`); a row of more ranks than heads, or a ``d_ff`` or
+channel count the row does not divide, is computed replicated and named in
+``fn.stats["tp_replicated"]``.
 
 **The ``dp`` group.**  Every builder's :class:`~repro_torch.distributed.
 tensor_parallel.ParamGather` carries the group of ranks over which the
@@ -526,48 +529,92 @@ def build_dit_step(cfg: ArchConfig, shape: ShapeSpec, mesh, rules: ShardingRules
     heads (the bucketed layout rows fold the heads; the plan's
     ``kv_row_cnt``/``head_cnt`` carry the bucket clamp, so the result is
     the same).  In ``mode="dispatch"`` that goes through the engine's
-    backend, so the kernels (B1-B3) launch on the card."""
+    backend, so the kernels (B1-B3) launch on the card.
+
+    **The ``sp`` shard** (``rules_for``'s DiT rules put ``sp`` over
+    ``data``): each rank of an ``sp`` group computes only its own whole
+    ``pool`` rows of the concatenated sequence ``[text; vision]``
+    (:class:`~repro_torch.distributed.tensor_parallel._SeqShare`).  The rule:
+    **a pool row belongs to the rank whose share of the reference's
+    ``("dp", "sp", None)`` layout of the sequence holds the row's first
+    token**, so the text rows sit on the first rank(s), no row is computed on
+    two ranks, and a rank's rows differ from its share of the sequence by
+    less than a row at each end.  The rank's rows go through the modulation,
+    the norms, the MLP, Q/K/V, the attention outputs, GEMM-Q, GEMM-O and
+    the TaylorSeer stack; K and V (and, at Update, Q for the strategy) are
+    all-gathered over the group, so every rank packs the same symbols and
+    builds the same plan, replicated over ``sp`` as the specs say.  Dispatch
+    runs B1-B3 on the rank's share of the frozen plan
+    (:func:`~repro_torch.distributed.plan_shard.seq_plan`: count and slice,
+    no sort), the uniform B2/B3 as on a split row.  ``x_vision`` arrives,
+    the TaylorSeer stack arrives and leaves, and ``v`` leaves in the specs'
+    layouts (torch's chunking over the group); only the tokens between a
+    rank's share and its rows move (one all-to-all), and no rank holds the
+    stack whole.  ``fn.stats`` adds ``sp_rows`` (the rank's ``[lo, hi)``
+    pool rows), ``sp_replicated`` (rows computed on more than one rank:
+    none under this rule) and ``sp_moved_bytes`` (the bytes of inputs, stack
+    and ``v`` this rank received in those moves)."""
     from repro_torch.models import dit as ditmod
     ecfg = default_dit_engine_config() if ecfg is None else ecfg
     st_spec = ditmod.engine_state_specs(cfg, ecfg)
     in_specs = S.dit_inputs_logical(cfg)
+    keep = ("dp", "sp")
     p_pl = named_sharding_tree(ditmod.param_specs(cfg), mesh, rules)
     st_pl = [_state_placements(st_spec, mesh, rules)] * cfg.n_layers
     st_tree_pl = _state_tree(st_pl[0])
-    st_compute = named_sharding_tree(
-        tree_map(_compute_spec, _state_tree(st_spec),
-                 is_leaf=lambda x: isinstance(x, tuple)), mesh, rules)
+    st_compute = _compute_placements(_state_tree(st_spec), mesh, rules, keep=keep)
     in_pl = named_sharding_tree(in_specs, mesh, rules)
-    in_compute = _compute_placements(in_specs, mesh, rules)
+    in_compute = _compute_placements(in_specs, mesh, rules, keep=keep)
     v_pl = placements(PartitionSpec(rules.physical("dp"), rules.physical("sp"), None), mesh)
-    v_local = _compute_placements(("dp", None, None), mesh, rules)
+    v_local = _compute_placements(("dp", "sp", None), mesh, rules, keep=keep)
     split = _splits_model(mesh, rules)
+    tok_dim = st_spec.taylor.derivs.index("sp")       # the stack's token dim
 
     @torch.no_grad()
     def step(params, states, inputs):
         _check_layout("dit_step", (params, [_state_tree(s) for s in states], inputs),
                       (p_pl, [st_tree_pl] * len(states), in_pl), mesh)
         stats = _Stats(_device_of(params))
-        gath = ParamGather(mesh, rules, tp=split)
+        b, n_vis = inputs["x_vision"].shape[:2]
+        n_text = inputs["text_emb"].shape[1]
+        gath = ParamGather(mesh, rules, tp=split, seq=(n_text + n_vis, ecfg.mask.pool))
+        share = gath.seq
         tree = gath.prepare(params, ditmod.BLOCK_GROUPS)
-        local_states = [
-            _state_from_tree(tree_map(_to_local, _state_tree(s), st_compute, is_leaf=_is_pl), s)
-            for s in states]
         x = {k: _to_local(inputs[k], in_compute[k]) for k in inputs}
+        local_states = []
+        for s in states:
+            st = tree_map(_to_local, _state_tree(s), st_compute, is_leaf=_is_pl)
+            if share is not None:
+                st["derivs"] = share.exchange(st["derivs"], tok_dim, share.layout, share.tokens)
+            local_states.append(_state_from_tree(st, s))
+        if share is not None:
+            x["x_vision"] = share.exchange(x["x_vision"], 1, share.grp.spans(n_vis),
+                                           share.vision(n_text))
         stats.lap("gather_s")
         with activation_rules(rules), gath.active():
             v, new_states = ditmod.denoise_step(tree, cfg, ecfg, local_states, x["x_vision"],
                                                 x["text_emb"], x["t"], mode=mode, dtype=dtype)
         del tree
         stats.lap("compute_s")
-        v = _from_local(v, mesh, v_local, v_pl, _global_shape(v, v_local, mesh))
+        if share is not None:
+            v = share.exchange(v, 1, share.vision(n_text), share.grp.spans(n_vis))
+        v = _from_local(v, mesh, v_local, v_pl, (b, n_vis, v.shape[-1]))
         out_states = []
         for st, like in zip(new_states, states):
+            tree = _state_tree(st)
+            if share is not None:
+                tree["derivs"] = share.exchange(tree["derivs"], tok_dim, share.tokens,
+                                                share.layout)
             tree = tree_map(lambda y, l, pl_l, pl: _from_local(y, mesh, pl_l, pl, l.shape),
-                            _state_tree(st), _state_tree(like), st_compute, st_tree_pl,
-                            is_leaf=_is_pl)
+                            tree, _state_tree(like), st_compute, st_tree_pl, is_leaf=_is_pl)
             out_states.append(_state_from_tree(tree, st))
         stats.lap("scatter_s")
+        n_rows = -(-(n_text + n_vis) // ecfg.mask.pool)
+        rows = [(0, n_rows)] if share is None else share.rows
+        owners = [sum(r0 <= r < r1 for r0, r1 in rows) for r in range(n_rows)]
+        stats.out["sp_rows"] = list(rows[0 if share is None else share.rank])
+        stats.out["sp_replicated"] = [r for r, c in enumerate(owners) if c > 1]
+        stats.out["sp_moved_bytes"] = 0 if share is None else share.moved_bytes
         stats.done(step, gath)
         return v, out_states
 

@@ -18,7 +18,7 @@ rank's local tensors.
 **Tensor parallelism.**  Inside a sharded step that splits the ``model``
 axis (:mod:`~repro_torch.distributed.tensor_parallel`), a block's ``tp``
 leaves are the rank's shards: ``wq``/``wk``/``wv`` columns and ``wo`` rows
-of its ``H/m`` heads, which the engine computes
+of its heads, which the engine computes
 (:mod:`repro_torch.core.engine`: Update and Dispatch sum their output
 partials over the row; dense mode sums the ``wo`` partial here), and
 ``mlp_wi`` columns and ``mlp_wo`` rows, the MLP column- then row-parallel
@@ -27,9 +27,12 @@ its gradient meets the other ranks'.  What every rank computes whole
 takes a gradient over the row's size (``tp.replicated``: the modulations,
 ``final_norm`` and ``final_proj``), so that it sums over the row as a
 partial one does; ``t_mlp2`` (``tp`` on its columns) is gathered whole.  A
-head count or ``d_ff`` that the row does not divide is gathered and
-computed replicated (``tp.note`` records it).  Outside such a step every
-operator is the identity.
+head count the row does not divide is split unevenly, as
+``torch.tensor_split`` splits it (24 heads on 16 ranks: 2 on 8, 1 on 8),
+the weights gathered over the row and cut to the rank's whole heads; a
+row of more ranks than heads, or a ``d_ff`` the row does not divide,
+computes that layer replicated (``tp.note`` records it).  Outside such a
+step every operator is the identity.
 """
 
 from __future__ import annotations
@@ -176,11 +179,13 @@ def _modulate(x, shift, scale):
 
 def _attn_weights(p: dict, cfg: ArchConfig, dtype) -> AttnParams:
     """The block's attention weights as this rank computes with them: its
-    heads' shards on a row the head count divides, else whole."""
-    wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
-    if tp.size() > 1 and not tp.divides(cfg.n_heads, "attention heads"):
-        wq, wk, wv, wo = (tp.gather(wq, -1), tp.gather(wk, -1), tp.gather(wv, -1),
-                          tp.gather(wo, -2))
+    heads' (:func:`~repro_torch.distributed.tensor_parallel.heads`; the
+    shards themselves on a row the head count divides, else gathered and
+    cut to the rank's whole heads), or whole on a row of more ranks than
+    heads."""
+    n, hd = cfg.n_heads, cfg.hd
+    wq, wk, wv, wo = (tp.heads(p["wq"], -1, n, hd), tp.heads(p["wk"], -1, n, hd),
+                      tp.heads(p["wv"], -1, n, hd), tp.heads(p["wo"], -2, n, hd))
     return AttnParams(wq=wq.to(dtype), wk=wk.to(dtype), wv=wv.to(dtype), wo=wo.to(dtype),
                       q_scale=p["q_scale"], k_scale=p["k_scale"])
 
@@ -218,8 +223,11 @@ def _block(cfg: ArchConfig, ecfg: EngineConfig, p: dict, state: LayerState,
         h = attn_p.wq.shape[-1] // cfg.hd
         q, k = E._qk(attn_p, xa, h)
         v = E._project_heads(xa, attn_p.wv, h)
+        share = tp.seq_share()
+        if share is not None:             # the rank's rows over the whole K/V
+            k, v = share.gather(k, 2), share.gather(v, 2)
         oh = dense_attention(q, k, v)
-        o = oh.transpose(1, 2).reshape(*xa.shape[:2], -1) @ attn_p.wo
+        o = oh.transpose(1, 2).reshape(*xa.shape[:2], attn_p.wo.shape[0]) @ attn_p.wo
         o = tp.reduce(o) if h != cfg.n_heads else tp.replicated(o)
         new_state = state
     else:
@@ -246,6 +254,12 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
     canonicalized into that pair (kept for parity with the reference; no
     caller in the port passes it).  Returns (velocity, new_states).
 
+    Inside a DiT step that splits the sequence over ``sp``
+    (:func:`~repro_torch.distributed.tensor_parallel.seq_share`), the rank
+    computes its own pool rows of ``[text; vision]``: ``x_vision`` holds the
+    vision tokens of those rows, ``text_emb`` the whole text, and the
+    returned velocity is those rows' vision tokens.
+
     ``states`` is consumed: each layer's entry is replaced by its new state
     as soon as the layer has run, so the old one can be freed (at
     hunyuan-video-dit's width two copies of every layer's plan and
@@ -259,7 +273,14 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
         strategies, strategy_row = _canonicalize_layer_strategies(layer_strategies, ecfg,
                                                                   cfg.n_layers)
     n_text = text_emb.shape[1]
-    x = torch.cat([text_emb.to(dtype), x_vision.to(dtype)], dim=1)
+    share = tp.seq_share()
+    lo = 0 if share is None else share.mine[0]
+    hi = n_text + x_vision.shape[1] if share is None else share.mine[1]
+    if x_vision.shape[1] != max(hi - max(lo, n_text), 0):
+        raise ValueError(f"x_vision holds {x_vision.shape[1]} tokens; the sequence's tokens "
+                         f"[{lo}, {hi}) after {n_text} text tokens hold "
+                         f"{max(hi - max(lo, n_text), 0)}")
+    x = torch.cat([text_emb[:, lo:min(hi, n_text)].to(dtype), x_vision.to(dtype)], dim=1)
     t_emb = timestep_embedding(t * 1000.0, 256).to(dtype) @ params["t_mlp1"].to(dtype)
     t_emb = (F.silu(t_emb) @ tp.gather(params["t_mlp2"], -1).to(dtype)).to(dtype)
 
@@ -274,7 +295,7 @@ def denoise_step(params: dict, cfg: ArchConfig, ecfg: EngineConfig,
     mod = tp.replicated(F.silu(t_emb) @ params["final_mod"].to(dtype))
     sh, sc = mod.chunk(2, dim=-1)
     x = _modulate(rms_norm(x, tp.replicated(params["final_norm"]), cfg.norm_eps), sh, sc)
-    v = x[:, n_text:] @ tp.replicated(params["final_proj"]).to(dtype)
+    v = x[:, max(n_text - lo, 0):] @ tp.replicated(params["final_proj"]).to(dtype)
     return v, states
 
 

@@ -33,9 +33,11 @@ sum.  The LayerNorms are whole, each sublayer's input (and the encoder's
 output norm's) passing *f* (``tp.copy``) first; the tied ``tok_embed`` is a
 vocab-parallel lookup and head, with the vocab-parallel loss; the position
 tables and ``bo``, added whole on every rank, take their gradients over the
-row's size.  A head count or ``d_ff`` the row does not divide is gathered
-and computed replicated (``tp.note``): whisper-large-v3's 20 heads on a row
-of 16.  Outside such a step the code computes as before, bit for bit.
+row's size.  A head count the row does not divide is split unevenly, as
+``torch.tensor_split`` splits it (whisper-large-v3's 20 heads on a row of
+16: 2 on 4 ranks, 1 on 12), K/V whole; a row of more ranks than heads, or
+a ``d_ff`` the row does not divide, is gathered and computed replicated
+(``tp.note``).  Outside such a step the code computes as before, bit for bit.
 """
 
 from __future__ import annotations
@@ -146,9 +148,10 @@ def param_specs(cfg: ArchConfig) -> dict:
 def _mha_weights(p, cfg: ArchConfig) -> tuple:
     """``(wq, wk, wv, wo, split)``: on a model row that divides the K/V
     heads, the rank's shards of all four (its K/V heads are the ones its
-    query heads read), else the transformer's (K/V whole)."""
+    query heads read), else the transformer's (K/V whole, the query heads
+    split unevenly where the row does not divide them)."""
     m = tp.size()
-    if m > 1 and cfg.n_kv_heads % m == 0 and tp.divides(cfg.n_heads, "attention heads"):
+    if m > 1 and cfg.n_kv_heads % m == 0 and cfg.n_heads % m == 0:
         return p["wq"], p["wk"], p["wv"], p["wo"], True
     return T._attn_weights(p, cfg)
 

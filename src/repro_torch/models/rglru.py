@@ -32,9 +32,11 @@ through the transformer's helpers (``_attn_weights``, ``_kv_for``,
 ``_attn_out``, ``_mlp_apply``): ``wq``/``wo`` by heads, K/V whole, the MLP
 column- then row-parallel; the ring cache stays whole.  Each sublayer's
 input passes *f* (``tp.copy``) before its norm; the embedding, the tied
-head and the loss are vocab-parallel.  A head count, ``d_ff`` or channel
-count the row does not divide is gathered and computed replicated
-(``tp.note``): recurrentgemma-2b's 10 heads on a row of 16.  Outside such a
+head and the loss are vocab-parallel.  A head count the row does not
+divide is split unevenly (the transformer's ``_attn_weights``); a row of
+more ranks than heads, or a ``d_ff`` or channel count the row does not
+divide, is gathered and computed replicated (``tp.note``):
+recurrentgemma-2b's 10 heads on a row of 16.  Outside such a
 step the code computes as before, bit for bit.
 """
 

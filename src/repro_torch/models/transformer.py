@@ -39,17 +39,19 @@ axis (:class:`~repro_torch.distributed.tensor_parallel.ParamGather` with
 :mod:`~repro_torch.distributed.tensor_parallel` act over the row: each
 sublayer's input passes *f* (``tp.copy``) before its norm; ``wq`` is
 column-parallel by heads and ``wo`` row-parallel, followed by *g*
-(``tp.reduce``), when the head count divides the row; K/V are projected
+(``tp.reduce``), the heads split as ``torch.tensor_split`` splits them
+(unevenly where the row does not divide them: the weights gathered over
+the row and cut to the rank's whole heads); K/V are projected
 whole on every rank (their weights gathered; the caches stay whole over
 ``model``) and each rank's query heads read the K/V heads they group with;
 the MLP (and each MoE expert) is column-parallel in ``wi``/``wg`` and
 row-parallel in ``wo``, the router replicated; the embedding is a
 vocab-parallel lookup, the head keeps the logits as ``(tokens, vocab/tp)``
 for :func:`layers.softmax_xent`'s vocab-parallel loss, and prefill and
-decode gather the last row whole.  A head count or ``d_ff`` that the row
-does not divide is gathered and computed replicated (``tp.note`` records
-it).  Outside such a step the row has one rank and every operator is the
-identity, so the code computes exactly as before.
+decode gather the last row whole.  A row of more ranks than heads, or a
+``d_ff`` that the row does not divide, is gathered and computed replicated
+(``tp.note`` records it).  Outside such a step the row has one rank and
+every operator is the identity, so the code computes exactly as before.
 """
 
 from __future__ import annotations
@@ -220,12 +222,13 @@ def param_specs(cfg: ArchConfig) -> dict:
 def _attn_weights(p, cfg: ArchConfig, *, kv: bool = True) -> tuple:
     """``(wq, wk, wv, wo, split)`` as this rank computes with them: K/V's
     weights whole (``None`` without ``kv``: a decode step that reads its
-    K/V from a cache), ``wq``/``wo`` the rank's heads when ``split``, else
-    whole."""
-    split = tp.divides(cfg.n_heads, "attention heads")
-    wq, wo = p["wq"], p["wo"]
-    if tp.size() > 1 and not split:
-        wq, wo = tp.gather(wq, -1), tp.gather(wo, -2)
+    K/V from a cache), ``wq``/``wo`` the rank's heads when ``split`` (the
+    row's heads split as ``torch.tensor_split`` splits them,
+    :func:`~repro_torch.distributed.tensor_parallel.heads`), else whole (a
+    row of more ranks than heads)."""
+    split = tp.head_share(cfg.n_heads) is not None
+    wq = tp.heads(p["wq"], -1, cfg.n_heads, cfg.hd)
+    wo = tp.heads(p["wo"], -2, cfg.n_heads, cfg.hd)
     if not kv:
         return wq, None, None, wo, split
     return wq, tp.gather(p["wk"], -1), tp.gather(p["wv"], -1), wo, split
@@ -237,9 +240,9 @@ def _kv_for(k, v, cfg: ArchConfig, h: int) -> tuple:
     if h == cfg.n_heads:
         return k, v
     g = cfg.n_heads // cfg.n_kv_heads
-    first = tp.rank() * h
-    if h % g == 0 or g % h == 0:
-        lo, hi = first // g, (first + h - 1) // g + 1
+    first = tp.head_share(cfg.n_heads)[0]
+    lo, hi = first // g, (first + h - 1) // g + 1
+    if (first % g == 0 and h % g == 0) or (g % h == 0 and hi - lo == 1):
         return k[:, :, lo:hi], v[:, :, lo:hi]
     ids = (first + torch.arange(h, device=k.device)) // g
     return k.index_select(2, ids), v.index_select(2, ids)
@@ -448,11 +451,12 @@ def _cache_attention(q, kv: dict, cfg: ArchConfig, cache_len, lo: Optional[int])
     if lo is None:
         return L.decode_attention(q, *_kv_for(kv["k"], kv["v"], cfg, h), cache_len)
     grp = tp.sp_group()
-    q_all = q if h == cfg.n_heads else tp.all_gather(q, 2)
+    q_all = q if h == cfg.n_heads else tp.all_gather(q, 2, tp.head_sizes(cfg.n_heads))
     o, lse = L.decode_attention_partial(q_all, kv["k"], kv["v"], cache_len, lo)
     o = L.merge_decode_partials(o, lse, grp.all_gather(lse[None], 0).amax(dim=0), grp.sum)
     if h != cfg.n_heads:
-        o = o[:, tp.rank() * h:(tp.rank() + 1) * h]
+        h0 = tp.head_share(cfg.n_heads)[0]
+        o = o[:, h0:h0 + h]
     return o[:, None].to(q.dtype)
 
 

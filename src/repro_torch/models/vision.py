@@ -33,8 +33,9 @@ K/V heads they group with; ``wo`` is row-parallel and summed over the row,
 and ``tanh(gate)`` scales that sum once (``gate`` takes its gradient over
 the row's size, as everything computed whole on every rank does).  Decode
 reads the cross K/V cache whole (heads replicated over ``model``) the same
-way.  A head count the row does not divide is gathered and computed
-replicated (``tp.note``).  Outside such a step the code computes as before,
+way.  A head count the row does not divide is split unevenly (the
+transformer's ``_attn_weights``), and a row of more ranks than heads
+computes them replicated (``tp.note``).  Outside such a step the code computes as before,
 bit for bit.
 """
 

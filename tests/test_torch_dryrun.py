@@ -30,6 +30,14 @@ model.
     whole over the group, above its arguments;
   * the flux-mmdit smoke DiT cell records in both modes; Dispatch holds
     B1-B3 once a layer, each billed at the plan's capacity;
+  * hunyuan-video-dit's ``dit_serve`` cell on the production mesh (16, 16),
+    where each rank computes its ``sp`` rows of the 33 024 tokens: FLOPs a
+    rank at most 1/8 of what the step cost when every rank computed the
+    whole sequence (8.155e14 at Update, 4.639e14 at Dispatch) and a peak no
+    higher than it was (23.86 / 21.91 GB);
+  * whisper-large-v3's ``train_4k`` cell on (16, 16), whose 20 heads the
+    row of 16 now splits 2 and 1 (ROADMAP C.14): a peak a rank below the
+    92.5 GB it took computed replicated;
   * ``sharded_dispatch_report``'s payload equals the formula from the
     reference's pure ``shard_geometry`` and ``exchange_blocks``, under half
     the dense all-gather, with the output all-gather reported apart;
@@ -308,6 +316,38 @@ def test_smoke_dit_cell_records_both_modes_with_kernels_at_capacity():
         assert fields[mode]["flops_per_device"] > 0
         assert D.roofline_terms(fields[mode])["dominant"] in ("compute", "memory",
                                                               "collective")
+
+
+# hunyuan-video-dit dit_serve on (16, 16) with the whole sequence on every
+# rank (the parent tree's dry run): FLOPs a rank and peak bytes, by mode.
+HUNYUAN_WHOLE_SEQUENCE = {"update": (8.155e14, 23.86e9), "dispatch": (4.639e14, 21.91e9)}
+
+
+@pytest.mark.parametrize("mode", ["update", "dispatch"])
+def test_hunyuan_dit_cell_computes_each_ranks_sequence_rows(mode):
+    from repro_torch.launch.mesh import make_production_mesh, rules_for
+    cfg = registry.get_config("hunyuan-video-dit")
+    (shape,) = registry.arch_shapes(cfg)
+    with D.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        fields = D.record_cell(cfg, shape, mesh, rules_for(cfg, shape, multi_pod=False),
+                               mode=mode)
+    flops, peak = HUNYUAN_WHOLE_SEQUENCE[mode]
+    assert fields["flops_per_device"] <= flops / 8
+    assert fields["peak_bytes"] <= peak
+
+
+def test_whisper_train_cell_splits_its_heads_unevenly_over_the_row():
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import make_production_mesh, rules_for
+    cfg, shape = registry.get_config("whisper-large-v3"), SHAPES["train_4k"]
+    with D.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        entry, (fn, in_shapes, in_pl, _) = D.build_cell(cfg, shape, mesh,
+                                                        rules_for(cfg, shape, multi_pod=False))
+        rec, _ = D.trace_step(fn, D.meta_args(in_shapes, in_pl, mesh))
+    assert entry == "train_step" and fn.stats["tp_replicated"] == []
+    assert D.cost_fields(rec)["peak_bytes"] < 92.5e9
 
 
 def test_sharded_dispatch_report_meets_the_pair_cap_formula(tmp_path):

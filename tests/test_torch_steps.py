@@ -35,6 +35,22 @@ arrays handed to both packages.
     shards of the six split leaves, nothing computed replicated, and the
     kernels' plain versions called once a layer at Dispatch (none at
     Update);
+  * **DiT step on the sequence's ``sp`` shard**: the same, at batch 1 under
+    ``rules_for``'s DiT rules (``sp`` over data, heads and MLP over model,
+    both splits at once), at 128 vision tokens (a rank's share of the
+    sequence 2.5 pool rows) and 96 (2 whole rows): the whole ``v`` within
+    1e-5 of the reference's ``build_dit_step`` fn under the reference's own
+    DiT rules, the symbols and every integer plan field ``torch.equal`` to
+    the unsharded port step's, the f32 state fields within 1e-5 and the
+    bf16 stack within one unit in its last place of it, each rank's
+    TaylorSeer stack its own ``sp`` shard, ``sp_rows`` covering the
+    sequence's pool rows once, and the plain kernels called once a layer
+    at Dispatch on each rank (none at Update) on the rank's rows alone,
+    whose Dispatch layer records no sort, top-k or unpack; and on a data
+    column of 4 (mesh (4, 1)) at 64 vision tokens, 3 pool rows over 4
+    ranks, with 3 KV buckets: the last rank computes no row and launches
+    nothing, the rest run the uniform kernels on the bucket-clamped lists
+    and hold as above against the unsharded (bucketed) step;
   * **prefill / decode**: gemma3-1b, llama3-405b, mixtral-8x22b and
     whisper-large-v3 smoke, batch 4 over data: greedy tokens equal to the
     unsharded port's, logits within 1e-4 of the reference builders' fns
@@ -89,6 +105,14 @@ TRAIN_CASES = ([(a, False, False) for a in TRAIN_ARCHS] + [("gemma3-1b", False, 
 TRAIN_B, TRAIN_STEPS = 4, 2
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 DIT_B, DIT_VISION = 2, 96
+# Vision tokens of the DiT step on the sequence's sp shard (batch 1, rules_for's
+# DiT rules): 128 (+ 32 text) gives a rank 80 tokens of the reference's layout,
+# 2.5 pool rows of 32; 96 gives it 64, 2 whole rows.
+DIT_SP_VISION = (128, 96)
+# The same on a data column of 4 (mesh (4, 1)) at 64 vision tokens: 96
+# tokens in 3 pool rows over 4 ranks, so the last rank computes no row; with
+# 3 KV buckets, which a sequence shard reads through the uniform kernels.
+DIT_SP_EMPTY_VISION, DIT_SP_EMPTY_BUCKETS = 64, 3
 SERVE_ARCHS = ("gemma3-1b", "llama3-405b", "mixtral-8x22b", "whisper-large-v3")
 SERVE_B, PROMPT, MAX_LEN, DECODE_STEPS = 4, 32, 64, 4
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -328,12 +352,12 @@ def _serve_batch(cfg) -> dict:
     return batch
 
 
-def _dit_inputs(cfg) -> dict:
-    rng = np.random.default_rng(11)
+def _dit_inputs(cfg, b: int = DIT_B, nv: int = DIT_VISION, seed: int = 11) -> dict:
+    rng = np.random.default_rng(seed)
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
-    return {"x_vision": f(DIT_B, DIT_VISION, cfg.d_model),
-            "text_emb": f(DIT_B, cfg.n_text_tokens, cfg.d_model),
-            "t": np.array([0.3, 0.7], np.float32)}
+    return {"x_vision": f(b, nv, cfg.d_model),
+            "text_emb": f(b, cfg.n_text_tokens, cfg.d_model),
+            "t": np.array([0.3, 0.7][:b], np.float32)}
 
 
 def _torch(tree):
@@ -373,6 +397,80 @@ def _states_compare(a: list, b: list) -> tuple:
             else:
                 ints = ints and torch.equal(p, q)
     return ints, rel, ulps
+
+
+def dit_sp_rank(mesh, inputs: dict, nv: int, kv_buckets: int = 1) -> dict:
+    """The DiT step at batch 1 under ``rules_for``'s DiT rules on this rank:
+    Update then Dispatch, each against the unsharded port step."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.analysis.op_walk import index_decode_ops, record_call
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.core import backend
+    from repro_torch.distributed.sharding import redistribute
+    from repro_torch.launch import specs as S
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.models import dit
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_map
+    cfg, ecfg = get_smoke("flux-mmdit"), serving_engine_config(kv_buckets=kv_buckets)
+    n_tok = nv + cfg.n_text_tokens
+    shape = ShapeSpec("d", n_tok, 1, "serve")
+    rules = rules_for(cfg, shape, multi_pod=False)
+    whole = lambda x: redistribute(x, [Replicate(), Replicate()]).to_local()
+    params = tree_map(lambda t: t.to(torch.bfloat16), _torch(inputs["params"]["flux-mmdit"]))
+    x = _torch(inputs["dit_sp_inputs"][nv])
+    p = reshard_state(params, dit.param_specs(cfg), mesh, rules)
+    spec = dit.engine_state_specs(cfg, ecfg)
+    states = ST.place_states(dit.init_engine_states(cfg, ecfg, 1, n_tok, "cpu"), spec, mesh,
+                             rules)
+    stack_pl = ST._state_placements(spec, mesh, rules).taylor.derivs
+    xd = reshard_state(x, S.dit_inputs_logical(cfg), mesh, rules)
+    one = dit.init_engine_states(cfg, ecfg, 1, n_tok, "cpu")
+    # Each plain kernel's calls and the token rows of its output.
+    rows_of = {"gemm_q_sparse_kernel": lambda a: a[0].shape[1],
+               "flashomni_attention_csr": lambda a: a[3].shape[1],
+               "gemm_o_sparse_kernel": lambda a: a[2].shape[1]}
+    kept = {name: getattr(backend, name) for name in DISPATCH_KERNELS}
+    kept_dispatch, records = dit.E.dispatch_layer, []
+
+    def recording_dispatch(*a, **kw):
+        out, rec = record_call(kept_dispatch, *a, **kw)
+        records.append(rec)
+        return out
+
+    out = {}
+    for mode in ("update", "dispatch"):
+        fn = ST.build_dit_step(cfg, shape, mesh, rules, mode=mode, ecfg=ecfg,
+                               dtype=torch.float32)[0]
+        calls = []
+        for name in DISPATCH_KERNELS:
+            setattr(backend, name, lambda *a, _n=name, **kw: calls.append(
+                (_n, rows_of[_n](a))) or kept[_n](*a, **kw))
+        dit.E.dispatch_layer = recording_dispatch
+        try:
+            v, states = fn(p, states, xd)
+        finally:
+            dit.E.dispatch_layer = kept_dispatch
+            for name in DISPATCH_KERNELS:
+                setattr(backend, name, kept[name])
+        v1, one = dit.denoise_step(params, cfg, ecfg, one, x["x_vision"], x["text_emb"],
+                                   x["t"], mode=mode, dtype=torch.float32)
+        wholes = [ST._state_from_tree(tree_map(whole, ST._state_tree(s)), s) for s in states]
+        ints_equal, float_rel, bf16_ulps = _states_compare(wholes, one)
+        vw = whole(v)
+        out[mode] = {"v": vw, "v_rel": float((vw - v1).abs().max()) / float(v1.abs().max()),
+                     "ints_equal": ints_equal, "float_rel": float_rel, "bf16_ulps": bf16_ulps,
+                     "stack_placements": [list(s.taylor.derivs.placements) for s in states]
+                     == [stack_pl] * len(states),
+                     "stack_tokens": [s.taylor.derivs.to_local().shape[2] for s in states],
+                     "calls": calls, "sp_rows": fn.stats["sp_rows"],
+                     "sp_replicated": fn.stats["sp_replicated"],
+                     "tp_replicated": fn.stats["tp_replicated"],
+                     "dispatch_decode_ops": sum(len(index_decode_ops(r)) for r in records)}
+        records.clear()
+    return out
 
 
 def steps_rank(rank: int, inputs: dict) -> dict:
@@ -492,6 +590,9 @@ def steps_rank(rank: int, inputs: dict) -> dict:
                          "block_shapes": dict(block_shapes),
                          "tp_replicated": fn.stats["tp_replicated"]}
     out["dit"] = dit_out
+    out["dit_sp"] = {nv: dit_sp_rank(mesh, inputs, nv) for nv in DIT_SP_VISION}
+    column = DeviceMesh("cpu", torch.arange(4).reshape(4, 1), mesh_dim_names=("data", "model"))
+    out["dit_sp_empty"] = dit_sp_rank(column, inputs, DIT_SP_EMPTY_VISION, DIT_SP_EMPTY_BUCKETS)
 
     for arch in SERVE_ARCHS:
         cfg = get_smoke(arch)
@@ -556,6 +657,8 @@ def inputs():
             "train_batches": {a: [_train_batch(a, 100 + i) for i in range(TRAIN_STEPS)]
                               for a in TRAIN_ARCHS},
             "dit_inputs": _dit_inputs(get_smoke("flux-mmdit")), "moe": _moe_inputs(),
+            "dit_sp_inputs": {nv: _dit_inputs(get_smoke("flux-mmdit"), 1, nv, 12 + nv)
+                              for nv in (*DIT_SP_VISION, DIT_SP_EMPTY_VISION)},
             "serve_batches": {a: _serve_batch(get_smoke(a)) for a in SERVE_ARCHS},
             "sp_first": {case: sp_first_tokens(spec, 40 + i)
                          for i, (case, spec) in enumerate(SP_CASES.items())}}
@@ -701,6 +804,7 @@ def _references(inputs, local) -> dict:
     from repro.core.masks import MaskConfig as JMaskConfig
     from repro.distributed.sharding import DEFAULT_RULES as R
     from repro.launch import steps as JST
+    from repro.launch.mesh import rules_for as j_rules_for
     from repro.models import dit as jdit
     from repro.models.registry import get_model as j_get_model
     from repro.optim.optimizer import AdamWConfig, adamw_init
@@ -731,6 +835,17 @@ def _references(inputs, local) -> dict:
                                                         mesh, R, mode=mode, ecfg=jecfg))
             v, states = step(*place(params, states, inputs["dit_inputs"]))
             ref["dit"][mode] = np.asarray(v)
+        ref["dit_sp"] = {}
+        for nv in DIT_SP_VISION:
+            n_tok = nv + jcfg.n_text_tokens
+            jshape = J("d", n_tok, 1, "serve")
+            jrules = j_rules_for(jcfg, jshape, multi_pod=False)
+            states = jdit.init_engine_states(jcfg, jecfg, 1, n_tok)
+            for mode in ("update", "dispatch"):
+                step, place = _jit(mesh, JST.build_dit_step(jcfg, jshape, mesh, jrules,
+                                                            mode=mode, ecfg=jecfg))
+                v, states = step(*place(params, states, inputs["dit_sp_inputs"][nv]))
+                ref["dit_sp"][(nv, mode)] = np.asarray(v)
         ref["moe"] = _moe_reference(inputs["moe"])
 
         for arch in SERVE_ARCHS:
@@ -800,6 +915,63 @@ def test_dit_step_is_each_ranks_slice_and_matches_the_reference(runs):
         # The plain versions ran once a layer at Dispatch, never at Update.
         assert r["dit"]["update"]["calls"] == dict.fromkeys(DISPATCH_KERNELS, 0)
         assert r["dit"]["dispatch"]["calls"] == dict.fromkeys(DISPATCH_KERNELS, 3)
+
+
+@pytest.mark.parametrize("nv", [pytest.param(nv, id=f"vision{nv}") for nv in DIT_SP_VISION])
+def test_dit_step_computes_each_ranks_sequence_rows_and_matches_the_reference(runs, nv):
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch.serve import serving_engine_config
+    cfg, pool = get_smoke("flux-mmdit"), serving_engine_config().mask.pool
+    n_tok = nv + cfg.n_text_tokens
+    n_rows, share = -(-n_tok // pool), -(-n_tok // MESH[0])
+    world, _, ref = runs
+    rows = []
+    for r in world:
+        for mode in ("update", "dispatch"):
+            rec = r["dit_sp"][nv][mode]
+            assert rec["ints_equal"], mode
+            assert rec["v_rel"] <= DIT_SLICE_REL and rec["float_rel"] <= DIT_SLICE_REL, mode
+            assert rec["bf16_ulps"] <= DIT_SLICE_BF16_ULPS, mode
+            _close(rec["v"], ref["dit_sp"][(nv, mode)], **DIT_TOL)
+            # The stack stays the rank's sp shard of the reference's layout.
+            assert rec["stack_placements"], mode
+            assert set(rec["stack_tokens"]) == {share}, mode
+            assert rec["sp_replicated"] == [] and rec["tp_replicated"] == [], mode
+            assert rec["dispatch_decode_ops"] == 0, mode
+        lo, hi = r["dit_sp"][nv]["dispatch"]["sp_rows"]
+        rows.append((lo, hi))
+        tokens = min(hi * pool, n_tok) - lo * pool
+        assert r["dit_sp"][nv]["update"]["calls"] == []
+        calls = r["dit_sp"][nv]["dispatch"]["calls"]
+        assert sorted({name for name, _ in calls}) == sorted(DISPATCH_KERNELS)
+        assert all(sum(n == name for n, _ in calls) == cfg.n_layers for name in DISPATCH_KERNELS)
+        # GEMM-Q reads, and B2/B3 write, the rank's rows alone.
+        assert {t for _, t in calls} == {tokens}
+    # The model row's two ranks compute the same rows; the data column's
+    # rows tile the sequence once.
+    cols = sorted(set(rows))
+    assert len(cols) == MESH[0] and cols[0][0] == 0 and cols[-1][1] == n_rows
+    assert all(a[1] == b[0] for a, b in zip(cols, cols[1:]))
+    if nv == DIT_SP_VISION[0]:
+        assert share % pool, "the first case must give a rank a partial pool row"
+    else:
+        assert share % pool == 0
+
+
+def test_dit_step_leaves_a_rank_with_no_rows_idle(runs):
+    from repro_torch.configs.registry import get_smoke
+    n_rows = -(-(DIT_SP_EMPTY_VISION + get_smoke("flux-mmdit").n_text_tokens) // 32)
+    world = runs[0]
+    rows = [tuple(r["dit_sp_empty"]["dispatch"]["sp_rows"]) for r in world]
+    assert rows == [(0, 1), (1, 2), (2, 3), (3, 3)] and n_rows == 3
+    for r, (lo, hi) in zip(world, rows):
+        for mode in ("update", "dispatch"):
+            rec = r["dit_sp_empty"][mode]
+            assert rec["ints_equal"] and rec["stack_placements"], mode
+            assert rec["v_rel"] <= DIT_SLICE_REL and rec["float_rel"] <= DIT_SLICE_REL, mode
+            assert rec["bf16_ulps"] <= DIT_SLICE_BF16_ULPS, mode
+        calls = r["dit_sp_empty"]["dispatch"]["calls"]
+        assert len(calls) == (3 * 3 if hi > lo else 0)
 
 
 def test_moe_routes_the_global_batch_over_dp(runs):

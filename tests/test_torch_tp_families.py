@@ -23,9 +23,18 @@ arrays handed to both packages.
     ``rules_for``'s decode rules, from position 0 across the shards'
     boundary (the ring wraps), held as ``test_torch_steps``' SP cases are
     (:data:`SP_CASES`);
-  * **a row that does not divide the heads**: recurrentgemma smoke with 3
-    heads (``dataclasses.replace``) names its attention in
-    ``tp_replicated`` and still matches the unsharded port in all three;
+  * **a row that does not divide the heads** (ROADMAP C.14): the smoke
+    configs of recurrentgemma (hybrid), gemma3-1b (transformer) and
+    whisper-large-v3 (encdec) with 3 heads (``dataclasses.replace``) split
+    them 2 and 1 over the row, as ``torch.tensor_split`` does, with
+    ``tp_replicated`` empty, held as above (gemma3-1b's and whisper's also
+    to the reference on the same config); and flux-mmdit smoke's DiT step
+    with 3 heads (batch 2 over data, its engine on 2 heads and on 1):
+    Update then Dispatch, the symbols and every integer plan field
+    ``torch.equal`` to the unsharded port step's, its ``v`` and f32 state
+    fields within 1e-5 and its bf16 stack within one unit in the last
+    place of it, ``v`` within 1e-5 of the reference's ``build_dit_step``
+    fn, the plain kernels once a layer at Dispatch on each rank;
   * **the ssm's packed split**: a mamba2 block at width 128 with 14 states
     on a (1, 4) row, where a rank's contiguous shard of ``in_proj`` (136 of
     544 columns) ends inside ``z`` (256 columns): its output and the
@@ -48,16 +57,22 @@ import torch
 
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.launch.mesh import run_local_mesh
-from test_torch_steps import (_close, _f32_reference, _jit, _torch, _tp_leaves_local,
-                              check_sp_decode, reference_sp_decode, sp_decode_rank,
-                              sp_first_tokens, unsharded_sp_decode)
+from test_torch_steps import (DISPATCH_KERNELS, DIT_SLICE_BF16_ULPS, DIT_SLICE_REL, DIT_TOL,
+                              _close, _dit_inputs, _f32_reference, _jit, _states_compare,
+                              _torch, _tp_leaves_local, check_sp_decode, reference_sp_decode,
+                              sp_decode_rank, sp_first_tokens, unsharded_sp_decode)
 
 MESH = (2, 2)
 JOIN_S = 300
 ARCHS = ("mamba2-370m", "recurrentgemma-2b", "whisper-large-v3", "llama-3.2-vision-11b")
-# A case's name, and the config it runs: the arch's smoke config, or the
-# hybrid's with 3 heads on the row of 2.
-CASES = ARCHS + ("recurrentgemma-3-heads",)
+# A case's name, and the config it runs: the arch's smoke config, or (the
+# "-3-heads" cases) the hybrid's, the transformer's and the encdec's with 3
+# heads on the row of 2.
+THREE_HEADS = ("recurrentgemma-2b", "gemma3-1b", "whisper-large-v3")
+CASES = ARCHS + tuple(f"{a}-3-heads" for a in THREE_HEADS)
+# The cases also held to the reference (recurrentgemma's 3-head case is not).
+REFERENCE_CASES = ARCHS + ("gemma3-1b-3-heads", "whisper-large-v3-3-heads")
+DIT_B, DIT_VISION = 2, 96
 SEQ, TRAIN_B = 16, 4
 SERVE_B, PROMPT, MAX_LEN, DECODE_STEPS = 4, 16, 32, 2
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
@@ -70,11 +85,21 @@ SP_CASES = {"recurrentgemma-2b": ("recurrentgemma-2b", 4, 6, 0, 7),
             "llama-3.2-vision-11b": ("llama-3.2-vision-11b", 4, 6, 0, 4)}
 
 
-def _cfg(case: str):
-    from repro_torch.configs.registry import get_smoke
-    if case == "recurrentgemma-3-heads":
-        return dataclasses.replace(get_smoke("recurrentgemma-2b"), n_heads=3)
-    return get_smoke(case)
+def three_heads(cfg):
+    """``cfg`` with 3 heads of its width (and 3 K/V heads where it has one
+    a head)."""
+    return dataclasses.replace(cfg, n_heads=3, head_dim=cfg.hd,
+                               n_kv_heads=3 if cfg.n_kv_heads == cfg.n_heads else cfg.n_kv_heads)
+
+
+def _cfg(case: str, get=None):
+    """The config of ``case`` from ``get`` (the port's ``get_smoke`` by
+    default; the reference's for its runs)."""
+    if get is None:
+        from repro_torch.configs.registry import get_smoke as get
+    if case.endswith("-3-heads"):
+        return three_heads(get(case.removesuffix("-3-heads")))
+    return get(case)
 
 
 def _block_shards_expected(cfg, shapes: dict, m: int) -> bool:
@@ -141,6 +166,60 @@ def packed_ssm_rank(mesh) -> dict:
             "decode": [(dec_got[0], dec_want[0]), (dec_got[1], cut(dec_want[1], (None, "tp"))),
                        (dec_got[2], cut(dec_want[2], (None, None, "tp")))],
             "shard_cols": blk["in_proj"].shape[-1] // m, "d_inner": d_inner}
+
+
+def dit_rank(mesh, inputs: dict) -> dict:
+    """flux-mmdit smoke's DiT step with 3 heads on this rank of the row of
+    2 (batch over data): Update then Dispatch, each against the unsharded
+    port step on the rank's batch slice."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.core import backend
+    from repro_torch.distributed.sharding import DEFAULT_RULES as R, redistribute
+    from repro_torch.launch import specs as S
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import serving_engine_config
+    from repro_torch.models import dit
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import tree_map
+    cfg, ecfg = three_heads(get_smoke("flux-mmdit")), serving_engine_config()
+    n_tok = DIT_VISION + cfg.n_text_tokens
+    shape = ShapeSpec("d", n_tok, DIT_B, "serve")
+    whole = lambda x: redistribute(x, [Replicate()] * x.device_mesh.ndim).to_local()
+    params = tree_map(lambda t: t.to(torch.bfloat16), _torch(inputs["dit"]["params"]))
+    x = _torch(inputs["dit"]["inputs"])
+    p = reshard_state(params, dit.param_specs(cfg), mesh, R)
+    spec = dit.engine_state_specs(cfg, ecfg)
+    states = ST.place_states(dit.init_engine_states(cfg, ecfg, DIT_B, n_tok, "cpu"), spec,
+                             mesh, R)
+    xd = reshard_state(x, S.dit_inputs_logical(cfg), mesh, R)
+    compute = ST._compute_placements(ST._state_tree(spec), mesh, R)
+    d = mesh.get_coordinate()[0]
+    sl = slice(d, d + 1)
+    one = dit.init_engine_states(cfg, ecfg, 1, n_tok, "cpu")
+    kept = {name: getattr(backend, name) for name in DISPATCH_KERNELS}
+    out = {}
+    for mode in ("update", "dispatch"):
+        fn = ST.build_dit_step(cfg, shape, mesh, R, mode=mode, ecfg=ecfg, dtype=torch.float32)[0]
+        calls = dict.fromkeys(DISPATCH_KERNELS, 0)
+        for name in DISPATCH_KERNELS:
+            setattr(backend, name, lambda *a, _n=name, **kw: calls.__setitem__(
+                _n, calls[_n] + 1) or kept[_n](*a, **kw))
+        try:
+            v, states = fn(p, states, xd)
+        finally:
+            for name in DISPATCH_KERNELS:
+                setattr(backend, name, kept[name])
+        v1, one = dit.denoise_step(params, cfg, ecfg, one, x["x_vision"][sl], x["text_emb"][sl],
+                                   x["t"][sl], mode=mode, dtype=torch.float32)
+        local = [ST._state_from_tree(tree_map(ST._to_local, ST._state_tree(s), compute,
+                                              is_leaf=ST._is_pl), s) for s in states]
+        ints_equal, float_rel, bf16_ulps = _states_compare(local, one)
+        out[mode] = {"v": whole(v),
+                     "v_rel": float((v.to_local() - v1).abs().max()) / float(v1.abs().max()),
+                     "ints_equal": ints_equal, "float_rel": float_rel, "bf16_ulps": bf16_ulps,
+                     "calls": calls, "tp_replicated": fn.stats["tp_replicated"]}
+    return out
 
 
 def families_rank(rank: int, inputs: dict) -> dict:
@@ -218,6 +297,7 @@ def families_rank(rank: int, inputs: dict) -> dict:
     out["sp"] = {case: sp_decode_rank(mesh, spec, inputs["params"][case], inputs["sp_first"][case])
                  for case, spec in SP_CASES.items()}
     out["packed"] = packed_ssm_rank(row4)
+    out["dit"] = dit_rank(mesh, inputs)
     dist.barrier()
     return out
 
@@ -254,6 +334,13 @@ def inputs():
     out = {k: {case: per[case][k] for case in CASES} for k in ("params", "train", "serve")}
     out["sp_first"] = {case: sp_first_tokens(spec, 50 + i)
                        for i, (case, spec) in enumerate(SP_CASES.items())}
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models import dit
+    from repro_torch.tree import tree_map
+    cfg = three_heads(get_smoke("flux-mmdit"))
+    out["dit"] = {"params": tree_map(lambda t: t.numpy(), dit.init_params(
+        cfg, torch.Generator().manual_seed(70), "cpu")),
+        "inputs": _dit_inputs(cfg, DIT_B, DIT_VISION, 71)}
     return out
 
 
@@ -284,9 +371,9 @@ def _unsharded(case: str, inputs: dict) -> dict:
     return rec
 
 
-def _reference(arch: str, inputs: dict, tokens: list) -> dict:
-    """The reference builders' fns on a (1, 1) CPU mesh on the same inputs
-    (decode fed the unsharded port's greedy ``tokens``)."""
+def _reference(case: str, inputs: dict, tokens: list) -> dict:
+    """The reference builders' fns on a (1, 1) CPU mesh on the same config
+    and inputs (decode fed the unsharded port's greedy ``tokens``)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -297,16 +384,16 @@ def _reference(arch: str, inputs: dict, tokens: list) -> dict:
     from repro.models.registry import get_model as j_get_model
     from repro.optim.optimizer import AdamWConfig, adamw_init
     mesh = Mesh(np.array(jax.devices("cpu")[:1]).reshape(1, 1), ("data", "model"))
-    jcfg, jp = j_get_smoke(arch), inputs["params"][arch]
+    jcfg, jp = _cfg(case, j_get_smoke), inputs["params"][case]
     with mesh:
         step, place = _jit(mesh, JST.build_train_step(jcfg, J("t", SEQ, TRAIN_B, "train"), mesh,
                                                       R, opt_cfg=AdamWConfig(**OPT)))
-        p, _, m = step(*place(jp, adamw_init(jp), inputs["train"][arch]))
+        p, _, m = step(*place(jp, adamw_init(jp), inputs["train"][case]))
         rec = {"metrics": (float(m["loss"]), float(m["grad_norm"])),
                "params": jax.tree.leaves(jax.tree.map(np.asarray, p))}
         pre, place = _jit(mesh, JST.build_prefill_step(jcfg, J("p", PROMPT, SERVE_B, "prefill"),
                                                        mesh, R))
-        rec["prefill"] = np.asarray(pre(*place(jp, inputs["serve"][arch])))
+        rec["prefill"] = np.asarray(pre(*place(jp, inputs["serve"][case])))
         dec, place = _jit(mesh, JST.build_decode_step(jcfg, J("d", MAX_LEN, SERVE_B, "decode"),
                                                       mesh, R))
         cache, rec["decode"] = j_get_model(jcfg).init_cache(SERVE_B, MAX_LEN, jnp.float32), []
@@ -314,6 +401,36 @@ def _reference(arch: str, inputs: dict, tokens: list) -> dict:
             logits, cache = dec(*place(jp, cache, tok.numpy(), jnp.int32(pos)))
             rec["decode"].append(np.asarray(logits))
     return rec
+
+
+def _dit_reference(inputs: dict) -> dict:
+    """The reference's ``build_dit_step`` fn (Update, then Dispatch) on a
+    (1, 1) CPU mesh, on flux-mmdit smoke with 3 heads."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    from repro.configs.base import ShapeSpec as J
+    from repro.configs.registry import get_smoke as j_get_smoke
+    from repro.core.engine import EngineConfig as JEngineConfig
+    from repro.core.masks import MaskConfig as JMaskConfig
+    from repro.distributed.sharding import DEFAULT_RULES as R
+    from repro.launch import steps as JST
+    from repro.models import dit as jdit
+    mesh = Mesh(np.array(jax.devices("cpu")[:1]).reshape(1, 1), ("data", "model"))
+    jcfg = three_heads(j_get_smoke("flux-mmdit"))
+    jecfg = JEngineConfig(mask=JMaskConfig(tau_q=0.5, tau_kv=0.15, interval=4, order=1,
+                                           degrade=0.3, block_q=16, block_kv=16, pool=32,
+                                           warmup_steps=2))
+    n_tok = DIT_VISION + jcfg.n_text_tokens
+    params = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), inputs["dit"]["params"])
+    states, out = jdit.init_engine_states(jcfg, jecfg, DIT_B, n_tok), {}
+    with mesh:
+        for mode in ("update", "dispatch"):
+            step, place = _jit(mesh, JST.build_dit_step(jcfg, J("d", n_tok, DIT_B, "serve"),
+                                                        mesh, R, mode=mode, ecfg=jecfg))
+            v, states = step(*place(params, states, inputs["dit"]["inputs"]))
+            out[mode] = np.asarray(v)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -336,7 +453,8 @@ def runs(inputs):
                                                  inputs["sp_first"][case])
                        for case, spec in SP_CASES.items()}
         with _f32_reference():
-            ref = {a: _reference(a, inputs, local[a]["tokens"]) for a in ARCHS}
+            ref = {c: _reference(c, inputs, local[c]["tokens"]) for c in REFERENCE_CASES}
+            ref["dit"] = _dit_reference(inputs)
             ref["sp"] = {case: reference_sp_decode(spec, inputs["params"][case],
                                                    local["sp"][case]["tokens"])
                          for case, spec in SP_CASES.items()}
@@ -374,10 +492,21 @@ def test_split_row_matches_unsharded_and_the_reference(runs, case):
         _close(got["prefill"], jref["prefill"], **TOL)
         for pos in range(DECODE_STEPS):
             _close(got["decode"][pos], jref["decode"][pos], **TOL)
-    replicated = ["attention heads: 3 on a model row of 2"] if case not in ARCHS else []
     for r in world:
-        assert r[case]["tp_replicated"] == dict.fromkeys(("train", "prefill", "decode"),
-                                                         replicated)
+        assert r[case]["tp_replicated"] == dict.fromkeys(("train", "prefill", "decode"), [])
+
+
+def test_dit_step_splits_three_heads_over_a_row_of_two(runs):
+    world, _, ref = runs
+    for r in world:
+        for mode in ("update", "dispatch"):
+            rec = r["dit"][mode]
+            assert rec["ints_equal"] and rec["tp_replicated"] == [], mode
+            assert rec["v_rel"] <= DIT_SLICE_REL and rec["float_rel"] <= DIT_SLICE_REL, mode
+            assert rec["bf16_ulps"] <= DIT_SLICE_BF16_ULPS, mode
+            _close(rec["v"], ref["dit"][mode], **DIT_TOL)
+        assert r["dit"]["update"]["calls"] == dict.fromkeys(DISPATCH_KERNELS, 0)
+        assert r["dit"]["dispatch"]["calls"] == dict.fromkeys(DISPATCH_KERNELS, 3)
 
 
 @pytest.mark.parametrize("case", SP_CASES)
